@@ -1,0 +1,49 @@
+"""mogasr_torch: the PyTorch / CUDA port of mogasr for one NVIDIA H100.
+
+The JAX package ``mogasr`` stays the reference; this package mirrors its
+layout (``frontend/``, ``am/``, ``decoder/``, ``utils/``, ``pipeline.py``) so
+each module's counterpart is easy to find. Modules of ``mogasr`` that import
+only numpy (config, hmm, data, eval, frontend.numpy_ref) are reused, not
+copied. Nothing here imports jax or flax.
+
+Device dispatch is by the tensor: a CUDA tensor goes through the hand-written
+kernels in ``csrc/`` (built with nvcc at first use, see ``_cuda``), a CPU
+tensor through the plain PyTorch versions beside them.
+
+Exports are lazy so that ``import mogasr_torch`` stays light:
+
+    mogasr_torch.load_system(path, device)      -> (GmmSet, topo, fcfg, tied, meta)
+    mogasr_torch.make_frontend(cfg, max_samples, device)
+    mogasr_torch.gmm_loglik_batched(feats, gmm, compute_dtype, mode)
+    mogasr_torch.viterbi(emit_ll, graphs, n_frames, acoustic_scale)
+    mogasr_torch.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, device)
+"""
+
+import torch
+
+# Float32 GEMMs (the front end's DFT, mel and DCT, the plain GMM scorer) must
+# run in true fp32 to keep parity with the NumPy oracle: TF32 keeps ~10
+# mantissa bits and moves logliks by ~0.1 nats. cuDNN defaults to TF32.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+_EXPORTS = {
+    "load_system": "mogasr_torch.utils.bundle",
+    "make_frontend": "mogasr_torch.frontend.torch_frontend",
+    "extract_features": "mogasr_torch.frontend.torch_frontend",
+    "GmmSet": "mogasr_torch.am.gmm",
+    "gmm_loglik": "mogasr_torch.am.gmm",
+    "gmm_from_numpy": "mogasr_torch.am.gmm",
+    "gmm_loglik_fused": "mogasr_torch.am.gmm_cuda",
+    "gmm_loglik_batched": "mogasr_torch.am.gmm_cuda",
+    "viterbi": "mogasr_torch.decoder.viterbi_cuda",
+    "decode_corpus": "mogasr_torch.pipeline",
+}
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module 'mogasr_torch' has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(_EXPORTS[name]), name)

@@ -1,0 +1,295 @@
+// Viterbi decode over chain+loop graphs for Hopper (sm_90a): forward pass and
+// backtrace.
+//
+// Replaces mogasr/decoder/viterbi_pallas.py::_vit_kernel and the reverse-scan
+// backtrace of viterbi_pallas (the bitwise twin of mogasr/decoder/viterbi.py).
+// The contract is the same: bitwise equality with the plain recursion
+// (mogasr_torch/decoder/viterbi.py) -- same path, same entered flags, same
+// score. Every float operation below is the one the plain version performs,
+// in its order, rounded on its own: __fadd_rn / __fmul_rn, and the file is
+// built with -fmad=false, so no product and sum fuse into an FMA.
+//
+// What bounds it: latency, not arithmetic or bytes. Each frame does a few
+// adds and compares per state plus one block-wide max, over J = 3048 states
+// and T = 600 frames per utterance, and frame t needs frame t-1 complete.
+// So one block owns one utterance and loops over frames inside the kernel
+// (blocks run in no order, so nothing carries between them): ceil(J/blockDim)
+// states per thread with their graph log-probs in registers, delta
+// double-buffered in shared memory so the j-1 neighbour reads the old row,
+// and a shuffle-then-shared-memory reduce for the exit max and its
+// first-index argmax. Emissions are gathered in the kernel from
+// ll[b, t, emit_id[b, j]] (the reference materialises [B, T, J] first: 1.9 GB
+// per 256-utterance batch); each frame's gather is issued before the reduce so
+// its latency hides behind it. Frames past n_frames[b] are skipped: delta is
+// frozen there and the backtrace starts at the last valid frame.
+//
+// Backpointers are uint8 codes (0 stay, 1 advance, 2 enter) in [B, T, J]
+// (row 0 unused) and the exit argmax is int32 [B, T]; both are internal. The
+// backtrace is a second kernel, one thread per utterance.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int MAX_SPT = 8;  // states per thread
+
+struct ArgMax {
+  float v;
+  int i;
+};
+
+// The larger value; the smaller index on a tie (first-index argmax).
+__device__ __forceinline__ ArgMax better(ArgMax a, ArgMax b) {
+  return (b.v > a.v || (b.v == a.v && b.i < a.i)) ? b : a;
+}
+
+// Block-wide argmax. red_v / red_i hold 33 slots: one per warp and one to
+// broadcast the result.
+__device__ ArgMax block_argmax(ArgMax x, float* red_v, int* red_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const ArgMax o{__shfl_down_sync(0xffffffffu, x.v, off),
+                   __shfl_down_sync(0xffffffffu, x.i, off)};
+    x = better(x, o);
+  }
+  if (lane == 0) {
+    red_v[warp] = x.v;
+    red_i[warp] = x.i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    x = lane < n_warps ? ArgMax{red_v[lane], red_i[lane]} : ArgMax{-INFINITY, INT_MAX};
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const ArgMax o{__shfl_down_sync(0xffffffffu, x.v, off),
+                     __shfl_down_sync(0xffffffffu, x.i, off)};
+      x = better(x, o);
+    }
+    if (lane == 0) {
+      red_v[32] = x.v;
+      red_i[32] = x.i;
+    }
+  }
+  __syncthreads();
+  return ArgMax{red_v[32], red_i[32]};
+}
+
+template <int SPT>
+__global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
+    const float* __restrict__ ll,  // [B, T, P]
+    int T, int P, float scale,
+    const int* __restrict__ emit_id,        // [B, J]
+    const float* __restrict__ self_logp,    // [B, J]
+    const float* __restrict__ adv_logp,     // [B, J]
+    const float* __restrict__ enter_logp,   // [B, J]
+    const float* __restrict__ exit_logp,    // [B, J]
+    const float* __restrict__ init_logp,    // [B, J]
+    const float* __restrict__ final_logp,   // [B, J]
+    const int* __restrict__ n_frames,       // [B]
+    int J,
+    uint8_t* __restrict__ bp,     // [B, T, J]
+    int* __restrict__ exit_arg,   // [B, T]
+    float* __restrict__ score,    // [B]
+    int* __restrict__ j_final) {  // [B]
+  extern __shared__ float delta_buf[];  // [2, J]
+  __shared__ float red_v[33];
+  __shared__ int red_i[33];
+  const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+  const size_t g = (size_t)b * J;
+  const float* llb = ll + (size_t)b * T * P;
+  const int nf = min(n_frames[b], T);
+
+  int eid[SPT];
+  float sl[SPT], al[SPT], el[SPT], xl[SPT];
+  float* cur = delta_buf;
+  float* nxt = delta_buf + J;
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    const int j = tid + k * nth;
+    if (j < J) {
+      eid[k] = emit_id[g + j];
+      if (eid[k] < 0 || eid[k] >= P) __trap();  // no read outside ll's row
+      sl[k] = self_logp[g + j];
+      al[k] = adv_logp[g + j];
+      el[k] = enter_logp[g + j];
+      xl[k] = exit_logp[g + j];
+      cur[j] = __fadd_rn(init_logp[g + j], __fmul_rn(llb[eid[k]], scale));
+    } else {
+      eid[k] = 0;
+      sl[k] = al[k] = el[k] = xl[k] = NEG_INF;
+    }
+  }
+  __syncthreads();
+
+  for (int t = 1; t < nf; ++t) {
+    const float* llt = llb + (size_t)t * P;
+    float em[SPT];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      const int j = tid + k * nth;
+      em[k] = j < J ? __fmul_rn(__ldg(llt + eid[k]), scale) : 0.f;
+    }
+
+    ArgMax ex{-INFINITY, INT_MAX};
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      const int j = tid + k * nth;
+      if (j < J) ex = better(ex, ArgMax{__fadd_rn(cur[j], xl[k]), j});
+    }
+    ex = block_argmax(ex, red_v, red_i);
+
+    uint8_t* bpt = bp + ((size_t)b * T + t) * J;
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      const int j = tid + k * nth;
+      if (j >= J) continue;
+      const float stay = __fadd_rn(cur[j], sl[k]);
+      const float adv = j > 0 ? __fadd_rn(cur[j - 1], al[k]) : NEG_INF;
+      const float ent = __fadd_rn(ex.v, el[k]);
+      const float best = fmaxf(fmaxf(stay, adv), ent);
+      uint8_t code = best == ent ? 2 : (best == adv ? 1 : 0);
+      if (best == stay) code = 0;
+      nxt[j] = __fadd_rn(best, em[k]);
+      bpt[j] = code;
+    }
+    if (tid == 0) exit_arg[(size_t)b * T + t] = ex.i;
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+
+  ArgMax fin{-INFINITY, INT_MAX};
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    const int j = tid + k * nth;
+    if (j < J) fin = better(fin, ArgMax{__fadd_rn(cur[j], final_logp[g + j]), j});
+  }
+  fin = block_argmax(fin, red_v, red_i);
+  if (tid == 0) {
+    score[b] = fin.v;
+    j_final[b] = fin.i;
+  }
+}
+
+__global__ void viterbi_backtrace_kernel(
+    const uint8_t* __restrict__ bp, const int* __restrict__ exit_arg,
+    const int* __restrict__ j_final, const int* __restrict__ n_frames,
+    int B, int T, int J,
+    int* __restrict__ path,          // [B, T]
+    uint8_t* __restrict__ entered) { // [B, T] (torch.bool storage)
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int nf = max(min(n_frames[b], T), 0);
+  int* pb = path + (size_t)b * T;
+  uint8_t* eb = entered + (size_t)b * T;
+  for (int t = nf; t < T; ++t) {
+    pb[t] = -1;
+    eb[t] = 0;
+  }
+  if (nf == 0) return;
+  int j = j_final[b];
+  for (int t = nf - 1; t >= 1; --t) {
+    pb[t] = j;
+    const uint8_t code = bp[((size_t)b * T + t) * J + j];
+    eb[t] = code == 2;
+    j = code == 0 ? j : (code == 1 ? j - 1 : exit_arg[(size_t)b * T + t]);
+  }
+  pb[0] = j;
+  eb[0] = 1;
+}
+
+template <int SPT>
+cudaError_t launch_forward(int threads, size_t smem, int B, cudaStream_t stream,
+                           const float* ll, int T, int P, float scale, const int* emit_id,
+                           const float* self_logp, const float* adv_logp,
+                           const float* enter_logp, const float* exit_logp,
+                           const float* init_logp, const float* final_logp,
+                           const int* n_frames, int J, uint8_t* bp, int* exit_arg,
+                           float* score, int* j_final) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        viterbi_forward_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  viterbi_forward_kernel<SPT><<<B, threads, smem, stream>>>(
+      ll, T, P, scale, emit_id, self_logp, adv_logp, enter_logp, exit_logp, init_logp,
+      final_logp, n_frames, J, bp, exit_arg, score, j_final);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward pass plus backtrace for B utterances. ll [B, T, P] float32; the
+// seven graph arrays [B, J] (emit_id int32, the rest float32); n_frames [B]
+// int32. Scratch: bp uint8 [B, T, J], exit_arg int32 [B, T], j_final int32
+// [B]. Outputs: path int32 [B, T], entered uint8/bool [B, T], score float32
+// [B]. J may be at most MAX_SPT * 1024 (cudaErrorInvalidValue otherwise); an
+// emit_id outside [0, P) stops the kernel with a trap, as an out-of-range
+// index stops torch.gather on the device.
+int viterbi_decode(const void* ll, int B, int T, int P, float scale, const void* emit_id,
+                   const void* self_logp, const void* adv_logp, const void* enter_logp,
+                   const void* exit_logp, const void* init_logp, const void* final_logp,
+                   const void* n_frames, int J, void* bp, void* exit_arg, void* j_final,
+                   void* path, void* entered, void* score, void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  if (J <= 0 || J > MAX_SPT * 1024) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 512 threads keep two blocks on an SM (registers permitting); wider graphs
+  // take 1024. Small graphs take one thread per state.
+  int threads = J <= MAX_SPT * 512 ? 512 : 1024;
+  const int j32 = (J + 31) / 32 * 32;
+  if (j32 < threads) threads = j32;
+  const int spt = (J + threads - 1) / threads;
+  const size_t smem = 2 * (size_t)J * sizeof(float);
+  const float* f_ll = static_cast<const float*>(ll);
+  const int* f_eid = static_cast<const int*>(emit_id);
+  const float* f_self = static_cast<const float*>(self_logp);
+  const float* f_adv = static_cast<const float*>(adv_logp);
+  const float* f_enter = static_cast<const float*>(enter_logp);
+  const float* f_exit = static_cast<const float*>(exit_logp);
+  const float* f_init = static_cast<const float*>(init_logp);
+  const float* f_final = static_cast<const float*>(final_logp);
+  const int* f_nf = static_cast<const int*>(n_frames);
+  uint8_t* f_bp = static_cast<uint8_t*>(bp);
+  int* f_exit_arg = static_cast<int*>(exit_arg);
+  int* f_jf = static_cast<int*>(j_final);
+  float* f_score = static_cast<float*>(score);
+  cudaError_t e;
+#define MOGASR_FWD(N)                                                                     \
+  e = launch_forward<N>(threads, smem, B, st, f_ll, T, P, scale, f_eid, f_self, f_adv,    \
+                        f_enter, f_exit, f_init, f_final, f_nf, J, f_bp, f_exit_arg,      \
+                        f_score, f_jf)
+  switch (spt) {
+    case 1: MOGASR_FWD(1); break;
+    case 2: MOGASR_FWD(2); break;
+    case 3: MOGASR_FWD(3); break;
+    case 4: MOGASR_FWD(4); break;
+    case 5: MOGASR_FWD(5); break;
+    case 6: MOGASR_FWD(6); break;
+    case 7: MOGASR_FWD(7); break;
+    case 8: MOGASR_FWD(8); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef MOGASR_FWD
+  if (e != cudaSuccess) return e;
+  viterbi_backtrace_kernel<<<(B + 127) / 128, 128, 0, st>>>(
+      f_bp, f_exit_arg, f_jf, f_nf, B, T, J, static_cast<int*>(path),
+      static_cast<uint8_t*>(entered));
+  return cudaGetLastError();
+}
+
+const char* viterbi_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,93 @@
+"""Viterbi decode on the CUDA kernel ``csrc/viterbi.cu`` (kernel K2): the port
+of mogasr/decoder/viterbi_pallas.py.
+
+A drop-in for ``decoder.viterbi.viterbi`` with ``beam=0`` on plain
+chain+loop graphs, bitwise equal to it. Like the reference kernel it rejects
+CTC skip transitions and beam pruning on every device; ``decoder.viterbi``
+covers both. A CUDA tensor runs the kernel, a CPU tensor the plain version;
+any other device raises. ``LAUNCHES`` counts kernel launches (one per call:
+the forward kernel and its backtrace kernel).
+
+The graph arrays go to the kernel as ``graphs_to_torch`` makes them from
+``batch_graphs``: ``emit_id`` int32, the log-probs float32, contiguous, on
+the device of ``emit_ll``. They are checked, never converted, so a graph
+built once serves every batch without a copy. The kernel itself stops (a
+device trap, as an out-of-range index does in ``torch.gather``) on an
+``emit_id`` outside [0, P), and rejects J above the limit in viterbi.cu.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from mogasr_torch import _cuda
+from mogasr_torch.decoder import viterbi as plain
+from mogasr_torch.decoder.viterbi import ViterbiResult
+
+LAUNCHES = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "viterbi_decode": [_P, _I, _I, _I, _F] + [_P] * 8 + [_I] + [_P] * 7,
+}
+_GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp",
+               "init_logp", "final_logp")
+
+
+def viterbi(
+    emit_ll: torch.Tensor,            # [B, T, P] pdf log-likelihoods
+    graphs: Dict[str, torch.Tensor],  # graphs_to_torch(batch_graphs(...))
+    n_frames: torch.Tensor,           # [B]
+    acoustic_scale: float = 1.0,
+    beam: float = 0.0,
+) -> ViterbiResult:
+    global LAUNCHES
+    if graphs.get("skip_logp") is not None:
+        raise NotImplementedError(
+            "the Viterbi kernel covers plain chain+loop graphs; CTC skip "
+            "topologies decode via mogasr_torch.decoder.viterbi"
+        )
+    if beam > 0:
+        raise NotImplementedError(
+            "the Viterbi kernel is exact (beam=0); beam pruning decodes via "
+            "mogasr_torch.decoder.viterbi"
+        )
+    if emit_ll.device.type == "cpu":
+        return plain.viterbi(emit_ll, graphs, n_frames, acoustic_scale=acoustic_scale)
+    if emit_ll.device.type != "cuda":
+        raise ValueError(f"viterbi: unsupported device {emit_ll.device}")
+    if emit_ll.dim() != 3 or emit_ll.dtype != torch.float32:
+        raise ValueError(f"emit_ll must be float32 [B, T, P], got {emit_ll.dtype} {tuple(emit_ll.shape)}")
+    B, T, P = emit_ll.shape
+    dev = emit_ll.device
+    J = graphs["emit_id"].shape[1]
+    for k in _GRAPH_KEYS:
+        a = graphs[k]
+        dtype = torch.int32 if k == "emit_id" else torch.float32
+        if a.device != dev or a.dtype != dtype or tuple(a.shape) != (B, J) or not a.is_contiguous():
+            raise ValueError(f"graphs[{k!r}] must be contiguous {dtype} [{B}, {J}] on {dev}, "
+                             f"got {a.dtype} {list(a.shape)} on {a.device}")
+    ll = emit_ll.contiguous()
+    nf = n_frames.to(device=dev, dtype=torch.int32).contiguous()
+
+    bp = torch.empty((B, T, J), dtype=torch.uint8, device=dev)
+    exit_arg = torch.empty((B, T), dtype=torch.int32, device=dev)
+    j_final = torch.empty((B,), dtype=torch.int32, device=dev)
+    path = torch.empty((B, T), dtype=torch.int32, device=dev)
+    entered = torch.empty((B, T), dtype=torch.bool, device=dev)
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    lib = _cuda.load("viterbi", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.viterbi_decode(
+            ll.data_ptr(), B, T, P, float(acoustic_scale),
+            *(graphs[k].data_ptr() for k in _GRAPH_KEYS),
+            nf.data_ptr(), J, bp.data_ptr(), exit_arg.data_ptr(), j_final.data_ptr(),
+            path.data_ptr(), entered.data_ptr(), score.data_ptr(), stream,
+        )
+    _cuda.check(lib, "viterbi", err, "viterbi_decode launch")
+    LAUNCHES += 1
+    return ViterbiResult(path, entered, score)

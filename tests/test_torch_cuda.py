@@ -1,0 +1,131 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without a CUDA device every test here skips. On a machine
+with a card and nvcc:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+Shapes are small and ragged (not multiples of the kernels' tiles); the
+headline-size comparison is chip_smoke.py's.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mogasr.hmm import graph as gr
+from mogasr_torch.am import gmm_cuda
+from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik
+from mogasr_torch.decoder import viterbi as vit
+from mogasr_torch.decoder import viterbi_cuda
+
+pytestmark = pytest.mark.cuda
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("S,K,D,N", [(70, 3, 39, 1000), (5, 1, 13, 7), (130, 16, 39, 200)])
+def test_gmm_kernel_matches_plain(dev, compute_dtype, mode, S, K, D, N):
+    rng = np.random.default_rng(S + K + N)
+    g = gmm_from_numpy(rng.dirichlet(np.ones(K), size=S), rng.standard_normal((S, K, D)),
+                       0.3 + rng.random((S, K, D)), dev)
+    x = torch.as_tensor(rng.standard_normal((N, D)).astype(np.float32), device=dev)
+    before = gmm_cuda.LAUNCHES
+    got = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype=compute_dtype, mode=mode)
+    want = gmm_loglik(x, g, mode=mode, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert gmm_cuda.LAUNCHES == before + 1
+    assert got.shape == (N, S) and got.dtype == torch.float32
+    # same operands, float32 accumulation in another order
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    params = gmm_cuda.kernel_params(g, compute_dtype)
+    assert torch.equal(gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, params=params), got)
+    with pytest.raises(ValueError):
+        other = "bfloat16" if compute_dtype == "float32" else "float32"
+        gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, params=gmm_cuda.kernel_params(g, other))
+
+
+def _random_graphs(rng, B, J, P):
+    """Chain+loop-shaped random graph arrays: chains of 1-5 states."""
+    out = {k: np.full((B, J), gr.NEG_INF, np.float32) for k in
+           ("self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp", "final_logp")}
+    out["emit_id"] = rng.integers(0, P, (B, J)).astype(np.int32)
+    for b in range(B):
+        j = 0
+        while j < J:
+            n = min(int(rng.integers(1, 6)), J - j)
+            out["self_logp"][b, j:j + n] = -rng.random(n)
+            out["adv_logp"][b, j + 1:j + n] = -rng.random(n - 1)
+            out["enter_logp"][b, j] = out["init_logp"][b, j] = -3 * rng.random()
+            out["exit_logp"][b, j + n - 1] = out["final_logp"][b, j + n - 1] = -rng.random()
+            j += n
+    return out
+
+
+@pytest.mark.parametrize("J", [37, 3048, 5000])
+def test_viterbi_kernel_bitwise_equals_plain(dev, J):
+    rng = np.random.default_rng(J)
+    B, T, P = 5, 40, 97
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
+    nf = torch.as_tensor([T, 17, 1, 0, 33], dtype=torch.int32, device=dev)
+    for scale in (1.0, 0.3):
+        got = viterbi_cuda.viterbi(ll, graphs, nf, acoustic_scale=scale)
+        want = vit.viterbi(ll, graphs, nf, acoustic_scale=scale)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_viterbi_kernel_rejects_skip(dev):
+    rng = np.random.default_rng(0)
+    g = _random_graphs(rng, 2, 20, 10)
+    g["skip_logp"] = np.zeros((2, 20), np.float32)
+    ll = torch.zeros((2, 5, 10), device=dev)
+    with pytest.raises(NotImplementedError):
+        viterbi_cuda.viterbi(ll, vit.graphs_to_torch(g, dev), torch.tensor([5, 5], device=dev))
+
+
+def test_viterbi_kernel_checks_graphs(dev):
+    rng = np.random.default_rng(1)
+    g = _random_graphs(rng, 2, 20, 10)
+    ll = torch.zeros((2, 5, 10), device=dev)
+    nf = torch.tensor([5, 5], device=dev)
+    bad = vit.graphs_to_torch({**g, "emit_id": g["emit_id"].astype(np.int64)}, dev)
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi(ll, bad, nf)
+    wide = vit.graphs_to_torch(_random_graphs(rng, 2, 8 * 1024 + 1, 10), dev)
+    with pytest.raises(RuntimeError):  # above the kernel's state limit
+        viterbi_cuda.viterbi(ll, wide, nf)
+
+
+def test_viterbi_kernel_traps_on_bad_emit_id(dev):
+    """An emit_id outside [0, P) stops the kernel instead of reading past
+    ll's row. The trap poisons the CUDA context, so it runs in a child."""
+    code = """
+import torch
+from mogasr_torch.decoder import viterbi_cuda
+B, J, P = 2, 40, 10
+g = {k: torch.zeros((B, J), device="cuda") for k in
+     ("self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp", "final_logp")}
+g["emit_id"] = torch.full((B, J), P, dtype=torch.int32, device="cuda")
+viterbi_cuda.viterbi(torch.zeros((B, 5, P), device="cuda"), g, torch.tensor([5, 5]))
+torch.cuda.synchronize()
+print("no error")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and "no error" not in proc.stdout
+    assert "CUDA error" in proc.stderr, proc.stderr[-2000:]

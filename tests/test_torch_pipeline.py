@@ -1,0 +1,114 @@
+"""The port's decode path as a whole, at the full width of the headline
+bundle (1168 pdfs x 16 components x 39 dims, a 3048-state word loop), on the
+CPU: the bundle loads to the same arrays, and held-out utterances decode to
+the same transcripts and scores as the JAX path."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mogasr import pipeline as jax_pipe
+from mogasr.am.gmm import gmm_loglik as jax_gmm_loglik
+from mogasr.config import BatchConfig, DecodeConfig
+from mogasr.data import synthetic as syn
+from mogasr.data.batching import make_batches
+from mogasr.decoder import viterbi as jax_vit
+from mogasr.frontend.jax_frontend import cached_frontend
+from mogasr.hmm import graph as gr
+from mogasr.hmm import triphone as tri
+from mogasr.utils.bundle import load_system as jax_load_system
+from mogasr_torch import pipeline as pipe
+from mogasr_torch.utils.bundle import load_system
+
+CPU = torch.device("cpu")
+BUNDLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "benchmarks", "headline")
+N_UTTS = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(scope="module")
+def headline():
+    gmm, topo, fcfg, tied, meta = load_system(BUNDLE, CPU)
+    dmeta = meta["decode"]
+    dcfg = DecodeConfig(acoustic_scale=dmeta["acoustic_scale"],
+                        word_insertion_penalty=dmeta["word_insertion_penalty"])
+    # bench.py's held-out corpus recipe; utterance i depends only on (seed, i)
+    word_lex = {w: list(topo.lexicon.prons[w]) for w in topo.lexicon.words}
+    utts = syn.make_corpus_v2(
+        N_UTTS, lexicon=word_lex, speakers=syn.make_speakers(meta.get("speakers", 20)),
+        style=syn.CorpusStyle(), seed=999, words_per_utt=(3, 9))
+    graph = tri.word_loop_graph_cd(tied, insertion_penalty=dcfg.word_insertion_penalty)
+    return gmm, topo, fcfg, tied, meta, dcfg, [(u.utt_id, u.wave, u.words) for u in utts], graph
+
+
+def test_bundle_matches_reference(headline):
+    gmm, topo, fcfg, tied, meta, *_ = headline
+    jgmm, jtopo, jfcfg, jtied, jmeta = jax_load_system(BUNDLE)
+    for ours, theirs in zip(gmm, jgmm):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    assert fcfg == jfcfg and meta == jmeta
+    assert topo.lexicon.phones == jtopo.lexicon.phones
+    assert topo.lexicon.prons == jtopo.lexicon.prons
+    assert topo.per_phone_self_prob == jtopo.per_phone_self_prob
+    assert tied.n_pdfs == jtied.n_pdfs == gmm.n_states
+    assert tied.tying == jtied.tying and tied.backoff == jtied.backoff
+
+
+def test_headline_transcripts_match_jax(headline):
+    gmm, _topo, fcfg, _tied, _meta, dcfg, utts, graph = headline
+    assert graph.n_states == 3048
+    bcfg = BatchConfig(batch_size=N_UTTS, bucket_boundaries=(250, 350, 450, 600))
+    got = pipe.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, CPU,
+                             compute_dtype="float32")
+
+    jgmm = jax_load_system(BUNDLE)[0]
+    graphs_np = gr.batch_graphs([graph] * N_UTTS)
+    graphs = {k: jnp.asarray(v) for k, v in graphs_np.items()}
+    hyps, scores = [], []
+    for b in make_batches(utts, bcfg, fcfg):
+        feats, n_frames = cached_frontend(fcfg, b.waves.shape[1])(
+            jnp.asarray(b.waves), jnp.asarray(b.num_samples))
+        B, T, D = feats.shape
+        ll = jax_gmm_loglik(feats.reshape(B * T, D), jgmm, mode="max").reshape(B, T, -1)
+        res = jax_vit.viterbi(ll, graphs, n_frames, acoustic_scale=dcfg.acoustic_scale)
+        toks = jax_vit.path_to_tokens(res, graph.labels, graphs_np["chain_id"])
+        for i in range(b.size):
+            hyps.append([w.lower() for w in toks[i] if w not in pipe.DROP_TOKENS])
+            scores.append(float(res.score[i]))
+
+    assert got.n_utts == N_UTTS
+    assert got.hyps == hyps
+    assert all(len(h) > 0 for h in hyps)
+    np.testing.assert_allclose(got.scores, scores, rtol=1e-5)
+    assert set(got.stage_seconds) == set(pipe.STAGES)
+    assert all(v > 0 for v in got.stage_seconds.values())
+
+
+def test_word_decode_graph_and_decode_batch(headline):
+    gmm, topo, fcfg, _tied, _meta, dcfg, utts, _graph = headline
+    graph = pipe.word_decode_graph(topo.lexicon, topo, dcfg)
+    ref = jax_pipe.word_decode_graph(topo.lexicon, topo, dcfg)
+    for k in ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp",
+              "init_logp", "final_logp", "chain_id"):
+        np.testing.assert_array_equal(getattr(graph, k), getattr(ref, k))
+    assert graph.labels == ref.labels
+
+    fb = pipe.featurize(utts[:2], fcfg, BatchConfig(batch_size=2, bucket_boundaries=(600,)), CPU)[0]
+    scores = pipe.score_batch(fb.feats, gmm, mode="max")
+    assert scores.shape == (2, fb.feats.shape[1], gmm.n_states)
+    out, out_scores = pipe.decode_batch(fb, scores, graph, dcfg)
+    assert len(out) == 2 and all(all(w not in pipe.DROP_TOKENS for w in seq) for seq in out)
+    assert len(out_scores) == 2 and np.isfinite(out_scores).all()
+    graphs = pipe.decode_graphs(graph, 2, CPU)
+    assert (out, out_scores) == pipe.decode_batch(fb, scores, graph, dcfg, use_kernels=False,
+                                                  graphs=graphs)
