@@ -4,35 +4,44 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc. It
-takes no arguments and imports nothing of jax. Each phase prints one line;
-any failure raises, so the exit code is nonzero and no result line is
-printed. Without a CUDA device it fails at once.
+takes no arguments and imports nothing of the JAX package ``mogasr`` or of
+jax. Each phase prints one line; any failure raises, so the exit code is
+nonzero and no result line is printed. Without a CUDA device it fails at once.
 
 0. device: the card's name and ``nvidia-smi`` name + power limit;
-1. build: compile every kernel in mogasr_torch/csrc with nvcc;
+1. build: compile every kernel in mogasr_torch/csrc with nvcc, in parallel;
 2. K1 (csrc/gmm_score.cu) against the plain PyTorch scorer on the headline
    GMM, float32 and bfloat16, sum and max: on random features and on one
-   batch of the main path (the 600-frame bucket, 256 x 600 frames), where
+   batch of the decode path (the 600-frame bucket, 256 x 600 frames), where
    it is also timed against the plain version;
 3. K2 (csrc/viterbi.cu) against the plain PyTorch Viterbi on the headline
-   word-loop graph, path, entered and score bitwise equal: on the main
+   word-loop graph, path, entered and score bitwise equal: on the decode
    path's batch (B=256, T=600, ragged frame counts, its K1 emissions), where
    it is also timed, and on random emissions at another acoustic scale;
 4. the front end on the card against the NumPy oracle;
-5. the main path on the headline bundle and the 768 held-out utterances of
+5. the decode path on the headline bundle and the 768 held-out utterances of
    bench.py (front end -> K1 bf16 max -> K2 -> path_to_tokens -> WER):
    WER, utt/s, RTF, per-stage ms, launch counts of a timed pass;
 6. the same corpus through the plain float32 path on the card: transcript
-   agreement with the kernel path.
-
-Of the reference package ``mogasr`` it uses only the modules that import
-numpy alone (config, hmm, data, eval, frontend.numpy_ref), as mogasr_torch
-does; the run fails if jax was loaded all the same.
+   agreement with the kernel path;
+7. K3f/K3b (csrc/forward_backward.cu) against the plain forward-backward in
+   float32 and float64: on the widest batch of the training corpus (32 x 700
+   frames, its K1 float32/sum emissions, the tied-triphone align graphs of
+   its transcripts), where they are also timed, and on random emissions with
+   n_frames of 0, 1 and T;
+8. the training path: 2 Baum-Welch EM iterations then 1 Viterbi EM iteration
+   from the headline GMM over the 1600-utterance training corpus of
+   benchmarks/train_headline.py (log-likelihood per frame, frames/s and
+   stage ms of each iteration, launch counts of K1, K2, K3f and K3b), the
+   held-out WER of the re-estimated GMM through the decode path, one
+   Baum-Welch E-step's statistics against the plain path on the card, and
+   one more Baum-Welch iteration under ``torch.profiler`` (the card's busy
+   share and its top device events).
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
-kernels (launch counts of the main path's timed pass; error against the
-plain version and kernel and plain milliseconds, on the main path's batch),
-and the ``{"ok": true, ...}`` line.
+kernels (launch counts of the decode and training paths; error against the
+plain version, kernel and plain milliseconds, and the least time the card
+could take, on the paths' own batches), and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -57,8 +67,47 @@ BUNDLE = os.path.join(ROOT, "benchmarks", "headline")
 K1_ATOL, K1_RTOL = 1e-3, 1e-4
 FRONTEND_ATOL = 3e-4      # tests/test_golden.py
 MAX_WER = 0.010           # the JAX system's WER on this corpus is 0.0069
+BUNDLE_WER = 0.0069
 MIN_AGREEMENT = 0.99      # transcripts identical to the plain float32 path
-K1_TIMED = (("bfloat16", "max"), ("float32", "sum"))  # the main path's mode, the parity mode
+K1_TIMED = (("bfloat16", "max"), ("float32", "sum"))  # the decode path's mode, the training mode
+
+# K3f/K3b vs the plain forward-backward. loglik: the lse over states sums in
+# another order, far below rtol 1e-5 at |loglik| ~ 1e4. Posteriors: the
+# kernels round every float op as the plain float32 version does, so their pdf
+# posteriors sit within FB_POST_ATOL of it (read on the H100: 1.9e-34 on the
+# training batch, 6.0e-8 on the random one). As a second guard both are held
+# against a float64 run: log_gamma = alpha + beta - loglik cancels values
+# ~1e4 at T = 550, so float32 alone puts the plain version's pdf posteriors
+# 0.0279 (training batch) and 0.0147 (random) from float64; the kernels must
+# be within FB_POST64_ATOL of float64 and no further from it than
+# FB_ERR_RATIO times the plain float32 version (or FB_ERR_FLOOR, float32's own
+# resolution of a posterior).
+FB_LOGLIK_RTOL = 1e-5
+FB_POST_ATOL = 1e-4
+FB_POST64_ATOL = 0.05
+FB_ERR_RATIO, FB_ERR_FLOOR = 2.0, 1e-6
+# Baum-Welch statistics of one batch, kernel path (K1 + K3f/K3b) vs plain
+# path (plain scorer + plain forward-backward): the scorers differ in
+# summation order, which moves occ/sx/sxx by 3.8e-6, 6.5e-6 and 1.85e-5 of
+# their largest entry (read on the H100).
+STATS_TOL = 1e-4          # max |kernel - plain| / max |plain|, per statistic
+BW_MAX_DROP = 1e-3        # Baum-Welch loglik per frame may not fall further
+
+# The training corpus of benchmarks/train_headline.py:72-84 and its batching.
+TRAIN_UTTS, TRAIN_VOCAB, TRAIN_SPEAKERS, TRAIN_SEED = 1600, 300, 20, 100
+TRAIN_BUCKETS = (250, 400, 550, 700)
+TRAIN_BATCH = 32
+
+# Published H100 SXM peaks (NVIDIA's data sheet, dense): bytes over HBM,
+# operations at the rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# Float operations per graph state and frame (a transcendental counts as
+# one): K2 emission scale and add, stay/advance/enter adds, three maxes, the
+# exit add; K3f the exit add and its share of the lse (max, sub, exp, add),
+# stay/advance/enter adds, two logaddexps (max, sub, abs, neg, exp, log1p,
+# add each), emission scale and add; K3b the same plus the log_gamma sums.
+K2_OPS, K3F_OPS, K3B_OPS = 9, 22, 24
 
 
 def phase(n: int, msg: str) -> None:
@@ -80,9 +129,65 @@ def timed(fn, reps: int):
     return float(np.median(times)), out
 
 
+def kernel_device_ms(fn, names, reps: int):
+    """Mean device milliseconds per call of ``fn`` spent in each named
+    kernel, from ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name in names:
+        us = sum(e.device_time_total for e in events if name in e.key)
+        if us <= 0:
+            raise RuntimeError(f"the profiler recorded no device time for {name}")
+        out[name] = us / 1e3 / reps
+    return out
+
+
+def device_profile(fn, top: int = 5):
+    """Wall milliseconds of ``fn()``, the device milliseconds inside it
+    (kernels, copies, memsets), and the ``top`` device events by time, from
+    ``torch.profiler``."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in on_device) / 1e3
+    if device_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    ranked = sorted(on_device, key=lambda e: -e.device_time_total)[:top]
+    return wall_ms, device_ms, [(e.key[:60], e.device_time_total / 1e3, e.count) for e in ranked]
+
+
+def bound(n_bytes: float, n_ops: float, dtype: str):
+    """Least milliseconds for the work: the larger of bytes over the HBM rate
+    and operations over the peak of their type, and which one bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def emission_bytes(graphs, n_frames) -> int:
+    """float32 emission bytes a pass over these graphs needs: per row, its
+    frames (at least frame 0) times the distinct pdfs of its real states."""
+    ids = graphs["emit_id"].cpu().numpy()
+    n_states = graphs["n_states"].cpu().numpy()
+    nf = n_frames.cpu().numpy()
+    return 4 * sum(max(int(nf[b]), 1) * len(np.unique(ids[b, : n_states[b]])) for b in range(len(nf)))
+
+
 def held_out_corpus(topo, meta, n_utts):
     """The held-out v2 utterances of bench.py (seed 999, 3-9 words)."""
-    from mogasr.data import synthetic as syn
+    from mogasr_torch.data import synthetic as syn
 
     word_lex = {w: list(topo.lexicon.prons[w]) for w in topo.lexicon.words}
     utts = syn.make_corpus_v2(
@@ -92,21 +197,40 @@ def held_out_corpus(topo, meta, n_utts):
     return [(u.utt_id, u.wave, u.words) for u in utts]
 
 
+def training_corpus(topo):
+    """The training corpus of benchmarks/train_headline.py (seed 100, 3-9
+    words); its lexicon must be the bundle's."""
+    from mogasr_torch.data import synthetic as syn
+    from mogasr_torch.hmm.lexicon import make_lexicon
+
+    word_lex = syn.extended_lexicon(TRAIN_VOCAB)
+    lex = make_lexicon(word_lex)
+    if lex.phones != topo.lexicon.phones or lex.prons != topo.lexicon.prons:
+        raise RuntimeError("the training corpus's lexicon differs from the bundle's")
+    utts = syn.make_corpus_v2(
+        TRAIN_UTTS, lexicon=word_lex, speakers=syn.make_speakers(TRAIN_SPEAKERS),
+        style=syn.CorpusStyle(), seed=TRAIN_SEED, words_per_utt=(3, 9),
+    )
+    return [(u.utt_id, u.wave, u.words) for u in utts]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
 
-    from mogasr.config import BatchConfig, DecodeConfig
-    from mogasr.data.batching import make_batches
-    from mogasr.frontend.numpy_ref import extract_features_np
-    from mogasr.hmm import triphone as tri
     from mogasr_torch import _cuda
     from mogasr_torch import pipeline as pipe
     from mogasr_torch.am import gmm_cuda
     from mogasr_torch.am.gmm import gmm_loglik
+    from mogasr_torch.config import BatchConfig, DecodeConfig, GmmConfig, TrainConfig
+    from mogasr_torch.data.batching import make_batches
+    from mogasr_torch.decoder import fb_cuda
+    from mogasr_torch.decoder import forward_backward as fbd
     from mogasr_torch.decoder import viterbi as vit
     from mogasr_torch.decoder import viterbi_cuda
+    from mogasr_torch.frontend.numpy_ref import extract_features_np
     from mogasr_torch.frontend.torch_frontend import make_frontend
+    from mogasr_torch.hmm import triphone as tri
     from mogasr_torch.utils.bundle import load_system
 
     dev = torch.device("cuda", 0)
@@ -129,7 +253,7 @@ def main() -> None:
     J = graph.n_states
     corpus = held_out_corpus(topo, meta, 768)
     bcfg = BatchConfig(batch_size=256, bucket_boundaries=(250, 350, 450, 600))
-    # the main path's widest batch: 256 rows x 600 frames, ragged n_frames
+    # the decode path's widest batch: 256 rows x 600 frames, ragged n_frames
     batch = max(make_batches(corpus, bcfg, fcfg), key=lambda b: b.waves.shape[1])
     fb = pipe.featurize_batch(batch, make_frontend(fcfg, batch.waves.shape[1], dev), dev)
     B, T, _ = fb.feats.shape
@@ -143,12 +267,12 @@ def main() -> None:
 
     params = {dt: gmm_cuda.kernel_params(gmm, dt) for dt in ("float32", "bfloat16")}
     x_main = fb.feats.reshape(B * T, D)
-    main_name = f"main-path batch N={B * T}"
+    main_name = f"decode-path batch N={B * T}"
     inputs = {
         "random N=8192": torch.as_tensor(rng.standard_normal((8192, D)).astype(np.float32), device=dev),
         main_name: x_main,
     }
-    k1_ms, k1_err = {}, {}
+    k1_ms, k1_err, k1_bound = {}, {}, {}
     for name, x in inputs.items():
         for dt in ("float32", "bfloat16"):
             for mode in ("sum", "max"):
@@ -156,6 +280,9 @@ def main() -> None:
                     ms, got = timed(lambda: k1(x, dt, mode), 5)
                     plain_ms, want = timed(lambda: k1_plain(x, dt, mode), 3)
                     k1_ms[(dt, mode)] = (ms, plain_ms)
+                    N = x.shape[0]
+                    n_bytes = N * D * 4 + K * 2 * D * S * params[dt].ab_t.element_size() + K * S * 4 + N * S * 4
+                    k1_bound[(dt, mode)] = bound(n_bytes, 2 * N * S * K * 2 * D, dt)
                 else:
                     got, want = k1(x, dt, mode), k1_plain(x, dt, mode)
                 torch.cuda.synchronize()
@@ -168,17 +295,17 @@ def main() -> None:
                 k1_err[(name, dt, mode)] = err
     if gmm_cuda.LAUNCHES == 0:
         raise RuntimeError("K1 was never launched")
-    phase(2, "K1 matches plain (atol %g rtol %g), max |err|: %s; at N=%d bf16/max %.3f ms "
-          "(plain %.3f ms), f32/sum %.3f ms (plain %.3f ms)" % (
-              K1_ATOL, K1_RTOL, ", ".join(f"{n} {d}/{m} {e:.3g}" for (n, d, m), e in k1_err.items()),
-              B * T, *k1_ms[("bfloat16", "max")], *k1_ms[("float32", "sum")]))
+    phase(2, "K1 matches plain (atol %g rtol %g), max |err|: %s; at N=%d %s" % (
+        K1_ATOL, K1_RTOL, ", ".join(f"{n} {d}/{m} {e:.3g}" for (n, d, m), e in k1_err.items()), B * T,
+        "; ".join(f"{d}/{m} {k1_ms[(d, m)][0]:.3f} ms (plain {k1_ms[(d, m)][1]:.3f} ms, bound "
+                  f"{k1_bound[(d, m)][0]:.3f} ms by {k1_bound[(d, m)][1]})" for d, m in K1_TIMED)))
 
     # ---- phase 3: K2 against its plain version, bitwise
     ll_main = k1(x_main, "bfloat16", "max").reshape(B, T, S)
     _, graphs_main = pipe.decode_graphs(graph, B, dev)
     _, graphs16 = pipe.decode_graphs(graph, 16, dev)
     cases = {
-        f"main-path batch B={B} T={T}, scale {dcfg.acoustic_scale:g}": (
+        f"decode-path batch B={B} T={T}, scale {dcfg.acoustic_scale:g}": (
             ll_main, graphs_main, fb.n_frames, dcfg.acoustic_scale),
         "random emissions B=16, scale 0.7": (
             torch.as_tensor((rng.standard_normal((16, T, S)) * 4 - 20).astype(np.float32), device=dev),
@@ -204,9 +331,12 @@ def main() -> None:
             k2_err = float((got.score - want.score).abs().max())
     if viterbi_cuda.LAUNCHES == 0:
         raise RuntimeError("K2 was never launched")
-    phase(3, f"K2 bitwise equal to plain on J={J}: {'; '.join(cases)}; main-path batch "
+    frames_main = int(fb.n_frames.clamp(min=1).sum())
+    k2_bound = bound(emission_bytes(graphs_main, fb.n_frames) + 7 * B * J * 4 + B * 4 + B * T * 5 + B * 4,
+                     K2_OPS * frames_main * J, "float32")
+    phase(3, f"K2 bitwise equal to plain on J={J}: {'; '.join(cases)}; decode-path batch "
           f"({int((fb.n_frames > 0).sum())} rows with frames, {int(fb.n_frames.sum())} frames) "
-          f"{k2_ms:.3f} ms (plain {k2_plain_ms:.3f} ms)")
+          f"{k2_ms:.3f} ms (plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]})")
     del ll_main, cases, got, want
 
     # ---- phase 4: front end on the card against the NumPy oracle
@@ -223,28 +353,27 @@ def main() -> None:
         raise RuntimeError(f"front end disagrees with the NumPy oracle: max |err| {fe_err}")
     phase(4, f"front end matches numpy_ref on 4 utterances: max |err| {fe_err:.3g} (atol {FRONTEND_ATOL})")
 
-    # ---- phase 5: the main path, one warm pass, then a timed pass
-    def main_path():
-        return pipe.decode_corpus(corpus, gmm, graph, fcfg, dcfg, bcfg, dev,
-                                  compute_dtype="bfloat16")
+    # ---- phase 5: the decode path, one warm pass, then a timed pass
+    def decode_path(g):
+        return pipe.decode_corpus(corpus, g, graph, fcfg, dcfg, bcfg, dev, compute_dtype="bfloat16")
 
-    main_path()
+    decode_path(gmm)
     gmm_cuda.LAUNCHES = 0
     viterbi_cuda.LAUNCHES = 0
     torch.cuda.synchronize()
-    run = main_path()
-    launches = {"gmm_score": gmm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES}
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"the main path did not go through every kernel: {launches}")
+    run = decode_path(gmm)
+    decode_launches = {"gmm_score": gmm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES}
+    if min(decode_launches.values()) == 0:
+        raise RuntimeError(f"the decode path did not go through every kernel: {decode_launches}")
     if run.n_utts != len(corpus) or not np.isfinite(run.scores).all():
-        raise RuntimeError(f"main path decoded {run.n_utts} of {len(corpus)} utterances, "
+        raise RuntimeError(f"decode path decoded {run.n_utts} of {len(corpus)} utterances, "
                            f"finite scores: {bool(np.isfinite(run.scores).all())}")
     if run.wer > MAX_WER:
-        raise RuntimeError(f"main path WER {run.wer:.4f} > {MAX_WER}")
+        raise RuntimeError(f"decode path WER {run.wer:.4f} > {MAX_WER}")
     stages = ", ".join(f"{k} {1e3 * v:.1f}" for k, v in run.stage_seconds.items())
-    phase(5, f"main path: {run.n_utts} utts, WER {run.wer:.4f}, {run.n_utts / run.seconds:.1f} utt/s, "
+    phase(5, f"decode path: {run.n_utts} utts, WER {run.wer:.4f}, {run.n_utts / run.seconds:.1f} utt/s, "
           f"RTF {run.seconds / run.audio_seconds:.6f} ({run.seconds:.3f} s for "
-          f"{run.audio_seconds:.1f} s of audio); stage ms: {stages}; launches {launches}")
+          f"{run.audio_seconds:.1f} s of audio); stage ms: {stages}; launches {decode_launches}")
 
     # ---- phase 6: the plain float32 path on the card
     plain = pipe.decode_corpus(corpus, gmm, graph, fcfg, dcfg, bcfg, dev,
@@ -254,18 +383,185 @@ def main() -> None:
         raise RuntimeError(f"kernel path agrees with the plain f32 path on {same:.4f} of utterances")
     phase(6, f"plain f32 path: WER {plain.wer:.4f}; transcripts identical to the kernel path "
           f"on {same:.4f} of {len(run.hyps)} utterances")
+    del fb, plain
 
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported; the port and this script must run without it")
+    # ---- phase 7: K3f/K3b against the plain forward-backward
+    t0 = time.perf_counter()
+    train_corpus = training_corpus(topo)
+    synth_s = time.perf_counter() - t0
+    train_bcfg = BatchConfig(batch_size=TRAIN_BATCH, bucket_boundaries=TRAIN_BUCKETS)
+    train_batches = list(make_batches(train_corpus, train_bcfg, fcfg))
+    frontends = pipe.frontends_for(train_batches, fcfg, dev)
+    train_fbs = [pipe.featurize_batch(b, frontends[b.waves.shape[1]], dev) for b in train_batches]
+    # the widest batch: the 700-frame bucket, the one with the most frames
+    fbw = max(train_fbs, key=lambda f: (f.feats.shape[1], int(f.n_frames.sum())))
+    Bw, Tw, _ = fbw.feats.shape
+
+    def align_fn(pids):
+        return tri.align_graph_cd(tied, pids)
+
+    graphs_w = vit.graphs_to_torch(pipe.build_align_graphs(fbw.words, topo.lexicon, topo, align_fn=align_fn), dev)
+    Jw = graphs_w["emit_id"].shape[1]
+    ll_w = k1(fbw.feats.reshape(Bw * Tw, D), "float32", "sum").reshape(Bw, Tw, S)
+    n_rand = 8
+    nf_rand = torch.as_tensor(np.r_[Tw, 1, 0, rng.integers(2, Tw, n_rand - 3)].astype(np.int32), device=dev)
+    ll_rand = torch.as_tensor((rng.standard_normal((n_rand, Tw, S)) * 4 - 20).astype(np.float32), device=dev)
+    graphs_rand = {k: v[:n_rand].contiguous() for k, v in graphs_w.items()}
+    fb_cases = {
+        f"training batch B={Bw} T={Tw} J={Jw}": (ll_w, graphs_w, fbw.n_frames),
+        f"random emissions B={n_rand} n_frames {nf_rand.tolist()}": (ll_rand, graphs_rand, nf_rand),
+    }
+    fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = 0
+    fb_line = []
+    for name, (ll, graphs, nf) in fb_cases.items():
+        if ll is ll_w:
+            fb_pair_ms, got = timed(lambda: fb_cuda.forward_backward(ll, graphs, nf), 5)
+            fb_kernel_ms = kernel_device_ms(lambda: fb_cuda.forward_backward(ll, graphs, nf),
+                                            ("fb_forward_kernel", "fb_backward_kernel"), 5)
+            emit_graph = fbd.gather_emissions(ll, graphs["emit_id"], 1.0)
+            fb_plain_fwd_ms, (alphas, loglik) = timed(lambda: fbd.forward_pass(emit_graph, graphs, nf), 2)
+            fb_plain_bwd_ms, log_gamma = timed(
+                lambda: fbd.backward_pass(emit_graph, graphs, nf, alphas, loglik), 2)
+            want = fbd.FBResult(log_gamma, loglik)
+            del emit_graph, alphas
+        else:
+            got = fb_cuda.forward_backward(ll, graphs, nf)
+            want = fbd.forward_backward(ll, graphs, nf)
+        want64 = fbd.forward_backward(ll.double(), graphs, nf)
+        torch.cuda.synchronize()
+        if got.log_gamma.shape != want.log_gamma.shape or not bool(torch.isfinite(got.loglik).all()):
+            raise RuntimeError(f"K3 ({name}): bad output {tuple(got.log_gamma.shape)}")
+        ll_err = float((got.loglik - want.loglik).abs().max())
+        ll_rel64 = float(((got.loglik.double() - want64.loglik) / want64.loglik.abs()).abs().max())
+        if not torch.allclose(got.loglik, want.loglik, rtol=FB_LOGLIK_RTOL, atol=0.0) or ll_rel64 > FB_LOGLIK_RTOL:
+            raise RuntimeError(f"K3f ({name}): loglik off by {ll_err} from plain f32, rel {ll_rel64:.3g} from f64")
+        post = fbd.state_posteriors_to_pdf(got.log_gamma, graphs["emit_id"], S)
+        post32 = fbd.state_posteriors_to_pdf(want.log_gamma, graphs["emit_id"], S)
+        post64 = fbd.state_posteriors_to_pdf(want64.log_gamma, graphs["emit_id"], S)
+        # a row whose frames cannot reach its final state has loglik ~ NEG_INF:
+        # its float32 posteriors are artifacts of -1e30 arithmetic, the same in
+        # the kernels and the plain version, and differ from float64's
+        ok = want64.loglik > fbd.NEG_INF / 2
+        err64 = float((post[ok].double() - post64[ok]).abs().max())
+        err32_64 = float((post32[ok].double() - post64[ok]).abs().max())
+        err32 = float((post - post32).abs().max())
+        if (err32 > FB_POST_ATOL or err64 > FB_POST64_ATOL
+                or err64 > max(FB_ERR_RATIO * err32_64, FB_ERR_FLOOR)):
+            raise RuntimeError(f"K3b ({name}): pdf posteriors {err32:.3g} from plain f32, {err64:.3g} from "
+                               f"f64 (plain f32: {err32_64:.3g}); limits {FB_POST_ATOL} from plain f32, "
+                               f"{FB_POST64_ATOL} and {FB_ERR_RATIO}x plain f32's from f64")
+        masked = torch.arange(Tw, device=dev)[None, :] >= nf[:, None]
+        if not bool((got.log_gamma[masked] == fbd.NEG_INF).all()):
+            raise RuntimeError(f"K3b ({name}): log_gamma is not NEG_INF on padded frames")
+        if ll is ll_w:
+            fb_ll_err, fb_post_err = ll_err, err32
+        fb_line.append(f"{name}: loglik max |err| {ll_err:.3g} vs plain f32, max rel {ll_rel64:.3g} vs f64; "
+                       f"pdf posteriors max |err| {err32:.3g} vs plain f32, {err64:.3g} vs f64 "
+                       f"(plain f32 vs f64 {err32_64:.3g}; {int(ok.sum())} of {len(ok)} rows reach "
+                       f"their final state)")
+        del got, want, want64, post, post32, post64
+    fb_phase_launches = (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES)
+    frames_w = fbw.n_frames.clamp(min=1).sum().item()
+    em_bytes_w = emission_bytes(graphs_w, fbw.n_frames)
+    k3f_bound = bound(em_bytes_w + 7 * Bw * Jw * 4 + Bw * 4 + frames_w * Jw * 4 + Bw * 4,
+                      K3F_OPS * frames_w * Jw, "float32")
+    k3b_bound = bound(em_bytes_w + 6 * Bw * Jw * 4 + Bw * 4 + frames_w * Jw * 4 + Bw * 4 + Bw * Tw * Jw * 4,
+                      K3B_OPS * frames_w * Jw, "float32")
+    if min(fb_phase_launches) == 0:
+        raise RuntimeError("K3f/K3b were never launched")
+    phase(7, "K3f/K3b match plain (loglik rtol %g; posteriors within %g of plain f32, within %g of f64 and "
+          "%gx plain f32's error): %s; training batch (%d frames): kernels %.3f ms for the pair (K3f %.3f ms, "
+          "bound %.4f ms by %s; K3b %.3f ms, bound %.4f ms by %s), plain forward %.3f ms, backward %.3f ms; "
+          "launches K3f %d, K3b %d" % (
+              FB_LOGLIK_RTOL, FB_POST_ATOL, FB_POST64_ATOL, FB_ERR_RATIO, "; ".join(fb_line),
+              int(fbw.n_frames.sum()), fb_pair_ms, fb_kernel_ms["fb_forward_kernel"], *k3f_bound,
+              fb_kernel_ms["fb_backward_kernel"], *k3b_bound, fb_plain_fwd_ms, fb_plain_bwd_ms,
+              *fb_phase_launches))
+    del ll_w, ll_rand
+
+    # ---- phase 8: the training path
+    gcfg = GmmConfig(n_states=S, n_components=K, feat_dim=D, var_floor=meta["var_floor"],
+                     min_split_occ=meta["min_split_occ"])
+    n_train_frames = sum(int(f.n_frames.sum()) for f in train_fbs)
+    gmm_cuda.LAUNCHES = viterbi_cuda.LAUNCHES = fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    bw = pipe.train_gmm(train_fbs, topo.lexicon, topo, gcfg, TrainConfig(num_em_iters=2), gmm=gmm,
+                        mode="baum-welch", align_fn=align_fn, n_pdfs=S)
+    vt = pipe.train_gmm(train_fbs, topo.lexicon, topo, gcfg, TrainConfig(num_em_iters=1), gmm=bw.gmm,
+                        mode="viterbi", align_fn=align_fn, n_pdfs=S)
+    torch.cuda.synchronize()
+    train_launches = {"gmm_score": gmm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES,
+                      "fb_forward": fb_cuda.FWD_LAUNCHES, "fb_backward": fb_cuda.BWD_LAUNCHES}
+    if min(train_launches.values()) == 0:
+        raise RuntimeError(f"the training path did not go through every kernel: {train_launches}")
+    history = bw.history + vt.history
+    if not np.isfinite(history).all() or bw.history[1] < bw.history[0] - BW_MAX_DROP:
+        raise RuntimeError(f"EM log-likelihood per frame {history}: not finite, or Baum-Welch fell "
+                           f"by more than {BW_MAX_DROP}")
+    trained = vt.gmm
+    if not all(bool(torch.isfinite(a).all()) for a in trained) or trained.means.shape != (S, K, D):
+        raise RuntimeError(f"re-estimated GMM: shape {tuple(trained.means.shape)} or values not finite")
+    dec = decode_path(trained)
+    if dec.wer > MAX_WER:
+        raise RuntimeError(f"held-out WER of the re-estimated GMM {dec.wer:.4f} > {MAX_WER}")
+    # one Baum-Welch E-step on the widest batch: kernel path vs plain path
+    stats_k, _, _ = pipe.batch_stats(fbw, gmm, topo.lexicon, topo, "baum-welch", align_fn, S,
+                                     params=gmm_cuda.kernel_params(gmm, "float32"))
+    stats_p, _, _ = pipe.batch_stats(fbw, gmm, topo.lexicon, topo, "baum-welch", align_fn, S,
+                                     use_kernels=False)
+    stats_err = {}
+    for field in ("occ", "sx", "sxx"):
+        a, b = getattr(stats_k, field), getattr(stats_p, field)
+        stats_err[field] = float((a - b).abs().max() / b.abs().max())
+        if stats_err[field] > STATS_TOL:
+            raise RuntimeError(f"Baum-Welch {field}: kernel path {stats_err[field]:.3g} of max from plain")
+    # one more Baum-Welch iteration under the profiler: the card's busy share
+    prof_wall, prof_dev, prof_top = device_profile(lambda: pipe.train_gmm(
+        train_fbs, topo.lexicon, topo, gcfg, TrainConfig(num_em_iters=1), gmm=trained,
+        mode="baum-welch", align_fn=align_fn, n_pdfs=S))
+    iters = [("baum-welch", h, s, st) for h, s, st in zip(bw.history, bw.seconds, bw.stage_seconds)]
+    iters.append(("viterbi", vt.history[0], vt.seconds[0], vt.stage_seconds[0]))
+    iter_text = "; ".join(
+        f"iter {i} {m}: {h:.4f} per frame, {n_train_frames / s:.0f} frames/s ({s:.3f} s; stage ms "
+        + ", ".join(f"{k} {1e3 * v:.1f}" for k, v in st.items()) + ")"
+        for i, (m, h, s, st) in enumerate(iters))
+    phase(8, f"training path on {len(train_corpus)} utterances ({len(train_fbs)} batches of {TRAIN_BATCH}, "
+          f"{n_train_frames} frames; synthesized in {synth_s:.1f} s; corpus not cut): {iter_text}; "
+          f"launches {train_launches}; held-out WER of the re-estimated GMM {dec.wer:.4f} "
+          f"(bundle {BUNDLE_WER}, limit {MAX_WER}); one Baum-Welch E-step on the widest batch, kernel vs "
+          f"plain path: max |err| / max " + ", ".join(f"{k} {v:.3g}" for k, v in stats_err.items())
+          + f" (limit {STATS_TOL}); a profiled Baum-Welch iteration: {prof_wall:.1f} ms wall, "
+          f"{prof_dev:.1f} ms on the device ({100 * prof_dev / prof_wall:.1f}% busy), top device events "
+          + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof_top))
+
+    if "jax" in sys.modules or "mogasr" in sys.modules:
+        raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
+    launches = {k: decode_launches.get(k, 0) + train_launches[k] for k in train_launches}
+    by_path = {k: {"decode": decode_launches.get(k, 0), "train": train_launches[k]} for k in train_launches}
+    k1_main = ("bfloat16", "max")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "gmm_score", "route": "cuda", "source": "mogasr_torch/csrc/gmm_score.cu",
          "replaces": "mogasr/am/gmm_pallas.py:154", "launches": launches["gmm_score"],
-         "max_abs_err": k1_err[(main_name, "bfloat16", "max")],
-         "ms": k1_ms[("bfloat16", "max")][0], "plain_ms": k1_ms[("bfloat16", "max")][1]},
+         "launches_by_path": by_path["gmm_score"],
+         "max_abs_err": k1_err[(main_name, *k1_main)],
+         "ms": k1_ms[k1_main][0], "plain_ms": k1_ms[k1_main][1],
+         "bound_ms": k1_bound[k1_main][0], "bound_by": k1_bound[k1_main][1], "library_ms": None},
         {"name": "viterbi", "route": "cuda", "source": "mogasr_torch/csrc/viterbi.cu",
          "replaces": "mogasr/decoder/viterbi_pallas.py:54", "launches": launches["viterbi"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches_by_path": by_path["viterbi"],
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "fb_forward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
+         "replaces": "mogasr/decoder/fb_pallas.py:46", "launches": launches["fb_forward"],
+         "launches_by_path": by_path["fb_forward"],
+         "max_abs_err": fb_ll_err, "ms": fb_kernel_ms["fb_forward_kernel"], "plain_ms": fb_plain_fwd_ms,
+         "bound_ms": k3f_bound[0], "bound_by": k3f_bound[1], "library_ms": None},
+        {"name": "fb_backward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
+         "replaces": "mogasr/decoder/fb_pallas.py:77", "launches": launches["fb_backward"],
+         "launches_by_path": by_path["fb_backward"],
+         "max_abs_err": fb_post_err, "ms": fb_kernel_ms["fb_backward_kernel"], "plain_ms": fb_plain_bwd_ms,
+         "bound_ms": k3b_bound[0], "bound_by": k3b_bound[1], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 
 The JAX package ``mogasr`` stays the reference; this package mirrors its
 layout (``frontend/``, ``am/``, ``decoder/``, ``utils/``, ``pipeline.py``) so
-each module's counterpart is easy to find. Modules of ``mogasr`` that import
-only numpy (config, hmm, data, eval, frontend.numpy_ref) are reused, not
-copied. Nothing here imports jax or flax.
+each module's counterpart is easy to find. Nothing here imports ``mogasr``,
+jax or flax: the reference's numpy-only modules that the port needs
+(``config``, ``hmm/``, ``data/{batching,synthetic}``, ``eval/wer``,
+``frontend/numpy_ref``) have their own copies here.
 
 Device dispatch is by the tensor: a CUDA tensor goes through the hand-written
 kernels in ``csrc/`` (built with nvcc at first use, see ``_cuda``), a CPU
@@ -17,6 +18,8 @@ Exports are lazy so that ``import mogasr_torch`` stays light:
     mogasr_torch.gmm_loglik_batched(feats, gmm, compute_dtype, mode)
     mogasr_torch.viterbi(emit_ll, graphs, n_frames, acoustic_scale)
     mogasr_torch.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, device)
+    mogasr_torch.forward_backward(emit_ll, graphs, n_frames, acoustic_scale)
+    mogasr_torch.train_gmm(batches, lexicon, topo, gcfg, tcfg, gmm=..., mode=...)
 """
 
 import torch
@@ -38,6 +41,8 @@ _EXPORTS = {
     "gmm_loglik_batched": "mogasr_torch.am.gmm_cuda",
     "viterbi": "mogasr_torch.decoder.viterbi_cuda",
     "decode_corpus": "mogasr_torch.pipeline",
+    "forward_backward": "mogasr_torch.decoder.fb_cuda",
+    "train_gmm": "mogasr_torch.pipeline",
 }
 
 

@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -34,7 +35,8 @@ _FLAGS = [
 ]
 # viterbi.cu is held bitwise to the plain PyTorch recursion, which rounds a
 # product and the sum that follows it separately: no FMA contraction there.
-_EXTRA_FLAGS = {"viterbi": ["-fmad=false"]}
+# forward_backward.cu follows the plain version's rounding the same way.
+_EXTRA_FLAGS = {"viterbi": ["-fmad=false"], "forward_backward": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -92,10 +94,13 @@ def build(name: str) -> str:
 
 
 def build_all() -> float:
-    """Build every kernel in ``csrc/``; returns the wall seconds it took."""
+    """Build every kernel in ``csrc/``, one nvcc per source, all at once;
+    returns the wall seconds it took."""
     t0 = time.perf_counter()
-    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
-        build(os.path.splitext(os.path.basename(src))[0])
+    names = [os.path.splitext(os.path.basename(p))[0] for p in sorted(glob.glob(os.path.join(CSRC, "*.cu")))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for fut in [pool.submit(build, n) for n in names]:
+            fut.result()
     return time.perf_counter() - t0
 
 

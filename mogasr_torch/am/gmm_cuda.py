@@ -3,9 +3,9 @@
 
 ``gmm_loglik_fused`` mirrors ``gmm_loglik_pallas``: a CUDA tensor runs the
 kernel, a CPU tensor runs the plain version ``am.gmm.gmm_loglik``; any other
-device raises. ``LAUNCHES`` counts kernel launches. A caller that scores many
-batches with one GMM converts it to the kernel's layout once, with
-:func:`kernel_params`, and passes the result in.
+device raises. ``LAUNCHES`` counts kernel launches (none for N = 0). A
+caller that scores many batches with one GMM converts it to the kernel's
+layout once, with :func:`kernel_params`, and passes the result in.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def gmm_loglik_fused(
             0 if mode == "sum" else 1, stream,
         )
     _cuda.check(lib, "gmm_score", err, "gmm_score launch")
-    LAUNCHES += 1
+    LAUNCHES += int(N > 0)  # the entry point returns at once on no rows
     return out
 
 

@@ -5,8 +5,9 @@ A drop-in for ``decoder.viterbi.viterbi`` with ``beam=0`` on plain
 chain+loop graphs, bitwise equal to it. Like the reference kernel it rejects
 CTC skip transitions and beam pruning on every device; ``decoder.viterbi``
 covers both. A CUDA tensor runs the kernel, a CPU tensor the plain version;
-any other device raises. ``LAUNCHES`` counts kernel launches (one per call:
-the forward kernel and its backtrace kernel).
+any other device raises. ``LAUNCHES`` counts kernel launches (one per call
+with B * T > 0: the forward kernel and its backtrace kernel; an empty batch
+launches neither).
 
 The graph arrays go to the kernel as ``graphs_to_torch`` makes them from
 ``batch_graphs``: ``emit_id`` int32, the log-probs float32, contiguous, on
@@ -37,6 +38,19 @@ _GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp",
                "init_logp", "final_logp")
 
 
+def check_graphs(graphs: Dict[str, torch.Tensor], keys, B: int, dev: torch.device) -> int:
+    """Check the graph arrays a kernel reads (``emit_id`` int32, the rest
+    float32, contiguous [B, J] on ``dev``) and return J."""
+    J = graphs["emit_id"].shape[1]
+    for k in keys:
+        a = graphs[k]
+        dtype = torch.int32 if k == "emit_id" else torch.float32
+        if a.device != dev or a.dtype != dtype or tuple(a.shape) != (B, J) or not a.is_contiguous():
+            raise ValueError(f"graphs[{k!r}] must be contiguous {dtype} [{B}, {J}] on {dev}, "
+                             f"got {a.dtype} {list(a.shape)} on {a.device}")
+    return J
+
+
 def viterbi(
     emit_ll: torch.Tensor,            # [B, T, P] pdf log-likelihoods
     graphs: Dict[str, torch.Tensor],  # graphs_to_torch(batch_graphs(...))
@@ -63,13 +77,7 @@ def viterbi(
         raise ValueError(f"emit_ll must be float32 [B, T, P], got {emit_ll.dtype} {tuple(emit_ll.shape)}")
     B, T, P = emit_ll.shape
     dev = emit_ll.device
-    J = graphs["emit_id"].shape[1]
-    for k in _GRAPH_KEYS:
-        a = graphs[k]
-        dtype = torch.int32 if k == "emit_id" else torch.float32
-        if a.device != dev or a.dtype != dtype or tuple(a.shape) != (B, J) or not a.is_contiguous():
-            raise ValueError(f"graphs[{k!r}] must be contiguous {dtype} [{B}, {J}] on {dev}, "
-                             f"got {a.dtype} {list(a.shape)} on {a.device}")
+    J = check_graphs(graphs, _GRAPH_KEYS, B, dev)
     ll = emit_ll.contiguous()
     nf = n_frames.to(device=dev, dtype=torch.int32).contiguous()
 
@@ -89,5 +97,5 @@ def viterbi(
             path.data_ptr(), entered.data_ptr(), score.data_ptr(), stream,
         )
     _cuda.check(lib, "viterbi", err, "viterbi_decode launch")
-    LAUNCHES += 1
+    LAUNCHES += int(B * T > 0)  # the entry point returns at once on an empty batch
     return ViterbiResult(path, entered, score)

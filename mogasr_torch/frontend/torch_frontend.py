@@ -19,8 +19,8 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from mogasr.config import FrontendConfig
-from mogasr.frontend import numpy_ref as npref
+from mogasr_torch.config import FrontendConfig
+from mogasr_torch.frontend import numpy_ref as npref
 
 
 class FrontendConsts(NamedTuple):

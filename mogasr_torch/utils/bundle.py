@@ -1,9 +1,8 @@
 """Load a trained-system bundle (``gmm.npz`` + ``system.json``) for the port.
 
-Mirrors ``mogasr.utils.bundle.load_system``, which cannot be reused because it
-builds a jax GmmSet. The lexicon, topology and tied-triphone objects are the
-reference's own numpy classes from ``mogasr.hmm``; only the GMM becomes
-tensors.
+Mirrors ``mogasr.utils.bundle.load_system``. The lexicon, topology and
+tied-triphone objects are the port's copies of the reference's numpy classes
+(``mogasr_torch.hmm``); the GMM becomes tensors.
 """
 
 from __future__ import annotations
@@ -15,10 +14,10 @@ import os
 import numpy as np
 import torch
 
-from mogasr.config import FrontendConfig
-from mogasr.hmm.lexicon import make_lexicon
-from mogasr.hmm.topology import Topology
-from mogasr.hmm.triphone import TiedTriphones
+from mogasr_torch.config import FrontendConfig
+from mogasr_torch.hmm.lexicon import make_lexicon
+from mogasr_torch.hmm.topology import Topology
+from mogasr_torch.hmm.triphone import TiedTriphones
 from mogasr_torch.am.gmm import gmm_from_numpy
 
 _FORMAT_VERSION = 1

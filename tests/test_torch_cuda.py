@@ -17,11 +17,17 @@ import numpy as np
 import pytest
 import torch
 
-from mogasr.hmm import graph as gr
+from mogasr_torch import pipeline as pipe
 from mogasr_torch.am import gmm_cuda
 from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik
+from mogasr_torch.config import TopologyConfig
+from mogasr_torch.decoder import fb_cuda
+from mogasr_torch.decoder import forward_backward as fbd
 from mogasr_torch.decoder import viterbi as vit
 from mogasr_torch.decoder import viterbi_cuda
+from mogasr_torch.hmm import graph as gr
+from mogasr_torch.hmm.lexicon import make_lexicon
+from mogasr_torch.hmm.topology import build_topology
 
 pytestmark = pytest.mark.cuda
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -129,3 +135,103 @@ print("no error")
                           text=True, timeout=300)
     assert proc.returncode != 0 and "no error" not in proc.stdout
     assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("J", [37, 200, 3048])
+def test_fb_kernels_match_plain(dev, J):
+    """K3f/K3b against the plain forward-backward: loglik and log_gamma on
+    valid frames, NEG_INF on padded ones, ragged n_frames including 0 and 1."""
+    rng = np.random.default_rng(J)
+    B, T, P = 5, 40, 97
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
+    nf = torch.as_tensor([T, 17, 1, 0, 33], dtype=torch.int32, device=dev)
+    for scale in (1.0, 0.8):
+        before = (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES)
+        got = fb_cuda.forward_backward(ll, graphs, nf, acoustic_scale=scale)
+        want = fbd.forward_backward(ll, graphs, nf, acoustic_scale=scale)
+        torch.cuda.synchronize()
+        assert (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert got.log_gamma.shape == (B, T, J) and got.loglik.shape == (B,)
+        # the logsumexp over states sums in another order: fb_pallas's tolerances
+        torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=1e-5)
+        for b, n in enumerate(nf.tolist()):
+            g, w = got.log_gamma[b, :n], want.log_gamma[b, :n]
+            sel = w > -30
+            torch.testing.assert_close(g[sel], w[sel], rtol=1e-4, atol=1e-4)
+            assert bool((g[~sel] < -25).all())
+            assert bool((got.log_gamma[b, n:] == fbd.NEG_INF).all())
+
+
+def test_fb_kernels_one_frame(dev):
+    rng = np.random.default_rng(3)
+    B, J, P = 3, 50, 20
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    ll = torch.as_tensor(rng.standard_normal((B, 1, P)).astype(np.float32), device=dev)
+    nf = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    got = fb_cuda.forward_backward(ll, graphs, nf)
+    want = fbd.forward_backward(ll, graphs, nf)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.log_gamma, want.log_gamma, rtol=1e-4, atol=1e-4)
+
+
+def test_fb_kernels_reject_skip(dev):
+    rng = np.random.default_rng(0)
+    g = _random_graphs(rng, 2, 20, 10)
+    g["skip_logp"] = np.zeros((2, 20), np.float32)
+    with pytest.raises(NotImplementedError):
+        fb_cuda.forward_backward(torch.zeros((2, 5, 10), device=dev), vit.graphs_to_torch(g, dev),
+                                 torch.tensor([5, 5], device=dev))
+
+
+def test_fb_kernels_check_graphs(dev):
+    rng = np.random.default_rng(2)
+    g = _random_graphs(rng, 2, 20, 10)
+    ll = torch.zeros((2, 5, 10), device=dev)
+    nf = torch.tensor([5, 5], device=dev)
+    bad = vit.graphs_to_torch({**g, "self_logp": g["self_logp"].astype(np.float64)}, dev)
+    with pytest.raises(ValueError):
+        fb_cuda.forward_backward(ll, bad, nf)
+    wide = vit.graphs_to_torch(_random_graphs(rng, 2, 8 * 1024 + 1, 10), dev)
+    with pytest.raises(RuntimeError):  # above the kernels' state limit
+        fb_cuda.forward_backward(ll, wide, nf)
+
+
+def _align_graphs():
+    lex = make_lexicon({"ab": ["a", "b"], "ba": ["b", "a"], "abc": ["a", "b", "c"]})
+    topo = build_topology(lex, TopologyConfig())
+    words = [["ab", "ba"], ["abc"], ["ba", "abc", "ab"], []]
+    return topo, pipe.build_align_graphs(words, lex, topo)
+
+
+def test_viterbi_kernel_bitwise_on_align_graphs(dev):
+    """K2 on per-utterance align graphs (J padded to a multiple of 64), the
+    traffic of Viterbi EM."""
+    rng = np.random.default_rng(5)
+    topo, graphs_np = _align_graphs()
+    graphs = vit.graphs_to_torch(graphs_np, dev)
+    B, T = graphs_np["emit_id"].shape[0], 60
+    ll = torch.as_tensor((rng.standard_normal((B, T, topo.n_pdfs)) * 3 - 10).astype(np.float32), device=dev)
+    nf = torch.tensor([T, 41, 25, 0], dtype=torch.int32, device=dev)
+    got = viterbi_cuda.viterbi(ll, graphs, nf)
+    want = vit.viterbi(ll, graphs, nf)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_fb_kernels_on_align_graphs(dev):
+    rng = np.random.default_rng(6)
+    topo, graphs_np = _align_graphs()
+    graphs = vit.graphs_to_torch(graphs_np, dev)
+    B, T = graphs_np["emit_id"].shape[0], 60
+    ll = torch.as_tensor(rng.standard_normal((B, T, topo.n_pdfs)).astype(np.float32), device=dev)
+    nf = torch.tensor([T, 41, 25, 0], dtype=torch.int32, device=dev)
+    got = fb_cuda.forward_backward(ll, graphs, nf, acoustic_scale=0.8)
+    want = fbd.forward_backward(ll, graphs, nf, acoustic_scale=0.8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=1e-5)
+    post = fbd.state_posteriors_to_pdf(got.log_gamma, graphs["emit_id"], topo.n_pdfs)
+    post_want = fbd.state_posteriors_to_pdf(want.log_gamma, graphs["emit_id"], topo.n_pdfs)
+    torch.testing.assert_close(post, post_want, rtol=0, atol=1e-4)

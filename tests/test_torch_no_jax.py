@@ -1,5 +1,5 @@
-"""The port must import where jax does not exist: every mogasr_torch module and
-chip_smoke.py import in a fresh interpreter with jax and flax blocked."""
+"""The port stands alone: every mogasr_torch module and chip_smoke.py import in
+a fresh interpreter where jax, flax and the JAX package mogasr are blocked."""
 
 import os
 import pkgutil
@@ -20,15 +20,18 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert "mogasr_torch.pipeline" in modules and "mogasr_torch.am.gmm_cuda" in modules
+    for name in ("mogasr_torch.pipeline", "mogasr_torch.am.gmm_cuda", "mogasr_torch.am.em",
+                 "mogasr_torch.decoder.fb_cuda", "mogasr_torch.hmm.triphone", "mogasr_torch.eval.wer"):
+        assert name in modules
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",
         "sys.modules['flax'] = None",
+        "sys.modules['mogasr'] = None",
         "import importlib",
         f"for name in {modules!r}: importlib.import_module(name)",
         "import chip_smoke",
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax')) "
+        "assert not any(m in ('jax', 'mogasr') or m.startswith(('jax.', 'flax', 'mogasr.')) "
         "for m, v in sys.modules.items() if v is not None)",
         "print('ok')",
     ])
