@@ -36,7 +36,24 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    held-out WER of the re-estimated GMM through the decode path, one
    Baum-Welch E-step's statistics against the plain path on the card, and
    one more Baum-Welch iteration under ``torch.profiler`` (the card's busy
-   share and its top device events).
+   share and its top device events);
+9. K4 (csrc/lstm_scan.cu) against the plain LSTM recurrence, float32 and
+   bfloat16: on the hybrid path's widest batch (64 x 600, the real layer-0
+   and layer-1 inputs of the seeded LstmAm, 512 hidden), where it is timed
+   beside the plain version and, for the whole layer (input GEMM +
+   recurrence), beside cuDNN's ``torch.nn.LSTM`` on the packed batch (the
+   library yardstick, used nowhere else), and on a random ragged batch
+   (H = 200, n_frames of 0, 1 and T);
+10. the hybrid NN-HMM decode path of ``benchmarks/bench_families.py``'s lstm
+   row (300-word lexicon, monophone topology: 81 pdfs, the 3048-state word
+   loop, acoustic scale 0.1; 256 utterances of seed 999 in batches of 64;
+   uniform priors; LstmAm 81 x 512 x 2 from seed 0): a warm and a timed
+   float32 pass (front end -> LstmAm with K4 -> K2 -> tokens: utt/s, RTF,
+   stage ms, launch counts, WER without a limit, the weights being random),
+   a profiled pass (the card's busy share), the plain float32 path on the
+   card and its transcript agreement, the bfloat16 and int8 scorers (logits
+   against float32, transcript agreement), and one batch each of MlpAm,
+   TdnnAm, MoeAm and BlstmAm through the scorer and K2.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -97,6 +114,31 @@ BW_MAX_DROP = 1e-3        # Baum-Welch loglik per frame may not fall further
 TRAIN_UTTS, TRAIN_VOCAB, TRAIN_SPEAKERS, TRAIN_SEED = 1600, 300, 20, 100
 TRAIN_BUCKETS = (250, 400, 550, 700)
 TRAIN_BATCH = 32
+
+# The hybrid path of benchmarks/bench_families.py (its lstm row, at its
+# defaults): 300 words, 256 utterances of seed 999 (3-9 words, 12 speakers),
+# batches of 64, TrainConfig(nn_hidden=512, nn_layers=3).
+HYB_VOCAB, HYB_UTTS, HYB_SPEAKERS, HYB_SEED = 300, 256, 12, 999
+HYB_BATCH, HYB_BUCKETS = 64, (250, 350, 450, 600)
+HYB_HIDDEN, HYB_LAYERS, HYB_ACOUSTIC_SCALE = 512, 3, 0.1
+# With flax's initializers the LstmAm's logits spread ~0.1 and every
+# utterance decodes to silence; its head scaled by this gain gives peaked
+# posteriors, so the decodes below emit words and their agreement means
+# something. Timing does not depend on the weights.
+HEAD_GAIN = 100.0
+# K4 vs the plain recurrence: float32 sums in another order (readings on the
+# H100 below 1e-6 at 64 x 600 x 512); in bf16 mode h is rounded to bf16 every
+# frame from values that differ in the last float32 bits, so an occasional
+# rounding flips and the flips compound over the frames (readings up to 7e-4).
+K4_ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# Kernel path vs plain path, float32 logits of the whole model (BlstmAm here).
+NN_ROUTE_ATOL = 1e-4
+# bf16 and int8 logits vs float32 on valid frames: the reference's bf16 bound
+# (tests/test_lstm_pallas.py:84), atol and rtol 0.05.
+QUANT_TOL = 0.05
+# Float operations of the gate math per hidden unit and valid frame: three
+# sigmoids (exp, add, divide) and two tanh, the c and h updates.
+K4_GATE_OPS = 15
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): bytes over HBM,
 # operations at the rate of their type.
@@ -212,6 +254,211 @@ def training_corpus(topo):
         style=syn.CorpusStyle(), seed=TRAIN_SEED, words_per_utt=(3, 9),
     )
     return [(u.utt_id, u.wave, u.words) for u in utts]
+
+
+def hybrid_phases(dev: torch.device) -> dict:
+    """Phases 9 (K4 against its plain version) and 10 (the hybrid decode
+    path); returns K4's entry of the kernels line."""
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import fast_lstm, lstm_cuda
+    from mogasr_torch.am import neural as tn
+    from mogasr_torch.am.params import init_
+    from mogasr_torch.am.quantize import make_quantized_logits
+    from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig, TrainConfig
+    from mogasr_torch.data import synthetic as syn
+    from mogasr_torch.data.batching import make_batches
+    from mogasr_torch.decoder import viterbi_cuda
+    from mogasr_torch.frontend.torch_frontend import make_frontend
+    from mogasr_torch.hmm.lexicon import make_lexicon
+    from mogasr_torch.hmm.topology import build_topology
+
+    torch.set_grad_enabled(False)  # inference only
+    # ---- phase 9: K4 against its plain version
+
+    t0 = time.perf_counter()
+    hyb_lex_words = syn.extended_lexicon(HYB_VOCAB)
+    hyb_lex = make_lexicon(hyb_lex_words)
+    hyb_topo = build_topology(hyb_lex, TopologyConfig())
+    P = hyb_topo.n_pdfs
+    hyb_dcfg = DecodeConfig(acoustic_scale=HYB_ACOUSTIC_SCALE)
+    hyb_fcfg = FrontendConfig()
+    hyb_graph = pipe.word_decode_graph(hyb_lex, hyb_topo, hyb_dcfg)
+    hyb_corpus = [(u.utt_id, u.wave, u.words) for u in syn.make_corpus_v2(
+        HYB_UTTS, lexicon=hyb_lex_words, n_speakers=HYB_SPEAKERS, seed=HYB_SEED, words_per_utt=(3, 9))]
+    hyb_synth_s = time.perf_counter() - t0
+    hyb_bcfg = BatchConfig(batch_size=HYB_BATCH, bucket_boundaries=HYB_BUCKETS)
+    log_priors = np.log(np.full(P, 1.0 / P, np.float32))
+    hyb_cfg = TrainConfig(nn_hidden=HYB_HIDDEN, nn_layers=HYB_LAYERS)
+
+    def seeded(arch, seed=0):
+        return init_(tn.build_model(arch, P, hyb_cfg, hyb_fcfg.feat_dim), torch.Generator().manual_seed(seed)).to(dev)
+
+    lstm_am = seeded("lstm")
+    hyb_batches = list(make_batches(hyb_corpus, hyb_bcfg, hyb_fcfg))
+    hb = max(hyb_batches, key=lambda b: (b.waves.shape[1], int(b.num_samples.astype(np.int64).sum())))
+    fbh = pipe.featurize_batch(hb, make_frontend(hyb_fcfg, hb.waves.shape[1], dev), dev)
+    Bh, Th, _ = fbh.feats.shape
+    H = HYB_HIDDEN
+    nfh = fbh.n_frames
+    valid_frames = int(nfh.clamp(min=0).sum())
+    with torch.no_grad():
+        xg0 = {dt: lstm_am.cells[0].input_gates(fbh.feats, dt) for dt in ("float32", "bfloat16")}
+        h0 = {dt: lstm_cuda.lstm_layer(xg0[dt], lstm_am.cells[0].w_rec, nfh, dt) for dt in xg0}
+        xg1 = {dt: lstm_am.cells[1].input_gates(h0[dt], dt) for dt in xg0}
+    rng9 = np.random.default_rng(9)
+    Hr, Br = 200, 16
+    nf_r = torch.as_tensor(np.r_[Th, 1, 0, rng9.integers(2, Th, Br - 3)].astype(np.int32), device=dev)
+    k4_cases = {
+        f"layer 0 of the widest batch B={Bh} T={Th} H={H}": (xg0, lstm_am.cells[0].w_rec, nfh),
+        f"layer 1 of the widest batch B={Bh} T={Th} H={H}": (xg1, lstm_am.cells[1].w_rec, nfh),
+        f"random B={Br} T={Th} H={Hr} n_frames {nf_r.tolist()[:4]}...": (
+            dict.fromkeys(("float32", "bfloat16"), torch.as_tensor(
+                rng9.standard_normal((Br, Th, 4 * Hr)).astype(np.float32), device=dev)),
+            torch.as_tensor((rng9.standard_normal((Hr, 4 * Hr)) / np.sqrt(Hr)).astype(np.float32), device=dev),
+            nf_r),
+    }
+    k4_err, k4_ms, k4_plain_ms = {}, {}, {}
+    for name, (xgs, w_rec, nf) in k4_cases.items():
+        for dt in ("float32", "bfloat16"):
+            xg = xgs[dt]
+            if "layer 1" in name:
+                k4_ms[dt], got = timed(lambda: lstm_cuda.lstm_layer(xg, w_rec, nf, dt), 5)
+                k4_plain_ms[dt], want = timed(lambda: fast_lstm.lstm_layer(xg, w_rec, nf, dt), 1)
+            else:
+                got, want = lstm_cuda.lstm_layer(xg, w_rec, nf, dt), fast_lstm.lstm_layer(xg, w_rec, nf, dt)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"K4 {dt} ({name}): bad output {tuple(got.shape)}")
+            if bool((nf == 0).any()) and float(got[nf == 0].abs().max()) != 0.0:
+                raise RuntimeError(f"K4 {dt} ({name}): a row with n_frames = 0 is not zero")
+            err = float((got - want).abs().max())
+            if err > K4_ATOL[dt]:
+                raise RuntimeError(f"K4 {dt} ({name}) disagrees with the plain recurrence: max |err| {err}")
+            k4_err[(name, dt)] = err
+    # the library yardstick: cuDNN's LSTM for the whole layer 1 on the packed
+    # batch (rows with frames), beside the prefused input GEMM + K4
+    cell1 = lstm_am.cells[1]
+    cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(cell1.w_in.T)   # torch's gate order i, f, g, o is flax's
+        cudnn.weight_hh_l0.copy_(cell1.w_rec.T)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.copy_(cell1.bias)
+    live = (nfh > 0).nonzero()[:, 0]
+    x1, lens = h0["float32"][live], nfh[live].to(device="cpu", dtype=torch.int64)
+
+    def cudnn_layer():
+        with torch.no_grad():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(x1, lens, batch_first=True, enforce_sorted=False)
+            return torch.nn.utils.rnn.pad_packed_sequence(cudnn(packed)[0], batch_first=True, total_length=Th)[0]
+
+    def gemm_k4_layer():
+        with torch.no_grad():
+            return cell1(h0["float32"], nfh)
+
+    lib_ms, lib_out = timed(cudnn_layer, 5)
+    layer_ms, layer_out = timed(gemm_k4_layer, 5)
+    vmask = tn.valid_mask(nfh[live], Th, dev)
+    lib_err = float((lib_out - layer_out[live])[vmask].abs().max())
+    k4_bytes = {dt: valid_frames * 4 * H * 4 + H * 4 * H * (4 if dt == "float32" else 2) + Bh * 4 + Bh * Th * H * 4
+                for dt in ("float32", "bfloat16")}
+    k4_ops = valid_frames * H * (2 * 4 * H + K4_GATE_OPS)
+    k4_bound = {dt: bound(k4_bytes[dt], k4_ops, dt) for dt in k4_bytes}
+    phase(9, "K4 matches the plain recurrence (atol float32 %g, bfloat16 %g), max |err|: %s; layer 1 of the "
+          "widest batch (%d valid frames): K4 float32 %.3f ms (plain %.3f ms, bound %.4f ms by %s), bfloat16 "
+          "%.3f ms (plain %.3f ms, bound %.4f ms by %s); whole layer, input GEMM + K4 %.3f ms vs cuDNN "
+          "nn.LSTM %.3f ms (valid frames max |diff| %.3g)" % (
+              K4_ATOL["float32"], K4_ATOL["bfloat16"],
+              "; ".join(f"{n} {d} {e:.3g}" for (n, d), e in k4_err.items()), valid_frames,
+              k4_ms["float32"], k4_plain_ms["float32"], *k4_bound["float32"],
+              k4_ms["bfloat16"], k4_plain_ms["bfloat16"], *k4_bound["bfloat16"], layer_ms, lib_ms, lib_err))
+    del xg0, xg1, h0, k4_cases, got, want, lib_out, layer_out, x1
+
+    # ---- phase 10: the hybrid decode path
+    peaked = seeded("lstm")
+    with torch.no_grad():
+        peaked.head.weight.mul_(HEAD_GAIN)
+
+    def hybrid(model, precision="float32", use_kernels=True):
+        return pipe.decode_corpus(hyb_corpus, pipe.make_nn_scorer(model, log_priors, precision, use_kernels),
+                                  hyb_graph, hyb_fcfg, hyb_dcfg, hyb_bcfg, dev, use_kernels=use_kernels)
+
+    hybrid(peaked)
+    lstm_cuda.LAUNCHES = viterbi_cuda.LAUNCHES = 0
+    torch.cuda.synchronize()
+    hyb = hybrid(peaked)
+    hyb_launches = {"lstm_scan": lstm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES}
+    if min(hyb_launches.values()) == 0:
+        raise RuntimeError(f"the hybrid path did not go through every kernel: {hyb_launches}")
+    if hyb.n_utts != len(hyb_corpus) or not np.isfinite(hyb.scores).all():
+        raise RuntimeError(f"hybrid path decoded {hyb.n_utts} of {len(hyb_corpus)} utterances, "
+                           f"finite scores: {bool(np.isfinite(hyb.scores).all())}")
+    hyb_words = sum(len(h) for h in hyb.hyps)
+    hyb_prof_wall, hyb_prof_dev, hyb_prof_top = device_profile(lambda: hybrid(peaked))
+    hyb_plain = hybrid(peaked, use_kernels=False)
+    same = sum(a == b for a, b in zip(hyb.hyps, hyb_plain.hyps)) / len(hyb.hyps)
+    if same < MIN_AGREEMENT:
+        raise RuntimeError(f"hybrid kernel path agrees with the plain f32 path on {same:.4f} of utterances")
+    agree = {}
+    for prec in ("bfloat16", "int8"):
+        q = hybrid(peaked, prec)
+        agree[prec] = sum(a == b for a, b in zip(hyb.hyps, q.hyps)) / len(hyb.hyps)
+    # bf16 and int8 logits of the seeded LstmAm (flax's init scale) on the widest batch
+    quant_err = {}
+    vh = tn.valid_mask(nfh, Th, dev)
+    with torch.no_grad():
+        f32_logits = make_quantized_logits(lstm_am, "float32")(fbh.feats, nfh)[vh]
+        for prec in ("bfloat16", "int8"):
+            lg = make_quantized_logits(lstm_am, prec)(fbh.feats, nfh)[vh]
+            quant_err[prec] = float((lg - f32_logits).abs().max())
+            if not torch.allclose(lg, f32_logits, atol=QUANT_TOL, rtol=QUANT_TOL):
+                raise RuntimeError(f"LstmAm {prec} logits off float32 by {quant_err[prec]} (limit {QUANT_TOL})")
+    # one batch of each other family through the scorer and K2
+    graphs_h = pipe.decode_graphs(hyb_graph, HYB_BATCH, dev)
+    fam_line = []
+    for arch in ("mlp", "tdnn", "moe", "blstm"):
+        model = seeded(arch)
+        before = (lstm_cuda.LAUNCHES, viterbi_cuda.LAUNCHES)
+        ll = pipe.make_nn_scorer(model, log_priors)(fbh)
+        toks, scores = pipe.decode_batch(fbh, ll, hyb_graph, hyb_dcfg, graphs=graphs_h)
+        torch.cuda.synchronize()
+        launched = (lstm_cuda.LAUNCHES - before[0], viterbi_cuda.LAUNCHES - before[1])
+        if ll.shape != (Bh, Th, P) or not bool(torch.isfinite(ll).all()) or not np.isfinite(scores).all():
+            raise RuntimeError(f"{arch}: scores {tuple(ll.shape)} not finite or of the wrong shape")
+        if launched[1] != 1 or launched[0] != (2 * model.layers if arch == "blstm" else 0):
+            raise RuntimeError(f"{arch}: launched K4 {launched[0]} and K2 {launched[1]} times")
+        text = f"{arch} K4 x{launched[0]}, K2 x{launched[1]}"
+        if arch == "blstm":
+            with torch.no_grad():
+                route_err = float((model(fbh.feats, nfh)[vh] - model(fbh.feats, nfh, use_kernels=False)[vh])
+                                  .abs().max())
+            if route_err > NN_ROUTE_ATOL:
+                raise RuntimeError(f"BlstmAm kernel route off the plain route by {route_err}")
+            text += f" (logits vs the plain route max |err| {route_err:.3g}, limit {NN_ROUTE_ATOL})"
+        fam_line.append(text)
+        del model, ll
+    hyb_stages = ", ".join(f"{k} {1e3 * v:.1f}" for k, v in hyb.stage_seconds.items())
+    phase(10, f"hybrid path ({len(hyb_corpus)} utterances synthesized in {hyb_synth_s:.1f} s, {len(hyb_batches)} "
+          f"batches of {HYB_BATCH}; LstmAm {P} x {H} x {lstm_am.layers}, head gain {HEAD_GAIN:g}): "
+          f"{hyb.n_utts / hyb.seconds:.1f} utt/s, RTF {hyb.seconds / hyb.audio_seconds:.6f} ({hyb.seconds:.3f} s "
+          f"for {hyb.audio_seconds:.1f} s of audio), WER {hyb.wer:.4f} ({hyb_words} words decoded; no limit, "
+          f"random weights); stage ms: {hyb_stages}; launches {hyb_launches}; profiled pass {hyb_prof_wall:.1f} "
+          f"ms wall, {hyb_prof_dev:.1f} ms on the device ({100 * hyb_prof_dev / hyb_prof_wall:.1f}% busy), top "
+          "device events " + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in hyb_prof_top)
+          + f"; plain f32 path WER {hyb_plain.wer:.4f}, transcripts identical on {same:.4f}; bfloat16 and int8 "
+          f"transcripts identical to f32 on {agree['bfloat16']:.4f} and {agree['int8']:.4f}; seeded LstmAm logits "
+          f"vs f32 max |err| bfloat16 {quant_err['bfloat16']:.3g}, int8 {quant_err['int8']:.3g} (atol/rtol "
+          f"{QUANT_TOL}); one batch each: " + "; ".join(fam_line))
+    return {"name": "lstm_scan", "route": "cuda", "source": "mogasr_torch/csrc/lstm_scan.cu",
+            "replaces": "mogasr/am/lstm_pallas.py:57", "launches": hyb_launches["lstm_scan"],
+            "launches_by_path": {"hybrid": hyb_launches["lstm_scan"]},
+            "max_abs_err": max(e for (n, d), e in k4_err.items() if d == "float32"),
+            "ms": k4_ms["float32"], "plain_ms": k4_plain_ms["float32"],
+            "bound_ms": k4_bound["float32"][0], "bound_by": k4_bound["float32"][1], "library_ms": lib_ms,
+            "library": "torch.nn.LSTM (cuDNN), the whole layer", "ms_with_input_gemm": layer_ms,
+            "bfloat16": {"max_abs_err": max(e for (n, d), e in k4_err.items() if d == "bfloat16"),
+                         "ms": k4_ms["bfloat16"], "plain_ms": k4_plain_ms["bfloat16"],
+                         "bound_ms": k4_bound["bfloat16"][0], "bound_by": k4_bound["bfloat16"][1]}}
 
 
 def main() -> None:
@@ -534,6 +781,8 @@ def main() -> None:
           f"{prof_dev:.1f} ms on the device ({100 * prof_dev / prof_wall:.1f}% busy), top device events "
           + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof_top))
 
+    k4_entry = hybrid_phases(dev)
+
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
     launches = {k: decode_launches.get(k, 0) + train_launches[k] for k in train_launches}
@@ -562,6 +811,7 @@ def main() -> None:
          "launches_by_path": by_path["fb_backward"],
          "max_abs_err": fb_post_err, "ms": fb_kernel_ms["fb_backward_kernel"], "plain_ms": fb_plain_bwd_ms,
          "bound_ms": k3b_bound[0], "bound_by": k3b_bound[1], "library_ms": None},
+        k4_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

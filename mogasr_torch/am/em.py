@@ -30,7 +30,7 @@ class GmmStats(NamedTuple):
     n_frames: torch.Tensor  # [] frames accumulated
 
 
-def zero_stats(S: int, K: int, D: int, device: torch.device = torch.device("cpu")) -> GmmStats:
+def zero_stats(S: int, K: int, D: int, *, device: torch.device) -> GmmStats:
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
     return GmmStats(occ=z(S, K), sx=z(S, K, D), sxx=z(S, K, D), loglik=z(), n_frames=z())
 
@@ -181,7 +181,8 @@ def init_from_labels(
     labels: np.ndarray,
     n_states: int,
     var_floor: float = 1e-3,
-    device: torch.device = torch.device("cpu"),
+    *,
+    device: torch.device,
 ) -> GmmSet:
     """Single-component-per-state init from labeled frames (flat start), on
     ``device``. States with no frames fall back to the global mean/var."""

@@ -1,0 +1,131 @@
+"""Parameters of the neural frame classifiers (``am.neural``): a flax
+checkpoint of the reference converted to the port's ``state_dict``
+(``from_flax``), and seeded initialisation with flax's initializers
+(``init_``).
+
+flax layouts: a ``Dense`` kernel is [in, out] (torch ``Linear``: [out, in]),
+a ``Conv`` kernel [k, in, out] (torch ``Conv1d``: [out, in, k]); an
+``OptimizedLSTMCell`` keeps input kernels ``ii/if/ig/io`` [in, H] without
+bias and recurrent kernels ``hi/hf/hg/ho`` [H, H] with bias, which the port
+concatenates in that gate order into ``w_in``, ``w_rec`` and ``bias``. A
+BlstmAm's cells are numbered in construction order: cell 2l is layer l's
+forward LSTM, cell 2l + 1 its backward one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from mogasr_torch.am.neural import BlstmAm, LstmAm, LstmLayer, MlpAm, MoeAm, MoeBlock, TdnnAm
+
+_IN_GATES = ("ii", "if", "ig", "io")
+_REC_GATES = ("hi", "hf", "hg", "ho")
+# flax's truncated normal is cut at 2 standard deviations; this rescales its
+# std to the untruncated one (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _dense(prefix: str, leaf: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(leaf["kernel"]).T.contiguous(), f"{prefix}.bias": _t(leaf["bias"])}
+
+
+def _norm(prefix: str, leaf: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(leaf["scale"]), f"{prefix}.bias": _t(leaf["bias"])}
+
+
+def _lstm(prefix: str, cell: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {
+        f"{prefix}.w_in": torch.cat([_t(cell[g]["kernel"]) for g in _IN_GATES], dim=1),
+        f"{prefix}.w_rec": torch.cat([_t(cell[g]["kernel"]) for g in _REC_GATES], dim=1),
+        f"{prefix}.bias": torch.cat([_t(cell[g]["bias"]) for g in _REC_GATES]),
+    }
+
+
+def from_flax(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``model`` from the reference's flax parameters
+    (``model.init(...)`` of the same family and sizes, the ``{"params": ...}``
+    tree or its inside), as float32 CPU tensors; ``model.load_state_dict``
+    takes it and copies to the model's device."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    if isinstance(model, MlpAm):
+        for i in range(model.layers):
+            sd.update(_dense(f"dense.{i}", p[f"Dense_{i}"]))
+            sd.update(_norm(f"norms.{i}", p[f"LayerNorm_{i}"]))
+        sd.update(_dense("head", p[f"Dense_{model.layers}"]))
+    elif isinstance(model, LstmAm):
+        for i in range(model.layers):
+            sd.update(_lstm(f"cells.{i}", p[f"OptimizedLSTMCell_{i}"]))
+        sd.update(_dense("head", p["Dense_0"]))
+    elif isinstance(model, BlstmAm):
+        for i in range(model.layers):
+            sd.update(_lstm(f"fwd.{i}", p[f"OptimizedLSTMCell_{2 * i}"]))
+            sd.update(_lstm(f"bwd.{i}", p[f"OptimizedLSTMCell_{2 * i + 1}"]))
+        sd.update(_dense("head", p["Dense_0"]))
+    elif isinstance(model, TdnnAm):
+        for i in range(model.layers):
+            conv = p[f"Conv_{i}"]
+            sd[f"convs.{i}.weight"] = _t(conv["kernel"]).permute(2, 1, 0).contiguous()
+            sd[f"convs.{i}.bias"] = _t(conv["bias"])
+            sd.update(_norm(f"norms.{i}", p[f"LayerNorm_{i}"]))
+        sd.update(_dense("head", p["Dense_0"]))
+    elif isinstance(model, MoeAm):
+        sd.update(_dense("in_proj", p["in_proj"]))
+        for i in range(model.layers):
+            sd.update(_norm(f"blocks.{i}.ln", p[f"ln_{i}"]))
+            for name in ("Wr", "W1", "b1", "W2", "b2"):
+                sd[f"blocks.{i}.{name}"] = _t(p[f"{name}_{i}"])
+        sd.update(_norm("ln_out", p["ln_out"]))
+        sd.update(_dense("head", p["head"]))
+    else:
+        raise TypeError(f"from_flax: unsupported model {type(model).__name__}")
+    return sd
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw ``model``'s weights in place from ``generator`` with flax's
+    initializers and return it: ``lecun_normal`` (truncated normal over the
+    fan-in) for Dense and Conv kernels and the LSTM input kernels, an
+    orthogonal matrix per gate for the recurrent kernels, zero biases,
+    LayerNorm scale 1 and bias 0; MoeAm's router and expert kernels normal
+    with std 1/sqrt(fan-in), as MoeAm declares them."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            _lecun_normal_(m.weight, m.in_features, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv1d):
+            _lecun_normal_(m.weight, m.in_channels * m.kernel_size[0], generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, LstmLayer):
+            H = m.w_rec.shape[0]
+            _lecun_normal_(m.w_in, m.w_in.shape[0], generator)
+            for g in range(4):
+                m.w_rec[:, g * H:(g + 1) * H] = nn.init.orthogonal_(torch.empty_like(m.w_rec[:, :H]),
+                                                                    generator=generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, MoeBlock):
+            hidden, ffn = m.W1.shape[1], m.W1.shape[2]
+            nn.init.normal_(m.Wr, std=1.0 / math.sqrt(hidden), generator=generator)
+            nn.init.normal_(m.W1, std=1.0 / math.sqrt(hidden), generator=generator)
+            nn.init.normal_(m.W2, std=1.0 / math.sqrt(ffn), generator=generator)
+            nn.init.zeros_(m.b1)
+            nn.init.zeros_(m.b2)
+    return model

@@ -3,7 +3,9 @@ mogasr/pipeline.py.
 
 Decoding: featurize -> score_batch -> Viterbi -> path_to_tokens -> WER, on
 padded length-bucketed batches (``data.batching``). ``decode_corpus`` runs
-the whole path over a corpus, as ``bench.py`` does for the reference.
+the whole path over a corpus, as ``bench.py`` does for the reference. The
+hybrid NN-HMM path scores with a neural frame classifier instead
+(``make_nn_scorer``: prior-scaled log-posteriors) and decodes the same way.
 
 Training: ``train_gmm`` runs EM over featurized batches, each utterance
 against its align graph: Viterbi EM (forced alignment, hard statistics) or
@@ -12,11 +14,12 @@ mixture-splitting schedule and optional transition re-estimation;
 ``flat_start`` gives the first model, ``evaluate`` the held-out WER.
 
 Device dispatch is by the tensor: on a CUDA device the scorer, the Viterbi
-decoder and forward-backward are the hand-written kernels (``am.gmm_cuda``,
-``decoder.viterbi_cuda``, ``decoder.fb_cuda``); on the CPU they are the
-plain versions. ``decode_corpus``, ``align_batch`` and ``batch_stats`` take
-``use_kernels=False`` to run the plain versions on any device, which is how
-the kernel path is checked against them on the card.
+decoder, forward-backward and the LSTM recurrence are the hand-written
+kernels (``am.gmm_cuda``, ``decoder.viterbi_cuda``, ``decoder.fb_cuda``,
+``am.lstm_cuda``); on the CPU they are the plain versions.
+``decode_corpus``, ``make_nn_scorer``, ``align_batch`` and ``batch_stats``
+take ``use_kernels=False`` to run the plain versions on any device, which is
+how the kernel path is checked against them on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +37,8 @@ import torch
 from mogasr_torch.am import em
 from mogasr_torch.am.gmm import GmmSet, gmm_loglik
 from mogasr_torch.am.gmm_cuda import KernelParams, gmm_loglik_batched, kernel_params
+from mogasr_torch.am.neural import posteriors_to_loglik
+from mogasr_torch.am.quantize import make_quantized_logits
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, GmmConfig, TrainConfig
 from mogasr_torch.data.batching import Batch, make_batches
 from mogasr_torch.decoder import fb_cuda
@@ -49,6 +54,7 @@ from mogasr_torch.hmm.topology import Topology
 Utterance = Tuple[str, np.ndarray, List[str]]  # (id, wave, words)
 Frontend = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 DecodeGraphs = Tuple[Dict[str, np.ndarray], Dict[str, torch.Tensor]]  # batch_graphs, on the device
+Scorer = Callable[["FeatBatch"], torch.Tensor]  # FeatBatch -> [B, T, P] float32 log-likelihoods
 DROP_TOKENS = ("<sil>", "sil")
 STAGES = ("host", "frontend", "scoring", "viterbi", "tokens")
 # One EM iteration: graphs, batching and copies; K1; K2 (Viterbi EM) or
@@ -164,6 +170,32 @@ def decode_graphs(graph: gr.Graph, batch_size: int, device: torch.device) -> Dec
     return graphs_np, vit.graphs_to_torch(graphs_np, device)
 
 
+def make_nn_scorer(
+    model: torch.nn.Module,
+    log_priors,
+    precision: str = "float32",
+    use_kernels: bool = True,
+) -> Scorer:
+    """Hybrid NN-HMM scorer: ``scorer(fb) -> [B, T, n_pdfs]`` prior-scaled
+    log-posteriors, log p(s|x) - log p(s), of a frame classifier
+    (``am.neural``) on ``fb.feats``.
+
+    precision "float32", "bfloat16" (any family) or "int8" (MlpAm, LstmAm)
+    (``am.quantize``); the log-softmax and prior scaling stay float32.
+    ``log_priors`` [n_pdfs] goes to the model's device. LstmAm and BlstmAm
+    run K4 on the card; ``use_kernels=False`` runs their plain recurrence.
+    """
+    logits_fn = make_quantized_logits(model, precision, use_kernels)
+    dev = next(model.parameters()).device
+    lp = torch.as_tensor(np.asarray(log_priors, np.float32), device=dev)
+
+    def scorer(fb: FeatBatch) -> torch.Tensor:
+        with torch.no_grad():
+            return posteriors_to_loglik(logits_fn(fb.feats, fb.n_frames), lp)
+
+    return scorer
+
+
 def decode_batch(
     fb: FeatBatch,
     scores: torch.Tensor,
@@ -203,7 +235,7 @@ class CorpusResult:
 
 def decode_corpus(
     utts: Sequence[Utterance],
-    gmm: GmmSet,
+    gmm: Union[GmmSet, Scorer],
     graph: gr.Graph,
     fcfg: FrontendConfig,
     dcfg: DecodeConfig,
@@ -222,20 +254,28 @@ def decode_corpus(
     "host" is batching, building the front ends, graphs and kernel
     parameters, and copies to the device; "tokens" is ``path_to_tokens``,
     reading the scores back, and the WER.
+
+    ``gmm`` may be a scorer (``make_nn_scorer``) instead: the hybrid path,
+    whose "scoring" stage is the network; ``compute_dtype`` is then unused
+    (the scorer has its precision) and ``use_kernels`` picks the Viterbi.
     """
+    scorer = gmm if callable(gmm) else None
     clock = StageClock(device)
     start = time.perf_counter()
     with clock("host"):
         batches = list(make_batches(utts, bcfg, fcfg))
         frontends = frontends_for(batches, fcfg, device)
         graphs = decode_graphs(graph, bcfg.batch_size, device)
-        params = kernel_params(gmm, compute_dtype) if use_kernels else None
+        params = kernel_params(gmm, compute_dtype) if use_kernels and scorer is None else None
 
     refs, hyps, scores = [], [], []
     for batch in batches:
         fb = featurize_batch(batch, frontends[batch.waves.shape[1]], device, clock)
         with clock("scoring"):
-            ll = score_batch(fb.feats, gmm, use_kernels, compute_dtype, mode="max", params=params)
+            if scorer is not None:
+                ll = scorer(fb)
+            else:
+                ll = score_batch(fb.feats, gmm, use_kernels, compute_dtype, mode="max", params=params)
         toks, batch_scores = decode_batch(fb, ll, graph, dcfg, use_kernels, graphs=graphs, clock=clock)
         with clock("tokens"):
             refs += [[w.lower() for w in words] for words in batch.words[: fb.size]]

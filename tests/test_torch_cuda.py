@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from mogasr_torch import pipeline as pipe
-from mogasr_torch.am import gmm_cuda
+from mogasr_torch.am import fast_lstm, gmm_cuda, lstm_cuda
+from mogasr_torch.am import neural as tn
+from mogasr_torch.am.params import init_
 from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik
-from mogasr_torch.config import TopologyConfig
+from mogasr_torch.config import TopologyConfig, TrainConfig
 from mogasr_torch.decoder import fb_cuda
 from mogasr_torch.decoder import forward_backward as fbd
 from mogasr_torch.decoder import viterbi as vit
@@ -235,3 +237,75 @@ def test_fb_kernels_on_align_graphs(dev):
     post = fbd.state_posteriors_to_pdf(got.log_gamma, graphs["emit_id"], topo.n_pdfs)
     post_want = fbd.state_posteriors_to_pdf(want.log_gamma, graphs["emit_id"], topo.n_pdfs)
     torch.testing.assert_close(post, post_want, rtol=0, atol=1e-4)
+
+
+# K4 vs the plain recurrence: float32 sums in another order (readings on the
+# H100 below 1e-6); in bf16 mode h is rounded to bf16 every frame from values
+# that differ in the last float32 bits, so an occasional rounding flips and
+# the flips compound over frames (readings up to 7e-4 at T = 600).
+K4_ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _lstm_inputs(rng, B, T, H, dev):
+    xg = torch.as_tensor(rng.standard_normal((B, T, 4 * H)).astype(np.float32), device=dev)
+    w = torch.as_tensor((rng.standard_normal((H, 4 * H)) / np.sqrt(H)).astype(np.float32), device=dev)
+    nf = torch.as_tensor(np.r_[T, 1, 0, rng.integers(1, T + 1, B - 3)][:B].astype(np.int32), device=dev)
+    return xg, w, nf
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H", [(3, 17, 11), (16, 50, 200), (5, 9, 512)])
+def test_lstm_kernel_matches_plain(dev, compute_dtype, B, T, H):
+    xg, w, nf = _lstm_inputs(np.random.default_rng(B + T + H), B, T, H, dev)
+    before = lstm_cuda.LAUNCHES
+    got = lstm_cuda.lstm_layer(xg, w, nf, compute_dtype)
+    want = fast_lstm.lstm_layer(xg, w, nf, compute_dtype)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == before + 1
+    assert got.shape == (B, T, H) and got.dtype == torch.float32
+    assert float(got[2].abs().max()) == 0.0  # n_frames = 0
+    torch.testing.assert_close(got, want, rtol=0, atol=K4_ATOL[compute_dtype])
+
+
+def test_lstm_kernel_wide_batch_runs_in_row_blocks(dev):
+    """More rows than one launch takes: several cooperative launches from
+    the one entry point, the same result."""
+    xg, w, nf = _lstm_inputs(np.random.default_rng(7), 150, 20, 200, dev)
+    before = lstm_cuda.LAUNCHES
+    got = lstm_cuda.lstm_layer(xg, w, nf)
+    want = fast_lstm.lstm_layer(xg, w, nf)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES >= before + 3
+    torch.testing.assert_close(got, want, rtol=0, atol=K4_ATOL["float32"])
+
+
+def test_lstm_kernel_checks_inputs(dev):
+    xg, w, nf = _lstm_inputs(np.random.default_rng(8), 4, 6, 8, dev)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_layer(xg[..., :-1], w, nf)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_layer(xg, w[:, :-4], nf)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_layer(xg, w.cpu(), nf)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_layer(xg.double(), w, nf)
+    before = lstm_cuda.LAUNCHES
+    out = lstm_cuda.lstm_layer(xg[:, :0], w, nf)  # no frames: no launch
+    assert out.shape == (4, 0, 8) and lstm_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("arch", ["lstm", "blstm"])
+def test_recurrent_models_kernel_route_matches_plain(dev, arch):
+    model = init_(tn.build_model(arch, 7, TrainConfig(nn_hidden=24, nn_layers=3), 5),
+                  torch.Generator().manual_seed(3)).to(dev)
+    rng = np.random.default_rng(9)
+    feats = torch.as_tensor(rng.standard_normal((4, 30, 5)).astype(np.float32), device=dev)
+    nf = torch.tensor([30, 17, 1, 0], dtype=torch.int32, device=dev)
+    before = lstm_cuda.LAUNCHES
+    with torch.no_grad():
+        got = model(feats, nf)
+        want = model(feats, nf, use_kernels=False)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == before + (2 if arch == "lstm" else 4)
+    valid = tn.valid_mask(nf, 30, dev)
+    torch.testing.assert_close(got[valid], want[valid], rtol=0, atol=1e-5)

@@ -79,13 +79,28 @@ def test_accumulate_stats_soft_matches_jax(state_chunk):
 
 
 def test_zero_and_add_stats():
-    z = em.zero_stats(S, K, D)
+    z = em.zero_stats(S, K, D, device=torch.device("cpu"))
     assert z.occ.shape == (S, K) and z.sx.shape == (S, K, D) and float(z.loglik) == 0.0
     occ, sx, sxx = (torch.as_tensor(a) for a in _stats())
     s = em.GmmStats(occ, sx, sxx, torch.tensor(-5.0), torch.tensor(10.0))
     total = em.add_stats(em.add_stats(z, s), s)
     torch.testing.assert_close(total.sx, 2 * sx)
     assert float(total.n_frames) == 20.0 and float(total.loglik) == -10.0
+
+
+def test_em_entry_points_take_their_device_from_the_caller():
+    """zero_stats and init_from_labels have no default device: the caller
+    names it (the port runs on the card unless asked for the CPU)."""
+    meta = torch.device("meta")
+    z = em.zero_stats(S, K, D, device=meta)
+    assert all(t.device == meta for t in z)
+    x = np.random.default_rng(8).standard_normal((N, D)).astype(np.float32)
+    g = em.init_from_labels(x, np.arange(N) % S, S, device=meta)
+    assert all(t.device == meta for t in g)
+    with pytest.raises(TypeError):
+        em.zero_stats(S, K, D)
+    with pytest.raises(TypeError):
+        em.init_from_labels(x, np.arange(N) % S, S)
 
 
 @pytest.mark.parametrize("zero_slots", [False, True])
@@ -124,7 +139,7 @@ def test_init_from_labels_matches_jax():
     labels[10] = 5
     labels[labels == 5] = 4
     labels[10] = 5            # a state with one frame
-    ours = em.init_from_labels(x, labels, S, var_floor=0.05)
+    ours = em.init_from_labels(x, labels, S, var_floor=0.05, device=torch.device("cpu"))
     theirs = jem.init_from_labels(x, labels, S, var_floor=0.05)
     _close(ours, theirs, rtol=0, atol=0)
 

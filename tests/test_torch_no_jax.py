@@ -21,7 +21,9 @@ def _port_modules():
 def test_port_imports_without_jax():
     modules = _port_modules()
     for name in ("mogasr_torch.pipeline", "mogasr_torch.am.gmm_cuda", "mogasr_torch.am.em",
-                 "mogasr_torch.decoder.fb_cuda", "mogasr_torch.hmm.triphone", "mogasr_torch.eval.wer"):
+                 "mogasr_torch.decoder.fb_cuda", "mogasr_torch.hmm.triphone", "mogasr_torch.eval.wer",
+                 "mogasr_torch.am.neural", "mogasr_torch.am.params", "mogasr_torch.am.fast_lstm",
+                 "mogasr_torch.am.lstm_cuda", "mogasr_torch.am.quantize"):
         assert name in modules
     code = "\n".join([
         "import sys",
