@@ -53,7 +53,22 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    a profiled pass (the card's busy share), the plain float32 path on the
    card and its transcript agreement, the bfloat16 and int8 scorers (logits
    against float32, transcript agreement), and one batch each of MlpAm,
-   TdnnAm, MoeAm and BlstmAm through the scorer and K2.
+   TdnnAm, MoeAm and BlstmAm through the scorer and K2;
+11. K1w (csrc/gmm_wide.cu, the wide layout) against K1, bitwise in max mode,
+   and against the plain scorer, float32 and bfloat16, sum and max: on the
+   decode path's batch (256 x 600 frames, the headline GMM; bf16/max timed)
+   and at bench.py's kernel-sweep scale (1000 states x 256 components x 39
+   dims, N = 8192, seed 7), where K1 and K1w are timed side by side;
+12. K5 (csrc/gmm_int8.cu) against the plain int8 scorer on the same inputs,
+   its quantized operands made on the card compared bitwise with the CPU's;
+   timed on the decode path's batch;
+13. K2 with a beam against the plain Viterbi, bitwise, on the decode path's
+   batch, timed beside K2 without a beam and without a backtrace;
+14. two decodes of the 768 held-out utterances, each with its launch counts
+   set to 0 before it and read after: through K1w (bf16/max; transcripts
+   identical to phase 5's K1 run) and through K5 (int8/sum; WER limit, and
+   agreement with the plain float32 sum-mode path on the card);
+15. the PLP front end on the card against the NumPy oracle, 4 utterances.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -143,13 +158,22 @@ K4_GATE_OPS = 15
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): bytes over HBM,
 # operations at the rate of their type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # Float operations per graph state and frame (a transcendental counts as
 # one): K2 emission scale and add, stay/advance/enter adds, three maxes, the
 # exit add; K3f the exit add and its share of the lse (max, sub, exp, add),
 # stay/advance/enter adds, two logaddexps (max, sub, abs, neg, exp, log1p,
 # add each), emission scale and add; K3b the same plus the log_gamma sums.
 K2_OPS, K3F_OPS, K3B_OPS = 9, 22, 24
+# K5's float epilogue per (frame, component, state): int-to-float, two
+# dequantizing products and the bias add, then the online logsumexp's
+# compare, subtract, exp and add. It runs on the CUDA cores beside the int8
+# products, so its time at the float32 rate and the products' time at the
+# int8 rate overlap: the bound takes the larger of the two.
+K5_EPILOGUE_OPS = 8
+# bench.py's kernel sweep (its BASELINE configs[1] scoring scale), seed 7
+SWEEP_S, SWEEP_K, SWEEP_N, SWEEP_SEED = 1000, 256, 8192, 7
+K2_BEAM = 60.0  # in acoustic-scale-multiplied log units (headline scale 1.0)
 
 
 def phase(n: int, msg: str) -> None:
@@ -461,6 +485,217 @@ def hybrid_phases(dev: torch.device) -> dict:
                          "bound_ms": k4_bound["bfloat16"][0], "bound_by": k4_bound["bfloat16"][1]}}
 
 
+def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps) -> list:
+    """Phases 11-15: K1w, K5, K2's beam, the decode path through K1w and
+    through K5, the PLP front end; returns the kernels line's K1w and K5
+    entries."""
+    import dataclasses
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import gmm_cuda
+    from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik, natural_params, quadratic_features, quantize_int8
+    from mogasr_torch.data.batching import make_batches
+    from mogasr_torch.decoder import viterbi as vit
+    from mogasr_torch.decoder import viterbi_cuda
+    from mogasr_torch.frontend.numpy_ref import extract_features_np
+    from mogasr_torch.frontend.torch_frontend import make_frontend
+
+    S, K, D = gmm.means.shape
+    batch = max(make_batches(corpus, bcfg, fcfg), key=lambda b: b.waves.shape[1])
+    fb = pipe.featurize_batch(batch, make_frontend(fcfg, batch.waves.shape[1], dev), dev)
+    B, T, _ = fb.feats.shape
+    x_main = fb.feats.reshape(B * T, D)
+    N = B * T
+    rng = np.random.default_rng(SWEEP_SEED)
+    gmm_big = gmm_from_numpy(rng.dirichlet(np.ones(SWEEP_K), size=SWEEP_S).astype(np.float32),
+                             rng.standard_normal((SWEEP_S, SWEEP_K, D)).astype(np.float32),
+                             (0.5 + rng.random((SWEEP_S, SWEEP_K, D))).astype(np.float32), dev)
+    x_big = torch.as_tensor(rng.standard_normal((SWEEP_N, D)).astype(np.float32), device=dev)
+    main_name = f"decode-path batch N={N}"
+    big_name = f"{SWEEP_S} x {SWEEP_K} x {D} N={SWEEP_N}"
+    inputs = {main_name: (x_main, gmm), big_name: (x_big, gmm_big)}
+
+    def gmm_bytes(g, n, op_bytes):
+        s_, k_, d_ = g.means.shape
+        return n * d_ * 4 + k_ * 2 * d_ * s_ * op_bytes + k_ * s_ * 4 + n * s_ * 4
+
+    # ---- phase 11: K1w against K1 (bitwise, max mode) and the plain scorer
+    k1w_err, k1w_ms, line = {}, {}, []
+    for name, (x, g) in inputs.items():
+        for dt in ("float32", "bfloat16"):
+            k1p = gmm_cuda.kernel_params(g, dt)
+            for mode in ("sum", "max"):
+                wp = gmm_cuda.kernel_params(g, dt, "wide", mode=mode)
+
+                def wide():
+                    return gmm_cuda.gmm_loglik_fused(x, g, dt, mode, params=wp, layout="wide")
+
+                def k1():
+                    return gmm_cuda.gmm_loglik_fused(x, g, dt, mode, params=k1p)
+
+                timed_here = (x is x_big) or (dt, mode) == ("bfloat16", "max")
+                if timed_here:
+                    w_ms, got = timed(wide, 5)
+                    c_ms, ref = timed(k1, 5)
+                    p_ms, want = timed(lambda: gmm_loglik(x, g, mode=mode, compute_dtype=dt), 2)
+                    k1w_ms[(name, dt, mode)] = (w_ms, c_ms, p_ms)
+                else:
+                    got, ref, want = wide(), k1(), gmm_loglik(x, g, mode=mode, compute_dtype=dt)
+                torch.cuda.synchronize()
+                if got.shape != (x.shape[0], g.n_states) or not bool(torch.isfinite(got).all()):
+                    raise RuntimeError(f"K1w {dt}/{mode} on {name}: bad output {tuple(got.shape)}")
+                if mode == "max" and not torch.equal(got, ref):
+                    raise RuntimeError(f"K1w {dt}/max on {name} is not bitwise equal to K1: max |diff| "
+                                       f"{float((got - ref).abs().max())}")
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL):
+                    raise RuntimeError(f"K1w {dt}/{mode} on {name} disagrees with the plain scorer: max |err| {err}")
+                k1w_err[(name, dt, mode)] = err
+                line.append(f"{name} {dt}/{mode} kc={wp.kc} {err:.3g}")
+                del got, ref, want
+    k1w_main = (main_name, "bfloat16", "max")
+    k1w_bound = bound(gmm_bytes(gmm, N, 2), 2 * N * S * K * 2 * D, "bfloat16")
+    phase(11, "K1w bitwise equal to K1 in max mode and within atol %g rtol %g of plain, max |err|: %s; "
+          "decode-path batch bf16/max: K1w %.3f ms, K1 %.3f ms, plain %.3f ms (bound %.3f ms by %s); at %s, "
+          "K1w vs K1 ms: %s" % (
+              K1_ATOL, K1_RTOL, ", ".join(line), *k1w_ms[k1w_main], *k1w_bound, big_name,
+              "; ".join(f"{d}/{m} {k1w_ms[(big_name, d, m)][0]:.3f} vs {k1w_ms[(big_name, d, m)][1]:.3f} "
+                        f"(plain {k1w_ms[(big_name, d, m)][2]:.3f})"
+                        for d in ("float32", "bfloat16") for m in ("sum", "max"))))
+
+    # ---- phase 12: K5 against the plain int8 scorer
+    k5_err, line = {}, []
+    for name, (x, g) in inputs.items():
+        ip = gmm_cuda.kernel_params(g, "int8")
+        x2 = quadratic_features(x)
+        # the quantization of the same float32 operands, on the card and on the CPU
+        ab_t = natural_params(g).ab.reshape(2 * D, g.n_states, g.n_components).permute(2, 0, 1)
+        for what, a, b in (("qx, sx", quantize_int8(x2, 1), quantize_int8(x2.cpu(), 1)),
+                           ("qab, sab", ip[:2], quantize_int8(ab_t.cpu(), 1))):
+            for u, v in zip(a, b):
+                if u.dtype != v.dtype or not torch.equal(u.cpu(), v):
+                    raise RuntimeError(f"K5 on {name}: {what} made on the card differ from the CPU's")
+
+        def k5():
+            return gmm_cuda.gmm_loglik_fused(x, g, "int8", "sum", params=ip)
+
+        if x is x_main:
+            k5_ms, got = timed(k5, 5)
+            k5_plain_ms, want = timed(lambda: gmm_loglik(x, g, compute_dtype="int8"), 2)
+        else:
+            got, want = k5(), gmm_loglik(x, g, compute_dtype="int8")
+        torch.cuda.synchronize()
+        if got.shape != (x.shape[0], g.n_states) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"K5 on {name}: bad output {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL):
+            raise RuntimeError(f"K5 on {name} disagrees with the plain int8 scorer: max |err| {err}")
+        k5_err[name] = err
+        f32_gap = float((got - gmm_loglik(x, g)).abs().max())
+        line.append(f"{name} {err:.3g} (int8 vs float32 sum: max |diff| {f32_gap:.3g})")
+        del got, want
+    k5_products = 2 * N * S * K * 2 * D
+    k5_bytes = N * 2 * D + N * 4 + K * 2 * D * S + 2 * K * S * 4 + N * S * 4
+    t_int8 = k5_products / PEAK_OPS_PER_S["int8"] * 1e3
+    t_epi = K5_EPILOGUE_OPS * N * S * K / PEAK_OPS_PER_S["float32"] * 1e3
+    t_bytes = k5_bytes / HBM_BYTES_PER_S * 1e3
+    k5_bound = (max(t_int8, t_epi, t_bytes), "bytes" if t_bytes >= max(t_int8, t_epi) else "operations")
+    phase(12, "K5 quantized operands bitwise equal to the CPU's; within atol %g rtol %g of plain int8, max "
+          "|err|: %s; decode-path batch: K5 %.3f ms, plain %.3f ms; bound %.3f ms by %s (int8 products %.3f "
+          "ms, float epilogue %.3f ms, bytes %.3f ms)" % (
+              K1_ATOL, K1_RTOL, "; ".join(line), k5_ms, k5_plain_ms, *k5_bound, t_int8, t_epi, t_bytes))
+    del x_big, gmm_big, inputs
+
+    # ---- phase 13: K2 with a beam against the plain Viterbi, bitwise
+    ll = gmm_cuda.gmm_loglik_fused(x_main, gmm, "bfloat16", "max").reshape(B, T, S)
+    _, graphs = pipe.decode_graphs(graph, B, dev)
+    scale = dcfg.acoustic_scale
+    beam_ms, got = timed(lambda: viterbi_cuda.viterbi(ll, graphs, fb.n_frames, scale, beam=K2_BEAM), 5)
+    plain_beam_ms, want = timed(lambda: vit.viterbi(ll, graphs, fb.n_frames, scale, beam=K2_BEAM), 2)
+    exact_ms, exact = timed(lambda: viterbi_cuda.viterbi(ll, graphs, fb.n_frames, scale), 5)
+    score_ms, score_only = timed(
+        lambda: viterbi_cuda.viterbi(ll, graphs, fb.n_frames, scale, with_backtrace=False), 5)
+    torch.cuda.synchronize()
+    for field in ("path", "entered", "score"):
+        a, b = getattr(got, field), getattr(want, field)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"K2 with beam {K2_BEAM}: {field} differs from the plain Viterbi")
+    if not torch.equal(score_only.score, exact.score) or bool(score_only.path.any()):
+        raise RuntimeError("K2 without a backtrace: its score differs from the full decode's, or its path is not 0")
+    pruned = int((got.path != exact.path).any(dim=1).sum())
+    phase(13, f"K2 with beam {K2_BEAM:g} bitwise equal to plain on the decode-path batch B={B} T={T} "
+          f"J={graph.n_states}: {beam_ms:.3f} ms (plain {plain_beam_ms:.3f} ms); without a beam {exact_ms:.3f} "
+          f"ms, without a backtrace {score_ms:.3f} ms (score equal); the beam changed the path of {pruned} of "
+          f"{B} rows")
+    del ll, got, want, exact, score_only, fb, x_main
+
+    # ---- phase 14: the decode path through K1w (bf16/max) and K5 (int8/sum)
+    def decode(**kw):
+        return pipe.decode_corpus(corpus, gmm, graph, fcfg, dcfg, bcfg, dev, **kw)
+
+    arms = {"K1w bfloat16/max": dict(compute_dtype="bfloat16", layout="wide"),
+            "K5 int8/sum": dict(compute_dtype="int8", mode="sum")}
+    plain_sum = decode(compute_dtype="float32", mode="sum", use_kernels=False)
+    arm_launches, line = {}, []
+    for name, kw in arms.items():
+        decode(**kw)
+        gmm_cuda.LAUNCHES = gmm_cuda.WIDE_LAUNCHES = gmm_cuda.INT8_LAUNCHES = viterbi_cuda.LAUNCHES = 0
+        torch.cuda.synchronize()
+        run = decode(**kw)
+        launches = {"gmm_score": gmm_cuda.LAUNCHES, "gmm_score_wide": gmm_cuda.WIDE_LAUNCHES,
+                    "gmm_score_int8": gmm_cuda.INT8_LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES}
+        arm_launches[name] = launches
+        own = "gmm_score_wide" if "K1w" in name else "gmm_score_int8"
+        if launches[own] == 0 or launches["viterbi"] == 0 or launches["gmm_score"] != 0:
+            raise RuntimeError(f"the {name} decode did not go through its kernels alone: {launches}")
+        if run.n_utts != len(corpus) or not np.isfinite(run.scores).all():
+            raise RuntimeError(f"{name} decode: {run.n_utts} of {len(corpus)} utterances, finite scores "
+                               f"{bool(np.isfinite(run.scores).all())}")
+        if run.wer > MAX_WER:
+            raise RuntimeError(f"{name} decode WER {run.wer:.4f} > {MAX_WER}")
+        same_k1 = sum(a == b for a, b in zip(run.hyps, k1_hyps)) / len(k1_hyps)
+        same_plain = sum(a == b for a, b in zip(run.hyps, plain_sum.hyps)) / len(k1_hyps)
+        if "K1w" in name and same_k1 != 1.0:
+            raise RuntimeError(f"the K1w decode's transcripts differ from the K1 decode's on {1 - same_k1:.4f}")
+        if same_plain < MIN_AGREEMENT:
+            raise RuntimeError(f"the {name} decode agrees with the plain f32/sum path on {same_plain:.4f}")
+        stages = ", ".join(f"{k} {1e3 * v:.1f}" for k, v in run.stage_seconds.items())
+        line.append(f"{name}: WER {run.wer:.4f}, {run.n_utts / run.seconds:.1f} utt/s, RTF "
+                    f"{run.seconds / run.audio_seconds:.6f} ({run.seconds:.3f} s); stage ms: {stages}; launches "
+                    f"{launches}; transcripts identical to the K1 run on {same_k1:.4f}, to the plain f32/sum "
+                    f"path on {same_plain:.4f}")
+    phase(14, f"decode path through the scorer's arms, {len(corpus)} utterances (plain f32/sum path WER "
+          f"{plain_sum.wer:.4f}): " + "; ".join(line))
+
+    # ---- phase 15: the PLP front end on the card against the NumPy oracle
+    pcfg = dataclasses.replace(fcfg, feature_type="plp")
+    plp_err = 0.0
+    for utt_id, wave, _words in corpus[:4]:
+        feats, nf = make_frontend(pcfg, len(wave), dev)(torch.as_tensor(wave)[None], torch.as_tensor([len(wave)]))
+        got = feats[0, : int(nf[0])].cpu().numpy()
+        want = extract_features_np(wave, pcfg)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"PLP front end {utt_id}: shape {got.shape} vs oracle {want.shape}")
+        plp_err = max(plp_err, float(np.abs(got - want).max()))
+    if plp_err > FRONTEND_ATOL:
+        raise RuntimeError(f"PLP front end disagrees with the NumPy oracle: max |err| {plp_err}")
+    phase(15, f"PLP front end matches numpy_ref on 4 utterances: max |err| {plp_err:.3g} (atol {FRONTEND_ATOL})")
+
+    return [
+        {"name": "gmm_score_wide", "route": "cuda", "source": "mogasr_torch/csrc/gmm_wide.cu",
+         "replaces": "mogasr/am/gmm_pallas.py:107", "launches": arm_launches["K1w bfloat16/max"]["gmm_score_wide"],
+         "launches_by_path": {"decode_wide": arm_launches["K1w bfloat16/max"]["gmm_score_wide"]},
+         "max_abs_err": k1w_err[k1w_main], "ms": k1w_ms[k1w_main][0], "plain_ms": k1w_ms[k1w_main][2],
+         "bound_ms": k1w_bound[0], "bound_by": k1w_bound[1], "library_ms": None,
+         "k1_ms_same_inputs": k1w_ms[k1w_main][1]},
+        {"name": "gmm_score_int8", "route": "cuda", "source": "mogasr_torch/csrc/gmm_int8.cu",
+         "replaces": "mogasr/am/gmm_pallas.py:48", "launches": arm_launches["K5 int8/sum"]["gmm_score_int8"],
+         "launches_by_path": {"decode_int8": arm_launches["K5 int8/sum"]["gmm_score_int8"]},
+         "max_abs_err": k5_err[main_name], "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None},
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -630,6 +865,7 @@ def main() -> None:
         raise RuntimeError(f"kernel path agrees with the plain f32 path on {same:.4f} of utterances")
     phase(6, f"plain f32 path: WER {plain.wer:.4f}; transcripts identical to the kernel path "
           f"on {same:.4f} of {len(run.hyps)} utterances")
+    k1_hyps = run.hyps
     del fb, plain
 
     # ---- phase 7: K3f/K3b against the plain forward-backward
@@ -782,6 +1018,7 @@ def main() -> None:
           + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof_top))
 
     k4_entry = hybrid_phases(dev)
+    arm_entries = scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -812,6 +1049,7 @@ def main() -> None:
          "max_abs_err": fb_post_err, "ms": fb_kernel_ms["fb_backward_kernel"], "plain_ms": fb_plain_bwd_ms,
          "bound_ms": k3b_bound[0], "bound_by": k3b_bound[1], "library_ms": None},
         k4_entry,
+        *arm_entries,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

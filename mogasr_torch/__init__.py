@@ -15,9 +15,9 @@ Exports are lazy so that ``import mogasr_torch`` stays light:
 
     mogasr_torch.load_system(path, device)      -> (GmmSet, topo, fcfg, tied, meta)
     mogasr_torch.make_frontend(cfg, max_samples, device)
-    mogasr_torch.gmm_loglik_batched(feats, gmm, compute_dtype, mode)
-    mogasr_torch.viterbi(emit_ll, graphs, n_frames, acoustic_scale)
-    mogasr_torch.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, device)
+    mogasr_torch.gmm_loglik_batched(feats, gmm, compute_dtype, mode, layout=...)
+    mogasr_torch.viterbi(emit_ll, graphs, n_frames, acoustic_scale, beam, with_backtrace)
+    mogasr_torch.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, device, compute_dtype, mode=..., layout=...)
     mogasr_torch.forward_backward(emit_ll, graphs, n_frames, acoustic_scale)
     mogasr_torch.train_gmm(batches, lexicon, topo, gcfg, tcfg, gmm=..., mode=...)
 """

@@ -7,8 +7,13 @@ Scoring in GEMM form, as in the reference:
 with a = -0.5/var, b = mean/var, c = log w - 0.5 (D log 2pi + sum log var +
 sum mean^2/var), and fold = logsumexp (``mode="sum"``) or max (``mode="max"``,
 the best-component Viterbi approximation). :func:`gmm_loglik` is the plain
-version of the CUDA kernel in ``gmm_cuda`` (chunked over states so the
-[N, S*K] score tensor is never whole); the kernel is held against it.
+version of the CUDA kernels in ``gmm_cuda`` (chunked over states so the
+[N, S*K] score tensor is never whole); the kernels are held against it.
+
+``compute_dtype="int8"`` is the reference's int8 arm (mogasr/am/gmm_pallas.py
+:234-244, kernel ``_gmm_kernel_int8``): x2 quantized symmetrically per frame
+row, each (component, state) column of ab over its 2D rows, c kept float32;
+sum mode only.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 LOG_2PI = math.log(2.0 * math.pi)
 
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 MODES = ("sum", "max")
 STATE_CHUNK = 128  # states per GEMM in the plain scorer: [N, 128*K] scores at a time
 
@@ -95,6 +100,31 @@ def check_scoring_args(compute_dtype: str, mode: str) -> None:
         raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {compute_dtype!r}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "max" and compute_dtype == "int8":
+        raise NotImplementedError("mode='max' supports float32/bfloat16 only")
+
+
+def quantize_int8(a: torch.Tensor, dim: int):
+    """Symmetric int8 quantization of float32 ``a`` over ``dim``, as
+    gmm_pallas.py:239-240,243-244: scale = max(max |a|, 1e-10) / 127 and
+    q = clip(round(a / scale), -127, 127), rounding half to even. Returns
+    (q int8, scale float32 with ``dim`` dropped); a ~= q * scale."""
+    amax = torch.clamp(a.abs().amax(dim=dim, keepdim=True), min=1e-10)
+    # a true division on every device: CUDA divides by a Python scalar as a
+    # multiplication by its reciprocal, which rounds differently
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(dim)
+
+
+def int8_params(gmm: GmmSet):
+    """The int8 model: (qab [K, 2D, S] int8, sab [K, S] f32, c_t [K, S] f32),
+    each (component, state) column of the component-major ab quantized over
+    its 2D rows; 4x smaller than the float32 ab."""
+    S, K, D = gmm.means.shape
+    nat = natural_params(gmm)
+    qab, sab = quantize_int8(nat.ab.reshape(2 * D, S, K).permute(2, 0, 1), dim=1)
+    return qab.contiguous(), sab.contiguous(), nat.c.reshape(S, K).T.contiguous()
 
 
 def gmm_loglik(
@@ -109,11 +139,20 @@ def gmm_loglik(
     and multiplies them in float32; the Gaussian constant c stays float32
     and is added after the product. That is exactly what the CUDA kernel
     computes, so the two agree up to float32 summation order.
+
+    compute_dtype="int8" (sum mode only) quantizes x2 per frame row and ab
+    per (component, state) column (:func:`quantize_int8`), forms the integer
+    products as a float32 matmul of int8-valued tensors (exact: every partial
+    sum is an integer below 2D * 127**2 = 1,258,062 < 2**24) and dequantizes
+    them in the reference's order (gmm_pallas.py:65-66), ``(acc * sx) * sab
+    + c``, each op rounded alone, as the int8 kernel does.
     """
     check_scoring_args(compute_dtype, mode)
     S, K, D = gmm.means.shape
-    nat = natural_params(gmm)
     x2 = quadratic_features(x.to(torch.float32))
+    if compute_dtype == "int8":
+        return _gmm_loglik_int8(x2, gmm)
+    nat = natural_params(gmm)
     ab = nat.ab.reshape(2 * D, S, K)
     c = nat.c.reshape(S, K)
     if compute_dtype == "bfloat16":
@@ -128,4 +167,19 @@ def gmm_loglik(
             out.append(scores.amax(dim=-1))
         else:
             out.append(torch.logsumexp(scores, dim=-1))
+    return torch.cat(out, dim=1)
+
+
+def _gmm_loglik_int8(x2: torch.Tensor, gmm: GmmSet) -> torch.Tensor:
+    S, K, D = gmm.means.shape
+    qx, sx = quantize_int8(x2, dim=1)
+    qab, sab, c_t = int8_params(gmm)
+    qx, sx = qx.to(torch.float32), sx[:, None, None]
+    out = []
+    for s0 in range(0, S, STATE_CHUNK):
+        s1 = min(s0 + STATE_CHUNK, S)
+        q = qab[:, :, s0:s1].to(torch.float32).permute(1, 0, 2).reshape(2 * D, K * (s1 - s0))
+        acc = (qx @ q).reshape(-1, K, s1 - s0)
+        scores = (acc * sx) * sab[None, :, s0:s1] + c_t[None, :, s0:s1]
+        out.append(torch.logsumexp(scores, dim=1))
     return torch.cat(out, dim=1)

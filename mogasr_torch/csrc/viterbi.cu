@@ -25,7 +25,14 @@
 //
 // Backpointers are uint8 codes (0 stay, 1 advance, 2 enter) in [B, T, J]
 // (row 0 unused) and the exit argmax is int32 [B, T]; both are internal. The
-// backtrace is a second kernel, one thread per utterance.
+// backtrace is a second kernel, one thread per utterance. Without a
+// backtrace (path == NULL) neither is stored nor allocated: only the score.
+//
+// Beam pruning (mogasr/decoder/viterbi.py:92-94) is a template arm: each
+// frame, after the emission add, one more block-wide max over the row's J
+// states gives thresh = max - beam, and every state below it becomes NEG_INF.
+// Max is exact and thresh is one rounded subtraction, so the arm stays
+// bitwise equal to the plain version; the beam-off arm is the code without it.
 
 #include <cuda_runtime.h>
 
@@ -81,10 +88,27 @@ __device__ ArgMax block_argmax(ArgMax x, float* red_v, int* red_i) {
   return ArgMax{red_v[32], red_i[32]};
 }
 
-template <int SPT>
+// Block-wide max; red holds 33 slots, as in block_argmax.
+__device__ float block_max(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_down_sync(0xffffffffu, x, off));
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    x = lane < (int)(blockDim.x >> 5) ? red[lane] : -INFINITY;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_down_sync(0xffffffffu, x, off));
+    if (lane == 0) red[32] = x;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+template <int SPT, bool BEAM>
 __global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
     const float* __restrict__ ll,  // [B, T, P]
-    int T, int P, float scale,
+    int T, int P, float scale, float beam,
     const int* __restrict__ emit_id,        // [B, J]
     const float* __restrict__ self_logp,    // [B, J]
     const float* __restrict__ adv_logp,     // [B, J]
@@ -94,13 +118,15 @@ __global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
     const float* __restrict__ final_logp,   // [B, J]
     const int* __restrict__ n_frames,       // [B]
     int J,
-    uint8_t* __restrict__ bp,     // [B, T, J]
-    int* __restrict__ exit_arg,   // [B, T]
+    uint8_t* __restrict__ bp,     // [B, T, J], or NULL: no backtrace
+    int* __restrict__ exit_arg,   // [B, T], or NULL with bp
     float* __restrict__ score,    // [B]
     int* __restrict__ j_final) {  // [B]
   extern __shared__ float delta_buf[];  // [2, J]
   __shared__ float red_v[33];
   __shared__ int red_i[33];
+  __shared__ float red_m[33];
+  const bool store = bp != nullptr;
   const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   const size_t g = (size_t)b * J;
   const float* llb = ll + (size_t)b * T * P;
@@ -145,7 +171,9 @@ __global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
     }
     ex = block_argmax(ex, red_v, red_i);
 
-    uint8_t* bpt = bp + ((size_t)b * T + t) * J;
+    uint8_t* bpt = store ? bp + ((size_t)b * T + t) * J : nullptr;
+    float nv[SPT];
+    float row_max = -INFINITY;
 #pragma unroll
     for (int k = 0; k < SPT; ++k) {
       const int j = tid + k * nth;
@@ -156,10 +184,23 @@ __global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
       const float best = fmaxf(fmaxf(stay, adv), ent);
       uint8_t code = best == ent ? 2 : (best == adv ? 1 : 0);
       if (best == stay) code = 0;
-      nxt[j] = __fadd_rn(best, em[k]);
-      bpt[j] = code;
+      nv[k] = __fadd_rn(best, em[k]);
+      if (BEAM) {
+        row_max = fmaxf(row_max, nv[k]);
+      } else {
+        nxt[j] = nv[k];
+      }
+      if (store) bpt[j] = code;
     }
-    if (tid == 0) exit_arg[(size_t)b * T + t] = ex.i;
+    if (BEAM) {
+      const float thresh = __fsub_rn(block_max(row_max, red_m), beam);
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) {
+        const int j = tid + k * nth;
+        if (j < J) nxt[j] = nv[k] >= thresh ? nv[k] : NEG_INF;
+      }
+    }
+    if (store && tid == 0) exit_arg[(size_t)b * T + t] = ex.i;
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
@@ -206,9 +247,10 @@ __global__ void viterbi_backtrace_kernel(
   eb[0] = 1;
 }
 
-template <int SPT>
+template <int SPT, bool BEAM>
 cudaError_t launch_forward(int threads, size_t smem, int B, cudaStream_t stream,
-                           const float* ll, int T, int P, float scale, const int* emit_id,
+                           const float* ll, int T, int P, float scale, float beam,
+                           const int* emit_id,
                            const float* self_logp, const float* adv_logp,
                            const float* enter_logp, const float* exit_logp,
                            const float* init_logp, const float* final_logp,
@@ -216,11 +258,11 @@ cudaError_t launch_forward(int threads, size_t smem, int B, cudaStream_t stream,
                            float* score, int* j_final) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_forward_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        viterbi_forward_kernel<SPT, BEAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  viterbi_forward_kernel<SPT><<<B, threads, smem, stream>>>(
-      ll, T, P, scale, emit_id, self_logp, adv_logp, enter_logp, exit_logp, init_logp,
+  viterbi_forward_kernel<SPT, BEAM><<<B, threads, smem, stream>>>(
+      ll, T, P, scale, beam, emit_id, self_logp, adv_logp, enter_logp, exit_logp, init_logp,
       final_logp, n_frames, J, bp, exit_arg, score, j_final);
   return cudaGetLastError();
 }
@@ -233,10 +275,14 @@ extern "C" {
 // seven graph arrays [B, J] (emit_id int32, the rest float32); n_frames [B]
 // int32. Scratch: bp uint8 [B, T, J], exit_arg int32 [B, T], j_final int32
 // [B]. Outputs: path int32 [B, T], entered uint8/bool [B, T], score float32
-// [B]. J may be at most MAX_SPT * 1024 (cudaErrorInvalidValue otherwise); an
-// emit_id outside [0, P) stops the kernel with a trap, as an out-of-range
-// index stops torch.gather on the device.
-int viterbi_decode(const void* ll, int B, int T, int P, float scale, const void* emit_id,
+// [B]. beam > 0 prunes each frame to [max - beam, max]; 0 is exact. With
+// path == NULL there is no backtrace: bp, exit_arg and entered may be NULL,
+// and only score is written. J may be at most MAX_SPT * 1024
+// (cudaErrorInvalidValue otherwise); an emit_id outside [0, P) stops the
+// kernel with a trap, as an out-of-range index stops torch.gather on the
+// device.
+int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam,
+                   const void* emit_id,
                    const void* self_logp, const void* adv_logp, const void* enter_logp,
                    const void* exit_logp, const void* init_logp, const void* final_logp,
                    const void* n_frames, int J, void* bp, void* exit_arg, void* j_final,
@@ -260,15 +306,20 @@ int viterbi_decode(const void* ll, int B, int T, int P, float scale, const void*
   const float* f_init = static_cast<const float*>(init_logp);
   const float* f_final = static_cast<const float*>(final_logp);
   const int* f_nf = static_cast<const int*>(n_frames);
-  uint8_t* f_bp = static_cast<uint8_t*>(bp);
-  int* f_exit_arg = static_cast<int*>(exit_arg);
+  const bool backtrace = path != nullptr;
+  uint8_t* f_bp = backtrace ? static_cast<uint8_t*>(bp) : nullptr;
+  int* f_exit_arg = backtrace ? static_cast<int*>(exit_arg) : nullptr;
   int* f_jf = static_cast<int*>(j_final);
   float* f_score = static_cast<float*>(score);
   cudaError_t e;
-#define MOGASR_FWD(N)                                                                     \
-  e = launch_forward<N>(threads, smem, B, st, f_ll, T, P, scale, f_eid, f_self, f_adv,    \
-                        f_enter, f_exit, f_init, f_final, f_nf, J, f_bp, f_exit_arg,      \
-                        f_score, f_jf)
+#define MOGASR_FWD(N)                                                                      \
+  e = beam > 0.f                                                                           \
+          ? launch_forward<N, true>(threads, smem, B, st, f_ll, T, P, scale, beam, f_eid,  \
+                                    f_self, f_adv, f_enter, f_exit, f_init, f_final, f_nf, \
+                                    J, f_bp, f_exit_arg, f_score, f_jf)                    \
+          : launch_forward<N, false>(threads, smem, B, st, f_ll, T, P, scale, beam, f_eid, \
+                                     f_self, f_adv, f_enter, f_exit, f_init, f_final,      \
+                                     f_nf, J, f_bp, f_exit_arg, f_score, f_jf)
   switch (spt) {
     case 1: MOGASR_FWD(1); break;
     case 2: MOGASR_FWD(2); break;
@@ -281,7 +332,7 @@ int viterbi_decode(const void* ll, int B, int T, int P, float scale, const void*
     default: return cudaErrorInvalidValue;
   }
 #undef MOGASR_FWD
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || !backtrace) return e;
   viterbi_backtrace_kernel<<<(B + 127) / 128, 128, 0, st>>>(
       f_bp, f_exit_arg, f_jf, f_nf, B, T, J, static_cast<int*>(path),
       static_cast<uint8_t*>(entered));

@@ -5,10 +5,10 @@ mogasr/decoder/viterbi.py, and the plain version of the CUDA kernel in
 Same recursion, operation for operation, so results are bitwise equal to the
 reference: per frame an exit max with its first-index argmax, the stay /
 advance / enter candidates, backpointer codes where stay beats advance beats
-enter on ties, the graph-gathered emission, rows frozen past ``n_frames``.
-Also covers what the kernel does not: the beam mask and CTC skip
-transitions. The backtrace follows the stored uint8 codes back from the best
-final state.
+enter on ties, the graph-gathered emission, the beam mask, rows frozen past
+``n_frames``. Also covers what the kernel does not: CTC skip transitions.
+The backtrace follows the stored uint8 codes back from the best final state;
+``with_backtrace=False`` skips it and returns only the score (a zero path).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ def viterbi(
     n_frames: torch.Tensor,              # [B]
     acoustic_scale: float = 1.0,
     beam: float = 0.0,                   # 0 = exact (no pruning)
+    with_backtrace: bool = True,
 ) -> ViterbiResult:
     B, T, P = emit_ll.shape
     dev = emit_ll.device
@@ -85,11 +86,15 @@ def viterbi(
 
         active = (t < n_frames)[:, None]
         delta = torch.where(active, new_delta, delta)
-        bps.append(torch.where(active, bp, zero))
-        exit_args.append(exit_arg)
+        if with_backtrace:
+            bps.append(torch.where(active, bp, zero))
+            exit_args.append(exit_arg)
 
     final_scores = delta + graphs["final_logp"]
     score = final_scores.amax(dim=1)
+    if not with_backtrace:
+        empty = torch.zeros((B, T), dtype=torch.int32, device=dev)
+        return ViterbiResult(empty, empty.to(torch.bool), score)
     j = final_scores.argmax(dim=1)
 
     # backtrace: path[t] is the state at frame t; bps[t-1] holds frame t's codes

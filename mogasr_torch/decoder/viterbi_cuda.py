@@ -1,13 +1,15 @@
 """Viterbi decode on the CUDA kernel ``csrc/viterbi.cu`` (kernel K2): the port
 of mogasr/decoder/viterbi_pallas.py.
 
-A drop-in for ``decoder.viterbi.viterbi`` with ``beam=0`` on plain
-chain+loop graphs, bitwise equal to it. Like the reference kernel it rejects
-CTC skip transitions and beam pruning on every device; ``decoder.viterbi``
-covers both. A CUDA tensor runs the kernel, a CPU tensor the plain version;
+A drop-in for ``decoder.viterbi.viterbi`` on plain chain+loop graphs, with
+or without a beam and a backtrace, bitwise equal to it. Like the reference
+kernel it rejects CTC skip transitions on every device; ``decoder.viterbi``
+covers them. A CUDA tensor runs the kernel, a CPU tensor the plain version;
 any other device raises. ``LAUNCHES`` counts kernel launches (one per call
-with B * T > 0: the forward kernel and its backtrace kernel; an empty batch
-launches neither).
+with B * T > 0: the forward kernel and, with a backtrace, its backtrace
+kernel; an empty batch launches neither). Without a backtrace the kernel
+stores no backpointers and the result's path is zeros, as the plain
+version's.
 
 The graph arrays go to the kernel as ``graphs_to_torch`` makes them from
 ``batch_graphs``: ``emit_id`` int32, the log-probs float32, contiguous, on
@@ -32,7 +34,7 @@ LAUNCHES = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "viterbi_decode": [_P, _I, _I, _I, _F] + [_P] * 8 + [_I] + [_P] * 7,
+    "viterbi_decode": [_P, _I, _I, _I, _F, _F] + [_P] * 8 + [_I] + [_P] * 7,
 }
 _GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp",
                "init_logp", "final_logp")
@@ -57,6 +59,7 @@ def viterbi(
     n_frames: torch.Tensor,           # [B]
     acoustic_scale: float = 1.0,
     beam: float = 0.0,
+    with_backtrace: bool = True,
 ) -> ViterbiResult:
     global LAUNCHES
     if graphs.get("skip_logp") is not None:
@@ -64,13 +67,9 @@ def viterbi(
             "the Viterbi kernel covers plain chain+loop graphs; CTC skip "
             "topologies decode via mogasr_torch.decoder.viterbi"
         )
-    if beam > 0:
-        raise NotImplementedError(
-            "the Viterbi kernel is exact (beam=0); beam pruning decodes via "
-            "mogasr_torch.decoder.viterbi"
-        )
     if emit_ll.device.type == "cpu":
-        return plain.viterbi(emit_ll, graphs, n_frames, acoustic_scale=acoustic_scale)
+        return plain.viterbi(emit_ll, graphs, n_frames, acoustic_scale=acoustic_scale, beam=beam,
+                             with_backtrace=with_backtrace)
     if emit_ll.device.type != "cuda":
         raise ValueError(f"viterbi: unsupported device {emit_ll.device}")
     if emit_ll.dim() != 3 or emit_ll.dtype != torch.float32:
@@ -81,21 +80,27 @@ def viterbi(
     ll = emit_ll.contiguous()
     nf = n_frames.to(device=dev, dtype=torch.int32).contiguous()
 
-    bp = torch.empty((B, T, J), dtype=torch.uint8, device=dev)
-    exit_arg = torch.empty((B, T), dtype=torch.int32, device=dev)
     j_final = torch.empty((B,), dtype=torch.int32, device=dev)
-    path = torch.empty((B, T), dtype=torch.int32, device=dev)
-    entered = torch.empty((B, T), dtype=torch.bool, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
+    if with_backtrace:
+        bp = torch.empty((B, T, J), dtype=torch.uint8, device=dev)
+        exit_arg = torch.empty((B, T), dtype=torch.int32, device=dev)
+        path = torch.empty((B, T), dtype=torch.int32, device=dev)
+        entered = torch.empty((B, T), dtype=torch.bool, device=dev)
+        scratch = [t.data_ptr() for t in (bp, exit_arg, j_final, path, entered)]
+    else:  # NULL bp, exit_arg, path and entered: the forward pass alone
+        scratch = [None, None, j_final.data_ptr(), None, None]
     lib = _cuda.load("viterbi", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.viterbi_decode(
-            ll.data_ptr(), B, T, P, float(acoustic_scale),
+            ll.data_ptr(), B, T, P, float(acoustic_scale), float(beam),
             *(graphs[k].data_ptr() for k in _GRAPH_KEYS),
-            nf.data_ptr(), J, bp.data_ptr(), exit_arg.data_ptr(), j_final.data_ptr(),
-            path.data_ptr(), entered.data_ptr(), score.data_ptr(), stream,
+            nf.data_ptr(), J, *scratch, score.data_ptr(), stream,
         )
     _cuda.check(lib, "viterbi", err, "viterbi_decode launch")
     LAUNCHES += int(B * T > 0)  # the entry point returns at once on an empty batch
+    if not with_backtrace:
+        path = torch.zeros((B, T), dtype=torch.int32, device=dev)
+        entered = path.to(torch.bool)
     return ViterbiResult(path, entered, score)

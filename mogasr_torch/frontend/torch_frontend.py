@@ -8,13 +8,15 @@ parity with the NumPy oracle. Deltas replicate each utterance's own edge and
 CMVN reduces over valid frames only, so a padded batch equals its utterances
 run one by one.
 
-PLP (``feature_type="plp"``) is not ported yet and raises.
+``feature_type="plp"`` replaces log -> DCT with the PLP chain of
+``_plp_cepstra`` (equal loudness, cube root, one iDCT-I GEMM, Levinson-Durbin
+and the LPC -> cepstrum recursion unrolled over the static ``lpc_order``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +32,9 @@ class FrontendConsts(NamedTuple):
     dft_sin_w: torch.Tensor  # [frame_length, n_bins]
     mel: torch.Tensor        # [n_bins, n_mels]
     dct_lift: torch.Tensor   # [n_mels, n_ceps], lifter folded in
+    plp_eql: Optional[torch.Tensor] = None   # [n_mels] equal-loudness weights
+    plp_idft: Optional[torch.Tensor] = None  # [n_mels + 2, lpc_order + 1] iDCT-I
+    plp_lift: Optional[torch.Tensor] = None  # [n_ceps] cepstral lifter
 
 
 def build_consts(cfg: FrontendConfig, device: torch.device) -> FrontendConsts:
@@ -45,12 +50,46 @@ def build_consts(cfg: FrontendConfig, device: torch.device) -> FrontendConsts:
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
+    plp = cfg.feature_type == "plp"
     return FrontendConsts(
         dft_cos_w=f32(np.cos(ang) * win[:, None]),
         dft_sin_w=f32(-np.sin(ang) * win[:, None]),
         mel=f32(npref.mel_filterbank_matrix(cfg)),
         dct_lift=f32(dct),
+        plp_eql=f32(npref.equal_loudness_weights(cfg)) if plp else None,
+        plp_idft=f32(npref.plp_idft_matrix(cfg.n_mels, cfg.lpc_order)) if plp else None,
+        plp_lift=f32(npref.lifter_coeffs(cfg.n_ceps, cfg.cepstral_lifter)) if plp else None,
     )
+
+
+def _plp_cepstra(mel: torch.Tensor, cfg: FrontendConfig, consts: FrontendConsts) -> torch.Tensor:
+    """[N, n_mels] mel power -> [N, n_ceps] liftered PLP cepstra.
+
+    The port of jax_frontend._plp_cepstra, mirroring numpy_ref.plp_from_pspec:
+    equal loudness, cube-root compression, the iDCT-I autocorrelation (one
+    fp32 GEMM), then Levinson-Durbin and the LPC -> cepstrum recursion
+    unrolled over the static lpc_order, elementwise on [N] columns.
+    """
+    p = cfg.lpc_order
+    aud = torch.clamp(mel * consts.plp_eql[None, :], min=0.0)
+    compressed = aud.pow(1.0 / 3.0)  # aud >= 0: the real cube root
+    padded = torch.cat([compressed[:, :1], compressed, compressed[:, -1:]], dim=1)
+    R = padded @ consts.plp_idft  # [N, p + 1]
+    floor = npref._PLP_R0_FLOOR
+    a = [torch.zeros_like(R[:, 0]) for _ in range(p)]
+    err = torch.clamp(R[:, 0], min=floor)
+    for i in range(p):
+        acc = sum((a[j] * R[:, i - j] for j in range(i)), start=torch.zeros_like(err))
+        kref = (R[:, i + 1] - acc) / err
+        new_a = [a[j] - kref * a[i - 1 - j] for j in range(i)]
+        a = new_a + [kref] + a[i + 1:][: p - i - 1]
+        err = torch.clamp(err * (1.0 - kref * kref), min=floor * 1e-4)
+    c = [torch.log(err)]
+    for n_i in range(1, cfg.n_ceps):
+        acc = sum(((k_i / n_i) * c[k_i] * a[n_i - 1 - k_i] for k_i in range(1, n_i)),
+                  start=torch.zeros_like(err))
+        c.append(a[n_i - 1] + acc)
+    return torch.stack(c, dim=1) * consts.plp_lift[None, :]
 
 
 _U32 = 0xFFFFFFFF
@@ -187,9 +226,7 @@ def make_frontend(
     Returns ``extract(waves[B, max_samples], num_samples[B]) ->
     (feats[B, T_max, feat_dim] float32, num_frames[B] int32)``.
     """
-    if cfg.feature_type == "plp":
-        raise NotImplementedError("feature_type='plp' is not ported to mogasr_torch yet")
-    if cfg.feature_type not in ("mfcc", "fbank"):
+    if cfg.feature_type not in ("mfcc", "fbank", "plp"):
         raise ValueError(f"unknown feature_type {cfg.feature_type!r}")
     consts = build_consts(cfg, device)
     t_max = max(cfg.num_frames(max_samples), 1)
@@ -229,7 +266,7 @@ def make_frontend(
         if cfg.feature_type == "fbank":
             base = logmel.reshape(B, t_max, cfg.n_mels)
         else:
-            ceps = logmel @ consts.dct_lift
+            ceps = _plp_cepstra(mel, cfg, consts) if cfg.feature_type == "plp" else logmel @ consts.dct_lift
             if cfg.use_energy:
                 raw = frames_of(waves, num_samples).reshape(B * t_max, cfg.frame_length)
                 energy = torch.log(torch.clamp((raw * raw).sum(dim=-1), min=cfg.log_floor))

@@ -13,7 +13,8 @@ Baum-Welch EM (forward-backward, soft statistics), with the reference's
 mixture-splitting schedule and optional transition re-estimation;
 ``flat_start`` gives the first model, ``evaluate`` the held-out WER.
 
-Device dispatch is by the tensor: on a CUDA device the scorer, the Viterbi
+Device dispatch is by the tensor: on a CUDA device the scorer (K1, or K1w
+with ``layout="wide"``, or K5 with ``compute_dtype="int8"``), the Viterbi
 decoder, forward-backward and the LSTM recurrence are the hand-written
 kernels (``am.gmm_cuda``, ``decoder.viterbi_cuda``, ``decoder.fb_cuda``,
 ``am.lstm_cuda``); on the CPU they are the plain versions.
@@ -36,7 +37,7 @@ import torch
 
 from mogasr_torch.am import em
 from mogasr_torch.am.gmm import GmmSet, gmm_loglik
-from mogasr_torch.am.gmm_cuda import KernelParams, gmm_loglik_batched, kernel_params
+from mogasr_torch.am.gmm_cuda import Params, gmm_loglik_batched, kernel_params
 from mogasr_torch.am.neural import posteriors_to_loglik
 from mogasr_torch.am.quantize import make_quantized_logits
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, GmmConfig, TrainConfig
@@ -134,13 +135,17 @@ def score_batch(
     use_kernels: bool = True,
     compute_dtype: str = "float32",
     mode: str = "sum",
-    params: Optional[KernelParams] = None,
+    params: Optional[Params] = None,
+    layout: str = "chunked",
 ) -> torch.Tensor:
     """[B, T, D] -> [B, T, S]: the CUDA kernel on the card, the plain scorer
-    on the CPU or with ``use_kernels=False``. ``params`` is the GMM in the
-    kernel's layout (``gmm_cuda.kernel_params``), made per call when not given."""
+    on the CPU or with ``use_kernels=False``. compute_dtype "float32",
+    "bfloat16" or "int8" (sum mode only); layout "chunked" (K1) or "wide"
+    (K1w). ``params`` is the GMM in the kernel's layout
+    (``gmm_cuda.kernel_params``), made per call when not given."""
     if use_kernels:
-        return gmm_loglik_batched(feats, gmm, compute_dtype=compute_dtype, mode=mode, params=params)
+        return gmm_loglik_batched(feats, gmm, compute_dtype=compute_dtype, mode=mode, params=params,
+                                  layout=layout)
     B, T, D = feats.shape
     return gmm_loglik(
         feats.reshape(B * T, D), gmm, mode=mode, compute_dtype=compute_dtype
@@ -152,8 +157,14 @@ def word_decode_graph(
     topo: Topology,
     dcfg: DecodeConfig,
     word_logp: Optional[np.ndarray] = None,
+    multi_pron: bool = False,
 ) -> gr.Graph:
-    """Word-loop decode graph over the full vocabulary + a silence chain."""
+    """Word-loop decode graph over the full vocabulary + a silence chain.
+
+    multi_pron: one chain per pronunciation variant (:func:`word_decode_graph_multi`).
+    """
+    if multi_pron:
+        return word_decode_graph_multi(lexicon, topo, dcfg, word_logp)[0]
     tokens = [(w, lexicon.word_phone_ids(w)) for w in lexicon.words]
     tokens.append(("<sil>", [lexicon.sil_id]))
     if word_logp is None:
@@ -162,6 +173,43 @@ def word_decode_graph(
         topo, tokens=tokens, token_logp=word_logp,
         insertion_penalty=dcfg.word_insertion_penalty,
     )
+
+
+def word_decode_graph_multi(
+    lexicon: Lexicon,
+    topo: Topology,
+    dcfg: DecodeConfig,
+    word_logp: Optional[np.ndarray] = None,
+) -> Tuple[gr.Graph, np.ndarray]:
+    """Multi-pronunciation word-loop graph -> (graph, pron_logp).
+
+    One chain per pronunciation variant, labelled with its word; each
+    variant's entry carries the word prior plus a uniform log pronunciation
+    prior, so a word's total entry mass is unchanged. pron_logp[c] is that
+    log pronunciation prior of chain c (0 for single-pronunciation words and
+    silence), for a decoder whose LM replaces the word prior.
+    """
+    words = list(lexicon.words) + ["<sil>"]
+    if word_logp is None:
+        word_logp = np.full(len(words), -np.log(len(words)), np.float32)
+    tokens: List[Tuple[str, List[int]]] = []
+    tok_logp: List[float] = []
+    pron_logp: List[float] = []
+    for wi, w in enumerate(lexicon.words):
+        variants = lexicon.word_variant_phone_ids(w)
+        lp = -np.log(len(variants))
+        for pids in variants:
+            tokens.append((w, pids))
+            tok_logp.append(float(word_logp[wi]) + lp)
+            pron_logp.append(lp)
+    tokens.append(("<sil>", [lexicon.sil_id]))
+    tok_logp.append(float(word_logp[len(lexicon.words)]))
+    pron_logp.append(0.0)
+    g = gr.loop_graph(
+        topo, tokens=tokens, token_logp=np.asarray(tok_logp, np.float32),
+        insertion_penalty=dcfg.word_insertion_penalty,
+    )
+    return g, np.asarray(pron_logp, np.float32)
 
 
 def decode_graphs(graph: gr.Graph, batch_size: int, device: torch.device) -> DecodeGraphs:
@@ -243,14 +291,19 @@ def decode_corpus(
     device: torch.device,
     compute_dtype: str = "bfloat16",
     use_kernels: bool = True,
+    mode: str = "max",
+    layout: str = "chunked",
 ) -> CorpusResult:
     """Decode a corpus and score its WER: the path ``bench.py`` times.
 
-    Batches by length bucket, then per batch: front end, GMM scoring in
-    max mode (best component only: on the headline bundle it decodes exactly
-    as the full mixture does, bench.py:42-48), Viterbi over the shared loop
-    graph, ``path_to_tokens``. Silence tokens are dropped and words
-    lower-cased before ``corpus_wer``. Stage times (:class:`StageClock`):
+    Batches by length bucket, then per batch: front end, GMM scoring, Viterbi
+    over the shared loop graph (with ``dcfg.beam``), ``path_to_tokens``.
+    Scoring is in ``mode`` "max" by default (best component only: on the
+    headline bundle it decodes exactly as the full mixture does,
+    bench.py:42-48), or "sum"; ``compute_dtype`` "float32", "bfloat16" or
+    "int8" (sum mode only, K5); ``layout`` "chunked" (K1) or "wide" (K1w):
+    the port's form of bench.py's MOGASR_GMM_MODE / MOGASR_GMM_LAYOUT.
+    Silence tokens are dropped and words lower-cased before ``corpus_wer``. Stage times (:class:`StageClock`):
     "host" is batching, building the front ends, graphs and kernel
     parameters, and copies to the device; "tokens" is ``path_to_tokens``,
     reading the scores back, and the WER.
@@ -266,7 +319,8 @@ def decode_corpus(
         batches = list(make_batches(utts, bcfg, fcfg))
         frontends = frontends_for(batches, fcfg, device)
         graphs = decode_graphs(graph, bcfg.batch_size, device)
-        params = kernel_params(gmm, compute_dtype) if use_kernels and scorer is None else None
+        params = (kernel_params(gmm, compute_dtype, layout, mode=mode)
+                  if use_kernels and scorer is None else None)
 
     refs, hyps, scores = [], [], []
     for batch in batches:
@@ -275,7 +329,7 @@ def decode_corpus(
             if scorer is not None:
                 ll = scorer(fb)
             else:
-                ll = score_batch(fb.feats, gmm, use_kernels, compute_dtype, mode="max", params=params)
+                ll = score_batch(fb.feats, gmm, use_kernels, compute_dtype, mode, params, layout)
         toks, batch_scores = decode_batch(fb, ll, graph, dcfg, use_kernels, graphs=graphs, clock=clock)
         with clock("tokens"):
             refs += [[w.lower() for w in words] for words in batch.words[: fb.size]]
@@ -324,7 +378,7 @@ def align_batch(
     acoustic_scale: float = 1.0,
     align_fn=None,
     use_kernels: bool = True,
-    params: Optional[KernelParams] = None,
+    params: Optional[Params] = None,
     clock: Optional[StageClock] = None,
 ) -> Tuple[vit.ViterbiResult, torch.Tensor, Dict[str, torch.Tensor]]:
     """Force-align a featurized batch -> (result, pdf labels [B, T], graphs).
@@ -373,7 +427,7 @@ def batch_stats(
     align_fn=None,
     n_pdfs: Optional[int] = None,
     use_kernels: bool = True,
-    params: Optional[KernelParams] = None,
+    params: Optional[Params] = None,
     clock: Optional[StageClock] = None,
 ):
     """One batch's E-step -> (GmmStats, the alignment result, pdf labels).

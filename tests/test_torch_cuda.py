@@ -21,7 +21,7 @@ from mogasr_torch import pipeline as pipe
 from mogasr_torch.am import fast_lstm, gmm_cuda, lstm_cuda
 from mogasr_torch.am import neural as tn
 from mogasr_torch.am.params import init_
-from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik
+from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik, quantize_int8, quadratic_features
 from mogasr_torch.config import TopologyConfig, TrainConfig
 from mogasr_torch.decoder import fb_cuda
 from mogasr_torch.decoder import forward_backward as fbd
@@ -65,6 +65,62 @@ def test_gmm_kernel_matches_plain(dev, compute_dtype, mode, S, K, D, N):
         gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, params=gmm_cuda.kernel_params(g, other))
 
 
+def _random_gmm(dev, S, K, D, N):
+    rng = np.random.default_rng(S + K + N)
+    g = gmm_from_numpy(rng.dirichlet(np.ones(K), size=S), rng.standard_normal((S, K, D)),
+                       0.3 + rng.random((S, K, D)), dev)
+    return g, torch.as_tensor(rng.standard_normal((N, D)).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("S,K,D,N", [(70, 3, 39, 1000), (5, 1, 13, 7), (130, 16, 39, 200), (33, 5, 39, 129)])
+def test_int8_kernel_matches_plain(dev, S, K, D, N):
+    """K5 against the plain int8 scorer: bitwise the same quantized operands
+    and integer products, dequantized in the same order; the online
+    logsumexp sums in another order (K1's tolerance)."""
+    g, x = _random_gmm(dev, S, K, D, N)
+    before = gmm_cuda.INT8_LAUNCHES
+    got = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype="int8")
+    want = gmm_loglik(x, g, compute_dtype="int8")
+    torch.cuda.synchronize()
+    assert gmm_cuda.INT8_LAUNCHES == before + 1
+    assert got.shape == (N, S) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    # the card quantizes as the CPU does
+    x2 = quadratic_features(x)
+    for a, b in zip(quantize_int8(x2, 1), quantize_int8(x2.cpu(), 1)):
+        assert torch.equal(a.cpu(), b)
+    with pytest.raises(NotImplementedError):
+        gmm_cuda.gmm_loglik_fused(x, g, compute_dtype="int8", mode="max")
+    with pytest.raises(ValueError):
+        gmm_cuda.gmm_loglik_fused(x, g, compute_dtype="int8", params=gmm_cuda.kernel_params(g))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("S,K,D,N,kc", [(70, 3, 39, 1000, None), (5, 1, 13, 7, None), (130, 16, 39, 200, 16),
+                                        (130, 16, 39, 200, 5), (33, 5, 39, 129, 2)])
+def test_wide_kernel_matches_plain_and_k1(dev, compute_dtype, mode, S, K, D, N, kc):
+    """K1w against the plain scorer (K1's tolerance), and in max mode bitwise
+    against K1: each score sums over r in K1's order and max is exact."""
+    g, x = _random_gmm(dev, S, K, D, N)
+    before = gmm_cuda.WIDE_LAUNCHES
+    got = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, layout="wide", kc=kc)
+    want = gmm_loglik(x, g, mode=mode, compute_dtype=compute_dtype)
+    k1 = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode)
+    torch.cuda.synchronize()
+    assert gmm_cuda.WIDE_LAUNCHES == before + 1
+    assert got.shape == (N, S) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    if mode == "max":
+        assert torch.equal(got, k1)
+    params = gmm_cuda.kernel_params(g, compute_dtype, "wide", kc, mode)
+    assert torch.equal(gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, params=params, layout="wide",
+                                                 kc=kc), got)
+    with pytest.raises(ValueError):  # chunked params for the wide layout
+        gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, params=gmm_cuda.kernel_params(g, compute_dtype),
+                                  layout="wide")
+
+
 def _random_graphs(rng, B, J, P):
     """Chain+loop-shaped random graph arrays: chains of 1-5 states."""
     out = {k: np.full((B, J), gr.NEG_INF, np.float32) for k in
@@ -95,6 +151,44 @@ def test_viterbi_kernel_bitwise_equals_plain(dev, J):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("J", [37, 3048, 5000])
+@pytest.mark.parametrize("beam", [0.5, 3.0, 40.0])
+def test_viterbi_kernel_beam_bitwise_equals_plain(dev, J, beam):
+    """K2 with the beam mask: one block max per frame, thresh = max - beam,
+    states below it NEG_INF; path, entered and score bitwise equal."""
+    rng = np.random.default_rng(J + 1)
+    B, T, P = 5, 40, 97
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
+    nf = torch.as_tensor([T, 17, 1, 0, 33], dtype=torch.int32, device=dev)
+    for scale in (1.0, 0.3):
+        got = viterbi_cuda.viterbi(ll, graphs, nf, acoustic_scale=scale, beam=beam)
+        want = vit.viterbi(ll, graphs, nf, acoustic_scale=scale, beam=beam)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("beam", [0.0, 3.0])
+def test_viterbi_kernel_without_backtrace(dev, beam):
+    """with_backtrace=False: the forward kernel alone; the plain version's
+    score, a zero path, no entered frame."""
+    rng = np.random.default_rng(4)
+    B, T, P, J = 5, 40, 97, 300
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
+    nf = torch.as_tensor([T, 17, 1, 0, 33], dtype=torch.int32, device=dev)
+    before = viterbi_cuda.LAUNCHES
+    got = viterbi_cuda.viterbi(ll, graphs, nf, beam=beam, with_backtrace=False)
+    want = vit.viterbi(ll, graphs, nf, beam=beam, with_backtrace=False)
+    full = viterbi_cuda.viterbi(ll, graphs, nf, beam=beam)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.LAUNCHES == before + 2
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(got.score, full.score) and not got.path.any()
 
 
 def test_viterbi_kernel_rejects_skip(dev):

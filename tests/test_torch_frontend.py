@@ -45,7 +45,11 @@ def _both(cfg, batch, lens):
     {"snip_edges": False},
     {"snip_edges": False, "use_energy": True},
     {"delta_order": 1},
-], ids=["mfcc", "fbank", "dither", "centered", "centered_energy", "delta1"])
+    {"feature_type": "plp"},
+    {"feature_type": "plp", "use_energy": True, "cmvn": "none", "delta_order": 1},
+    {"feature_type": "plp", "snip_edges": False, "dither": 1.0},
+], ids=["mfcc", "fbank", "dither", "centered", "centered_energy", "delta1", "plp", "plp_energy",
+        "plp_centered_dither"])
 def test_matches_jax_ragged_batch(kw):
     batch, lens = _ragged_batch()
     fj, nj, ft, nt = _both(FrontendConfig(**kw), batch, lens)
@@ -98,6 +102,18 @@ def test_dither_noise_matches_numpy():
     np.testing.assert_allclose(got, dither_noise_np(0, 20000), atol=1e-5)
 
 
-def test_plp_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_frontend(FrontendConfig(feature_type="plp"), 4000, CPU)
+@pytest.mark.parametrize("kw", [{}, {"use_energy": True, "cmvn": "none", "delta_order": 1}],
+                         ids=["plp", "plp_energy"])
+def test_plp_matches_oracle(kw):
+    """PLP cepstra (equal loudness, cube root, iDCT-I GEMM, Levinson-Durbin,
+    LPC -> cepstrum) against numpy_ref.plp_from_pspec's chain, per
+    utterance of a padded batch."""
+    cfg = FrontendConfig(feature_type="plp", **kw)
+    batch, lens = _ragged_batch()
+    feats, nf = make_frontend(cfg, batch.shape[1], CPU)(torch.as_tensor(batch), torch.as_tensor(lens))
+    for b in range(3):
+        n = int(nf[b])
+        ref = extract_features_np(batch[b, : lens[b]], cfg)
+        assert ref.shape == (n, cfg.feat_dim)
+        np.testing.assert_allclose(feats[b, :n].numpy(), ref, atol=ATOL, rtol=RTOL)
+    assert not feats[3].any()  # the 200-sample row has no frame

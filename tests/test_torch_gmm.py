@@ -1,6 +1,8 @@
 """mogasr_torch GMM scorer against the JAX scorer, the interpret-mode Pallas
-kernel and the golden logliks; weight transfer; the kernel wrapper's CPU
-dispatch. Inputs are numpy arrays from a seed, handed to both packages."""
+kernels (the chunked and int8 arms) and the golden logliks; weight transfer;
+the kernels' layouts (chunked, wide, int8) against the reference's arrays;
+the kernel wrapper's CPU dispatch. Inputs are numpy arrays from a seed,
+handed to both packages."""
 
 import os
 
@@ -12,9 +14,10 @@ import torch
 from mogasr.am.gmm import GmmSet as JaxGmmSet
 from mogasr.am.gmm import gmm_loglik as jax_gmm_loglik
 from mogasr.am.gmm import natural_params as jax_natural_params
-from mogasr.am.gmm_pallas import gmm_loglik_pallas
+from mogasr.am.gmm import quadratic_features
+from mogasr.am.gmm_pallas import gmm_loglik_pallas, transposed_natural_params
 from mogasr_torch.am import gmm_cuda
-from mogasr_torch.am.gmm import GmmSet, gmm_from_numpy, gmm_loglik
+from mogasr_torch.am.gmm import GmmSet, gmm_from_numpy, gmm_loglik, quantize_int8
 
 CPU = torch.device("cpu")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden.npz")
@@ -109,7 +112,127 @@ def test_bad_arguments_raise(system):
     with pytest.raises(ValueError):
         gmm_cuda.gmm_loglik_fused(torch.as_tensor(x), g, mode="mean")
     with pytest.raises(ValueError):
-        gmm_cuda.gmm_loglik_fused(torch.as_tensor(x), g, compute_dtype="int8")
+        gmm_cuda.gmm_loglik_fused(torch.as_tensor(x), g, compute_dtype="int4")
+    with pytest.raises(ValueError):
+        gmm_cuda.gmm_loglik_fused(torch.as_tensor(x), g, layout="tiled")
+    with pytest.raises(ValueError):  # the wide layout is float32 / bfloat16 only
+        gmm_cuda.gmm_loglik_fused(torch.as_tensor(x), g, compute_dtype="int8", layout="wide")
+    with pytest.raises(ValueError):
+        gmm_cuda.gmm_loglik_fused(torch.as_tensor(x), g, layout="wide", kc=5)  # K = 4
+
+
+def test_int8_max_mode_raises(system):
+    """int8 folds in sum mode only, as gmm_pallas.py:391-392."""
+    w, mu, var, x = system
+    g = gmm_from_numpy(w, mu, var, CPU)
+    with pytest.raises(NotImplementedError):
+        gmm_loglik(torch.as_tensor(x), g, mode="max", compute_dtype="int8")
+    with pytest.raises(NotImplementedError):
+        gmm_cuda.gmm_loglik_fused(torch.as_tensor(x), g, compute_dtype="int8", mode="max")
+    with pytest.raises(NotImplementedError):
+        gmm_loglik_pallas(jnp.asarray(x), _jax_gmm(w, mu, var), compute_dtype="int8", mode="max")
+
+
+@pytest.mark.parametrize("n_rows", [100, 7])
+def test_plain_int8_matches_pallas_interpret(system, n_rows):
+    """The plain int8 scorer against the interpret-mode K5: the same
+    quantized operands and integer products, dequantized in the same order;
+    only the logsumexp's order differs."""
+    w, mu, var, x = system
+    x = x[:n_rows]
+    want = np.asarray(gmm_loglik_pallas(
+        jnp.asarray(x), _jax_gmm(w, mu, var), tile_m=64, interpret=True, compute_dtype="int8"))
+    got = gmm_loglik(torch.as_tensor(x), gmm_from_numpy(w, mu, var, CPU), compute_dtype="int8")
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+def _jax_ab_t(w, mu, var):
+    """The reference's component-major ab_t [K, 2D, S] and c_t [K, S]."""
+    ab_t, c_t = transposed_natural_params(_jax_gmm(w, mu, var))
+    return np.array(ab_t), np.array(c_t)
+
+
+def test_int8_quantization_matches_jax(system):
+    """quantize_int8 on the reference's own ab_t and x2 gives, bitwise, the
+    arrays gmm_pallas.py:238-244 builds (there padded to 128 lanes and a
+    multiple of the tiles, which leaves every scale unchanged)."""
+    w, mu, var, x = system
+    ab_t, _c = _jax_ab_t(w, mu, var)
+    K, R, S = ab_t.shape
+    k_pad, r, s_pad = K + 3, 128, S + 5
+    abf = jnp.zeros((k_pad, r, s_pad), jnp.float32).at[:K, :R, :S].set(ab_t)
+    sab = jnp.maximum(jnp.max(jnp.abs(abf), axis=1, keepdims=True), 1e-10) / 127.0
+    abp = jnp.clip(jnp.round(abf / sab), -127, 127).astype(jnp.int8)
+    qab, sab_t = quantize_int8(torch.as_tensor(ab_t), dim=1)
+    assert qab.dtype == torch.int8 and sab_t.dtype == torch.float32
+    np.testing.assert_array_equal(qab.numpy(), np.asarray(abp)[:K, :R, :S])
+    np.testing.assert_array_equal(sab_t.numpy(), np.asarray(sab)[:K, 0, :S])
+
+    x2 = np.array(quadratic_features(jnp.asarray(x)))
+    x2f = jnp.zeros((x.shape[0] + 12, r), jnp.float32).at[: x.shape[0], :R].set(x2)
+    sx = jnp.maximum(jnp.max(jnp.abs(x2f), axis=1, keepdims=True), 1e-10) / 127.0
+    x2p = jnp.clip(jnp.round(x2f / sx), -127, 127).astype(jnp.int8)
+    qx, sx_t = quantize_int8(torch.as_tensor(x2), dim=1)
+    np.testing.assert_array_equal(qx.numpy(), np.asarray(x2p)[: x.shape[0], :R])
+    np.testing.assert_array_equal(sx_t.numpy(), np.asarray(sx)[: x.shape[0], 0])
+
+
+def test_int8_kernel_params(system):
+    w, mu, var, _x = system
+    S, K, D = mu.shape
+    params = gmm_cuda.kernel_params(gmm_from_numpy(w, mu, var, CPU), "int8")
+    assert isinstance(params, gmm_cuda.Int8Params)
+    assert params.qab.shape == (K, 2 * D, S) and params.qab.dtype == torch.int8
+    assert params.sab.shape == params.c_t.shape == (K, S)
+    assert all(p.is_contiguous() for p in params)
+    # the int8 model is 4x smaller than the float32 ab
+    assert params.qab.element_size() * 4 == gmm_cuda.kernel_params(
+        gmm_from_numpy(w, mu, var, CPU)).ab_t.element_size()
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kc", [1, 3, 4])
+def test_wide_layout_matches_jax(system, compute_dtype, kc):
+    """The wide panel [n_kc, 2D, n_st * kc * TS] is, bitwise, the reference's
+    reshape/transpose of gmm_pallas.py:300-304 applied to its ab_t at the
+    port's tile width (the port keeps c out of the panel and R = 2D rows)."""
+    w, mu, var, _x = system
+    ab_t, _c = _jax_ab_t(w, mu, var)
+    K, R, S = ab_t.shape
+    ts = gmm_cuda.WIDE_TS
+    k_pad, s_pad = -(-K // kc) * kc, -(-S // ts) * ts
+    n_kc, n_st = k_pad // kc, s_pad // ts
+    dt = jnp.float32 if compute_dtype == "float32" else jnp.bfloat16
+    abp = jnp.zeros((k_pad, R, s_pad), dt).at[:K, :, :S].set(jnp.asarray(ab_t).astype(dt))
+    want = abp.reshape(n_kc, kc, R, n_st, ts).transpose(0, 2, 3, 1, 4).reshape(n_kc, R, n_st * kc * ts)
+    params = gmm_cuda.kernel_params(gmm_from_numpy(w, mu, var, CPU), compute_dtype, "wide", kc)
+    assert isinstance(params, gmm_cuda.WideParams) and params.kc == kc
+    assert params.ab_wide.is_contiguous() and params.ab_wide.shape == want.shape
+    # the port's ab_t is held to JAX's bitwise in test_kernel_params_layout_matches_jax
+    got = gmm_cuda.wide_layout(torch.as_tensor(ab_t).to(params.ab_wide.dtype), kc)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    np.testing.assert_array_equal(params.ab_wide.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+def test_default_kc_follows_reference():
+    assert gmm_cuda.default_kc("bfloat16", "sum", 16) == 8
+    assert gmm_cuda.default_kc("bfloat16", "max", 16) == 16
+    assert gmm_cuda.default_kc("float32", "sum", 16) == 16
+    assert gmm_cuda.default_kc("float32", "max", 4) == 4
+
+
+@pytest.mark.parametrize("compute_dtype,mode,layout", [
+    ("int8", "sum", "chunked"), ("float32", "sum", "wide"), ("bfloat16", "max", "wide")])
+def test_int8_and_wide_wrappers_take_plain_version_on_cpu(system, compute_dtype, mode, layout):
+    w, mu, var, x = system
+    g = gmm_from_numpy(w, mu, var, CPU)
+    before = (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES, gmm_cuda.INT8_LAUNCHES)
+    got = gmm_cuda.gmm_loglik_batched(torch.as_tensor(x).reshape(4, 25, -1), g, compute_dtype=compute_dtype,
+                                      mode=mode, layout=layout)
+    want = gmm_loglik(torch.as_tensor(x), g, mode=mode, compute_dtype=compute_dtype)
+    assert torch.equal(got.reshape(100, -1), want)
+    assert (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES, gmm_cuda.INT8_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

@@ -1,7 +1,9 @@
 """The port's decode path as a whole, at the full width of the headline
 bundle (1168 pdfs x 16 components x 39 dims, a 3048-state word loop), on the
 CPU: the bundle loads to the same arrays, and held-out utterances decode to
-the same transcripts and scores as the JAX path."""
+the same transcripts and scores as the JAX path -- in float32, with a beam,
+and scored in int8 (the port's plain K5 against JAX's interpret-mode K5);
+multi-pronunciation decode graphs equal JAX's."""
 
 import dataclasses
 import os
@@ -14,15 +16,21 @@ import torch
 
 from mogasr import pipeline as jax_pipe
 from mogasr.am.gmm import gmm_loglik as jax_gmm_loglik
-from mogasr.config import BatchConfig, DecodeConfig
+from mogasr.am.gmm_pallas import gmm_loglik_batched as jax_gmm_loglik_batched
+from mogasr.config import BatchConfig, DecodeConfig, TopologyConfig
 from mogasr.data import synthetic as syn
 from mogasr.data.batching import make_batches
 from mogasr.decoder import viterbi as jax_vit
 from mogasr.frontend.jax_frontend import cached_frontend
 from mogasr.hmm import graph as gr
 from mogasr.hmm import triphone as tri
+from mogasr.hmm.lexicon import make_lexicon_multi as jax_make_lexicon_multi
+from mogasr.hmm.topology import build_topology as jax_build_topology
 from mogasr.utils.bundle import load_system as jax_load_system
+from mogasr_torch import config as tcfg
 from mogasr_torch import pipeline as pipe
+from mogasr_torch.hmm.lexicon import make_lexicon_multi
+from mogasr_torch.hmm.topology import build_topology
 from mogasr_torch.utils.bundle import load_system
 
 CPU = torch.device("cpu")
@@ -114,3 +122,85 @@ def test_word_decode_graph_and_decode_batch(headline):
     graphs = pipe.decode_graphs(graph, 2, CPU)
     assert (out, out_scores) == pipe.decode_batch(fb, scores, graph, dcfg, use_kernels=False,
                                                   graphs=graphs)
+
+
+GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp",
+              "final_logp", "chain_id")
+
+
+def test_decode_batch_with_beam_matches_jax(headline):
+    """K2's beam through pipe.decode_batch (the plain version on the CPU)
+    against JAX's decode_batch at the same beam: a beam of 30 keeps a few
+    dozen of the 3048 states each frame."""
+    gmm, _topo, fcfg, _tied, _meta, dcfg, utts, graph = headline
+    fb = pipe.featurize(utts[:2], fcfg, BatchConfig(batch_size=2, bucket_boundaries=(600,)), CPU)[0]
+    scores = pipe.score_batch(fb.feats, gmm, mode="max")
+    jfb = jax_pipe.FeatBatch(fb.utt_ids, jnp.asarray(fb.feats.numpy()), jnp.asarray(fb.n_frames.numpy()),
+                             fb.words)
+    for beam in (30.0, 200.0):
+        bcfg = dataclasses.replace(dcfg, beam=beam)
+        got, got_scores = pipe.decode_batch(fb, scores, graph, bcfg)
+        assert got == jax_pipe.decode_batch(jfb, jnp.asarray(scores.numpy()), graph, bcfg)
+        assert all(len(h) > 0 for h in got) and np.isfinite(got_scores).all()
+
+
+def test_word_decode_graph_multi_matches_jax():
+    """One chain per pronunciation variant, the word prior plus a uniform
+    pronunciation prior on each entry: equal arrays, labels and pron_logp."""
+    variants = {"fish": [["f", "ih", "sh"], ["f", "iy", "sh"]], "the": [["dh", "ah"], ["dh", "iy"], ["th", "iy"]],
+                "cat": [["k", "ae", "t"]]}
+    lex, jlex = make_lexicon_multi(variants), jax_make_lexicon_multi(variants)
+    topo = build_topology(lex, tcfg.TopologyConfig())
+    jtopo = jax_build_topology(jlex, TopologyConfig())
+    dcfg, jdcfg = tcfg.DecodeConfig(word_insertion_penalty=1.5), DecodeConfig(word_insertion_penalty=1.5)
+    word_logp = np.log(np.asarray([0.2, 0.3, 0.4, 0.1], np.float32))
+    for wl in (None, word_logp):
+        g, pron = pipe.word_decode_graph_multi(lex, topo, dcfg, wl)
+        jg, jpron = jax_pipe.word_decode_graph_multi(jlex, jtopo, jdcfg, wl)
+        for k in GRAPH_KEYS:
+            np.testing.assert_array_equal(getattr(g, k), getattr(jg, k))
+        assert g.labels == jg.labels and g.labels.count("the") == 3
+        np.testing.assert_array_equal(pron, jpron)
+        via = pipe.word_decode_graph(lex, topo, dcfg, wl, multi_pron=True)
+        jvia = jax_pipe.word_decode_graph(jlex, jtopo, jdcfg, wl, multi_pron=True)
+        for k in GRAPH_KEYS:
+            np.testing.assert_array_equal(getattr(via, k), getattr(jvia, k))
+        assert via.labels == jvia.labels == g.labels
+    single = pipe.word_decode_graph(lex, topo, dcfg)
+    assert len(single.labels) == len(lex.words) + 1
+
+
+def test_int8_slice_matches_jax(headline):
+    """The slice as a whole: 4 held-out utterances scored in int8/sum at the
+    headline width by the port's plain int8 scorer and by JAX's
+    interpret-mode K5, then decoded: the transcripts equal each other's and
+    the float32 decode's. Only the logsumexp's order differs: atol 1e-4, and
+    rtol 1e-6 (two float32 ulps) for the logliks of magnitude up to ~600."""
+    gmm, _topo, fcfg, _tied, _meta, dcfg, utts, graph = headline
+    bcfg = BatchConfig(batch_size=N_UTTS, bucket_boundaries=(250, 350, 450, 600))
+    fbs = pipe.featurize(utts, fcfg, bcfg, CPU)
+    jgmm = jax_load_system(BUNDLE)[0]
+    graphs = pipe.decode_graphs(graph, N_UTTS, CPU)
+    for fb in fbs:
+        s8 = pipe.score_batch(fb.feats, gmm, compute_dtype="int8", mode="sum")
+        j8 = np.array(jax_gmm_loglik_batched(jnp.asarray(fb.feats.numpy()), jgmm, compute_dtype="int8",
+                                               interpret=True))
+        np.testing.assert_allclose(s8.numpy(), j8, atol=1e-4, rtol=1e-6)
+        s32 = pipe.score_batch(fb.feats, gmm, compute_dtype="float32", mode="sum")
+        hyp8, _ = pipe.decode_batch(fb, s8, graph, dcfg, graphs=graphs)
+        hyp_j8, _ = pipe.decode_batch(fb, torch.as_tensor(j8), graph, dcfg, graphs=graphs)
+        hyp32, _ = pipe.decode_batch(fb, s32, graph, dcfg, graphs=graphs)
+        assert hyp8 == hyp_j8 == hyp32
+        assert all(len(h) > 0 for h in hyp8)
+
+
+def test_decode_corpus_checks_mode_and_layout(headline):
+    gmm, _topo, fcfg, _tied, _meta, dcfg, utts, graph = headline
+    bcfg = BatchConfig(batch_size=N_UTTS, bucket_boundaries=(600,))
+    with pytest.raises(NotImplementedError):  # int8 folds in sum mode only
+        pipe.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, CPU, compute_dtype="int8")
+    with pytest.raises(ValueError):
+        pipe.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, CPU, compute_dtype="int8", mode="sum",
+                           layout="wide")
+    with pytest.raises(ValueError):
+        pipe.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, CPU, mode="mean")

@@ -2,7 +2,8 @@
 interpret-mode Pallas kernel (decoder/viterbi_pallas.py): the same contract
 as tests/test_viterbi_pallas.py -- path and entered exact, scores to rtol
 1e-6 -- on align, phone-loop and word-loop graphs with ragged batches, plus
-beam pruning, CTC skip transitions and the token/pdf readouts."""
+beam pruning, the score without a backtrace, CTC skip transitions and the
+token/pdf readouts."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -128,6 +129,8 @@ def test_path_to_pdfs_and_tokens_match_jax(topo):
 
 
 def test_kernel_wrapper_rejects_skip_and_beam(topo):
+    """Skip transitions are refused on every device; a beam is not (K2 has
+    the beam mask), so the wrapper takes the plain version's beam on the CPU."""
     graphs_np = gr.batch_graphs(_graphs(topo, "align"))
     emit, n_frames = _inputs(topo)
     args = (torch.as_tensor(emit), vit.graphs_to_torch(_with_skip(graphs_np), CPU),
@@ -135,5 +138,40 @@ def test_kernel_wrapper_rejects_skip_and_beam(topo):
     with pytest.raises(NotImplementedError):
         viterbi_cuda.viterbi(*args)
     with pytest.raises(NotImplementedError):
-        viterbi_cuda.viterbi(torch.as_tensor(emit), vit.graphs_to_torch(graphs_np, CPU),
-                             torch.as_tensor(n_frames), beam=5.0)
+        viterbi_cuda.viterbi(*args, beam=5.0)
+    g = vit.graphs_to_torch(graphs_np, CPU)
+    got = viterbi_cuda.viterbi(torch.as_tensor(emit), g, torch.as_tensor(n_frames), beam=5.0)
+    want = vit.viterbi(torch.as_tensor(emit), g, torch.as_tensor(n_frames), beam=5.0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["align", "phone_loop", "word_loop"])
+@pytest.mark.parametrize("beam", [0.5, 2.0, 6.0])
+def test_kernel_wrapper_beam_matches_jax(topo, kind, beam):
+    """The beam through the kernel's wrapper (the plain version on the CPU)
+    against JAX's beam mask: tight beams prune most states every frame."""
+    graphs_np = gr.batch_graphs(_graphs(topo, kind))
+    emit, n_frames = _inputs(topo, seed=11)
+    ref = jax_vit.viterbi(jnp.asarray(emit), {k: jnp.asarray(v) for k, v in graphs_np.items()},
+                          jnp.asarray(n_frames), acoustic_scale=0.7, beam=beam)
+    got = viterbi_cuda.viterbi(torch.as_tensor(emit), vit.graphs_to_torch(graphs_np, CPU),
+                               torch.as_tensor(n_frames), acoustic_scale=0.7, beam=beam)
+    _assert_equal(ref, got)
+
+
+@pytest.mark.parametrize("beam", [0.0, 3.0])
+def test_without_backtrace_matches_jax(topo, beam):
+    """with_backtrace=False: JAX's zero path, no entered frame, the same score."""
+    graphs_np = gr.batch_graphs(_graphs(topo, "word_loop"))
+    emit, n_frames = _inputs(topo, seed=12)
+    ref, got = _run_both(graphs_np, emit, n_frames, beam=beam, with_backtrace=False)
+    _assert_equal(ref, got)
+    assert not got.path.any() and not got.entered.any()
+    full = vit.viterbi(torch.as_tensor(emit), vit.graphs_to_torch(graphs_np, CPU),
+                       torch.as_tensor(n_frames), beam=beam)
+    assert torch.equal(got.score, full.score)
+    wrapped = viterbi_cuda.viterbi(torch.as_tensor(emit), vit.graphs_to_torch(graphs_np, CPU),
+                                   torch.as_tensor(n_frames), beam=beam, with_backtrace=False)
+    for a, b in zip(wrapped, got):
+        assert torch.equal(a, b)
