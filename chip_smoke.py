@@ -10,10 +10,12 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
 
 0. device: the card's name and ``nvidia-smi`` name + power limit;
 1. build: compile every kernel in mogasr_torch/csrc with nvcc, in parallel;
-2. K1 (csrc/gmm_score.cu) against the plain PyTorch scorer on the headline
-   GMM, float32 and bfloat16, sum and max: on random features and on one
-   batch of the decode path (the 600-frame bucket, 256 x 600 frames), where
-   it is also timed against the plain version;
+2. K1 (csrc/gmm_score.cu, the kernel of csrc/gmm_tc.cuh: bf16 on the tensor
+   cores, float32 FMA on the CUDA cores) against the plain PyTorch scorer on
+   the headline GMM, float32 and bfloat16, sum and max: on random features and on one batch of the decode
+   path (the 600-frame bucket, 256 x 600 frames), where bf16/max and f32/sum
+   are also timed against the plain version, each beside its bound counted
+   by the route the arm takes (:func:`k1_bound`);
 3. K2 (csrc/viterbi.cu) against the plain PyTorch Viterbi on the headline
    word-loop graph, path, entered and score bitwise equal: on the decode
    path's batch (B=256, T=600, ragged frame counts, its K1 emissions), where
@@ -25,10 +27,11 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
 6. the same corpus through the plain float32 path on the card: transcript
    agreement with the kernel path;
 7. K3f/K3b (csrc/forward_backward.cu) against the plain forward-backward in
-   float32 and float64: on the widest batch of the training corpus (32 x 700
-   frames, its K1 float32/sum emissions, the tied-triphone align graphs of
-   its transcripts), where they are also timed, and on random emissions with
-   n_frames of 0, 1 and T;
+   float32 and float64: on the widest batch of the training corpus (32 x 550
+   frames: its longest utterance fits the 550-frame bucket; its K1
+   float32/sum emissions, timed there beside the plain scorer and the
+   bound, with the tied-triphone align graphs of its transcripts), where
+   they are also timed, and on random emissions with n_frames of 0, 1 and T;
 8. the training path: 2 Baum-Welch EM iterations then 1 Viterbi EM iteration
    from the headline GMM over the 1600-utterance training corpus of
    benchmarks/train_headline.py (log-likelihood per frame, frames/s and
@@ -36,7 +39,7 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    held-out WER of the re-estimated GMM through the decode path, one
    Baum-Welch E-step's statistics against the plain path on the card, and
    one more Baum-Welch iteration under ``torch.profiler`` (the card's busy
-   share and its top device events);
+   share, its top device events, and K1's device time over its launches);
 9. K4 (csrc/lstm_scan.cu) against the plain LSTM recurrence, float32 and
    bfloat16: on the hybrid path's widest batch (64 x 600, the real layer-0
    and layer-1 inputs of the seeded LstmAm, 512 hidden), where it is timed
@@ -55,10 +58,11 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    against float32, transcript agreement), and one batch each of MlpAm,
    TdnnAm, MoeAm and BlstmAm through the scorer and K2;
 11. K1w (csrc/gmm_wide.cu, the wide layout) against K1, bitwise in max mode,
-   and against the plain scorer, float32 and bfloat16, sum and max: on the
-   decode path's batch (256 x 600 frames, the headline GMM; bf16/max timed)
-   and at bench.py's kernel-sweep scale (1000 states x 256 components x 39
-   dims, N = 8192, seed 7), where K1 and K1w are timed side by side;
+   and both against the plain scorer, float32 and bfloat16, sum and max: on
+   the decode path's batch (256 x 600 frames, the headline GMM; bf16/max
+   timed), at bench.py's kernel-sweep scale (1000 states x 256 components x
+   39 dims, N = 8192, seed 7), where K1 and K1w are timed side by side, and
+   on random GMMs of 300 x 8 at D = 120 and 200 (N = 2000);
 12. K5 (csrc/gmm_int8.cu) against the plain int8 scorer on the same inputs,
    its quantized operands made on the card compared bitwise with the CPU's;
    timed on the decode path's batch;
@@ -93,15 +97,17 @@ BUNDLE = os.path.join(ROOT, "benchmarks", "headline")
 # Kernel vs plain scorer, float32 and bfloat16 alike: both multiply the same
 # operands (bf16-rounded ones in bfloat16 mode, where every product is exact
 # in float32) and accumulate in float32, so they differ only in summation
-# order. On the headline GMM either order sits within 2.5e-4 of a float64
-# sum over |loglik| in [40, 640]; this is the reference's own golden
-# tolerance (tests/test_golden.py), with a 4x margin at the smallest |loglik|.
+# order, and in bf16 in the tensor cores' truncating accumulation (up to
+# 7.3e-4 on the decode batch). This is the reference's own golden tolerance
+# (tests/test_golden.py), with a 4x margin at the smallest |loglik|.
 K1_ATOL, K1_RTOL = 1e-3, 1e-4
 FRONTEND_ATOL = 3e-4      # tests/test_golden.py
 MAX_WER = 0.010           # the JAX system's WER on this corpus is 0.0069
 BUNDLE_WER = 0.0069
 MIN_AGREEMENT = 0.99      # transcripts identical to the plain float32 path
-K1_TIMED = (("bfloat16", "max"), ("float32", "sum"))  # the decode path's mode, the training mode
+# the decode path's arm, and the training arm at the decode batch's shape
+# (phase 7 times it on the training path's widest batch)
+K1_TIMED = (("bfloat16", "max"), ("float32", "sum"))
 
 # K3f/K3b vs the plain forward-backward. loglik: the lse over states sums in
 # another order, far below rtol 1e-5 at |loglik| ~ 1e4. Posteriors: the
@@ -159,6 +165,8 @@ K4_GATE_OPS = 15
 # operations at the rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# exps per SM and clock on the special-function units (Hopper's SFU rate)
+SFU_EXPS_PER_SM_CLOCK = 16
 # Float operations per graph state and frame (a transcendental counts as
 # one): K2 emission scale and add, stay/advance/enter adds, three maxes, the
 # exit add; K3f the exit add and its share of the lse (max, sub, exp, add),
@@ -171,8 +179,15 @@ K2_OPS, K3F_OPS, K3B_OPS = 9, 22, 24
 # products, so its time at the float32 rate and the products' time at the
 # int8 rate overlap: the bound takes the larger of the two.
 K5_EPILOGUE_OPS = 8
+# K1's and K1w's epilogue per (frame, component, state) on the CUDA cores:
+# the bias add and the max, or in sum mode K5's count
+K1_EPILOGUE_OPS = {"max": 2, "sum": K5_EPILOGUE_OPS}
 # bench.py's kernel sweep (its BASELINE configs[1] scoring scale), seed 7
 SWEEP_S, SWEEP_K, SWEEP_N, SWEEP_SEED = 1000, 256, 8192, 7
+# Feature widths past the headline's 39 that K1 and K1w must take (phase
+# 11): fbank with deltas (40 x 3, two row chunks of 128) and 200 (float32
+# restages its frame tile for each of four chunks)
+WIDE_FEATURE_DIMS = (120, 200)
 K2_BEAM = 60.0  # in acoustic-scale-multiplied log units (headline scale 1.0)
 
 
@@ -215,10 +230,11 @@ def kernel_device_ms(fn, names, reps: int):
     return out
 
 
-def device_profile(fn, top: int = 5):
+def device_profile(fn, top: int = 5, names=()):
     """Wall milliseconds of ``fn()``, the device milliseconds inside it
-    (kernels, copies, memsets), and the ``top`` device events by time, from
-    ``torch.profiler``."""
+    (kernels, copies, memsets), the ``top`` device events by time, and for
+    each of ``names`` the device milliseconds and launches of the events
+    whose name contains it, from ``torch.profiler``."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -231,7 +247,9 @@ def device_profile(fn, top: int = 5):
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
     ranked = sorted(on_device, key=lambda e: -e.device_time_total)[:top]
-    return wall_ms, device_ms, [(e.key[:60], e.device_time_total / 1e3, e.count) for e in ranked]
+    named = {n: (sum(e.device_time_total for e in on_device if n in e.key) / 1e3,
+                 sum(e.count for e in on_device if n in e.key)) for n in names}
+    return wall_ms, device_ms, [(e.key[:60], e.device_time_total / 1e3, e.count) for e in ranked], named
 
 
 def bound(n_bytes: float, n_ops: float, dtype: str):
@@ -240,6 +258,26 @@ def bound(n_bytes: float, n_ops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(n: int, s: int, k: int, d: int, dtype: str, mode: str, sfu_exps_per_s: float):
+    """Least milliseconds for K1's or K1w's work on N frames, by the route the
+    arm takes, and what bounds it: the largest of the bytes (x, the model in
+    its dtype, c, the output) over the HBM rate; the products at the rate of
+    their route (bf16 on the tensor cores, float32 FMA on the CUDA cores);
+    the epilogue's float ops at the float32 rate; and in sum mode N*S*K exps
+    at the SFU rate. Returns (ms, "bytes" or "operations", the four times)."""
+    op_bytes = 2 if dtype == "bfloat16" else 4
+    n_bytes = n * d * 4 + k * 2 * d * s * op_bytes + k * s * 4 + n * s * 4
+    products = 2 * n * s * k * 2 * d
+    times = {
+        "bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "products": products / PEAK_OPS_PER_S[dtype] * 1e3,
+        "epilogue": K1_EPILOGUE_OPS[mode] * n * s * k / PEAK_OPS_PER_S["float32"] * 1e3,
+        "exps": (n * s * k / sfu_exps_per_s * 1e3) if mode == "sum" else 0.0,
+    }
+    ms = max(times.values())
+    return ms, ("bytes" if times["bytes"] == ms else "operations"), times
 
 
 def emission_bytes(graphs, n_frames) -> int:
@@ -418,7 +456,7 @@ def hybrid_phases(dev: torch.device) -> dict:
         raise RuntimeError(f"hybrid path decoded {hyb.n_utts} of {len(hyb_corpus)} utterances, "
                            f"finite scores: {bool(np.isfinite(hyb.scores).all())}")
     hyb_words = sum(len(h) for h in hyb.hyps)
-    hyb_prof_wall, hyb_prof_dev, hyb_prof_top = device_profile(lambda: hybrid(peaked))
+    hyb_prof_wall, hyb_prof_dev, hyb_prof_top, _ = device_profile(lambda: hybrid(peaked))
     hyb_plain = hybrid(peaked, use_kernels=False)
     same = sum(a == b for a, b in zip(hyb.hyps, hyb_plain.hyps)) / len(hyb.hyps)
     if same < MIN_AGREEMENT:
@@ -485,7 +523,7 @@ def hybrid_phases(dev: torch.device) -> dict:
                          "bound_ms": k4_bound["bfloat16"][0], "bound_by": k4_bound["bfloat16"][1]}}
 
 
-def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps) -> list:
+def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_exps_per_s) -> list:
     """Phases 11-15: K1w, K5, K2's beam, the decode path through K1w and
     through K5, the PLP front end; returns the kernels line's K1w and K5
     entries."""
@@ -507,21 +545,22 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps) -> lis
     x_main = fb.feats.reshape(B * T, D)
     N = B * T
     rng = np.random.default_rng(SWEEP_SEED)
-    gmm_big = gmm_from_numpy(rng.dirichlet(np.ones(SWEEP_K), size=SWEEP_S).astype(np.float32),
-                             rng.standard_normal((SWEEP_S, SWEEP_K, D)).astype(np.float32),
-                             (0.5 + rng.random((SWEEP_S, SWEEP_K, D))).astype(np.float32), dev)
-    x_big = torch.as_tensor(rng.standard_normal((SWEEP_N, D)).astype(np.float32), device=dev)
+
+    def random_gmm(s, k, d, n):
+        g = gmm_from_numpy(rng.dirichlet(np.ones(k), size=s).astype(np.float32),
+                           rng.standard_normal((s, k, d)).astype(np.float32),
+                           (0.5 + rng.random((s, k, d))).astype(np.float32), dev)
+        return torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev), g
+
+    x_big, gmm_big = random_gmm(SWEEP_S, SWEEP_K, D, SWEEP_N)
     main_name = f"decode-path batch N={N}"
     big_name = f"{SWEEP_S} x {SWEEP_K} x {D} N={SWEEP_N}"
     inputs = {main_name: (x_main, gmm), big_name: (x_big, gmm_big)}
-
-    def gmm_bytes(g, n, op_bytes):
-        s_, k_, d_ = g.means.shape
-        return n * d_ * 4 + k_ * 2 * d_ * s_ * op_bytes + k_ * s_ * 4 + n * s_ * 4
+    wide_features = {f"300 x 8 x {d} N=2000": random_gmm(300, 8, d, 2000) for d in WIDE_FEATURE_DIMS}
 
     # ---- phase 11: K1w against K1 (bitwise, max mode) and the plain scorer
     k1w_err, k1w_ms, line = {}, {}, []
-    for name, (x, g) in inputs.items():
+    for name, (x, g) in {**inputs, **wide_features}.items():
         for dt in ("float32", "bfloat16"):
             k1p = gmm_cuda.kernel_params(g, dt)
             for mode in ("sum", "max"):
@@ -548,19 +587,23 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps) -> lis
                     raise RuntimeError(f"K1w {dt}/max on {name} is not bitwise equal to K1: max |diff| "
                                        f"{float((got - ref).abs().max())}")
                 err = float((got - want).abs().max())
-                if not torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL):
-                    raise RuntimeError(f"K1w {dt}/{mode} on {name} disagrees with the plain scorer: max |err| {err}")
+                for kname, out in (("K1w", got), ("K1", ref)):
+                    if not torch.allclose(out, want, atol=K1_ATOL, rtol=K1_RTOL):
+                        raise RuntimeError(f"{kname} {dt}/{mode} on {name} disagrees with the plain scorer: "
+                                           f"max |err| {float((out - want).abs().max())}")
                 k1w_err[(name, dt, mode)] = err
                 line.append(f"{name} {dt}/{mode} kc={wp.kc} {err:.3g}")
                 del got, ref, want
     k1w_main = (main_name, "bfloat16", "max")
-    k1w_bound = bound(gmm_bytes(gmm, N, 2), 2 * N * S * K * 2 * D, "bfloat16")
-    phase(11, "K1w bitwise equal to K1 in max mode and within atol %g rtol %g of plain, max |err|: %s; "
+    k1w_bound = k1_bound(N, S, K, D, "bfloat16", "max", sfu_exps_per_s)
+    big_s, big_k, _ = gmm_big.means.shape
+    phase(11, "K1w bitwise equal to K1 in max mode, both within atol %g rtol %g of plain, K1w max |err|: %s; "
           "decode-path batch bf16/max: K1w %.3f ms, K1 %.3f ms, plain %.3f ms (bound %.3f ms by %s); at %s, "
           "K1w vs K1 ms: %s" % (
-              K1_ATOL, K1_RTOL, ", ".join(line), *k1w_ms[k1w_main], *k1w_bound, big_name,
+              K1_ATOL, K1_RTOL, ", ".join(line), *k1w_ms[k1w_main], *k1w_bound[:2], big_name,
               "; ".join(f"{d}/{m} {k1w_ms[(big_name, d, m)][0]:.3f} vs {k1w_ms[(big_name, d, m)][1]:.3f} "
-                        f"(plain {k1w_ms[(big_name, d, m)][2]:.3f})"
+                        f"(plain {k1w_ms[(big_name, d, m)][2]:.3f}, bound "
+                        f"{k1_bound(SWEEP_N, big_s, big_k, D, d, m, sfu_exps_per_s)[0]:.3f})"
                         for d in ("float32", "bfloat16") for m in ("sum", "max"))))
 
     # ---- phase 12: K5 against the plain int8 scorer
@@ -721,7 +764,14 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    phase(0, f"device {kind!r}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_exps_per_s = SFU_EXPS_PER_SM_CLOCK * n_sms * sm_mhz * 1e6
+    phase(0, f"device {kind!r}; nvidia-smi: {smi}, max SM clock {sm_mhz:g} MHz, {n_sms} SMs; "
+          f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     phase(1, f"built mogasr_torch/csrc kernels in {_cuda.build_all():.1f} s")
 
@@ -741,6 +791,9 @@ def main() -> None:
     B, T, _ = fb.feats.shape
 
     # ---- phase 2: K1 against its plain version
+    def k1_bound_of(n, dt, mode):
+        return k1_bound(n, S, K, D, dt, mode, sfu_exps_per_s)
+
     def k1(x, dt, mode):
         return gmm_cuda.gmm_loglik_fused(x, gmm, dt, mode, params=params[dt])
 
@@ -754,7 +807,7 @@ def main() -> None:
         "random N=8192": torch.as_tensor(rng.standard_normal((8192, D)).astype(np.float32), device=dev),
         main_name: x_main,
     }
-    k1_ms, k1_err, k1_bound = {}, {}, {}
+    k1_ms, k1_err, k1_bounds = {}, {}, {}
     for name, x in inputs.items():
         for dt in ("float32", "bfloat16"):
             for mode in ("sum", "max"):
@@ -762,9 +815,7 @@ def main() -> None:
                     ms, got = timed(lambda: k1(x, dt, mode), 5)
                     plain_ms, want = timed(lambda: k1_plain(x, dt, mode), 3)
                     k1_ms[(dt, mode)] = (ms, plain_ms)
-                    N = x.shape[0]
-                    n_bytes = N * D * 4 + K * 2 * D * S * params[dt].ab_t.element_size() + K * S * 4 + N * S * 4
-                    k1_bound[(dt, mode)] = bound(n_bytes, 2 * N * S * K * 2 * D, dt)
+                    k1_bounds[(dt, mode)] = k1_bound_of(x.shape[0], dt, mode)
                 else:
                     got, want = k1(x, dt, mode), k1_plain(x, dt, mode)
                 torch.cuda.synchronize()
@@ -780,7 +831,9 @@ def main() -> None:
     phase(2, "K1 matches plain (atol %g rtol %g), max |err|: %s; at N=%d %s" % (
         K1_ATOL, K1_RTOL, ", ".join(f"{n} {d}/{m} {e:.3g}" for (n, d, m), e in k1_err.items()), B * T,
         "; ".join(f"{d}/{m} {k1_ms[(d, m)][0]:.3f} ms (plain {k1_ms[(d, m)][1]:.3f} ms, bound "
-                  f"{k1_bound[(d, m)][0]:.3f} ms by {k1_bound[(d, m)][1]})" for d, m in K1_TIMED)))
+                  f"{k1_bounds[(d, m)][0]:.3f} ms by {k1_bounds[(d, m)][1]}: "
+                  + ", ".join(f"{w} {t:.3f}" for w, t in k1_bounds[(d, m)][2].items()) + ")"
+                  for d, m in K1_TIMED)))
 
     # ---- phase 3: K2 against its plain version, bitwise
     ll_main = k1(x_main, "bfloat16", "max").reshape(B, T, S)
@@ -876,7 +929,7 @@ def main() -> None:
     train_batches = list(make_batches(train_corpus, train_bcfg, fcfg))
     frontends = pipe.frontends_for(train_batches, fcfg, dev)
     train_fbs = [pipe.featurize_batch(b, frontends[b.waves.shape[1]], dev) for b in train_batches]
-    # the widest batch: the 700-frame bucket, the one with the most frames
+    # the widest batch: the widest bucket used (550 frames), the one with the most frames
     fbw = max(train_fbs, key=lambda f: (f.feats.shape[1], int(f.n_frames.sum())))
     Bw, Tw, _ = fbw.feats.shape
 
@@ -885,7 +938,15 @@ def main() -> None:
 
     graphs_w = vit.graphs_to_torch(pipe.build_align_graphs(fbw.words, topo.lexicon, topo, align_fn=align_fn), dev)
     Jw = graphs_w["emit_id"].shape[1]
-    ll_w = k1(fbw.feats.reshape(Bw * Tw, D), "float32", "sum").reshape(Bw, Tw, S)
+    x_w = fbw.feats.reshape(Bw * Tw, D)
+    k1_train_ms, ll_w = timed(lambda: k1(x_w, "float32", "sum"), 5)
+    k1_train_plain_ms, ll_w_plain = timed(lambda: k1_plain(x_w, "float32", "sum"), 3)
+    k1_train_err = float((ll_w - ll_w_plain).abs().max())
+    if not torch.allclose(ll_w, ll_w_plain, atol=K1_ATOL, rtol=K1_RTOL):
+        raise RuntimeError(f"K1 float32/sum on the training batch disagrees with plain: max |err| {k1_train_err}")
+    k1_train_bound = k1_bound_of(Bw * Tw, "float32", "sum")
+    ll_w = ll_w.reshape(Bw, Tw, S)
+    del ll_w_plain
     n_rand = 8
     nf_rand = torch.as_tensor(np.r_[Tw, 1, 0, rng.integers(2, Tw, n_rand - 3)].astype(np.int32), device=dev)
     ll_rand = torch.as_tensor((rng.standard_normal((n_rand, Tw, S)) * 4 - 20).astype(np.float32), device=dev)
@@ -955,11 +1016,13 @@ def main() -> None:
     phase(7, "K3f/K3b match plain (loglik rtol %g; posteriors within %g of plain f32, within %g of f64 and "
           "%gx plain f32's error): %s; training batch (%d frames): kernels %.3f ms for the pair (K3f %.3f ms, "
           "bound %.4f ms by %s; K3b %.3f ms, bound %.4f ms by %s), plain forward %.3f ms, backward %.3f ms; "
-          "launches K3f %d, K3b %d" % (
+          "launches K3f %d, K3b %d; its K1 float32/sum emissions (N=%d) %.3f ms (plain %.3f ms, max |err| "
+          "%.3g; bound %.3f ms by %s: %s)" % (
               FB_LOGLIK_RTOL, FB_POST_ATOL, FB_POST64_ATOL, FB_ERR_RATIO, "; ".join(fb_line),
               int(fbw.n_frames.sum()), fb_pair_ms, fb_kernel_ms["fb_forward_kernel"], *k3f_bound,
               fb_kernel_ms["fb_backward_kernel"], *k3b_bound, fb_plain_fwd_ms, fb_plain_bwd_ms,
-              *fb_phase_launches))
+              *fb_phase_launches, Bw * Tw, k1_train_ms, k1_train_plain_ms, k1_train_err, *k1_train_bound[:2],
+              ", ".join(f"{w} {t:.3f}" for w, t in k1_train_bound[2].items())))
     del ll_w, ll_rand
 
     # ---- phase 8: the training path
@@ -999,9 +1062,10 @@ def main() -> None:
         if stats_err[field] > STATS_TOL:
             raise RuntimeError(f"Baum-Welch {field}: kernel path {stats_err[field]:.3g} of max from plain")
     # one more Baum-Welch iteration under the profiler: the card's busy share
-    prof_wall, prof_dev, prof_top = device_profile(lambda: pipe.train_gmm(
+    prof_wall, prof_dev, prof_top, prof_named = device_profile(lambda: pipe.train_gmm(
         train_fbs, topo.lexicon, topo, gcfg, TrainConfig(num_em_iters=1), gmm=trained,
-        mode="baum-welch", align_fn=align_fn, n_pdfs=S))
+        mode="baum-welch", align_fn=align_fn, n_pdfs=S), names=("gmm_tc_kernel",))
+    k1_iter_ms, k1_iter_launches = prof_named["gmm_tc_kernel"]
     iters = [("baum-welch", h, s, st) for h, s, st in zip(bw.history, bw.seconds, bw.stage_seconds)]
     iters.append(("viterbi", vt.history[0], vt.seconds[0], vt.stage_seconds[0]))
     iter_text = "; ".join(
@@ -1014,11 +1078,12 @@ def main() -> None:
           f"(bundle {BUNDLE_WER}, limit {MAX_WER}); one Baum-Welch E-step on the widest batch, kernel vs "
           f"plain path: max |err| / max " + ", ".join(f"{k} {v:.3g}" for k, v in stats_err.items())
           + f" (limit {STATS_TOL}); a profiled Baum-Welch iteration: {prof_wall:.1f} ms wall, "
-          f"{prof_dev:.1f} ms on the device ({100 * prof_dev / prof_wall:.1f}% busy), top device events "
+          f"{prof_dev:.1f} ms on the device ({100 * prof_dev / prof_wall:.1f}% busy), K1 {k1_iter_ms:.1f} ms "
+          f"over {k1_iter_launches} launches; top device events "
           + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof_top))
 
     k4_entry = hybrid_phases(dev)
-    arm_entries = scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps)
+    arm_entries = scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_exps_per_s)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -1032,7 +1097,14 @@ def main() -> None:
          "launches_by_path": by_path["gmm_score"],
          "max_abs_err": k1_err[(main_name, *k1_main)],
          "ms": k1_ms[k1_main][0], "plain_ms": k1_ms[k1_main][1],
-         "bound_ms": k1_bound[k1_main][0], "bound_by": k1_bound[k1_main][1], "library_ms": None},
+         "bound_ms": k1_bounds[k1_main][0], "bound_by": k1_bounds[k1_main][1], "library_ms": None,
+         "float32_sum_decode_batch": {"ms": k1_ms[("float32", "sum")][0], "plain_ms": k1_ms[("float32", "sum")][1],
+                                      "bound_ms": k1_bounds[("float32", "sum")][0],
+                                      "bound_by": k1_bounds[("float32", "sum")][1]},
+         "float32_sum_training_batch": {"n": Bw * Tw, "ms": k1_train_ms, "plain_ms": k1_train_plain_ms,
+                                        "max_abs_err": k1_train_err, "bound_ms": k1_train_bound[0],
+                                        "bound_by": k1_train_bound[1], "profiled_iteration_ms": k1_iter_ms,
+                                        "profiled_iteration_launches": k1_iter_launches}},
         {"name": "viterbi", "route": "cuda", "source": "mogasr_torch/csrc/viterbi.cu",
          "replaces": "mogasr/decoder/viterbi_pallas.py:54", "launches": launches["viterbi"],
          "launches_by_path": by_path["viterbi"],

@@ -117,14 +117,22 @@ def quantize_int8(a: torch.Tensor, dim: int):
     return q, scale.squeeze(dim)
 
 
+def component_major(gmm: GmmSet):
+    """(ab_t [K, 2D, S], c_t [K, S]) float32: the natural parameters
+    component-major, ab_t[k, r, s] = ab[r, s*K + k] and c_t[k, s] = c[s*K +
+    k], the reference's transposed_natural_params (gmm_pallas.py)."""
+    S, K, D = gmm.means.shape
+    nat = natural_params(gmm)
+    return nat.ab.reshape(2 * D, S, K).permute(2, 0, 1), nat.c.reshape(S, K).T
+
+
 def int8_params(gmm: GmmSet):
     """The int8 model: (qab [K, 2D, S] int8, sab [K, S] f32, c_t [K, S] f32),
     each (component, state) column of the component-major ab quantized over
     its 2D rows; 4x smaller than the float32 ab."""
-    S, K, D = gmm.means.shape
-    nat = natural_params(gmm)
-    qab, sab = quantize_int8(nat.ab.reshape(2 * D, S, K).permute(2, 0, 1), dim=1)
-    return qab.contiguous(), sab.contiguous(), nat.c.reshape(S, K).T.contiguous()
+    ab_t, c_t = component_major(gmm)
+    qab, sab = quantize_int8(ab_t, dim=1)
+    return qab.contiguous(), sab.contiguous(), c_t.contiguous()
 
 
 def gmm_loglik(

@@ -13,6 +13,14 @@ kc only arrange the same function); any other device raises. ``LAUNCHES``,
 ``WIDE_LAUNCHES`` and ``INT8_LAUNCHES`` count the launches of K1, K1w and K5
 (none for N = 0). A caller that scores many batches with one GMM converts it
 to the kernel's layout once, with :func:`kernel_params`, and passes it in.
+
+K1 and K1w run one kernel (``csrc/gmm_tc.cuh``): bf16 products on the
+tensor cores, float32 FMA on the CUDA cores. They read the model as panels:
+for each component and 64-state tile a [64, Rp] slice, its 2D rows cut into
+equal chunks of at most 128 (zero rows past 2D), each chunk laid out as the
+shared-memory image its route reads (:func:`kernel_panels`).
+``kernel_params`` derives them from the reference's chunked layout
+(``am.gmm.component_major``) or its wide layout (:func:`wide_layout`).
 """
 
 from __future__ import annotations
@@ -28,8 +36,8 @@ from mogasr_torch.am.gmm import (
     GmmSet,
     check_scoring_args,
     gmm_loglik,
+    component_major,
     int8_params,
-    natural_params,
     quadratic_features,
     quantize_int8,
 )
@@ -39,32 +47,32 @@ WIDE_LAUNCHES = 0
 INT8_LAUNCHES = 0
 
 LAYOUTS = ("chunked", "wide")
-WIDE_TS = 32  # the wide layout's state-tile width: TSW in csrc/gmm_wide.cu
+WIDE_TS = 64  # the state tile of K1's panels and of the wide layout: TS in csrc/gmm_tc.cuh
+R_ALIGN, RC_MAX = 16, 128  # panel chunk rows: a multiple of the bf16 wgmma depth, at most 128 (as there)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"gmm_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
-_WIDE_SIGNATURES = {"gmm_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], "gmm_wide_tile_s": []}
+_SIGNATURES = {"gmm_score": [_P] * 4 + [_I] * 6 + [_P], "gmm_score_tile_s": []}
+_WIDE_SIGNATURES = {"gmm_wide": [_P] * 4 + [_I] * 7 + [_P], "gmm_wide_tile_s": []}
 _INT8_SIGNATURES = {"gmm_int8": [_P] * 6 + [_I] * 4 + [_P]}
 
 
 class KernelParams(NamedTuple):
-    """A GmmSet in K1's component-major layout, contiguous.
+    """A GmmSet as K1 reads it: c_t [K, S] float32 and panels, the
+    component-major ab_t [K, 2D, S] in the compute dtype through
+    :func:`kernel_panels`."""
 
-    ab_t: [K, 2D, S] in the compute dtype; c_t: [K, S] float32.
-    """
-
-    ab_t: torch.Tensor
     c_t: torch.Tensor
+    panels: torch.Tensor
 
 
 class WideParams(NamedTuple):
-    """A GmmSet in K1w's wide layout: ab_wide [ceil(K/kc), 2D,
-    ceil(S/WIDE_TS) * kc * WIDE_TS] in the compute dtype (zero-padded),
-    c_t [K, S] float32, and the component chunk kc."""
+    """A GmmSet as K1w reads it: c_t [K, S] float32, the component chunk kc,
+    and panels, the wide layout of ab_t (:func:`wide_layout`) in the compute
+    dtype through :func:`kernel_panels`."""
 
-    ab_wide: torch.Tensor
     c_t: torch.Tensor
     kc: int
+    panels: torch.Tensor
 
 
 class Int8Params(NamedTuple):
@@ -98,23 +106,59 @@ def wide_layout(ab_t: torch.Tensor, kc: int, ts: int = WIDE_TS) -> torch.Tensor:
     return abp.reshape(n_kc, kc, R, n_st, ts).permute(0, 2, 3, 1, 4).reshape(n_kc, R, n_st * kc * ts)
 
 
+def row_chunks(d: int) -> tuple:
+    """(n, rc): the panels' 2D rows in n equal chunks of rc rows, rc a
+    multiple of R_ALIGN and at most RC_MAX (n_chunks and chunk_rows in
+    csrc/gmm_tc.cuh)."""
+    units = -(-2 * d // R_ALIGN)
+    n = -(-units // (RC_MAX // R_ALIGN))
+    return n, -(-units // n) * R_ALIGN
+
+
+def padded_rows(d: int) -> int:
+    """Rp, the panels' row count: n * rc of :func:`row_chunks`."""
+    n, rc = row_chunks(d)
+    return n * rc
+
+
+def kernel_panels(ab: torch.Tensor) -> torch.Tensor:
+    """The panels K1 and K1w read, from the reference's chunked layout ab_t
+    [K, R, S] or its wide layout [n_kc, R, n_st * kc * WIDE_TS]: its [R,
+    WIDE_TS] slices along the last dimension (zero-padded to a multiple of
+    WIDE_TS), then along the first, each with its rows zero-padded to Rp and
+    each chunk of rc rows (:func:`row_chunks`) in the shared-memory image its
+    route reads (csrc/gmm_tc.cuh): float32 (FMA) as it is, [rc, 64]; bf16
+    (wgmma) K-major in 8-row groups of 16-byte column chunks, each 8-row x
+    16-byte core matrix contiguous. Panel k * n_st + j of ab_t is component
+    k's state tile j; panel (q * n_st + j) * kc + kk of the wide layout is
+    component q * kc + kk's."""
+    lead, R, S = ab.shape
+    n_st, rp, (_n, rc) = -(-S // WIDE_TS), padded_rows(R // 2), row_chunks(R // 2)
+    tiles = torch.zeros((lead, n_st, rp, WIDE_TS), dtype=ab.dtype, device=ab.device)
+    abp = torch.zeros((lead, R, n_st * WIDE_TS), dtype=ab.dtype, device=ab.device)
+    abp[..., :S] = ab
+    tiles[:, :, :R] = abp.reshape(lead, R, n_st, WIDE_TS).permute(0, 2, 1, 3)
+    if ab.dtype != torch.float32:
+        tiles = tiles.reshape(-1, rc // 8, 8, WIDE_TS // 8, 8).permute(0, 3, 1, 4, 2)
+    return tiles.reshape(lead * n_st, rp * WIDE_TS).contiguous()
+
+
 def kernel_params(gmm: GmmSet, compute_dtype: str = "float32", layout: str = "chunked",
                   kc: Optional[int] = None, mode: str = "sum") -> Params:
     """The GMM in the layout of the kernel that ``compute_dtype`` and
     ``layout`` pick (``mode`` only sets the default kc of the wide layout)."""
     _check_layout(compute_dtype, layout)
-    S, K, D = gmm.means.shape
+    K = gmm.n_components
     if compute_dtype == "int8":
         return Int8Params(*int8_params(gmm))
-    nat = natural_params(gmm)
-    ab_t = nat.ab.reshape(2 * D, S, K).permute(2, 0, 1).to(COMPUTE_DTYPES[compute_dtype])
-    c_t = nat.c.reshape(S, K).T.contiguous()
+    ab_t, c_t = component_major(gmm)
+    ab_t, c_t = ab_t.to(COMPUTE_DTYPES[compute_dtype]), c_t.contiguous()
     if layout == "wide":
         kc = default_kc(compute_dtype, mode, K) if kc is None else kc
         if not 1 <= kc <= K:
             raise ValueError(f"kc must be in [1, {K}], got {kc}")
-        return WideParams(wide_layout(ab_t, kc).contiguous(), c_t, kc)
-    return KernelParams(ab_t.contiguous(), c_t)
+        return WideParams(c_t, kc, kernel_panels(wide_layout(ab_t, kc)))
+    return KernelParams(c_t, kernel_panels(ab_t))
 
 
 def _check_layout(compute_dtype: str, layout: str) -> None:
@@ -167,7 +211,6 @@ def gmm_loglik_fused(
         params = kernel_params(gmm, compute_dtype, layout, kc, mode)
     N = x.shape[0]
     out = torch.empty((N, S), dtype=torch.float32, device=x.device)
-    x2 = quadratic_features(x.to(torch.float32))
     f32 = torch.float32
 
     if compute_dtype == "int8":
@@ -175,7 +218,7 @@ def gmm_loglik_fused(
             raise ValueError("compute_dtype='int8' needs Int8Params (kernel_params(gmm, 'int8'))")
         _check_params(params, x, (("qab", (K, 2 * D, S), torch.int8), ("sab", (K, S), f32),
                                   ("c_t", (K, S), f32)))
-        qx, sx = quantize_int8(x2, dim=1)
+        qx, sx = quantize_int8(quadratic_features(x.to(f32)), dim=1)
         lib = _cuda.load("gmm_int8", _INT8_SIGNATURES)
         with torch.cuda.device(x.device):
             err = lib.gmm_int8(qx.contiguous().data_ptr(), sx.contiguous().data_ptr(),
@@ -186,35 +229,30 @@ def gmm_loglik_fused(
         return out
 
     dt = COMPUTE_DTYPES[compute_dtype]
-    x2 = x2.to(dt).contiguous()
+    xf = x.to(f32).contiguous()
     dcode, mcode = 0 if dt == f32 else 1, 0 if mode == "sum" else 1
+    n_st, panel = -(-S // WIDE_TS), WIDE_TS * padded_rows(D)
     if layout == "wide":
         if not isinstance(params, WideParams) or (kc is not None and params.kc != kc):
             raise ValueError(f"layout='wide' needs WideParams with kc={kc} "
                              "(kernel_params(gmm, compute_dtype, 'wide', kc))")
-        n_kc, n_st = -(-K // params.kc), -(-S // WIDE_TS)
-        _check_params(params, x, (("ab_wide", (n_kc, 2 * D, n_st * params.kc * WIDE_TS), dt),
-                                  ("c_t", (K, S), f32)))
-        lib = _cuda.load("gmm_wide", _WIDE_SIGNATURES)
-        if lib.gmm_wide_tile_s() != WIDE_TS:
-            raise RuntimeError(f"csrc/gmm_wide.cu tiles states by {lib.gmm_wide_tile_s()}, not {WIDE_TS}")
-        with torch.cuda.device(x.device):
-            err = lib.gmm_wide(x2.data_ptr(), params.ab_wide.data_ptr(), params.c_t.data_ptr(),
-                               out.data_ptr(), N, 2 * D, S, K, params.kc, dcode, mcode,
-                               torch.cuda.current_stream().cuda_stream)
-        _cuda.check(lib, "gmm_wide", err, "gmm_wide launch")
-        WIDE_LAUNCHES += int(N > 0)
-        return out
-
-    if not isinstance(params, KernelParams):
-        raise ValueError("layout='chunked' needs KernelParams (kernel_params(gmm, compute_dtype))")
-    _check_params(params, x, (("ab_t", (K, 2 * D, S), dt), ("c_t", (K, S), f32)))
-    lib = _cuda.load("gmm_score", _SIGNATURES)
+        n_panels, name, args = -(-K // params.kc) * n_st * params.kc, "gmm_wide", (K, params.kc)
+    else:
+        if not isinstance(params, KernelParams):
+            raise ValueError("layout='chunked' needs KernelParams (kernel_params(gmm, compute_dtype))")
+        n_panels, name, args = K * n_st, "gmm_score", (K,)
+    _check_params(params, x, (("panels", (n_panels, panel), dt), ("c_t", (K, S), f32)))
+    lib = _cuda.load(name, _WIDE_SIGNATURES if layout == "wide" else _SIGNATURES)
+    if getattr(lib, f"{name}_tile_s")() != WIDE_TS:
+        raise RuntimeError(f"csrc/{name}.cu tiles states by {getattr(lib, f'{name}_tile_s')()}, not {WIDE_TS}")
     with torch.cuda.device(x.device):
-        err = lib.gmm_score(x2.data_ptr(), params.ab_t.data_ptr(), params.c_t.data_ptr(), out.data_ptr(),
-                            N, 2 * D, S, K, dcode, mcode, torch.cuda.current_stream().cuda_stream)
-    _cuda.check(lib, "gmm_score", err, "gmm_score launch")
-    LAUNCHES += int(N > 0)
+        err = getattr(lib, name)(xf.data_ptr(), params.panels.data_ptr(), params.c_t.data_ptr(), out.data_ptr(),
+                                 N, D, S, *args, dcode, mcode, torch.cuda.current_stream().cuda_stream)
+    _cuda.check(lib, name, err, f"{name} launch")
+    if layout == "wide":
+        WIDE_LAUNCHES += int(N > 0)  # the entry points return at once on no rows
+    else:
+        LAUNCHES += int(N > 0)
     return out
 
 

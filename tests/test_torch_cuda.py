@@ -121,6 +121,59 @@ def test_wide_kernel_matches_plain_and_k1(dev, compute_dtype, mode, S, K, D, N, 
                                   layout="wide")
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("S,K,D,N", [(70, 17, 39, 1), (130, 1, 39, 63), (65, 17, 13, 65), (200, 2, 13, 129),
+                                     (70, 5, 120, 130), (90, 3, 65, 64), (33, 3, 200, 65)])
+def test_tensor_core_tile_edges(dev, compute_dtype, mode, S, K, D, N):
+    """The edges of the 128-frame x 64-state tile, of the component ring and
+    of the row chunks: N around a warpgroup's 64 rows, S not a multiple of
+    64, D = 13 (one chunk of 32 rows), K = 1 and K = 17 (more components than
+    ring stages), D = 120 (fbank with deltas: two chunks of 128) and 65 (two
+    of 80), D = 200 (four of 112; float32 restages its frame tile per chunk);
+    K1 and K1w (kc = 5) against the plain scorer, and bitwise equal in max
+    mode."""
+    g, x = _random_gmm(dev, S, K, D, N)
+    before = (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES)
+    got = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode)
+    wide = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, layout="wide", kc=min(5, K))
+    want = gmm_loglik(x, g, mode=mode, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(wide, want, atol=1e-3, rtol=1e-4)
+    if mode == "max":
+        assert torch.equal(wide, got)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_wide_kernel_at_sweep_chunking(dev, compute_dtype, mode):
+    """K1w at bench.py's sweep chunking, K = 256 in 16 chunks of kc = 16:
+    bitwise K1 in max mode, K1's tolerance of the plain scorer in both."""
+    g, x = _random_gmm(dev, 100, 256, 39, 200)
+    got = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode, layout="wide", kc=16)
+    k1 = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype, mode)
+    want = gmm_loglik(x, g, mode=mode, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(k1, want, atol=1e-3, rtol=1e-4)
+    if mode == "max":
+        assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_gmm_kernels_no_rows(dev, compute_dtype, mode):
+    """N = 0: an empty [0, S] result and no launch counted."""
+    g, x = _random_gmm(dev, 70, 3, 39, 1)
+    before = (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES)
+    for layout in gmm_cuda.LAYOUTS:
+        out = gmm_cuda.gmm_loglik_fused(x[:0], g, compute_dtype, mode, layout=layout)
+        assert out.shape == (0, 70) and out.dtype == torch.float32
+    assert (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES) == before
+
+
 def _random_graphs(rng, B, J, P):
     """Chain+loop-shaped random graph arrays: chains of 1-5 states."""
     out = {k: np.full((B, J), gr.NEG_INF, np.float32) for k in

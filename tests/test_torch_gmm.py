@@ -1,8 +1,10 @@
 """mogasr_torch GMM scorer against the JAX scorer, the interpret-mode Pallas
 kernels (the chunked and int8 arms) and the golden logliks; weight transfer;
-the kernels' layouts (chunked, wide, int8) against the reference's arrays;
-the kernel wrapper's CPU dispatch. Inputs are numpy arrays from a seed,
-handed to both packages."""
+the kernels' layouts (chunked, wide, int8, and the panels K1 and K1w read)
+against the reference's arrays; an emulated 3xTF32 scorer (the route the
+card ruled out for the float32 arms) against JAX; the kernel wrapper's CPU
+dispatch. Inputs are numpy
+arrays from a seed, handed to both packages."""
 
 import os
 
@@ -17,10 +19,20 @@ from mogasr.am.gmm import natural_params as jax_natural_params
 from mogasr.am.gmm import quadratic_features
 from mogasr.am.gmm_pallas import gmm_loglik_pallas, transposed_natural_params
 from mogasr_torch.am import gmm_cuda
-from mogasr_torch.am.gmm import GmmSet, gmm_from_numpy, gmm_loglik, quantize_int8
+from mogasr_torch.am.gmm import (
+    GmmSet,
+    component_major,
+    gmm_from_numpy,
+    gmm_loglik,
+    natural_params,
+    quantize_int8,
+)
 
 CPU = torch.device("cpu")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden.npz")
+HEADLINE_GMM = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "headline", "gmm.npz")
+# The card's kernels against the plain scorer (chip_smoke.py's K1_ATOL, K1_RTOL).
+K1_ATOL, K1_RTOL = 1e-3, 1e-4
 # Both sides compute in float32 and differ only in summation order: the
 # measured gap is 1.5e-5 on logliks of magnitude 40-130.
 ATOL, RTOL = 1e-4, 1e-5
@@ -186,9 +198,9 @@ def test_int8_kernel_params(system):
     assert params.qab.shape == (K, 2 * D, S) and params.qab.dtype == torch.int8
     assert params.sab.shape == params.c_t.shape == (K, S)
     assert all(p.is_contiguous() for p in params)
-    # the int8 model is 4x smaller than the float32 ab
+    # the int8 model is 4x smaller than the float32 one
     assert params.qab.element_size() * 4 == gmm_cuda.kernel_params(
-        gmm_from_numpy(w, mu, var, CPU)).ab_t.element_size()
+        gmm_from_numpy(w, mu, var, CPU)).panels.element_size()
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -206,13 +218,15 @@ def test_wide_layout_matches_jax(system, compute_dtype, kc):
     dt = jnp.float32 if compute_dtype == "float32" else jnp.bfloat16
     abp = jnp.zeros((k_pad, R, s_pad), dt).at[:K, :, :S].set(jnp.asarray(ab_t).astype(dt))
     want = abp.reshape(n_kc, kc, R, n_st, ts).transpose(0, 2, 3, 1, 4).reshape(n_kc, R, n_st * kc * ts)
-    params = gmm_cuda.kernel_params(gmm_from_numpy(w, mu, var, CPU), compute_dtype, "wide", kc)
+    g = gmm_from_numpy(w, mu, var, CPU)
+    params = gmm_cuda.kernel_params(g, compute_dtype, "wide", kc)
     assert isinstance(params, gmm_cuda.WideParams) and params.kc == kc
-    assert params.ab_wide.is_contiguous() and params.ab_wide.shape == want.shape
-    # the port's ab_t is held to JAX's bitwise in test_kernel_params_layout_matches_jax
-    got = gmm_cuda.wide_layout(torch.as_tensor(ab_t).to(params.ab_wide.dtype), kc)
-    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
-    np.testing.assert_array_equal(params.ab_wide.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    # on the reference's ab_t, and on the port's (held to JAX's bitwise in
+    # test_kernel_params_layout_matches_jax)
+    for a in (torch.as_tensor(ab_t), component_major(g)[0]):
+        got = gmm_cuda.wide_layout(a.to(gmm_cuda.COMPUTE_DTYPES[compute_dtype]), kc)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
 def test_default_kc_follows_reference():
@@ -237,14 +251,128 @@ def test_int8_and_wide_wrappers_take_plain_version_on_cpu(system, compute_dtype,
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_kernel_params_layout_matches_jax(system, compute_dtype):
-    """The kernel's component-major layout holds JAX's natural parameters:
+    """The kernels' component-major layout holds JAX's natural parameters:
     ab_t[k, r, s] = ab[r, s*K + k] (in the compute dtype), c_t[k, s] = c[s*K + k]."""
     w, mu, var, _x = system
     S, K, D = mu.shape
     nat = jax_natural_params(_jax_gmm(w, mu, var))
-    ab_t, c_t = gmm_cuda.kernel_params(gmm_from_numpy(w, mu, var, CPU), compute_dtype)
-    assert ab_t.is_contiguous() and c_t.is_contiguous() and c_t.dtype == torch.float32
+    g = gmm_from_numpy(w, mu, var, CPU)
+    params = gmm_cuda.kernel_params(g, compute_dtype)
+    ab_t, c_t = component_major(g)[0].to(gmm_cuda.COMPUTE_DTYPES[compute_dtype]), params.c_t
+    assert c_t.is_contiguous() and c_t.dtype == torch.float32
+    assert torch.equal(c_t, component_major(g)[1])
     want_ab = torch.as_tensor(np.asarray(nat.ab).reshape(2 * D, S, K).transpose(2, 0, 1).copy())
     want_c = np.asarray(nat.c).reshape(S, K).T
     torch.testing.assert_close(ab_t, want_ab.to(ab_t.dtype), atol=0, rtol=0)
     np.testing.assert_allclose(c_t.numpy(), want_c, atol=ATOL, rtol=RTOL)
+
+
+def tf32_split(v: torch.Tensor):
+    """(hi, lo) of float32 ``v`` for 3xTF32 products: hi is v rounded to TF32
+    (10 mantissa bits) to nearest, ties away from zero, as the card's
+    ``cvt.rna.tf32.f32``; lo is the same rounding of v - hi, which float32
+    holds exactly. Done in int64 on the float32 bits (torch has no uint32
+    arithmetic)."""
+
+    def rna(a: torch.Tensor) -> torch.Tensor:
+        bits = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        bits = (bits + 0x1000) & 0xFFFFE000  # + half of the 13 dropped bits, then drop them
+        return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+    v = v.to(torch.float32)
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """hi keeps 10 mantissa bits (its low 13 bits zero), rounded to nearest
+    with ties away from zero as cvt.rna.tf32.f32; |v - hi - lo| <= 2**-22 |v|."""
+    ties = np.array([0x3F801000, 0xBF801000, 0x3F803000, 0x3F800FFF, 0x3F801001], np.uint32)
+    hi, lo = tf32_split(torch.as_tensor(ties.view(np.float32)))
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32),
+                                  np.array([0x3F802000, 0xBF802000, 0x3F804000, 0x3F800000, 0x3F802000], np.uint32))
+    v = torch.as_tensor((np.random.default_rng(3).standard_normal(20000)
+                         * np.exp(np.random.default_rng(4).uniform(-20, 20, 20000))).astype(np.float32))
+    hi, lo = tf32_split(v)
+    for part in (hi, lo):
+        assert part.dtype == torch.float32 and not (part.view(torch.int32) & 0x1FFF).any()
+    gap = (v.double() - hi.double() - lo.double()).abs()
+    assert bool((gap <= 2.0 ** -22 * v.double().abs()).all())
+
+
+def _tf32_scorer(x, g, mode, n_terms):
+    """The tensor cores' float32 arm, emulated: operands split by tf32_split,
+    products exact, summed in float32; 3 terms (lo.hi + hi.lo + hi.hi) or 1
+    (hi.hi, plain TF32). c added in float32, then the fold."""
+    S, K, D = g.means.shape
+    nat = natural_params(g)
+    x2 = torch.cat([x * x, x], dim=-1)
+    (xh, xl), (ah, al) = tf32_split(x2), tf32_split(nat.ab)
+    acc = xh @ ah if n_terms == 1 else (xl @ ah + xh @ al) + xh @ ah
+    scores = (acc + nat.c).reshape(-1, S, K)
+    return scores.amax(-1) if mode == "max" else torch.logsumexp(scores, -1)
+
+
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_3xtf32_scorer_holds_the_k1_tolerance(mode):
+    """3xTF32 products, emulated on the headline GMM (1168 x 16 x 39) and 32
+    golden frames with IEEE float32 sums, sit within K1's tolerance of JAX's
+    float32 scorer; 1xTF32 does not, so the tolerance tells the two apart.
+    (The emulation does not model the tensor cores' truncating accumulation,
+    which ruled 3xTF32 out on the card.)"""
+    h = np.load(HEADLINE_GMM)
+    x = np.load(FIXTURE)["feats"][:32].astype(np.float32)
+    want = np.asarray(jax_gmm_loglik(jnp.asarray(x), _jax_gmm(h["weights"], h["means"], h["vars"]), mode=mode))
+    g = gmm_from_numpy(h["weights"], h["means"], h["vars"], CPU)
+    got3 = _tf32_scorer(torch.as_tensor(x), g, mode, 3).numpy()
+    got1 = _tf32_scorer(torch.as_tensor(x), g, mode, 1).numpy()
+    np.testing.assert_allclose(got3, want, atol=K1_ATOL, rtol=K1_RTOL)
+    assert not np.allclose(got1, want, atol=K1_ATOL, rtol=K1_RTOL)
+
+
+def _image_np(tiles, rc):
+    """[P, Rp, 64] bf16 panels -> [P, Rp * 64], each chunk of rc rows K-major
+    in 8-row groups of 16-byte (8-element) column chunks: element (s, r) of
+    a chunk at ((s // 8 * rc // 8 + r // 8) * 8 + s % 8) * 8 + r % 8."""
+    P, rp, ts = tiles.shape
+    return tiles.reshape(-1, rc // 8, 8, ts // 8, 8).transpose(0, 3, 1, 4, 2).reshape(P, rp * ts)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout,kc", [("chunked", None), ("wide", 3), ("wide", 4)])
+@pytest.mark.parametrize("D,n_chunks,rc", [(39, 1, 80), (120, 2, 128), (65, 2, 80)])
+def test_kernel_panels_match_jax(system, compute_dtype, layout, kc, D, n_chunks, rc):
+    """The panels K1 and K1w read are, bitwise, the reference's arrays cut
+    into [Rp, 64] slices: transposed_natural_params (chunked) or its wide
+    reshape (gmm_pallas.py:300-304), states padded to 64 and rows 2D to Rp
+    with zeros, in equal chunks of at most 128 rows (a multiple of 16: one
+    at D = 39, MFCC with deltas; two at D = 120, fbank with deltas);
+    float32 chunks as they are (FMA), bf16 ones transposed to K-major in the
+    wgmma image."""
+    w, mu, var, _x = system
+    rng = np.random.default_rng(D)
+    mu = np.concatenate([mu, rng.standard_normal(mu.shape[:2] + (D,)).astype(np.float32)], -1)[..., :D]
+    var = np.concatenate([var, 0.5 + rng.random(var.shape[:2] + (D,)).astype(np.float32)], -1)[..., :D]
+    ab_t, _c = _jax_ab_t(w, mu, var)
+    K, R, S = ab_t.shape
+    ts, rp = gmm_cuda.WIDE_TS, gmm_cuda.padded_rows(R // 2)
+    assert ts == 64 and gmm_cuda.row_chunks(D) == (n_chunks, rc) and rp == n_chunks * rc
+    dt = jnp.float32 if compute_dtype == "float32" else jnp.bfloat16
+    if layout == "wide":
+        k_pad, s_pad = -(-K // kc) * kc, -(-S // ts) * ts
+        n_kc, n_st = k_pad // kc, s_pad // ts
+        abp = jnp.zeros((k_pad, R, s_pad), dt).at[:K, :, :S].set(jnp.asarray(ab_t).astype(dt))
+        wide = abp.reshape(n_kc, kc, R, n_st, ts).transpose(0, 2, 3, 1, 4).reshape(n_kc, R, n_st * kc * ts)
+        slices = np.asarray(wide.astype(jnp.float32)).reshape(n_kc, R, n_st * kc, ts).transpose(0, 2, 1, 3)
+    else:
+        n_st = -(-S // ts)
+        abp = np.zeros((K, R, n_st * ts), np.float32)
+        abp[:, :, :S] = np.asarray(jnp.asarray(ab_t).astype(dt).astype(jnp.float32))
+        slices = abp.reshape(K, R, n_st, ts).transpose(0, 2, 1, 3)
+    tiles = np.zeros(slices.shape[:2] + (rp, ts), np.float32)
+    tiles[:, :, :R] = slices
+    tiles = tiles.reshape(-1, rp, ts)
+    want = tiles.reshape(len(tiles), -1) if compute_dtype == "float32" else _image_np(tiles, rc)
+    params = gmm_cuda.kernel_params(gmm_from_numpy(w, mu, var, CPU), compute_dtype, layout, kc)
+    assert params.panels.is_contiguous() and params.panels.dtype == gmm_cuda.COMPUTE_DTYPES[compute_dtype]
+    np.testing.assert_array_equal(params.panels.float().numpy().view(np.uint32), want.view(np.uint32))
