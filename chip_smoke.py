@@ -19,7 +19,8 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
 3. K2 (csrc/viterbi.cu) against the plain PyTorch Viterbi on the headline
    word-loop graph, path, entered and score bitwise equal: on the decode
    path's batch (B=256, T=600, ragged frame counts, its K1 emissions), where
-   it is also timed, and on random emissions at another acoustic scale;
+   it is also timed, on random emissions at another acoustic scale, and
+   there with CTC skip transitions inside every chain (K2's skip arm);
 4. the front end on the card against the NumPy oracle;
 5. the decode path on the headline bundle and the 768 held-out utterances of
    bench.py (front end -> K1 bf16 max -> K2 -> path_to_tokens -> WER):
@@ -31,7 +32,8 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    frames: its longest utterance fits the 550-frame bucket; its K1
    float32/sum emissions, timed there beside the plain scorer and the
    bound, with the tied-triphone align graphs of its transcripts), where
-   they are also timed, and on random emissions with n_frames of 0, 1 and T;
+   they are also timed, and on random emissions with n_frames of 0, 1 and T,
+   also with CTC skip transitions inside every chain (K3f/K3b's skip arm);
 8. the training path: 2 Baum-Welch EM iterations then 1 Viterbi EM iteration
    from the headline GMM over the 1600-utterance training corpus of
    benchmarks/train_headline.py (log-likelihood per frame, frames/s and
@@ -43,9 +45,11 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
 9. K4 (csrc/lstm_scan.cu) against the plain LSTM recurrence, float32 and
    bfloat16: on the hybrid path's widest batch (64 x 600, the real layer-0
    and layer-1 inputs of the seeded LstmAm, 512 hidden), where it is timed
-   beside the plain version and, for the whole layer (input GEMM +
-   recurrence), beside cuDNN's ``torch.nn.LSTM`` on the packed batch (the
-   library yardstick, used nowhere else), and on a random ragged batch
+   beside the plain version (and the launch's cluster size, CTAs and rows
+   printed) and, for the whole layer (input GEMM + recurrence), beside
+   cuDNN's ``torch.nn.LSTM`` on the packed batch (the library yardstick,
+   used nowhere else); on layer 1's inputs with every row at T, the worst
+   case, where no row ends early (timed); and on a random ragged batch
    (H = 200, n_frames of 0, 1 and T);
 10. the hybrid NN-HMM decode path of ``benchmarks/bench_families.py``'s lstm
    row (300-word lexicon, monophone topology: 81 pdfs, the 3048-state word
@@ -289,6 +293,19 @@ def emission_bytes(graphs, n_frames) -> int:
     return 4 * sum(max(int(nf[b]), 1) * len(np.unique(ids[b, : n_states[b]])) for b in range(len(nf)))
 
 
+def with_chain_skips(graphs):
+    """The graphs with a (j-2 -> j) skip transition of log-prob -0.1 inside
+    every chain, as a CTC topology has: K2's and K3's skip arm."""
+    from mogasr_torch.decoder import viterbi as vit
+
+    chain = graphs["chain_id"]
+    same = torch.zeros_like(chain, dtype=torch.bool)
+    same[:, 2:] = (chain[:, 2:] == chain[:, :-2]) & (chain[:, 2:] >= 0)
+    skip = torch.full(chain.shape, vit.NEG_INF, dtype=torch.float32, device=chain.device)
+    skip[same] = -0.1
+    return {**graphs, "skip_logp": skip}
+
+
 def held_out_corpus(topo, meta, n_utts):
     """The held-out v2 utterances of bench.py (seed 999, 3-9 words)."""
     from mogasr_torch.data import synthetic as syn
@@ -370,22 +387,30 @@ def hybrid_phases(dev: torch.device) -> dict:
     rng9 = np.random.default_rng(9)
     Hr, Br = 200, 16
     nf_r = torch.as_tensor(np.r_[Th, 1, 0, rng9.integers(2, Th, Br - 3)].astype(np.int32), device=dev)
+    nf_all = torch.full_like(nfh, Th)
+    layer1 = f"layer 1 of the widest batch B={Bh} T={Th} H={H}"
+    all_at_t = f"layer 1's inputs with every row at T={Th}"
     k4_cases = {
         f"layer 0 of the widest batch B={Bh} T={Th} H={H}": (xg0, lstm_am.cells[0].w_rec, nfh),
-        f"layer 1 of the widest batch B={Bh} T={Th} H={H}": (xg1, lstm_am.cells[1].w_rec, nfh),
+        layer1: (xg1, lstm_am.cells[1].w_rec, nfh),
+        all_at_t: (xg1, lstm_am.cells[1].w_rec, nf_all),
         f"random B={Br} T={Th} H={Hr} n_frames {nf_r.tolist()[:4]}...": (
             dict.fromkeys(("float32", "bfloat16"), torch.as_tensor(
                 rng9.standard_normal((Br, Th, 4 * Hr)).astype(np.float32), device=dev)),
             torch.as_tensor((rng9.standard_normal((Hr, 4 * Hr)) / np.sqrt(Hr)).astype(np.float32), device=dev),
             nf_r),
     }
-    k4_err, k4_ms, k4_plain_ms = {}, {}, {}
+    k4_err, k4_ms, k4_plain_ms, k4_all_ms, k4_launch = {}, {}, {}, {}, {}
     for name, (xgs, w_rec, nf) in k4_cases.items():
         for dt in ("float32", "bfloat16"):
             xg = xgs[dt]
-            if "layer 1" in name:
+            if name == layer1:
                 k4_ms[dt], got = timed(lambda: lstm_cuda.lstm_layer(xg, w_rec, nf, dt), 5)
+                k4_launch[dt] = dict(lstm_cuda.LAST_LAUNCH)
                 k4_plain_ms[dt], want = timed(lambda: fast_lstm.lstm_layer(xg, w_rec, nf, dt), 1)
+            elif name == all_at_t:  # the worst case: no row ends early
+                k4_all_ms[dt], got = timed(lambda: lstm_cuda.lstm_layer(xg, w_rec, nf, dt), 5)
+                want = fast_lstm.lstm_layer(xg, w_rec, nf, dt)
             else:
                 got, want = lstm_cuda.lstm_layer(xg, w_rec, nf, dt), fast_lstm.lstm_layer(xg, w_rec, nf, dt)
             torch.cuda.synchronize()
@@ -426,14 +451,23 @@ def hybrid_phases(dev: torch.device) -> dict:
                 for dt in ("float32", "bfloat16")}
     k4_ops = valid_frames * H * (2 * 4 * H + K4_GATE_OPS)
     k4_bound = {dt: bound(k4_bytes[dt], k4_ops, dt) for dt in k4_bytes}
+    all_frames = Bh * Th
+    k4_all_bound = {dt: bound(k4_bytes[dt] + (all_frames - valid_frames) * 4 * H * 4,
+                              all_frames * H * (2 * 4 * H + K4_GATE_OPS), dt) for dt in k4_bytes}
     phase(9, "K4 matches the plain recurrence (atol float32 %g, bfloat16 %g), max |err|: %s; layer 1 of the "
-          "widest batch (%d valid frames): K4 float32 %.3f ms (plain %.3f ms, bound %.4f ms by %s), bfloat16 "
-          "%.3f ms (plain %.3f ms, bound %.4f ms by %s); whole layer, input GEMM + K4 %.3f ms vs cuDNN "
-          "nn.LSTM %.3f ms (valid frames max |diff| %.3g)" % (
+          "widest batch (%d valid frames; a launch of %d CTAs in clusters of %d takes %d rows, bfloat16 %d CTAs "
+          "in clusters of %d): K4 float32 %.3f ms (plain %.3f ms, bound %.4f ms by %s), bfloat16 %.3f ms (plain "
+          "%.3f ms, bound %.4f ms by %s); "
+          "every row at T (%d frames): float32 %.3f ms (bound %.4f ms), bfloat16 %.3f ms (bound %.4f ms); "
+          "whole layer, input GEMM + K4 %.3f ms vs cuDNN nn.LSTM %.3f ms (valid frames max |diff| %.3g)" % (
               K4_ATOL["float32"], K4_ATOL["bfloat16"],
               "; ".join(f"{n} {d} {e:.3g}" for (n, d), e in k4_err.items()), valid_frames,
+              k4_launch["float32"]["ctas"], k4_launch["float32"]["cluster"], k4_launch["float32"]["rows"],
+              k4_launch["bfloat16"]["ctas"], k4_launch["bfloat16"]["cluster"],
               k4_ms["float32"], k4_plain_ms["float32"], *k4_bound["float32"],
-              k4_ms["bfloat16"], k4_plain_ms["bfloat16"], *k4_bound["bfloat16"], layer_ms, lib_ms, lib_err))
+              k4_ms["bfloat16"], k4_plain_ms["bfloat16"], *k4_bound["bfloat16"], all_frames,
+              k4_all_ms["float32"], k4_all_bound["float32"][0], k4_all_ms["bfloat16"], k4_all_bound["bfloat16"][0],
+              layer_ms, lib_ms, lib_err))
     del xg0, xg1, h0, k4_cases, got, want, lib_out, layer_out, x1
 
     # ---- phase 10: the hybrid decode path
@@ -463,7 +497,10 @@ def hybrid_phases(dev: torch.device) -> dict:
         raise RuntimeError(f"hybrid kernel path agrees with the plain f32 path on {same:.4f} of utterances")
     agree = {}
     for prec in ("bfloat16", "int8"):
+        lstm_cuda.LAUNCHES = 0
         q = hybrid(peaked, prec)
+        if prec == "bfloat16":
+            bf16_launches = lstm_cuda.LAUNCHES  # K4's bf16 arm over a bf16 hybrid pass
         agree[prec] = sum(a == b for a, b in zip(hyb.hyps, q.hyps)) / len(hyb.hyps)
     # bf16 and int8 logits of the seeded LstmAm (flax's init scale) on the widest batch
     quant_err = {}
@@ -482,7 +519,7 @@ def hybrid_phases(dev: torch.device) -> dict:
         model = seeded(arch)
         before = (lstm_cuda.LAUNCHES, viterbi_cuda.LAUNCHES)
         ll = pipe.make_nn_scorer(model, log_priors)(fbh)
-        toks, scores = pipe.decode_batch(fbh, ll, hyb_graph, hyb_dcfg, graphs=graphs_h)
+        toks, scores = pipe.decode_batch_scored(fbh, ll, hyb_graph, hyb_dcfg, graphs=graphs_h)
         torch.cuda.synchronize()
         launched = (lstm_cuda.LAUNCHES - before[0], viterbi_cuda.LAUNCHES - before[1])
         if ll.shape != (Bh, Th, P) or not bool(torch.isfinite(ll).all()) or not np.isfinite(scores).all():
@@ -518,9 +555,16 @@ def hybrid_phases(dev: torch.device) -> dict:
             "ms": k4_ms["float32"], "plain_ms": k4_plain_ms["float32"],
             "bound_ms": k4_bound["float32"][0], "bound_by": k4_bound["float32"][1], "library_ms": lib_ms,
             "library": "torch.nn.LSTM (cuDNN), the whole layer", "ms_with_input_gemm": layer_ms,
-            "bfloat16": {"max_abs_err": max(e for (n, d), e in k4_err.items() if d == "bfloat16"),
+            "cluster": k4_launch["float32"]["cluster"], "ctas": k4_launch["float32"]["ctas"],
+            "rows_per_launch": k4_launch["float32"]["rows"],
+            "all_rows_at_T": {"ms": k4_all_ms["float32"], "bound_ms": k4_all_bound["float32"][0],
+                              "bound_by": k4_all_bound["float32"][1], "bfloat16_ms": k4_all_ms["bfloat16"],
+                              "bfloat16_bound_ms": k4_all_bound["bfloat16"][0]},
+            "bfloat16": {"launches": bf16_launches, "cluster": k4_launch["bfloat16"]["cluster"],
+                         "max_abs_err": max(e for (n, d), e in k4_err.items() if d == "bfloat16"),
                          "ms": k4_ms["bfloat16"], "plain_ms": k4_plain_ms["bfloat16"],
-                         "bound_ms": k4_bound["bfloat16"][0], "bound_by": k4_bound["bfloat16"][1]}}
+                         "bound_ms": k4_bound["bfloat16"][0], "bound_by": k4_bound["bfloat16"][1],
+                         "library_ms": None}}
 
 
 def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_exps_per_s) -> list:
@@ -839,15 +883,13 @@ def main() -> None:
     ll_main = k1(x_main, "bfloat16", "max").reshape(B, T, S)
     _, graphs_main = pipe.decode_graphs(graph, B, dev)
     _, graphs16 = pipe.decode_graphs(graph, 16, dev)
+    ll16 = torch.as_tensor((rng.standard_normal((16, T, S)) * 4 - 20).astype(np.float32), device=dev)
+    nf16 = torch.as_tensor(np.r_[T, rng.integers(1, T, 14), 0].astype(np.int32), device=dev)
     cases = {
         f"decode-path batch B={B} T={T}, scale {dcfg.acoustic_scale:g}": (
             ll_main, graphs_main, fb.n_frames, dcfg.acoustic_scale),
-        "random emissions B=16, scale 0.7": (
-            torch.as_tensor((rng.standard_normal((16, T, S)) * 4 - 20).astype(np.float32), device=dev),
-            graphs16,
-            torch.as_tensor(np.r_[T, rng.integers(1, T, 14), 0].astype(np.int32), device=dev),
-            0.7,
-        ),
+        "random emissions B=16, scale 0.7": (ll16, graphs16, nf16, 0.7),
+        "the same with skip transitions": (ll16, with_chain_skips(graphs16), nf16, 0.7),
     }
     k2_err = 0.0
     for name, (ll, graphs, nf, scale) in cases.items():
@@ -954,6 +996,7 @@ def main() -> None:
     fb_cases = {
         f"training batch B={Bw} T={Tw} J={Jw}": (ll_w, graphs_w, fbw.n_frames),
         f"random emissions B={n_rand} n_frames {nf_rand.tolist()}": (ll_rand, graphs_rand, nf_rand),
+        "the same with skip transitions": (ll_rand, with_chain_skips(graphs_rand), nf_rand),
     }
     fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = 0
     fb_line = []

@@ -37,8 +37,10 @@ def lstm_layer(
     """[B, T, H] float32 hidden states of one LSTM layer from zero carries.
 
     compute_dtype "bfloat16" rounds h and w_rec to bf16 before the product
-    and keeps the sum (in true float32: every bf16 x bf16 product is exact),
-    the gates and the carries in float32, as K4 does.
+    and keeps the sum (in float32: every bf16 x bf16 product is exact), the
+    gates and the carries in float32. K4 multiplies the same operands on the
+    tensor cores, whose float32 sums truncate, so it agrees with this to a
+    tolerance (K4_ATOL["bfloat16"]), not bit for bit.
     """
     check_compute_dtype(compute_dtype)
     B, T, H4 = xg.shape

@@ -2,11 +2,15 @@
 port of mogasr/am/lstm_pallas.py's ``lstm_layer_pallas``.
 
 ``lstm_layer`` is a drop-in for ``am.fast_lstm.lstm_layer``, equal to it to
-a float tolerance (the h @ w_rec sum runs in another order): a CUDA tensor
-runs the kernel, one cooperative launch for the whole recurrence of up to
-64 batch rows (a wider batch runs one launch per block of rows, from the one
-C entry point); a CPU tensor runs the plain version; any other device
-raises. ``LAUNCHES`` counts kernel launches (none for B * T = 0).
+a float tolerance (the h @ w_rec sum runs in another order, and in bfloat16
+on the tensor cores): a CUDA tensor runs the kernel, a CPU tensor runs the
+plain version, any other device raises. On the card the rows go to the
+kernel ordered by n_frames, longest first (``row_order``), so that the rows
+live at a frame are a prefix of them; up to 64 rows (four blocks of 16, each
+running on its own) go in one launch of thread-block clusters, and a wider
+batch runs one launch per 64 rows, from the one C entry point.
+``LAUNCHES`` counts kernel launches (none for B * T = 0); ``LAST_LAUNCH``
+holds the cluster size, CTAs and rows of the last call's launches.
 
 Unlike the reference, which demoted its kernel behind ``use_pallas_lstm``
 after a TPU measurement, every LSTM of the port runs through this kernel on
@@ -17,6 +21,7 @@ or cuDNN, a library kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,9 +29,22 @@ from mogasr_torch import _cuda
 from mogasr_torch.am import fast_lstm as plain
 
 LAUNCHES = 0
+LAST_LAUNCH: Dict[str, int] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"lstm_scan": [_P] * 5 + [_I] * 4 + [_P, ctypes.POINTER(ctypes.c_int)]}
+_SIGNATURES = {"lstm_scan": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P, ctypes.POINTER(ctypes.c_int)]}
+
+
+def row_order(n_frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's row order: (perm, nfs), int32 on n_frames' device.
+
+    perm [B] lists the rows by n_frames, longest first (ties in row order),
+    nfs [B] their n_frames, non-increasing: the rows live at any frame t
+    (n_frames > t) are a prefix of perm, and so are those of every
+    NRB-strided subsequence of it, a row block of the kernel."""
+    nf = n_frames.to(torch.int32)
+    order = torch.argsort(nf, descending=True, stable=True)
+    return order.to(torch.int32), nf[order]
 
 
 def lstm_layer(
@@ -38,7 +56,7 @@ def lstm_layer(
     """[B, T, H] float32 hidden states of one LSTM layer from zero carries,
     frozen past each row's n_frames. compute_dtype "bfloat16" rounds h and
     w_rec to bf16 for the product; sums, gates and carries stay float32."""
-    global LAUNCHES
+    global LAUNCHES, LAST_LAUNCH
     plain.check_compute_dtype(compute_dtype)
     if xg.device.type == "cpu":
         return plain.lstm_layer(xg, w_rec, n_frames, compute_dtype)
@@ -53,18 +71,24 @@ def lstm_layer(
     if tuple(n_frames.shape) != (B,):
         raise ValueError(f"n_frames must be [{B}], got {tuple(n_frames.shape)}")
     dev = xg.device
+    out = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return out
     bf16 = compute_dtype == "bfloat16"
     w = w_rec.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
     x = xg.contiguous()
-    nf = n_frames.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-    hbuf = torch.zeros((2, B, -(-H // 4) * 4), dtype=torch.float32, device=dev)
-    launched = ctypes.c_int(0)
+    perm, nfs = row_order(n_frames.to(dev))
+    # the kernel's scratch, zero: per block of 16 rows two frame buffers of
+    # the h image (at most 2 x 64 x (2H + 144) floats in all) and a frame
+    # counter 32 words wide
+    ws = torch.zeros(2 * 64 * (2 * H + 144) + 32 * (-(-B // 16) + 4), dtype=torch.float32, device=dev)
+    info = (ctypes.c_int * 4)()
     lib = _cuda.load("lstm_scan", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lstm_scan(x.data_ptr(), w.data_ptr(), nf.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
-                            B, T, H, int(bf16), stream, ctypes.byref(launched))
+        err = lib.lstm_scan(x.data_ptr(), w.data_ptr(), perm.data_ptr(), nfs.data_ptr(), out.data_ptr(),
+                            ws.data_ptr(), ws.numel() * 4, B, T, H, int(bf16), stream, info)
     _cuda.check(lib, "lstm_scan", err, "lstm_scan launch")
-    LAUNCHES += launched.value  # none on an empty batch
+    LAUNCHES += info[0]
+    LAST_LAUNCH = {"launches": info[0], "cluster": info[1], "ctas": info[2], "rows": info[3]}
     return out

@@ -25,6 +25,13 @@
 // Frames past n_frames[b] are skipped. K3b writes log_gamma directly and
 // never stores beta, which saves a [B, T, J] write and read.
 //
+// CTC skip transitions (mogasr/decoder/forward_backward.py; fb_pallas has no
+// such arm) are a template arm of both kernels: one more term per state,
+// lse'd last as in the plain version -- alpha[j-2] + skip_logp[j] in K3f,
+// skip_logp[j+2] + emit(t+1, j+2) + beta_{t+1}[j+2] in K3b (NEG_INF past the
+// ends) -- with skip_logp read through the read-only cache each frame, so
+// graphs without skips run the code without it.
+//
 // Arithmetic: logaddexp is max + log1p(exp(-|a - b|)), jnp.logaddexp's and
 // torch.logaddexp's form; the logsumexp is max-shifted, as fb_pallas's
 // _lse_lanes. NEG_INF is -1e30, finite, so sums reach -2e30 and never NaN;
@@ -73,7 +80,7 @@ __device__ __forceinline__ float block_logsumexp(const float (&x)[SPT], float* r
   return m + logf(s);
 }
 
-template <int SPT>
+template <int SPT, bool SKIP>
 __global__ void __launch_bounds__(1024, 1) fb_forward_kernel(
     const float* __restrict__ ll,  // [B, T, P]
     int T, int P, float scale,
@@ -84,6 +91,7 @@ __global__ void __launch_bounds__(1024, 1) fb_forward_kernel(
     const float* __restrict__ exit_logp,    // [B, J]
     const float* __restrict__ init_logp,    // [B, J]
     const float* __restrict__ final_logp,   // [B, J]
+    const float* __restrict__ skip_logp,    // [B, J]; read only when SKIP
     const int* __restrict__ n_frames,       // [B]
     int J,
     float* __restrict__ alphas,   // [B, T, J]: rows 0 .. max(n_frames, 1) - 1
@@ -138,7 +146,9 @@ __global__ void __launch_bounds__(1024, 1) fb_forward_kernel(
       const float stay = cur[j] + sl[k];
       const float adv = j > 0 ? cur[j - 1] + al[k] : NEG_INF;
       const float ent = exit_lse + el[k];
-      const float a = logaddexp(logaddexp(stay, adv), ent) + em[k];
+      float a = logaddexp(logaddexp(stay, adv), ent);
+      if (SKIP) a = logaddexp(a, j > 1 ? cur[j - 2] + __ldg(skip_logp + g + j) : NEG_INF);
+      a += em[k];
       nxt[j] = a;
       abt[j] = a;
     }
@@ -158,7 +168,7 @@ __global__ void __launch_bounds__(1024, 1) fb_forward_kernel(
   if (tid == 0) loglik[b] = lse;
 }
 
-template <int SPT>
+template <int SPT, bool SKIP>
 __global__ void __launch_bounds__(1024, 1) fb_backward_kernel(
     const float* __restrict__ ll,  // [B, T, P]
     int T, int P, float scale,
@@ -168,6 +178,7 @@ __global__ void __launch_bounds__(1024, 1) fb_backward_kernel(
     const float* __restrict__ enter_logp,   // [B, J]
     const float* __restrict__ exit_logp,    // [B, J]
     const float* __restrict__ final_logp,   // [B, J]
+    const float* __restrict__ skip_logp,    // [B, J]; read only when SKIP
     const int* __restrict__ n_frames,       // [B]
     int J,
     const float* __restrict__ alphas,   // [B, T, J] from fb_forward_kernel
@@ -237,6 +248,9 @@ __global__ void __launch_bounds__(1024, 1) fb_backward_kernel(
       const float adv = j + 1 < J ? an[k] + ebs[j + 1] : NEG_INF;
       const float ext = xl[k] + enter_lse;
       beta[k] = logaddexp(logaddexp(stay, adv), ext);
+      if (SKIP)
+        beta[k] = logaddexp(beta[k],
+                            j + 2 < J ? __ldg(skip_logp + g + j + 2) + ebs[j + 2] : NEG_INF);
       lgt[j] = (a_t[k] + beta[k]) - llk;
     }
     buf ^= 1;
@@ -267,7 +281,8 @@ Launch launch_shape(int J) {
 extern "C" {
 
 // K3f for B utterances. ll [B, T, P] float32; the graph arrays [B, J]
-// (emit_id int32, the rest float32); n_frames [B] int32. Writes alphas
+// (emit_id int32, the rest float32), skip_logp [B, J] float32 for a graph
+// with CTC skip transitions or NULL; n_frames [B] int32. Writes alphas
 // [B, T, J] on frames 0 .. max(n_frames[b], 1) - 1 (the rest is left as it
 // was: fb_backward reads no other row) and loglik [B]. J may be at most
 // MAX_SPT * 1024 (cudaErrorInvalidValue otherwise); an emit_id outside
@@ -275,63 +290,79 @@ extern "C" {
 int fb_forward(const void* ll, int B, int T, int P, float scale, const void* emit_id,
                const void* self_logp, const void* adv_logp, const void* enter_logp,
                const void* exit_logp, const void* init_logp, const void* final_logp,
-               const void* n_frames, int J, void* alphas, void* loglik, void* stream) {
+               const void* skip_logp, const void* n_frames, int J, void* alphas, void* loglik,
+               void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (J <= 0 || J > MAX_SPT * 1024) return cudaErrorInvalidValue;
   const Launch L = launch_shape(J);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-#define MOGASR_FWD(N)                                                                        \
-  case N:                                                                                    \
-    e = set_smem((const void*)fb_forward_kernel<N>, L.smem);                              \
-    if (e != cudaSuccess) return e;                                                          \
-    fb_forward_kernel<N><<<B, L.threads, L.smem, st>>>(                                      \
-        static_cast<const float*>(ll), T, P, scale, static_cast<const int*>(emit_id),        \
-        static_cast<const float*>(self_logp), static_cast<const float*>(adv_logp),           \
-        static_cast<const float*>(enter_logp), static_cast<const float*>(exit_logp),         \
-        static_cast<const float*>(init_logp), static_cast<const float*>(final_logp),         \
-        static_cast<const int*>(n_frames), J, static_cast<float*>(alphas),                   \
-        static_cast<float*>(loglik));                                                        \
+#define MOGASR_FWD(N, SKIP)                                                                  \
+  e = set_smem((const void*)fb_forward_kernel<N, SKIP>, L.smem);                             \
+  if (e != cudaSuccess) return e;                                                            \
+  fb_forward_kernel<N, SKIP><<<B, L.threads, L.smem, st>>>(                                  \
+      static_cast<const float*>(ll), T, P, scale, static_cast<const int*>(emit_id),          \
+      static_cast<const float*>(self_logp), static_cast<const float*>(adv_logp),             \
+      static_cast<const float*>(enter_logp), static_cast<const float*>(exit_logp),           \
+      static_cast<const float*>(init_logp), static_cast<const float*>(final_logp),           \
+      static_cast<const float*>(skip_logp), static_cast<const int*>(n_frames), J,            \
+      static_cast<float*>(alphas), static_cast<float*>(loglik))
+#define MOGASR_CASE(N)                 \
+  case N:                              \
+    if (skip_logp != nullptr) {        \
+      MOGASR_FWD(N, true);             \
+    } else {                           \
+      MOGASR_FWD(N, false);            \
+    }                                  \
     break;
   switch (L.spt) {
-    MOGASR_FWD(1) MOGASR_FWD(2) MOGASR_FWD(3) MOGASR_FWD(4)
-    MOGASR_FWD(5) MOGASR_FWD(6) MOGASR_FWD(7) MOGASR_FWD(8)
+    MOGASR_CASE(1) MOGASR_CASE(2) MOGASR_CASE(3) MOGASR_CASE(4)
+    MOGASR_CASE(5) MOGASR_CASE(6) MOGASR_CASE(7) MOGASR_CASE(8)
     default: return cudaErrorInvalidValue;
   }
+#undef MOGASR_CASE
 #undef MOGASR_FWD
   return cudaGetLastError();
 }
 
 // K3b for B utterances, after fb_forward on the same stream. Same graph
-// arrays (less init_logp), the alphas and loglik fb_forward wrote. Writes
-// log_gamma [B, T, J]: alpha + beta - loglik on frames below n_frames[b],
-// NEG_INF on the rest.
+// arrays (less init_logp; skip_logp as given to fb_forward), the alphas and
+// loglik fb_forward wrote. Writes log_gamma [B, T, J]: alpha + beta - loglik
+// on frames below n_frames[b], NEG_INF on the rest.
 int fb_backward(const void* ll, int B, int T, int P, float scale, const void* emit_id,
                 const void* self_logp, const void* adv_logp, const void* enter_logp,
-                const void* exit_logp, const void* final_logp, const void* n_frames, int J,
-                const void* alphas, const void* loglik, void* log_gamma, void* stream) {
+                const void* exit_logp, const void* final_logp, const void* skip_logp,
+                const void* n_frames, int J, const void* alphas, const void* loglik,
+                void* log_gamma, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (J <= 0 || J > MAX_SPT * 1024) return cudaErrorInvalidValue;
   const Launch L = launch_shape(J);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-#define MOGASR_BWD(N)                                                                        \
-  case N:                                                                                    \
-    e = set_smem((const void*)fb_backward_kernel<N>, L.smem);                              \
-    if (e != cudaSuccess) return e;                                                          \
-    fb_backward_kernel<N><<<B, L.threads, L.smem, st>>>(                                     \
-        static_cast<const float*>(ll), T, P, scale, static_cast<const int*>(emit_id),        \
-        static_cast<const float*>(self_logp), static_cast<const float*>(adv_logp),           \
-        static_cast<const float*>(enter_logp), static_cast<const float*>(exit_logp),         \
-        static_cast<const float*>(final_logp), static_cast<const int*>(n_frames), J,         \
-        static_cast<const float*>(alphas), static_cast<const float*>(loglik),                \
-        static_cast<float*>(log_gamma));                                                     \
+#define MOGASR_BWD(N, SKIP)                                                                  \
+  e = set_smem((const void*)fb_backward_kernel<N, SKIP>, L.smem);                            \
+  if (e != cudaSuccess) return e;                                                            \
+  fb_backward_kernel<N, SKIP><<<B, L.threads, L.smem, st>>>(                                 \
+      static_cast<const float*>(ll), T, P, scale, static_cast<const int*>(emit_id),          \
+      static_cast<const float*>(self_logp), static_cast<const float*>(adv_logp),             \
+      static_cast<const float*>(enter_logp), static_cast<const float*>(exit_logp),           \
+      static_cast<const float*>(final_logp), static_cast<const float*>(skip_logp),           \
+      static_cast<const int*>(n_frames), J, static_cast<const float*>(alphas),               \
+      static_cast<const float*>(loglik), static_cast<float*>(log_gamma))
+#define MOGASR_CASE(N)                 \
+  case N:                              \
+    if (skip_logp != nullptr) {        \
+      MOGASR_BWD(N, true);             \
+    } else {                           \
+      MOGASR_BWD(N, false);            \
+    }                                  \
     break;
   switch (L.spt) {
-    MOGASR_BWD(1) MOGASR_BWD(2) MOGASR_BWD(3) MOGASR_BWD(4)
-    MOGASR_BWD(5) MOGASR_BWD(6) MOGASR_BWD(7) MOGASR_BWD(8)
+    MOGASR_CASE(1) MOGASR_CASE(2) MOGASR_CASE(3) MOGASR_CASE(4)
+    MOGASR_CASE(5) MOGASR_CASE(6) MOGASR_CASE(7) MOGASR_CASE(8)
     default: return cudaErrorInvalidValue;
   }
+#undef MOGASR_CASE
 #undef MOGASR_BWD
   return cudaGetLastError();
 }

@@ -23,16 +23,25 @@
 // its latency hides behind it. Frames past n_frames[b] are skipped: delta is
 // frozen there and the backtrace starts at the last valid frame.
 //
-// Backpointers are uint8 codes (0 stay, 1 advance, 2 enter) in [B, T, J]
-// (row 0 unused) and the exit argmax is int32 [B, T]; both are internal. The
-// backtrace is a second kernel, one thread per utterance. Without a
-// backtrace (path == NULL) neither is stored nor allocated: only the score.
+// Backpointers are uint8 codes (0 stay, 1 advance, 2 enter, 3 skip) in
+// [B, T, J] (row 0 unused) and the exit argmax is int32 [B, T]; both are
+// internal. The backtrace is a second kernel, one thread per utterance.
+// Without a backtrace (path == NULL) neither is stored nor allocated: only
+// the score.
 //
 // Beam pruning (mogasr/decoder/viterbi.py:92-94) is a template arm: each
 // frame, after the emission add, one more block-wide max over the row's J
 // states gives thresh = max - beam, and every state below it becomes NEG_INF.
 // Max is exact and thresh is one rounded subtraction, so the arm stays
 // bitwise equal to the plain version; the beam-off arm is the code without it.
+//
+// CTC skip transitions (mogasr/decoder/viterbi.py:80-86; the Pallas kernel
+// has no such arm) are a template arm too: one more predecessor per state,
+// delta[j-2] + skip_logp[j] (NEG_INF for j < 2, as the plain version pads),
+// which takes the state with code 3 when it beats stay, advance and enter,
+// before stay's exact-tie rule. skip_logp is read through the read-only cache
+// each frame rather than held in registers, so the arm adds no register
+// pressure; graphs without skips run the code without it.
 
 #include <cuda_runtime.h>
 
@@ -105,7 +114,7 @@ __device__ float block_max(float x, float* red) {
   return red[32];
 }
 
-template <int SPT, bool BEAM>
+template <int SPT, bool BEAM, bool SKIP>
 __global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
     const float* __restrict__ ll,  // [B, T, P]
     int T, int P, float scale, float beam,
@@ -116,6 +125,7 @@ __global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
     const float* __restrict__ exit_logp,    // [B, J]
     const float* __restrict__ init_logp,    // [B, J]
     const float* __restrict__ final_logp,   // [B, J]
+    const float* __restrict__ skip_logp,    // [B, J]; read only when SKIP
     const int* __restrict__ n_frames,       // [B]
     int J,
     uint8_t* __restrict__ bp,     // [B, T, J], or NULL: no backtrace
@@ -181,8 +191,15 @@ __global__ void __launch_bounds__(1024, 1) viterbi_forward_kernel(
       const float stay = __fadd_rn(cur[j], sl[k]);
       const float adv = j > 0 ? __fadd_rn(cur[j - 1], al[k]) : NEG_INF;
       const float ent = __fadd_rn(ex.v, el[k]);
-      const float best = fmaxf(fmaxf(stay, adv), ent);
+      float best = fmaxf(fmaxf(stay, adv), ent);
       uint8_t code = best == ent ? 2 : (best == adv ? 1 : 0);
+      if (SKIP) {
+        const float skp = j > 1 ? __fadd_rn(cur[j - 2], __ldg(skip_logp + g + j)) : NEG_INF;
+        if (skp > best) {
+          code = 3;
+          best = skp;
+        }
+      }
       if (best == stay) code = 0;
       nv[k] = __fadd_rn(best, em[k]);
       if (BEAM) {
@@ -241,30 +258,53 @@ __global__ void viterbi_backtrace_kernel(
     pb[t] = j;
     const uint8_t code = bp[((size_t)b * T + t) * J + j];
     eb[t] = code == 2;
-    j = code == 0 ? j : (code == 1 ? j - 1 : exit_arg[(size_t)b * T + t]);
+    j = code == 0 ? j : (code == 1 ? j - 1 : (code == 3 ? j - 2 : exit_arg[(size_t)b * T + t]));
   }
   pb[0] = j;
   eb[0] = 1;
 }
 
-template <int SPT, bool BEAM>
+struct ForwardArgs {
+  const float* ll;
+  int T, P;
+  float scale, beam;
+  const int* emit_id;
+  const float *self_logp, *adv_logp, *enter_logp, *exit_logp, *init_logp, *final_logp,
+      *skip_logp;
+  const int* n_frames;
+  int J;
+  uint8_t* bp;
+  int* exit_arg;
+  float* score;
+  int* j_final;
+};
+
+template <int SPT, bool BEAM, bool SKIP>
 cudaError_t launch_forward(int threads, size_t smem, int B, cudaStream_t stream,
-                           const float* ll, int T, int P, float scale, float beam,
-                           const int* emit_id,
-                           const float* self_logp, const float* adv_logp,
-                           const float* enter_logp, const float* exit_logp,
-                           const float* init_logp, const float* final_logp,
-                           const int* n_frames, int J, uint8_t* bp, int* exit_arg,
-                           float* score, int* j_final) {
+                           const ForwardArgs& a) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_forward_kernel<SPT, BEAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(viterbi_forward_kernel<SPT, BEAM, SKIP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
     if (e != cudaSuccess) return e;
   }
-  viterbi_forward_kernel<SPT, BEAM><<<B, threads, smem, stream>>>(
-      ll, T, P, scale, beam, emit_id, self_logp, adv_logp, enter_logp, exit_logp, init_logp,
-      final_logp, n_frames, J, bp, exit_arg, score, j_final);
+  viterbi_forward_kernel<SPT, BEAM, SKIP><<<B, threads, smem, stream>>>(
+      a.ll, a.T, a.P, a.scale, a.beam, a.emit_id, a.self_logp, a.adv_logp, a.enter_logp,
+      a.exit_logp, a.init_logp, a.final_logp, a.skip_logp, a.n_frames, a.J, a.bp, a.exit_arg,
+      a.score, a.j_final);
   return cudaGetLastError();
+}
+
+// The arm for beam > 0 and for a graph with skip transitions.
+template <int SPT>
+cudaError_t launch_arm(int threads, size_t smem, int B, cudaStream_t stream,
+                       const ForwardArgs& a) {
+  const bool beam = a.beam > 0.f, skip = a.skip_logp != nullptr;
+  if (beam)
+    return skip ? launch_forward<SPT, true, true>(threads, smem, B, stream, a)
+                : launch_forward<SPT, true, false>(threads, smem, B, stream, a);
+  return skip ? launch_forward<SPT, false, true>(threads, smem, B, stream, a)
+              : launch_forward<SPT, false, false>(threads, smem, B, stream, a);
 }
 
 }  // namespace
@@ -272,11 +312,12 @@ cudaError_t launch_forward(int threads, size_t smem, int B, cudaStream_t stream,
 extern "C" {
 
 // Forward pass plus backtrace for B utterances. ll [B, T, P] float32; the
-// seven graph arrays [B, J] (emit_id int32, the rest float32); n_frames [B]
-// int32. Scratch: bp uint8 [B, T, J], exit_arg int32 [B, T], j_final int32
-// [B]. Outputs: path int32 [B, T], entered uint8/bool [B, T], score float32
-// [B]. beam > 0 prunes each frame to [max - beam, max]; 0 is exact. With
-// path == NULL there is no backtrace: bp, exit_arg and entered may be NULL,
+// seven graph arrays [B, J] (emit_id int32, the rest float32), and
+// skip_logp [B, J] float32 for a graph with CTC skip transitions or NULL;
+// n_frames [B] int32. Scratch: bp uint8 [B, T, J], exit_arg int32 [B, T],
+// j_final int32 [B]. Outputs: path int32 [B, T], entered uint8/bool [B, T],
+// score float32 [B]. beam > 0 prunes each frame to [max - beam, max]; 0 is
+// exact. With path == NULL there is no backtrace: bp, exit_arg and entered may be NULL,
 // and only score is written. J may be at most MAX_SPT * 1024
 // (cudaErrorInvalidValue otherwise); an emit_id outside [0, P) stops the
 // kernel with a trap, as an out-of-range index stops torch.gather on the
@@ -285,7 +326,8 @@ int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam,
                    const void* emit_id,
                    const void* self_logp, const void* adv_logp, const void* enter_logp,
                    const void* exit_logp, const void* init_logp, const void* final_logp,
-                   const void* n_frames, int J, void* bp, void* exit_arg, void* j_final,
+                   const void* skip_logp, const void* n_frames, int J, void* bp,
+                   void* exit_arg, void* j_final,
                    void* path, void* entered, void* score, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (J <= 0 || J > MAX_SPT * 1024) return cudaErrorInvalidValue;
@@ -297,44 +339,31 @@ int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam,
   if (j32 < threads) threads = j32;
   const int spt = (J + threads - 1) / threads;
   const size_t smem = 2 * (size_t)J * sizeof(float);
-  const float* f_ll = static_cast<const float*>(ll);
-  const int* f_eid = static_cast<const int*>(emit_id);
-  const float* f_self = static_cast<const float*>(self_logp);
-  const float* f_adv = static_cast<const float*>(adv_logp);
-  const float* f_enter = static_cast<const float*>(enter_logp);
-  const float* f_exit = static_cast<const float*>(exit_logp);
-  const float* f_init = static_cast<const float*>(init_logp);
-  const float* f_final = static_cast<const float*>(final_logp);
-  const int* f_nf = static_cast<const int*>(n_frames);
   const bool backtrace = path != nullptr;
-  uint8_t* f_bp = backtrace ? static_cast<uint8_t*>(bp) : nullptr;
-  int* f_exit_arg = backtrace ? static_cast<int*>(exit_arg) : nullptr;
-  int* f_jf = static_cast<int*>(j_final);
-  float* f_score = static_cast<float*>(score);
+  const ForwardArgs a{static_cast<const float*>(ll), T, P, scale, beam,
+                      static_cast<const int*>(emit_id),
+                      static_cast<const float*>(self_logp), static_cast<const float*>(adv_logp),
+                      static_cast<const float*>(enter_logp), static_cast<const float*>(exit_logp),
+                      static_cast<const float*>(init_logp), static_cast<const float*>(final_logp),
+                      static_cast<const float*>(skip_logp), static_cast<const int*>(n_frames), J,
+                      backtrace ? static_cast<uint8_t*>(bp) : nullptr,
+                      backtrace ? static_cast<int*>(exit_arg) : nullptr,
+                      static_cast<float*>(score), static_cast<int*>(j_final)};
   cudaError_t e;
-#define MOGASR_FWD(N)                                                                      \
-  e = beam > 0.f                                                                           \
-          ? launch_forward<N, true>(threads, smem, B, st, f_ll, T, P, scale, beam, f_eid,  \
-                                    f_self, f_adv, f_enter, f_exit, f_init, f_final, f_nf, \
-                                    J, f_bp, f_exit_arg, f_score, f_jf)                    \
-          : launch_forward<N, false>(threads, smem, B, st, f_ll, T, P, scale, beam, f_eid, \
-                                     f_self, f_adv, f_enter, f_exit, f_init, f_final,      \
-                                     f_nf, J, f_bp, f_exit_arg, f_score, f_jf)
   switch (spt) {
-    case 1: MOGASR_FWD(1); break;
-    case 2: MOGASR_FWD(2); break;
-    case 3: MOGASR_FWD(3); break;
-    case 4: MOGASR_FWD(4); break;
-    case 5: MOGASR_FWD(5); break;
-    case 6: MOGASR_FWD(6); break;
-    case 7: MOGASR_FWD(7); break;
-    case 8: MOGASR_FWD(8); break;
+    case 1: e = launch_arm<1>(threads, smem, B, st, a); break;
+    case 2: e = launch_arm<2>(threads, smem, B, st, a); break;
+    case 3: e = launch_arm<3>(threads, smem, B, st, a); break;
+    case 4: e = launch_arm<4>(threads, smem, B, st, a); break;
+    case 5: e = launch_arm<5>(threads, smem, B, st, a); break;
+    case 6: e = launch_arm<6>(threads, smem, B, st, a); break;
+    case 7: e = launch_arm<7>(threads, smem, B, st, a); break;
+    case 8: e = launch_arm<8>(threads, smem, B, st, a); break;
     default: return cudaErrorInvalidValue;
   }
-#undef MOGASR_FWD
   if (e != cudaSuccess || !backtrace) return e;
   viterbi_backtrace_kernel<<<(B + 127) / 128, 128, 0, st>>>(
-      f_bp, f_exit_arg, f_jf, f_nf, B, T, J, static_cast<int*>(path),
+      a.bp, a.exit_arg, a.j_final, a.n_frames, B, T, J, static_cast<int*>(path),
       static_cast<uint8_t*>(entered));
   return cudaGetLastError();
 }

@@ -6,7 +6,8 @@ Same recursion, operation for operation, so results are bitwise equal to the
 reference: per frame an exit max with its first-index argmax, the stay /
 advance / enter candidates, backpointer codes where stay beats advance beats
 enter on ties, the graph-gathered emission, the beam mask, rows frozen past
-``n_frames``. Also covers what the kernel does not: CTC skip transitions.
+``n_frames``, and CTC skip transitions (code 3, from j-2) where the graphs
+have ``skip_logp``.
 The backtrace follows the stored uint8 codes back from the best final state;
 ``with_backtrace=False`` skips it and returns only the score (a zero path).
 """

@@ -1,18 +1,18 @@
 """Viterbi decode on the CUDA kernel ``csrc/viterbi.cu`` (kernel K2): the port
 of mogasr/decoder/viterbi_pallas.py.
 
-A drop-in for ``decoder.viterbi.viterbi`` on plain chain+loop graphs, with
-or without a beam and a backtrace, bitwise equal to it. Like the reference
-kernel it rejects CTC skip transitions on every device; ``decoder.viterbi``
-covers them. A CUDA tensor runs the kernel, a CPU tensor the plain version;
-any other device raises. ``LAUNCHES`` counts kernel launches (one per call
+A drop-in for ``decoder.viterbi.viterbi`` on chain+loop graphs, with or
+without CTC skip transitions (``skip_logp``; the reference kernel has no such
+arm), a beam and a backtrace, bitwise equal to it. A CUDA tensor runs the
+kernel, a CPU tensor the plain version; any other device raises. ``LAUNCHES`` counts kernel launches (one per call
 with B * T > 0: the forward kernel and, with a backtrace, its backtrace
 kernel; an empty batch launches neither). Without a backtrace the kernel
 stores no backpointers and the result's path is zeros, as the plain
 version's.
 
 The graph arrays go to the kernel as ``graphs_to_torch`` makes them from
-``batch_graphs``: ``emit_id`` int32, the log-probs float32, contiguous, on
+``batch_graphs``: ``emit_id`` int32, the log-probs (``skip_logp`` too, where
+the graphs have it) float32, contiguous, on
 the device of ``emit_ll``. They are checked, never converted, so a graph
 built once serves every batch without a copy. The kernel itself stops (a
 device trap, as an out-of-range index does in ``torch.gather``) on an
@@ -34,7 +34,7 @@ LAUNCHES = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "viterbi_decode": [_P, _I, _I, _I, _F, _F] + [_P] * 8 + [_I] + [_P] * 7,
+    "viterbi_decode": [_P, _I, _I, _I, _F, _F] + [_P] * 9 + [_I] + [_P] * 7,
 }
 _GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp",
                "init_logp", "final_logp")
@@ -62,11 +62,6 @@ def viterbi(
     with_backtrace: bool = True,
 ) -> ViterbiResult:
     global LAUNCHES
-    if graphs.get("skip_logp") is not None:
-        raise NotImplementedError(
-            "the Viterbi kernel covers plain chain+loop graphs; CTC skip "
-            "topologies decode via mogasr_torch.decoder.viterbi"
-        )
     if emit_ll.device.type == "cpu":
         return plain.viterbi(emit_ll, graphs, n_frames, acoustic_scale=acoustic_scale, beam=beam,
                              with_backtrace=with_backtrace)
@@ -76,7 +71,8 @@ def viterbi(
         raise ValueError(f"emit_ll must be float32 [B, T, P], got {emit_ll.dtype} {tuple(emit_ll.shape)}")
     B, T, P = emit_ll.shape
     dev = emit_ll.device
-    J = check_graphs(graphs, _GRAPH_KEYS, B, dev)
+    skip = graphs.get("skip_logp")
+    J = check_graphs(graphs, _GRAPH_KEYS + (() if skip is None else ("skip_logp",)), B, dev)
     ll = emit_ll.contiguous()
     nf = n_frames.to(device=dev, dtype=torch.int32).contiguous()
 
@@ -95,7 +91,7 @@ def viterbi(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.viterbi_decode(
             ll.data_ptr(), B, T, P, float(acoustic_scale), float(beam),
-            *(graphs[k].data_ptr() for k in _GRAPH_KEYS),
+            *(graphs[k].data_ptr() for k in _GRAPH_KEYS), None if skip is None else skip.data_ptr(),
             nf.data_ptr(), J, *scratch, score.data_ptr(), stream,
         )
     _cuda.check(lib, "viterbi", err, "viterbi_decode launch")

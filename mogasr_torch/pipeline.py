@@ -249,17 +249,35 @@ def decode_batch(
     scores: torch.Tensor,
     graph: gr.Graph,
     dcfg: DecodeConfig,
-    use_kernels: bool = True,
     drop_tokens: Tuple[str, ...] = DROP_TOKENS,
+    *,
+    use_kernels: bool = True,
+    graphs: Optional[DecodeGraphs] = None,
+    clock: Optional[StageClock] = None,
+) -> List[List[str]]:
+    """Viterbi-decode scored frames against a shared loop graph -> the token
+    sequence of each utterance, ``drop_tokens`` left out: the reference's
+    signature and return value. ``decode_batch_scored`` also returns the
+    Viterbi scores."""
+    return decode_batch_scored(fb, scores, graph, dcfg, drop_tokens, use_kernels=use_kernels, graphs=graphs,
+                               clock=clock)[0]
+
+
+def decode_batch_scored(
+    fb: FeatBatch,
+    scores: torch.Tensor,
+    graph: gr.Graph,
+    dcfg: DecodeConfig,
+    drop_tokens: Tuple[str, ...] = DROP_TOKENS,
+    *,
+    use_kernels: bool = True,
     graphs: Optional[DecodeGraphs] = None,
     clock: Optional[StageClock] = None,
 ) -> Tuple[List[List[str]], List[float]]:
-    """Viterbi-decode scored frames against a shared loop graph.
-
-    Returns the token sequences and the Viterbi score of each utterance.
-    ``graphs`` is ``decode_graphs(graph, B, scores.device)``, made per call
-    when not given.
-    """
+    """``decode_batch`` -> (token sequences, the Viterbi score of each
+    utterance). K2 decodes, graphs with skip transitions included, unless
+    ``use_kernels`` is False. ``graphs`` is ``decode_graphs(graph, B,
+    scores.device)``, made per call when not given."""
     graphs_np, graphs_t = graphs or decode_graphs(graph, scores.shape[0], scores.device)
     decode = viterbi_cuda.viterbi if use_kernels else vit.viterbi
     with _stage(clock, "viterbi"):
@@ -330,7 +348,8 @@ def decode_corpus(
                 ll = scorer(fb)
             else:
                 ll = score_batch(fb.feats, gmm, use_kernels, compute_dtype, mode, params, layout)
-        toks, batch_scores = decode_batch(fb, ll, graph, dcfg, use_kernels, graphs=graphs, clock=clock)
+        toks, batch_scores = decode_batch_scored(fb, ll, graph, dcfg, use_kernels=use_kernels, graphs=graphs,
+                                                 clock=clock)
         with clock("tokens"):
             refs += [[w.lower() for w in words] for words in batch.words[: fb.size]]
             hyps += [[w.lower() for w in seq] for seq in toks]
@@ -434,8 +453,8 @@ def batch_stats(
 
     "viterbi": forced alignment (``align_batch``), then hard statistics; the
     result is a ViterbiResult and labels the [B, T] pdf per frame.
-    "baum-welch": K1 float32/sum scores, forward-backward over the align
-    graphs, pdf posteriors (``n_pdfs`` of them), soft statistics with the
+    "baum-welch": K1 float32/sum scores, forward-backward (K3f/K3b) over the
+    align graphs, pdf posteriors (``n_pdfs`` of them), soft statistics with the
     forward log-likelihood of the rows that have frames; the result is an
     FBResult and labels None.
     """
@@ -575,24 +594,32 @@ def train_gmm(
 
 def evaluate(
     batches: Sequence[FeatBatch],
-    gmm: GmmSet,
+    gmm: Optional[GmmSet],
     lexicon: Lexicon,
     topo: Topology,
     dcfg: DecodeConfig,
+    scorer: Optional[Scorer] = None,
     graph: Optional[gr.Graph] = None,
 ) -> Dict[str, float]:
-    """Decode featurized batches (K1 float32/sum + K2) and score their WER.
+    """Decode featurized batches and score their WER: the reference's
+    signature.
 
-    graph: a decode-graph override, e.g. the tied-triphone word loop
-    (``hmm.triphone.word_loop_graph_cd``); the monophone word loop by default.
+    scorer: ``fb -> [B, T, n_pdfs]`` log-likelihoods (e.g. ``make_nn_scorer``)
+    in place of the GMM, which may then be None; by default the GMM scores
+    in float32/sum mode (K1 on the card). graph: a decode-graph override,
+    e.g. the tied-triphone word loop (``hmm.triphone.word_loop_graph_cd``);
+    the monophone word loop by default. Decoding is ``decode_batch``.
     """
     if graph is None:
         graph = word_decode_graph(lexicon, topo, dcfg)
-    params = kernel_params(gmm, "float32")
+    params = kernel_params(gmm, "float32") if scorer is None else None
     refs, hyps = [], []
     for fb in batches:
-        scores = score_batch(fb.feats, gmm, compute_dtype="float32", mode="sum", params=params)
-        out, _ = decode_batch(fb, scores, graph, dcfg)
+        if scorer is not None:
+            scores = scorer(fb)
+        else:
+            scores = score_batch(fb.feats, gmm, compute_dtype="float32", mode="sum", params=params)
+        out = decode_batch(fb, scores, graph, dcfg)
         refs += [[w.lower() for w in fb.words[b]] for b in range(fb.size)]
         hyps += [[w.lower() for w in seq] for seq in out]
     wer, counts = corpus_wer(refs, hyps)

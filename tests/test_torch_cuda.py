@@ -22,7 +22,7 @@ from mogasr_torch.am import fast_lstm, gmm_cuda, lstm_cuda
 from mogasr_torch.am import neural as tn
 from mogasr_torch.am.params import init_
 from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik, quantize_int8, quadratic_features
-from mogasr_torch.config import TopologyConfig, TrainConfig
+from mogasr_torch.config import DecodeConfig, TopologyConfig, TrainConfig
 from mogasr_torch.decoder import fb_cuda
 from mogasr_torch.decoder import forward_backward as fbd
 from mogasr_torch.decoder import viterbi as vit
@@ -174,10 +174,12 @@ def test_gmm_kernels_no_rows(dev, compute_dtype, mode):
     assert (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES) == before
 
 
-def _random_graphs(rng, B, J, P):
-    """Chain+loop-shaped random graph arrays: chains of 1-5 states."""
+def _random_graphs(rng, B, J, P, skip=False):
+    """Chain+loop-shaped random graph arrays: chains of 1-5 states; with
+    ``skip``, CTC-style (j-2 -> j) skips inside every chain, nearly free."""
     out = {k: np.full((B, J), gr.NEG_INF, np.float32) for k in
-           ("self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp", "final_logp")}
+           ("self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp", "final_logp")
+           + (("skip_logp",) if skip else ())}
     out["emit_id"] = rng.integers(0, P, (B, J)).astype(np.int32)
     for b in range(B):
         j = 0
@@ -187,33 +189,47 @@ def _random_graphs(rng, B, J, P):
             out["adv_logp"][b, j + 1:j + n] = -rng.random(n - 1)
             out["enter_logp"][b, j] = out["init_logp"][b, j] = -3 * rng.random()
             out["exit_logp"][b, j + n - 1] = out["final_logp"][b, j + n - 1] = -rng.random()
+            if skip and n > 2:
+                out["skip_logp"][b, j + 2:j + n] = -0.05 * rng.random(n - 2)
             j += n
     return out
 
 
+@pytest.mark.parametrize("skip", [False, True])
 @pytest.mark.parametrize("J", [37, 3048, 5000])
-def test_viterbi_kernel_bitwise_equals_plain(dev, J):
+def test_viterbi_kernel_bitwise_equals_plain(dev, J, skip):
+    """K2, and its skip arm on graphs with skip transitions: path, entered
+    and score bitwise equal; the skips are taken (the best scores rise over
+    the same graph's without them)."""
     rng = np.random.default_rng(J)
     B, T, P = 5, 40, 97
-    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P, skip), dev)
     ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
     nf = torch.as_tensor([T, 17, 1, 0, 33], dtype=torch.int32, device=dev)
     for scale in (1.0, 0.3):
+        before = viterbi_cuda.LAUNCHES
         got = viterbi_cuda.viterbi(ll, graphs, nf, acoustic_scale=scale)
         want = vit.viterbi(ll, graphs, nf, acoustic_scale=scale)
         torch.cuda.synchronize()
+        assert viterbi_cuda.LAUNCHES == before + 1
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
+        if skip:
+            no_skip = viterbi_cuda.viterbi(ll, {k: v for k, v in graphs.items() if k != "skip_logp"}, nf,
+                                           acoustic_scale=scale)
+            assert bool((got.score >= no_skip.score).all()) and bool((got.score > no_skip.score).any())
 
 
+@pytest.mark.parametrize("skip", [False, True])
 @pytest.mark.parametrize("J", [37, 3048, 5000])
 @pytest.mark.parametrize("beam", [0.5, 3.0, 40.0])
-def test_viterbi_kernel_beam_bitwise_equals_plain(dev, J, beam):
+def test_viterbi_kernel_beam_bitwise_equals_plain(dev, J, beam, skip):
     """K2 with the beam mask: one block max per frame, thresh = max - beam,
-    states below it NEG_INF; path, entered and score bitwise equal."""
+    states below it NEG_INF; path, entered and score bitwise equal, with
+    and without skip transitions."""
     rng = np.random.default_rng(J + 1)
     B, T, P = 5, 40, 97
-    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P, skip), dev)
     ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
     nf = torch.as_tensor([T, 17, 1, 0, 33], dtype=torch.int32, device=dev)
     for scale in (1.0, 0.3):
@@ -244,13 +260,26 @@ def test_viterbi_kernel_without_backtrace(dev, beam):
     assert torch.equal(got.score, full.score) and not got.path.any()
 
 
-def test_viterbi_kernel_rejects_skip(dev):
-    rng = np.random.default_rng(0)
-    g = _random_graphs(rng, 2, 20, 10)
-    g["skip_logp"] = np.zeros((2, 20), np.float32)
-    ll = torch.zeros((2, 5, 10), device=dev)
-    with pytest.raises(NotImplementedError):
-        viterbi_cuda.viterbi(ll, vit.graphs_to_torch(g, dev), torch.tensor([5, 5], device=dev))
+def test_skip_graph_decodes_on_k2(dev):
+    """pipe.decode_batch on a graph with skip transitions: K2's skip arm on
+    the card (one launch), equal to use_kernels=False."""
+    lex = make_lexicon({"ab": ["a", "b"], "ba": ["b", "a"], "aa": ["a", "a"]})
+    topo = build_topology(lex, TopologyConfig())
+    g = pipe.word_decode_graph(lex, topo, DecodeConfig())
+    chain = g.chain_id
+    skip = np.full(chain.shape, gr.NEG_INF, np.float32)
+    skip[2:] = np.where((chain[2:] == chain[:-2]) & (chain[2:] >= 0), np.float32(-0.1), gr.NEG_INF)
+    g.skip_logp = skip
+    rng = np.random.default_rng(15)
+    B, T = 3, 40
+    ll = torch.as_tensor((rng.standard_normal((B, T, topo.n_pdfs)) * 3).astype(np.float32), device=dev)
+    fb = pipe.FeatBatch(["a", "b", "c"], torch.zeros((B, T, 1), device=dev),
+                        torch.tensor([T, 25, 0], dtype=torch.int32, device=dev), [[], [], []])
+    before = viterbi_cuda.LAUNCHES
+    got = pipe.decode_batch_scored(fb, ll, g, DecodeConfig())
+    assert viterbi_cuda.LAUNCHES == before + 1
+    want = pipe.decode_batch_scored(fb, ll, g, DecodeConfig(), use_kernels=False)
+    assert got == want
 
 
 def test_viterbi_kernel_checks_graphs(dev):
@@ -286,13 +315,15 @@ print("no error")
     assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
 
 
+@pytest.mark.parametrize("skip", [False, True])
 @pytest.mark.parametrize("J", [37, 200, 3048])
-def test_fb_kernels_match_plain(dev, J):
+def test_fb_kernels_match_plain(dev, J, skip):
     """K3f/K3b against the plain forward-backward: loglik and log_gamma on
-    valid frames, NEG_INF on padded ones, ragged n_frames including 0 and 1."""
+    valid frames, NEG_INF on padded ones, ragged n_frames including 0 and 1;
+    with ``skip``, their skip arm on graphs with skip transitions."""
     rng = np.random.default_rng(J)
     B, T, P = 5, 40, 97
-    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P), dev)
+    graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P, skip), dev)
     ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
     nf = torch.as_tensor([T, 17, 1, 0, 33], dtype=torch.int32, device=dev)
     for scale in (1.0, 0.8):
@@ -323,15 +354,6 @@ def test_fb_kernels_one_frame(dev):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got.log_gamma, want.log_gamma, rtol=1e-4, atol=1e-4)
-
-
-def test_fb_kernels_reject_skip(dev):
-    rng = np.random.default_rng(0)
-    g = _random_graphs(rng, 2, 20, 10)
-    g["skip_logp"] = np.zeros((2, 20), np.float32)
-    with pytest.raises(NotImplementedError):
-        fb_cuda.forward_backward(torch.zeros((2, 5, 10), device=dev), vit.graphs_to_torch(g, dev),
-                                 torch.tensor([5, 5], device=dev))
 
 
 def test_fb_kernels_check_graphs(dev):
@@ -401,7 +423,7 @@ def _lstm_inputs(rng, B, T, H, dev):
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,T,H", [(3, 17, 11), (16, 50, 200), (5, 9, 512)])
+@pytest.mark.parametrize("B,T,H", [(3, 17, 11), (16, 50, 200), (5, 9, 512), (64, 40, 512), (6, 12, 640)])
 def test_lstm_kernel_matches_plain(dev, compute_dtype, B, T, H):
     xg, w, nf = _lstm_inputs(np.random.default_rng(B + T + H), B, T, H, dev)
     before = lstm_cuda.LAUNCHES
@@ -415,8 +437,9 @@ def test_lstm_kernel_matches_plain(dev, compute_dtype, B, T, H):
 
 
 def test_lstm_kernel_wide_batch_runs_in_row_blocks(dev):
-    """More rows than one launch takes: several cooperative launches from
-    the one entry point, the same result."""
+    """More rows than one launch takes (64): several launches from the one
+    entry point, each over a block of the rows ordered by n_frames, the same
+    result."""
     xg, w, nf = _lstm_inputs(np.random.default_rng(7), 150, 20, 200, dev)
     before = lstm_cuda.LAUNCHES
     got = lstm_cuda.lstm_layer(xg, w, nf)
@@ -424,6 +447,40 @@ def test_lstm_kernel_wide_batch_runs_in_row_blocks(dev):
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES >= before + 3
     torch.testing.assert_close(got, want, rtol=0, atol=K4_ATOL["float32"])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths", ["all T", "all 0", "unsorted with ties"])
+def test_lstm_kernel_row_lengths(dev, compute_dtype, lengths):
+    """Every row live to the end (nothing to skip), no row live (the frame
+    loop never runs: zeros), and rows given out of order with several equal
+    lengths."""
+    B, T, H = 24, 33, 96
+    xg, w, _ = _lstm_inputs(np.random.default_rng(11), B, T, H, dev)
+    nf = {"all T": np.full(B, T), "all 0": np.zeros(B),
+          "unsorted with ties": np.random.default_rng(12).choice([0, 5, 5, 17, 17, 17, 33, 40], B)}[lengths]
+    nf = torch.as_tensor(nf.astype(np.int32), device=dev)
+    got = lstm_cuda.lstm_layer(xg, w, nf, compute_dtype)
+    want = fast_lstm.lstm_layer(xg, w, nf, compute_dtype)
+    torch.cuda.synchronize()
+    if lengths == "all 0":
+        assert float(got.abs().max()) == 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=K4_ATOL[compute_dtype])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_lstm_kernel_repeats_bitwise(dev, compute_dtype):
+    """The same launch at the hybrid path's widest shape (64 x 600 x 512),
+    20 times: bitwise-equal results. A stale h read across the frame
+    barrier, or through the bulk copies without the proxy fence, would show
+    as a rare difference."""
+    B, T, H = 64, 600, 512
+    xg, w, nf = _lstm_inputs(np.random.default_rng(13), B, T, H, dev)
+    first = lstm_cuda.lstm_layer(xg, w, nf, compute_dtype)
+    for _ in range(19):
+        assert torch.equal(lstm_cuda.lstm_layer(xg, w, nf, compute_dtype), first)
+    torch.testing.assert_close(first, fast_lstm.lstm_layer(xg, w, nf, compute_dtype), rtol=0,
+                               atol=K4_ATOL[compute_dtype])
 
 
 def test_lstm_kernel_checks_inputs(dev):

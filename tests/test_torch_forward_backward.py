@@ -3,7 +3,7 @@
 (decoder/fb_pallas.py): loglik and state log-posteriors on align, phone-loop
 and CTC-skip graphs with ragged batches (n_frames of T, 1 and 0) at acoustic
 scale 0.8; posterior normalisation, padding invariance, the pdf collapse, and
-the kernel wrapper's CPU dispatch and skip rejection."""
+the kernel wrapper's CPU dispatch, skip graphs included."""
 
 import jax
 import jax.numpy as jnp
@@ -163,9 +163,16 @@ def test_kernel_wrapper_on_cpu_is_plain(topo):
 
 
 def test_kernel_wrapper_rejects_skip_and_other_devices(topo):
+    """K3f/K3b have a skip arm, so the wrapper takes skip graphs: on the CPU
+    it is the plain version, exactly, and no launch. A device other than
+    the CPU and CUDA is rejected."""
     emit, nf = _inputs(topo)
-    with pytest.raises(NotImplementedError):
-        fb_cuda.forward_backward(torch.as_tensor(emit), _torch(_graphs_np(topo, "skip")), torch.as_tensor(nf))
+    before = (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES)
+    got = fb_cuda.forward_backward(torch.as_tensor(emit), _torch(_graphs_np(topo, "skip")), torch.as_tensor(nf))
+    want = fbd.forward_backward(torch.as_tensor(emit), _torch(_graphs_np(topo, "skip")), torch.as_tensor(nf))
+    assert (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES) == before
+    torch.testing.assert_close(got.loglik, want.loglik, rtol=0, atol=0)
+    torch.testing.assert_close(got.log_gamma, want.log_gamma, rtol=0, atol=0)
     meta = torch.device("meta")
     with pytest.raises(ValueError):
         fb_cuda.forward_backward(torch.empty(emit.shape, device=meta),

@@ -76,12 +76,13 @@ def test_nn_scorer_matches_jax(arch, precision):
         np.testing.assert_allclose(got[b, :n].numpy(), want[b, :n], rtol=tol, atol=tol)
 
 
-def test_hybrid_slice_at_full_width_matches_jax():
+@pytest.fixture(scope="module")
+def full_width():
     """bench_families.py's lstm row: extended_lexicon(300), monophone
     topology (81 pdfs), the word loop (3048 states), acoustic scale 0.1,
     make_corpus_v2 seed 999 with 3-9 words, buckets (250, 350, 450, 600),
     uniform log priors, LstmAm(81, hidden 512, 2 layers), its head scaled
-    by HEAD_GAIN."""
+    by HEAD_GAIN; both packages' objects."""
     fcfg = FrontendConfig()
     dcfg = DecodeConfig(acoustic_scale=0.1)
     word_lex = syn.extended_lexicon(300)
@@ -100,8 +101,16 @@ def test_hybrid_slice_at_full_width_matches_jax():
     log_priors = np.log(np.full(n_pdfs, 1.0 / n_pdfs, np.float32))
     jm, params, tm = _models("lstm", n_pdfs, 512, 3, fcfg.feat_dim, seed=0, head_gain=HEAD_GAIN)
     assert tm.layers == 2 and tm.hidden == 512
+    return SimpleNamespace(fcfg=fcfg, dcfg=dcfg, lex=lex, topo=topo, t_lex=t_lex, t_topo=t_topo, graph=graph,
+                           t_graph=t_graph, utts=utts, bcfg=bcfg, log_priors=log_priors, jm=jm, params=params,
+                           tm=tm)
 
-    score = jax_pipe.make_nn_scorer(jm, params, jnp.asarray(log_priors))
+
+def test_hybrid_slice_at_full_width_matches_jax(full_width):
+    f = full_width
+    fcfg, dcfg, graph, t_graph, utts, bcfg, log_priors = (f.fcfg, f.dcfg, f.graph, f.t_graph, f.utts, f.bcfg,
+                                                          f.log_priors)
+    score = jax_pipe.make_nn_scorer(f.jm, f.params, jnp.asarray(log_priors))
     graphs_np = gr.batch_graphs([graph] * N_UTTS)
     graphs = {k: jnp.asarray(v) for k, v in graphs_np.items()}
     hyps, scores = [], []
@@ -113,8 +122,22 @@ def test_hybrid_slice_at_full_width_matches_jax():
         scores += [float(s) for s in res.score[: b.size]]
         hyps += [[w.lower() for w in seq] for seq in jax_pipe.decode_batch(fb, ll, graph, dcfg)]
 
-    got = pipe.decode_corpus(utts, pipe.make_nn_scorer(tm, log_priors), t_graph, fcfg, dcfg, bcfg, CPU)
+    got = pipe.decode_corpus(utts, pipe.make_nn_scorer(f.tm, log_priors), t_graph, fcfg, dcfg, bcfg, CPU)
     assert got.n_utts == N_UTTS and all(len(h) > 0 for h in hyps)
     assert got.hyps == hyps
     np.testing.assert_allclose(got.scores, scores, rtol=1e-5)
     assert set(got.stage_seconds) == set(pipe.STAGES) and got.stage_seconds["scoring"] > 0
+
+
+def test_hybrid_evaluate_matches_jax(full_width):
+    """pipe.evaluate with a scorer, in the reference's calls (scorer as the
+    sixth argument, and with topo=None and a graph given), against JAX's
+    evaluate on the same 4 utterances: the same WER dict."""
+    f = full_width
+    want = jax_pipe.evaluate(jax_pipe.featurize(f.utts, f.fcfg, f.bcfg), None, f.lex, f.topo, f.dcfg,
+                             scorer=jax_pipe.make_nn_scorer(f.jm, f.params, jnp.asarray(f.log_priors)))
+    batches = pipe.featurize(f.utts, f.fcfg, f.bcfg, CPU)
+    scorer = pipe.make_nn_scorer(f.tm, f.log_priors)
+    got = pipe.evaluate(batches, None, f.t_lex, f.t_topo, f.dcfg, scorer)
+    assert got == want and got["n_utts"] == N_UTTS and got["ref_words"] > 0
+    assert pipe.evaluate(batches, None, f.t_lex, None, f.dcfg, scorer=scorer, graph=f.t_graph) == want

@@ -79,6 +79,37 @@ def test_wrapper_takes_the_plain_version_on_cpu():
         lstm_cuda.lstm_layer(torch.as_tensor(xg), torch.as_tensor(w), torch.as_tensor(nf), "float16")
 
 
+def test_kernel_row_order():
+    """K4's row order: rows by n_frames longest first, ties in row order.
+    The rows live at frame t (n_frames > t; n_frames past T counts as T)
+    are a prefix of it, and of each of its strided row blocks, as the
+    kernel counts them per frame; rows of 0 frames come last. Running the
+    recurrence on rows in that order changes nothing."""
+    T = 6
+    nf = torch.tensor([3, 0, 6, 3, 9, 1, 0], dtype=torch.int64)
+    perm, nfs = lstm_cuda.row_order(nf)
+    assert perm.dtype == nfs.dtype == torch.int32
+    assert perm.tolist() == [4, 2, 0, 3, 5, 1, 6]
+    assert nfs.tolist() == [9, 6, 3, 3, 1, 0, 0]
+    live = [sum(min(int(n), T) > t for n in nf) for t in range(T)]
+    assert live == [5, 4, 4, 2, 2, 2]
+    for t in range(T):
+        assert set(perm[: live[t]].tolist()) == {b for b in range(7) if min(int(nf[b]), T) > t}
+        for rb in range(3):  # row block rb of 3: rows rb, rb + 3, ...
+            block = nfs[rb::3].tolist()
+            n_live = sum(n > t for n in block)
+            assert all(n > t for n in block[:n_live]) and not any(n > t for n in block[n_live:])
+    every = lstm_cuda.row_order(torch.full((4,), T, dtype=torch.int32))
+    assert every[0].tolist() == [0, 1, 2, 3] and every[1].tolist() == [T] * 4
+    none = lstm_cuda.row_order(torch.zeros(4, dtype=torch.int32))
+    assert none[0].tolist() == [0, 1, 2, 3] and none[1].tolist() == [0] * 4
+
+    xg, w, nf_np = _layer_inputs(6, 7, T, 5)
+    xg, w, nf_t = torch.as_tensor(xg), torch.as_tensor(w), torch.as_tensor(nf_np)
+    perm = lstm_cuda.row_order(nf_t)[0].long()
+    assert torch.equal(fast_lstm.lstm_layer(xg[perm], w, nf_t[perm]), fast_lstm.lstm_layer(xg, w, nf_t)[perm])
+
+
 @pytest.mark.parametrize("layers", [1, 2])
 def test_lstm_am_matches_prefused_and_pallas_forward(layers):
     rng = np.random.default_rng(5 + layers)

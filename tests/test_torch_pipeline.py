@@ -116,12 +116,13 @@ def test_word_decode_graph_and_decode_batch(headline):
     fb = pipe.featurize(utts[:2], fcfg, BatchConfig(batch_size=2, bucket_boundaries=(600,)), CPU)[0]
     scores = pipe.score_batch(fb.feats, gmm, mode="max")
     assert scores.shape == (2, fb.feats.shape[1], gmm.n_states)
-    out, out_scores = pipe.decode_batch(fb, scores, graph, dcfg)
+    out, out_scores = pipe.decode_batch_scored(fb, scores, graph, dcfg)
     assert len(out) == 2 and all(all(w not in pipe.DROP_TOKENS for w in seq) for seq in out)
     assert len(out_scores) == 2 and np.isfinite(out_scores).all()
     graphs = pipe.decode_graphs(graph, 2, CPU)
-    assert (out, out_scores) == pipe.decode_batch(fb, scores, graph, dcfg, use_kernels=False,
-                                                  graphs=graphs)
+    assert (out, out_scores) == pipe.decode_batch_scored(fb, scores, graph, dcfg, use_kernels=False,
+                                                         graphs=graphs)
+    assert pipe.decode_batch(fb, scores, graph, dcfg, graphs=graphs) == out
 
 
 GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp",
@@ -139,7 +140,8 @@ def test_decode_batch_with_beam_matches_jax(headline):
                              fb.words)
     for beam in (30.0, 200.0):
         bcfg = dataclasses.replace(dcfg, beam=beam)
-        got, got_scores = pipe.decode_batch(fb, scores, graph, bcfg)
+        got, got_scores = pipe.decode_batch_scored(fb, scores, graph, bcfg)
+        assert got == pipe.decode_batch(fb, scores, graph, bcfg)
         assert got == jax_pipe.decode_batch(jfb, jnp.asarray(scores.numpy()), graph, bcfg)
         assert all(len(h) > 0 for h in got) and np.isfinite(got_scores).all()
 
@@ -187,9 +189,9 @@ def test_int8_slice_matches_jax(headline):
                                                interpret=True))
         np.testing.assert_allclose(s8.numpy(), j8, atol=1e-4, rtol=1e-6)
         s32 = pipe.score_batch(fb.feats, gmm, compute_dtype="float32", mode="sum")
-        hyp8, _ = pipe.decode_batch(fb, s8, graph, dcfg, graphs=graphs)
-        hyp_j8, _ = pipe.decode_batch(fb, torch.as_tensor(j8), graph, dcfg, graphs=graphs)
-        hyp32, _ = pipe.decode_batch(fb, s32, graph, dcfg, graphs=graphs)
+        hyp8 = pipe.decode_batch(fb, s8, graph, dcfg, graphs=graphs)
+        hyp_j8 = pipe.decode_batch(fb, torch.as_tensor(j8), graph, dcfg, graphs=graphs)
+        hyp32 = pipe.decode_batch(fb, s32, graph, dcfg, graphs=graphs)
         assert hyp8 == hyp_j8 == hyp32
         assert all(len(h) > 0 for h in hyp8)
 
@@ -204,3 +206,75 @@ def test_decode_corpus_checks_mode_and_layout(headline):
                            layout="wide")
     with pytest.raises(ValueError):
         pipe.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, CPU, mode="mean")
+
+
+def _jax_feat_batch(fb):
+    return jax_pipe.FeatBatch(fb.utt_ids, jnp.asarray(fb.feats.numpy()), jnp.asarray(fb.n_frames.numpy()),
+                              fb.words)
+
+
+def test_decode_batch_returns_the_reference_tokens(headline):
+    """decode_batch's signature and return value are the reference's: token
+    lists per utterance, drop_tokens as the fifth positional argument."""
+    gmm, _topo, fcfg, _tied, _meta, dcfg, utts, graph = headline
+    fb = pipe.featurize(utts[:2], fcfg, BatchConfig(batch_size=2, bucket_boundaries=(600,)), CPU)[0]
+    scores = pipe.score_batch(fb.feats, gmm, mode="max")
+    jscores = jnp.asarray(scores.numpy())
+    for drop in (pipe.DROP_TOKENS, ()):
+        got = pipe.decode_batch(fb, scores, graph, dcfg, drop)
+        assert isinstance(got, list) and len(got) == 2 and all(isinstance(seq, list) for seq in got)
+        assert got == jax_pipe.decode_batch(_jax_feat_batch(fb), jscores, graph, dcfg, drop)
+    assert any("<sil>" in seq for seq in pipe.decode_batch(fb, scores, graph, dcfg, ()))
+
+
+def _chain_skips(g):
+    """The graph with a (j-2 -> j) skip of log-prob -0.1 inside every chain."""
+    chain = np.asarray(g.chain_id)
+    skip = np.full(chain.shape, gr.NEG_INF, np.float32)
+    skip[2:] = np.where((chain[2:] == chain[:-2]) & (chain[2:] >= 0), np.float32(-0.1), gr.NEG_INF)
+    return dataclasses.replace(g, skip_logp=skip)
+
+
+def test_skip_graph_decodes_as_jax(headline):
+    """A word loop with skip transitions decodes through pipe.decode_batch
+    (K2's wrapper, which takes skip graphs; on the CPU its plain version) to
+    JAX's decode_batch's tokens, which run its XLA scan."""
+    gmm, _topo, fcfg, _tied, _meta, dcfg, utts, graph = headline
+    skip_graph = _chain_skips(graph)
+    fb = pipe.featurize(utts[:2], fcfg, BatchConfig(batch_size=2, bucket_boundaries=(600,)), CPU)[0]
+    scores = pipe.score_batch(fb.feats, gmm, mode="max")
+    got, got_scores = pipe.decode_batch_scored(fb, scores, skip_graph, dcfg)
+    assert got == jax_pipe.decode_batch(_jax_feat_batch(fb), jnp.asarray(scores.numpy()), skip_graph, dcfg)
+    assert all(len(h) > 0 for h in got) and np.isfinite(got_scores).all()
+    graphs = pipe.decode_graphs(skip_graph, 2, CPU)
+    assert graphs[1]["skip_logp"] is not None
+    assert (got, got_scores) == pipe.decode_batch_scored(fb, scores, skip_graph, dcfg, use_kernels=False,
+                                                         graphs=graphs)
+    # the skips are taken: the best path scores above the graph's without them
+    _, plain_scores = pipe.decode_batch_scored(fb, scores, graph, dcfg)
+    assert all(a >= b for a, b in zip(got_scores, plain_scores)) and got_scores != plain_scores
+
+
+def test_skip_graphs_align_and_collect_stats(headline):
+    """align_batch and batch_stats over align graphs with skip transitions
+    run on the CPU through the pipeline's default route (the K2 and K3
+    wrappers) and equal the plain route."""
+    gmm, topo, fcfg, tied, _meta, _dcfg, utts, _graph = headline
+    fb = pipe.featurize(utts[:2], fcfg, BatchConfig(batch_size=2, bucket_boundaries=(600,)), CPU)[0]
+
+    def align_fn(pids):
+        return _chain_skips(tri.align_graph_cd(tied, pids))
+
+    res, labels, graphs = pipe.align_batch(fb, gmm, topo.lexicon, topo, align_fn=align_fn)
+    want, want_labels, _ = pipe.align_batch(fb, gmm, topo.lexicon, topo, align_fn=align_fn, use_kernels=False)
+    assert graphs["skip_logp"] is not None
+    for a, b in zip(res, want):
+        assert torch.equal(a, b)
+    assert torch.equal(labels, want_labels)
+    for mode in ("viterbi", "baum-welch"):
+        s, _, _ = pipe.batch_stats(fb, gmm, topo.lexicon, topo, mode, align_fn, gmm.n_states)
+        s_plain, _, _ = pipe.batch_stats(fb, gmm, topo.lexicon, topo, mode, align_fn, gmm.n_states,
+                                         use_kernels=False)
+        for a, b in zip(s, s_plain):
+            assert torch.equal(a, b)
+        assert float(s.occ.sum()) > 0

@@ -129,21 +129,24 @@ def test_path_to_pdfs_and_tokens_match_jax(topo):
 
 
 def test_kernel_wrapper_rejects_skip_and_beam(topo):
-    """Skip transitions are refused on every device; a beam is not (K2 has
-    the beam mask), so the wrapper takes the plain version's beam on the CPU."""
+    """K2 has a skip arm and a beam mask, so the wrapper takes skip graphs and
+    a beam: on the CPU it is the plain version, bitwise, and no launch. Only
+    a device other than the CPU and CUDA is rejected, skips or not."""
     graphs_np = gr.batch_graphs(_graphs(topo, "align"))
     emit, n_frames = _inputs(topo)
-    args = (torch.as_tensor(emit), vit.graphs_to_torch(_with_skip(graphs_np), CPU),
-            torch.as_tensor(n_frames))
-    with pytest.raises(NotImplementedError):
-        viterbi_cuda.viterbi(*args)
-    with pytest.raises(NotImplementedError):
-        viterbi_cuda.viterbi(*args, beam=5.0)
-    g = vit.graphs_to_torch(graphs_np, CPU)
-    got = viterbi_cuda.viterbi(torch.as_tensor(emit), g, torch.as_tensor(n_frames), beam=5.0)
-    want = vit.viterbi(torch.as_tensor(emit), g, torch.as_tensor(n_frames), beam=5.0)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    before = viterbi_cuda.LAUNCHES
+    for g_np in (graphs_np, _with_skip(graphs_np)):
+        g = vit.graphs_to_torch(g_np, CPU)
+        for beam in (0.0, 5.0):
+            got = viterbi_cuda.viterbi(torch.as_tensor(emit), g, torch.as_tensor(n_frames), beam=beam)
+            want = vit.viterbi(torch.as_tensor(emit), g, torch.as_tensor(n_frames), beam=beam)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    assert viterbi_cuda.LAUNCHES == before
+    meta = torch.device("meta")
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi(torch.empty(emit.shape, device=meta),
+                             vit.graphs_to_torch(_with_skip(graphs_np), meta), torch.as_tensor(n_frames))
 
 
 @pytest.mark.parametrize("kind", ["align", "phone_loop", "word_loop"])
