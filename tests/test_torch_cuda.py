@@ -316,11 +316,12 @@ print("no error")
 
 
 @pytest.mark.parametrize("skip", [False, True])
-@pytest.mark.parametrize("J", [37, 200, 3048])
+@pytest.mark.parametrize("J", [37, 200, 3048, 8192])
 def test_fb_kernels_match_plain(dev, J, skip):
     """K3f/K3b against the plain forward-backward: loglik and log_gamma on
     valid frames, NEG_INF on padded ones, ragged n_frames including 0 and 1;
-    with ``skip``, their skip arm on graphs with skip transitions."""
+    with ``skip``, their skip arm on graphs with skip transitions. Every row
+    has loop arcs: the general arm, up to the kernels' widest J."""
     rng = np.random.default_rng(J)
     B, T, P = 5, 40, 97
     graphs = vit.graphs_to_torch(_random_graphs(rng, B, J, P, skip), dev)
@@ -333,14 +334,118 @@ def test_fb_kernels_match_plain(dev, J, skip):
         torch.cuda.synchronize()
         assert (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
         assert got.log_gamma.shape == (B, T, J) and got.loglik.shape == (B,)
-        # the logsumexp over states sums in another order: fb_pallas's tolerances
-        torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=1e-5)
-        for b, n in enumerate(nf.tolist()):
-            g, w = got.log_gamma[b, :n], want.log_gamma[b, :n]
-            sel = w > -30
-            torch.testing.assert_close(g[sel], w[sel], rtol=1e-4, atol=1e-4)
-            assert bool((g[~sel] < -25).all())
-            assert bool((got.log_gamma[b, n:] == fbd.NEG_INF).all())
+        assert fb_cuda.LAST_ARMS.tolist() == [[fb_cuda.ARM_GENERAL] * B] * 2
+        _assert_fb_close(got, want, nf)
+
+
+def _assert_fb_close(got, want, nf):
+    # the logsumexp over states sums in another order: fb_pallas's tolerances
+    torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=1e-5)
+    for b, n in enumerate(nf.tolist()):
+        g, w = got.log_gamma[b, :n], want.log_gamma[b, :n]
+        sel = w > -30
+        torch.testing.assert_close(g[sel], w[sel], rtol=1e-4, atol=1e-4)
+        assert bool((g[~sel] < -25).all())
+        assert bool((got.log_gamma[b, n:] == fbd.NEG_INF).all())
+
+
+def _chain_graphs(rng, J, P, n_states, skip=False):
+    """Align-graph-shaped arrays: row b one left-to-right chain of
+    n_states[b] states from state 0 to its final state, the rest padding;
+    no loop arc (every enter and exit log-prob NEG_INF); with ``skip``,
+    (j-2 -> j) skips along the chain."""
+    B = len(n_states)
+    out = {k: np.full((B, J), gr.NEG_INF, np.float32) for k in
+           ("self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp", "final_logp")
+           + (("skip_logp",) if skip else ())}
+    out["emit_id"] = rng.integers(0, P, (B, J)).astype(np.int32)
+    for b, n in enumerate(n_states):
+        stay = rng.uniform(0.3, 0.9, n)
+        out["self_logp"][b, :n] = np.log(stay)
+        out["adv_logp"][b, 1:n] = np.log1p(-stay[:-1])  # the source state's advance
+        out["init_logp"][b, 0] = out["final_logp"][b, n - 1] = 0.0
+        if skip and n > 2:
+            out["skip_logp"][b, 2:n] = -1.0 - rng.random(n - 2)
+    return out
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("J", [64, 192, 256, 320, 1024, 2048])
+def test_fb_kernels_on_chain_graphs(dev, J, skip):
+    """K3f/K3b on graphs without a loop arc, the align graphs' shape: the
+    chain arm up to its J limit (one to eight warps of registers per row,
+    the j-1 / j+1 neighbours across lanes and warps), the block arm without
+    the logsumexp above it; n_frames 0, 1, T and ragged, with and without
+    skip transitions, against the plain version at the general arm's
+    tolerances."""
+    rng = np.random.default_rng(J + skip)
+    B, P, T = 5, 97, J + 8
+    nf = torch.tensor([T, 1, 0, T - 3, J // 2 + 1], dtype=torch.int32, device=dev)
+    n_states = [J, J, J, J - 2, J // 2]
+    graphs = vit.graphs_to_torch(_chain_graphs(rng, J, P, n_states, skip), dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3 - 5).astype(np.float32), device=dev)
+    for scale in (1.0, 0.8):
+        got = fb_cuda.forward_backward(ll, graphs, nf, acoustic_scale=scale)
+        want = fbd.forward_backward(ll, graphs, nf, acoustic_scale=scale)
+        torch.cuda.synchronize()
+        arm = fb_cuda.ARM_CHAIN if J <= 1024 else fb_cuda.ARM_BLOCK
+        assert fb_cuda.LAST_ARMS.tolist() == [[arm] * B] * 2
+        assert bool((want.loglik[[0, 3]] > fbd.NEG_INF / 2).all())  # the long rows reach their final state
+        _assert_fb_close(got, want, nf)
+
+
+def test_fb_kernels_mixed_arms(dev):
+    """A batch whose first row has one finite exit arc (a loop arc: the
+    general arm) and whose other rows have none (the chain arm), in one
+    launch of each kernel, against the plain version."""
+    rng = np.random.default_rng(21)
+    B, J, P, T = 4, 192, 97, 230
+    g = _chain_graphs(rng, J, P, [J, 150, J - 5, 100])
+    g["exit_logp"][0, J - 1] = -0.5
+    graphs = vit.graphs_to_torch(g, dev)
+    nf = torch.tensor([T, 170, 200, 3], dtype=torch.int32, device=dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3 - 5).astype(np.float32), device=dev)
+    before = (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES, fb_cuda.COMBINE_LAUNCHES)
+    got = fb_cuda.forward_backward(ll, graphs, nf)
+    want = fbd.forward_backward(ll, graphs, nf)
+    torch.cuda.synchronize()
+    assert (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES, fb_cuda.COMBINE_LAUNCHES) == tuple(x + 1 for x in before)
+    assert fb_cuda.LAST_ARMS.tolist() == [[fb_cuda.ARM_GENERAL] + [fb_cuda.ARM_CHAIN] * 3] * 2
+    _assert_fb_close(got, want, nf)
+
+
+@pytest.mark.parametrize("kind", ["chain", "general"])
+def test_fb_kernels_repeat_bitwise(dev, kind):
+    """log_gamma and loglik bitwise the same over 20 calls: K3f and K3b run
+    on two streams at once and the combine waits for both."""
+    rng = np.random.default_rng(22)
+    B, J, P, T = 32, 192, 97, 550
+    if kind == "chain":
+        g = _chain_graphs(rng, J, P, rng.integers(100, J + 1, B).tolist())
+    else:
+        g = _random_graphs(rng, B, J, P)
+    graphs = vit.graphs_to_torch(g, dev)
+    nf = torch.as_tensor(rng.integers(200, T + 1, B).astype(np.int32), device=dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3 - 5).astype(np.float32), device=dev)
+    first = fb_cuda.forward_backward(ll, graphs, nf)
+    for _ in range(20):
+        again = fb_cuda.forward_backward(ll, graphs, nf)
+        assert torch.equal(again.log_gamma, first.log_gamma) and torch.equal(again.loglik, first.loglik)
+
+
+def test_fb_kernels_count_launches(dev):
+    """One call launches K3f, K3b and the combine once each; an empty batch
+    launches none."""
+    rng = np.random.default_rng(23)
+    graphs = vit.graphs_to_torch(_chain_graphs(rng, 64, 20, [64, 30]), dev)
+    ll = torch.zeros((2, 70, 20), device=dev)
+    counters = lambda: (fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES, fb_cuda.COMBINE_LAUNCHES)  # noqa: E731
+    before = counters()
+    fb_cuda.forward_backward(ll, graphs, torch.tensor([70, 40], device=dev))
+    assert counters() == tuple(x + 1 for x in before)
+    fb_cuda.forward_backward(ll[:, :0], graphs, torch.tensor([0, 0], device=dev))
+    torch.cuda.synchronize()
+    assert counters() == tuple(x + 1 for x in before)
 
 
 def test_fb_kernels_one_frame(dev):
