@@ -36,12 +36,16 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    K3b, the combine launch, and the three together); on random emissions with
    n_frames of 0, 1 and T, also with CTC skip transitions inside every chain
    (K3f/K3b's skip arm); and on phase 3's word loop at the same shape with
-   random emissions and ragged n_frames (the general arm, timed);
+   random emissions and ragged n_frames (the general arm, timed); then K2 on
+   the same training batch's align graphs and K1 emissions, the traffic of
+   Viterbi EM, bitwise against the plain Viterbi, with and without CTC
+   skips, timed beside the plain version and the bound, with the arm each
+   row took (chain: no loop arc);
 8. the training path: 2 Baum-Welch EM iterations then 1 Viterbi EM iteration
    from the headline GMM over the 1600-utterance training corpus of
    benchmarks/train_headline.py (log-likelihood per frame, frames/s and
-   stage ms of each iteration, launch counts of K1, K2, K3f, K3b and the
-   combine), the
+   stage ms of each iteration, the Viterbi EM iteration's "align" stage,
+   launch counts of K1, K2, K3f, K3b and the combine), the
    held-out WER of the re-estimated GMM through the decode path, one
    Baum-Welch E-step's statistics against the plain path on the card, and
    one more Baum-Welch iteration under ``torch.profiler`` (the card's busy
@@ -72,9 +76,11 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    timed), at bench.py's kernel-sweep scale (1000 states x 256 components x
    39 dims, N = 8192, seed 7), where K1 and K1w are timed side by side, and
    on random GMMs of 300 x 8 at D = 120 and 200 (N = 2000);
-12. K5 (csrc/gmm_int8.cu) against the plain int8 scorer on the same inputs,
-   its quantized operands made on the card compared bitwise with the CPU's;
-   timed on the decode path's batch;
+12. K5 (the int8 route of csrc/gmm_tc.cuh, entry gmm_int8 in
+   csrc/gmm_score.cu) against the plain int8 scorer on the same inputs, its
+   quantized operands and int8 panels made on the card compared bitwise with
+   the CPU's; timed on the decode path's batch beside its bound (the int8
+   products, the float epilogue, the N*S*K exps at the SFU rate, the bytes);
 13. K2 with a beam against the plain Viterbi, bitwise, on the decode path's
    batch, timed beside K2 without a beam and without a backtrace;
 14. two decodes of the 768 held-out utterances, each with its launch counts
@@ -194,11 +200,14 @@ SFU_EXPS_PER_SM_CLOCK = 16
 # logsumexp) the stay/advance adds, one logaddexp, emission scale and add;
 # the combine, alpha + beta - loglik.
 K2_OPS, K3_LOOP_OPS, K3_CHAIN_OPS, K3_COMBINE_OPS = 9, 22, 11, 2
+# K2 on a row without a loop arc (its chain arm): the emission scale and add,
+# stay and advance adds, their max
+K2_CHAIN_OPS = 5
 # K5's float epilogue per (frame, component, state): int-to-float, two
 # dequantizing products and the bias add, then the online logsumexp's
 # compare, subtract, exp and add. It runs on the CUDA cores beside the int8
-# products, so its time at the float32 rate and the products' time at the
-# int8 rate overlap: the bound takes the larger of the two.
+# products, so its time at the float32 rate, the products' time at the int8
+# rate and the exps' at the SFU rate overlap: the bound takes the largest.
 K5_EPILOGUE_OPS = 8
 # K1's and K1w's epilogue per (frame, component, state) on the CUDA cores:
 # the bias add and the max, or in sum mode K5's count
@@ -297,14 +306,17 @@ def bound(n_bytes: float, n_ops: float, dtype: str):
 
 
 def k1_bound(n: int, s: int, k: int, d: int, dtype: str, mode: str, sfu_exps_per_s: float):
-    """Least milliseconds for K1's or K1w's work on N frames, by the route the
-    arm takes, and what bounds it: the largest of the bytes (x, the model in
-    its dtype, c, the output) over the HBM rate; the products at the rate of
-    their route (bf16 on the tensor cores, float32 FMA on the CUDA cores);
-    the epilogue's float ops at the float32 rate; and in sum mode N*S*K exps
-    at the SFU rate. Returns (ms, "bytes" or "operations", the four times)."""
-    op_bytes = 2 if dtype == "bfloat16" else 4
-    n_bytes = n * d * 4 + k * 2 * d * s * op_bytes + k * s * 4 + n * s * 4
+    """Least milliseconds for K1's, K1w's or K5's (dtype "int8") work on N
+    frames, by the route the arm takes, and what bounds it: the largest of
+    the bytes (x, or K5's quantized x2 and its row scales; the model in its
+    dtype, c, K5's scales; the output) over the HBM rate; the products at the
+    rate of their route (bf16 and int8 on the tensor cores, float32 FMA on
+    the CUDA cores); the epilogue's float ops at the float32 rate; and in sum
+    mode N*S*K exps at the SFU rate. Returns (ms, "bytes" or "operations",
+    the four times)."""
+    op_bytes = {"bfloat16": 2, "float32": 4, "int8": 1}[dtype]
+    x_bytes = n * 2 * d + n * 4 + k * s * 4 if dtype == "int8" else n * d * 4
+    n_bytes = x_bytes + k * 2 * d * s * op_bytes + k * s * 4 + n * s * 4
     products = 2 * n * s * k * 2 * d
     times = {
         "bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
@@ -323,6 +335,20 @@ def emission_bytes(graphs, n_frames) -> int:
     n_states = graphs["n_states"].cpu().numpy()
     nf = n_frames.cpu().numpy()
     return 4 * sum(max(int(nf[b]), 1) * len(np.unique(ids[b, : n_states[b]])) for b in range(len(nf)))
+
+
+def k2_bound(graphs, n_frames, T: int):
+    """Least milliseconds (and what bounds it) of K2 with a backtrace on these
+    graphs: the emissions each row's states need, the seven graph arrays (and
+    skip_logp), n_frames, path and entered, the score; and the float ops of
+    the arm each row takes (K2_OPS with a loop arc, K2_CHAIN_OPS without)
+    on its frames."""
+    B, J = graphs["emit_id"].shape
+    nf = n_frames.clamp(min=0, max=T)
+    loop = ((graphs["enter_logp"] > -5e29) | (graphs["exit_logp"] > -5e29)).any(dim=1)
+    ops = float(((torch.where(loop, K2_OPS, K2_CHAIN_OPS) * nf.clamp(min=1)).sum() * J).item())
+    n_arrays = 7 + int(graphs.get("skip_logp") is not None)
+    return bound(emission_bytes(graphs, n_frames) + n_arrays * B * J * 4 + B * 4 + B * T * 5 + B * 4, ops, "float32")
 
 
 def fb_bounds(graphs, n_frames, T: int) -> dict:
@@ -389,6 +415,48 @@ def training_corpus(topo):
         style=syn.CorpusStyle(), seed=TRAIN_SEED, words_per_utt=(3, 9),
     )
     return [(u.utt_id, u.wave, u.words) for u in utts]
+
+
+def training_batches(topo, fcfg, dev):
+    """The training corpus of benchmarks/train_headline.py featurized on the
+    card in its batches, the widest of them (the widest bucket used, 550
+    frames, the one with the most frames) and the seconds its synthesis took."""
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.config import BatchConfig
+    from mogasr_torch.data.batching import make_batches
+
+    t0 = time.perf_counter()
+    corpus = training_corpus(topo)
+    synth_s = time.perf_counter() - t0
+    batches = list(make_batches(corpus, BatchConfig(batch_size=TRAIN_BATCH, bucket_boundaries=TRAIN_BUCKETS), fcfg))
+    frontends = pipe.frontends_for(batches, fcfg, dev)
+    fbs = [pipe.featurize_batch(b, frontends[b.waves.shape[1]], dev) for b in batches]
+    widest = max(fbs, key=lambda f: (f.feats.shape[1], int(f.n_frames.sum())))
+    return corpus, fbs, widest, synth_s
+
+
+def k2_align_times(ll, graphs, n_frames) -> dict:
+    """K2 with a backtrace on align graphs, held bitwise to the plain Viterbi
+    (path, entered, score) and timed: device milliseconds of its kernels (the
+    profiler's events named viterbi), a call in a run of 20, one call alone,
+    and the plain version. Uses only what every version of the port has, so
+    it times an earlier tree's K2 the same way."""
+    from mogasr_torch.decoder import viterbi as vit
+    from mogasr_torch.decoder import viterbi_cuda
+
+    def k2_call():
+        return viterbi_cuda.viterbi(ll, graphs, n_frames)
+
+    call_ms, got = timed(k2_call, 10)
+    run_ms = per_call_ms(k2_call, 20)
+    device_ms = kernel_device_ms(k2_call, ("viterbi",), 10)["viterbi"]
+    plain_ms, want = timed(lambda: vit.viterbi(ll, graphs, n_frames), 2)
+    torch.cuda.synchronize()
+    for field in ("path", "entered", "score"):
+        a, b = getattr(got, field), getattr(want, field)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"K2 on align graphs: {field} differs from the plain Viterbi")
+    return {"ms": device_ms, "run_ms": run_ms, "call_ms": call_ms, "plain_ms": plain_ms}
 
 
 def hybrid_phases(dev: torch.device) -> dict:
@@ -631,7 +699,7 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_ex
 
     from mogasr_torch import pipeline as pipe
     from mogasr_torch.am import gmm_cuda
-    from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik, natural_params, quadratic_features, quantize_int8
+    from mogasr_torch.am.gmm import gmm_from_numpy, gmm_loglik, quadratic_features, quantize_int8
     from mogasr_torch.data.batching import make_batches
     from mogasr_torch.decoder import viterbi as vit
     from mogasr_torch.decoder import viterbi_cuda
@@ -712,9 +780,9 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_ex
         ip = gmm_cuda.kernel_params(g, "int8")
         x2 = quadratic_features(x)
         # the quantization of the same float32 operands, on the card and on the CPU
-        ab_t = natural_params(g).ab.reshape(2 * D, g.n_states, g.n_components).permute(2, 0, 1)
+        cpu_params = gmm_cuda.kernel_params(type(g)(*(a.cpu() for a in g)), "int8")
         for what, a, b in (("qx, sx", quantize_int8(x2, 1), quantize_int8(x2.cpu(), 1)),
-                           ("qab, sab", ip[:2], quantize_int8(ab_t.cpu(), 1))):
+                           ("panels, sab", ip[:2], cpu_params[:2])):
             for u, v in zip(a, b):
                 if u.dtype != v.dtype or not torch.equal(u.cpu(), v):
                     raise RuntimeError(f"K5 on {name}: {what} made on the card differ from the CPU's")
@@ -724,6 +792,7 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_ex
 
         if x is x_main:
             k5_ms, got = timed(k5, 5)
+            k5_kernel_ms = kernel_device_ms(k5, ("gmm_tc_kernel",), 5)["gmm_tc_kernel"]
             k5_plain_ms, want = timed(lambda: gmm_loglik(x, g, compute_dtype="int8"), 2)
         else:
             got, want = k5(), gmm_loglik(x, g, compute_dtype="int8")
@@ -737,16 +806,12 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_ex
         f32_gap = float((got - gmm_loglik(x, g)).abs().max())
         line.append(f"{name} {err:.3g} (int8 vs float32 sum: max |diff| {f32_gap:.3g})")
         del got, want
-    k5_products = 2 * N * S * K * 2 * D
-    k5_bytes = N * 2 * D + N * 4 + K * 2 * D * S + 2 * K * S * 4 + N * S * 4
-    t_int8 = k5_products / PEAK_OPS_PER_S["int8"] * 1e3
-    t_epi = K5_EPILOGUE_OPS * N * S * K / PEAK_OPS_PER_S["float32"] * 1e3
-    t_bytes = k5_bytes / HBM_BYTES_PER_S * 1e3
-    k5_bound = (max(t_int8, t_epi, t_bytes), "bytes" if t_bytes >= max(t_int8, t_epi) else "operations")
-    phase(12, "K5 quantized operands bitwise equal to the CPU's; within atol %g rtol %g of plain int8, max "
-          "|err|: %s; decode-path batch: K5 %.3f ms, plain %.3f ms; bound %.3f ms by %s (int8 products %.3f "
-          "ms, float epilogue %.3f ms, bytes %.3f ms)" % (
-              K1_ATOL, K1_RTOL, "; ".join(line), k5_ms, k5_plain_ms, *k5_bound, t_int8, t_epi, t_bytes))
+    k5_bound = k1_bound(N, S, K, D, "int8", "sum", sfu_exps_per_s)
+    phase(12, "K5 quantized operands and int8 panels bitwise equal to the CPU's; within atol %g rtol %g of plain "
+          "int8, max |err|: %s; decode-path batch: K5 %.3f ms (%.3f ms on the device), plain %.3f ms; bound %.3f "
+          "ms by %s (%s)" % (
+              K1_ATOL, K1_RTOL, "; ".join(line), k5_ms, k5_kernel_ms, k5_plain_ms, *k5_bound[:2],
+              ", ".join(f"{w} {t:.3f}" for w, t in k5_bound[2].items())))
     del x_big, gmm_big, inputs
 
     # ---- phase 13: K2 with a beam against the plain Viterbi, bitwise
@@ -831,10 +896,10 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_ex
          "max_abs_err": k1w_err[k1w_main], "ms": k1w_ms[k1w_main][0], "plain_ms": k1w_ms[k1w_main][2],
          "bound_ms": k1w_bound[0], "bound_by": k1w_bound[1], "library_ms": None,
          "k1_ms_same_inputs": k1w_ms[k1w_main][1]},
-        {"name": "gmm_score_int8", "route": "cuda", "source": "mogasr_torch/csrc/gmm_int8.cu",
+        {"name": "gmm_score_int8", "route": "cuda", "source": "mogasr_torch/csrc/gmm_score.cu",
          "replaces": "mogasr/am/gmm_pallas.py:48", "launches": arm_launches["K5 int8/sum"]["gmm_score_int8"],
          "launches_by_path": {"decode_int8": arm_launches["K5 int8/sum"]["gmm_score_int8"]},
-         "max_abs_err": k5_err[main_name], "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "max_abs_err": k5_err[main_name], "ms": k5_ms, "device_ms": k5_kernel_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None},
     ]
 
@@ -948,9 +1013,12 @@ def main() -> None:
         "the same with skip transitions": (ll16, with_chain_skips(graphs16), nf16, 0.7),
     }
     k2_err = 0.0
+    arm_names_k2 = {viterbi_cuda.ARM_CHAIN: "chain", viterbi_cuda.ARM_LOOP: "word loop",
+                    viterbi_cuda.ARM_BLOCK: "block"}
     for name, (ll, graphs, nf, scale) in cases.items():
         if ll is ll_main:
             k2_ms, got = timed(lambda: viterbi_cuda.viterbi(ll, graphs, nf, acoustic_scale=scale), 5)
+            k2_main_arms = sorted({arm_names_k2[a] for a in viterbi_cuda.LAST_ARMS.tolist()})
             k2_plain_ms, want = timed(lambda: vit.viterbi(ll, graphs, nf, acoustic_scale=scale), 2)
         else:
             got = viterbi_cuda.viterbi(ll, graphs, nf, acoustic_scale=scale)
@@ -964,12 +1032,11 @@ def main() -> None:
             k2_err = float((got.score - want.score).abs().max())
     if viterbi_cuda.LAUNCHES == 0:
         raise RuntimeError("K2 was never launched")
-    frames_main = int(fb.n_frames.clamp(min=1).sum())
-    k2_bound = bound(emission_bytes(graphs_main, fb.n_frames) + 7 * B * J * 4 + B * 4 + B * T * 5 + B * 4,
-                     K2_OPS * frames_main * J, "float32")
+    k2_main_bound = k2_bound(graphs_main, fb.n_frames, T)
     phase(3, f"K2 bitwise equal to plain on J={J}: {'; '.join(cases)}; decode-path batch "
           f"({int((fb.n_frames > 0).sum())} rows with frames, {int(fb.n_frames.sum())} frames) "
-          f"{k2_ms:.3f} ms (plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]})")
+          f"{k2_ms:.3f} ms (plain {k2_plain_ms:.3f} ms, bound {k2_main_bound[0]:.4f} ms by {k2_main_bound[1]}; "
+          f"arm {'+'.join(k2_main_arms)})")
     del ll_main, cases, got, want
 
     # ---- phase 4: front end on the card against the NumPy oracle
@@ -1020,15 +1087,7 @@ def main() -> None:
     del fb, plain
 
     # ---- phase 7: K3f/K3b against the plain forward-backward
-    t0 = time.perf_counter()
-    train_corpus = training_corpus(topo)
-    synth_s = time.perf_counter() - t0
-    train_bcfg = BatchConfig(batch_size=TRAIN_BATCH, bucket_boundaries=TRAIN_BUCKETS)
-    train_batches = list(make_batches(train_corpus, train_bcfg, fcfg))
-    frontends = pipe.frontends_for(train_batches, fcfg, dev)
-    train_fbs = [pipe.featurize_batch(b, frontends[b.waves.shape[1]], dev) for b in train_batches]
-    # the widest batch: the widest bucket used (550 frames), the one with the most frames
-    fbw = max(train_fbs, key=lambda f: (f.feats.shape[1], int(f.n_frames.sum())))
+    train_corpus, train_fbs, fbw, synth_s = training_batches(topo, fcfg, dev)
     Bw, Tw, _ = fbw.feats.shape
 
     def align_fn(pids):
@@ -1144,6 +1203,21 @@ def main() -> None:
               k1_train_plain_ms, k1_train_err, *k1_train_bound[:2],
               ", ".join(f"{w} {t:.3f}" for w, t in k1_train_bound[2].items())))
     fb_train, fb_loop = fb_timed[train_name], fb_timed[loop_name]
+
+    # K2 on the same batch's align graphs and K1 emissions: the traffic of Viterbi EM
+    k2_align, line = {}, []
+    for name, graphs in {"align graphs": graphs_w, "with skip transitions": with_chain_skips(graphs_w)}.items():
+        r = k2_align_times(ll_w, graphs, fbw.n_frames)
+        arms = sorted({arm_names_k2[a] for a in viterbi_cuda.LAST_ARMS.tolist()})
+        bd = k2_bound(graphs, fbw.n_frames, Tw)
+        k2_align[name] = {"arm": "+".join(arms), **r, "bound_ms": bd[0], "bound_by": bd[1]}
+        line.append(f"{name}: arm {'+'.join(arms)}, K2 {r['ms']:.4f} ms on the device, {r['run_ms']:.4f} ms a call "
+                    f"in a run of 20, {r['call_ms']:.4f} ms one call (plain {r['plain_ms']:.3f} ms, bound {bd[0]:.4f} "
+                    f"ms by {bd[1]})")
+    if k2_align["align graphs"]["arm"] != "chain":
+        raise RuntimeError(f"K2 on the align graphs took the {k2_align['align graphs']['arm']} arm, not the chain arm")
+    k2_align = {**k2_align.pop("align graphs"), "with_skips": k2_align["with skip transitions"]}
+    phase(7, f"K2 bitwise equal to plain on the {train_name} with its K1 float32/sum emissions: " + "; ".join(line))
     del ll_w, ll_rand, ll_loop
 
     # ---- phase 8: the training path
@@ -1197,7 +1271,9 @@ def main() -> None:
         for i, (m, h, s, st) in enumerate(iters))
     phase(8, f"training path on {len(train_corpus)} utterances ({len(train_fbs)} batches of {TRAIN_BATCH}, "
           f"{n_train_frames} frames; synthesized in {synth_s:.1f} s; corpus not cut): {iter_text}; "
-          f"launches {train_launches}; held-out WER of the re-estimated GMM {dec.wer:.4f} "
+          f"launches {train_launches}; Viterbi EM \"align\" stage ({train_launches['viterbi']} K2 launches, which "
+          f"also write the pdf labels) {1e3 * vt.stage_seconds[0]['align']:.1f} ms; held-out WER of the re-estimated "
+          f"GMM {dec.wer:.4f} "
           f"(bundle {BUNDLE_WER}, limit {MAX_WER}); one Baum-Welch E-step on the widest batch, kernel vs "
           f"plain path: max |err| / max " + ", ".join(f"{k} {v:.3g}" for k, v in stats_err.items())
           + f" (limit {STATS_TOL}); a profiled Baum-Welch iteration: {prof_wall:.1f} ms wall, "
@@ -1234,7 +1310,8 @@ def main() -> None:
          "replaces": "mogasr/decoder/viterbi_pallas.py:54", "launches": launches["viterbi"],
          "launches_by_path": by_path["viterbi"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+         "bound_ms": k2_main_bound[0], "bound_by": k2_main_bound[1], "library_ms": None,
+         "align": k2_align, "viterbi_em_align_stage_ms": 1e3 * vt.stage_seconds[0]["align"]},
         {"name": "fb_forward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
          "replaces": "mogasr/decoder/fb_pallas.py:46", "launches": launches["fb_forward"],
          "launches_by_path": by_path["fb_forward"], "arm": fb_train["arm"],

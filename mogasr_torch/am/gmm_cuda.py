@@ -4,8 +4,9 @@
   bfloat16 operands, sum or max mode;
 - K1w, ``csrc/gmm_wide.cu`` (``_gmm_kernel_wide``): the same function over
   the wide layout (``layout="wide"``), float32 or bfloat16;
-- K5, ``csrc/gmm_int8.cu`` (``_gmm_kernel_int8``): int8 operands
-  (``compute_dtype="int8"``), sum mode only.
+- K5, the ``gmm_int8`` entry point of ``csrc/gmm_score.cu``
+  (``_gmm_kernel_int8``): int8 operands (``compute_dtype="int8"``), sum mode
+  only.
 
 ``gmm_loglik_fused`` mirrors ``gmm_loglik_pallas``: a CUDA tensor runs a
 kernel, a CPU tensor runs the plain version ``am.gmm.gmm_loglik`` (layout and
@@ -14,13 +15,15 @@ kc only arrange the same function); any other device raises. ``LAUNCHES``,
 (none for N = 0). A caller that scores many batches with one GMM converts it
 to the kernel's layout once, with :func:`kernel_params`, and passes it in.
 
-K1 and K1w run one kernel (``csrc/gmm_tc.cuh``): bf16 products on the
-tensor cores, float32 FMA on the CUDA cores. They read the model as panels:
-for each component and 64-state tile a [64, Rp] slice, its 2D rows cut into
-equal chunks of at most 128 (zero rows past 2D), each chunk laid out as the
-shared-memory image its route reads (:func:`kernel_panels`).
+K1, K1w and K5 run one kernel (``csrc/gmm_tc.cuh``): bf16 and int8 products
+on the tensor cores, float32 FMA on the CUDA cores. They read the model as
+panels: for each component and 64-state tile a [64, Rp] slice, its 2D rows
+cut into equal chunks of at most 128 (zero rows past 2D), each chunk laid out
+as the shared-memory image its route reads (:func:`kernel_panels`).
 ``kernel_params`` derives them from the reference's chunked layout
-(``am.gmm.component_major``) or its wide layout (:func:`wide_layout`).
+(``am.gmm.component_major``), its wide layout (:func:`wide_layout`) or the
+quantized chunked layout (``am.gmm.int8_params``). K5's frames are quantized
+here, as ``am.gmm.quantize_int8`` does, into rows zero-padded to Rp.
 """
 
 from __future__ import annotations
@@ -48,12 +51,14 @@ INT8_LAUNCHES = 0
 
 LAYOUTS = ("chunked", "wide")
 WIDE_TS = 64  # the state tile of K1's panels and of the wide layout: TS in csrc/gmm_tc.cuh
-R_ALIGN, RC_MAX = 16, 128  # panel chunk rows: a multiple of the bf16 wgmma depth, at most 128 (as there)
+# panel chunk rows: a multiple of the wgmma depth (16 bf16, and float32
+# alike; 32 int8), at most 128 (R_ALIGN and RC_MAX in csrc/gmm_tc.cuh)
+R_ALIGN, INT8_R_ALIGN, RC_MAX = 16, 32, 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"gmm_score": [_P] * 4 + [_I] * 6 + [_P], "gmm_score_tile_s": []}
+_SIGNATURES = {"gmm_score": [_P] * 4 + [_I] * 6 + [_P], "gmm_score_tile_s": [],
+               "gmm_int8": [_P] * 6 + [_I] * 4 + [_P], "gmm_int8_padded_rows": [_I]}
 _WIDE_SIGNATURES = {"gmm_wide": [_P] * 4 + [_I] * 7 + [_P], "gmm_wide_tile_s": []}
-_INT8_SIGNATURES = {"gmm_int8": [_P] * 6 + [_I] * 4 + [_P]}
 
 
 class KernelParams(NamedTuple):
@@ -76,10 +81,11 @@ class WideParams(NamedTuple):
 
 
 class Int8Params(NamedTuple):
-    """A GmmSet quantized for K5 (``am.gmm.int8_params``): qab [K, 2D, S]
-    int8, sab [K, S] float32 scales, c_t [K, S] float32."""
+    """A GmmSet quantized for K5 (``am.gmm.int8_params``): panels, qab [K,
+    2D, S] int8 through :func:`kernel_panels` (the int8 image); sab [K, S]
+    float32 scales; c_t [K, S] float32."""
 
-    qab: torch.Tensor
+    panels: torch.Tensor
     sab: torch.Tensor
     c_t: torch.Tensor
 
@@ -106,40 +112,47 @@ def wide_layout(ab_t: torch.Tensor, kc: int, ts: int = WIDE_TS) -> torch.Tensor:
     return abp.reshape(n_kc, kc, R, n_st, ts).permute(0, 2, 3, 1, 4).reshape(n_kc, R, n_st * kc * ts)
 
 
-def row_chunks(d: int) -> tuple:
+def row_chunks(d: int, align: int = R_ALIGN) -> tuple:
     """(n, rc): the panels' 2D rows in n equal chunks of rc rows, rc a
-    multiple of R_ALIGN and at most RC_MAX (n_chunks and chunk_rows in
-    csrc/gmm_tc.cuh)."""
-    units = -(-2 * d // R_ALIGN)
-    n = -(-units // (RC_MAX // R_ALIGN))
-    return n, -(-units // n) * R_ALIGN
+    multiple of ``align`` (R_ALIGN, or INT8_R_ALIGN for int8) and at most
+    RC_MAX (n_chunks and chunk_rows in csrc/gmm_tc.cuh)."""
+    units = -(-2 * d // align)
+    n = -(-units // (RC_MAX // align))
+    return n, -(-units // n) * align
 
 
-def padded_rows(d: int) -> int:
+def padded_rows(d: int, align: int = R_ALIGN) -> int:
     """Rp, the panels' row count: n * rc of :func:`row_chunks`."""
-    n, rc = row_chunks(d)
+    n, rc = row_chunks(d, align)
     return n * rc
 
 
+def _align(dtype: torch.dtype) -> int:
+    return INT8_R_ALIGN if dtype == torch.int8 else R_ALIGN
+
+
 def kernel_panels(ab: torch.Tensor) -> torch.Tensor:
-    """The panels K1 and K1w read, from the reference's chunked layout ab_t
+    """The panels K1, K1w and K5 read, from the reference's chunked layout ab_t
     [K, R, S] or its wide layout [n_kc, R, n_st * kc * WIDE_TS]: its [R,
     WIDE_TS] slices along the last dimension (zero-padded to a multiple of
     WIDE_TS), then along the first, each with its rows zero-padded to Rp and
     each chunk of rc rows (:func:`row_chunks`) in the shared-memory image its
     route reads (csrc/gmm_tc.cuh): float32 (FMA) as it is, [rc, 64]; bf16
-    (wgmma) K-major in 8-row groups of 16-byte column chunks, each 8-row x
-    16-byte core matrix contiguous. Panel k * n_st + j of ab_t is component
+    and int8 (wgmma) K-major in 8-row groups of 16-byte column chunks (8
+    bf16 or 16 int8), each 8-row x 16-byte core matrix contiguous; int8
+    chunks a multiple of 32 rows. Panel k * n_st + j of ab_t is component
     k's state tile j; panel (q * n_st + j) * kc + kk of the wide layout is
     component q * kc + kk's."""
     lead, R, S = ab.shape
-    n_st, rp, (_n, rc) = -(-S // WIDE_TS), padded_rows(R // 2), row_chunks(R // 2)
+    align = _align(ab.dtype)
+    n_st, rp, (_n, rc) = -(-S // WIDE_TS), padded_rows(R // 2, align), row_chunks(R // 2, align)
     tiles = torch.zeros((lead, n_st, rp, WIDE_TS), dtype=ab.dtype, device=ab.device)
     abp = torch.zeros((lead, R, n_st * WIDE_TS), dtype=ab.dtype, device=ab.device)
     abp[..., :S] = ab
     tiles[:, :, :R] = abp.reshape(lead, R, n_st, WIDE_TS).permute(0, 2, 1, 3)
     if ab.dtype != torch.float32:
-        tiles = tiles.reshape(-1, rc // 8, 8, WIDE_TS // 8, 8).permute(0, 3, 1, 4, 2)
+        per_row = 16 // ab.element_size()  # elements of a 16-byte core-matrix row
+        tiles = tiles.reshape(-1, rc // per_row, per_row, WIDE_TS // 8, 8).permute(0, 3, 1, 4, 2)
     return tiles.reshape(lead * n_st, rp * WIDE_TS).contiguous()
 
 
@@ -150,7 +163,8 @@ def kernel_params(gmm: GmmSet, compute_dtype: str = "float32", layout: str = "ch
     _check_layout(compute_dtype, layout)
     K = gmm.n_components
     if compute_dtype == "int8":
-        return Int8Params(*int8_params(gmm))
+        qab, sab, c_t = int8_params(gmm)
+        return Int8Params(kernel_panels(qab), sab, c_t)
     ab_t, c_t = component_major(gmm)
     ab_t, c_t = ab_t.to(COMPUTE_DTYPES[compute_dtype]), c_t.contiguous()
     if layout == "wide":
@@ -189,8 +203,8 @@ def gmm_loglik_fused(
 
     compute_dtype "float32" is true fp32; "bfloat16" rounds the GEMM operands
     to bf16 and accumulates in float32; "int8" (sum mode only) quantizes them
-    as ``am.gmm.gmm_loglik`` does and runs K5. mode "sum" is the exact
-    mixture loglik, "max" the best-component approximation. layout "wide"
+    as ``am.gmm.gmm_loglik`` does and runs K5 (exact int32 products). mode
+    "sum" is the exact mixture loglik, "max" the best-component approximation. layout "wide"
     (float32 and bfloat16) runs K1w over components in chunks of ``kc``
     (default :func:`default_kc`). ``params`` is ``kernel_params(gmm,
     compute_dtype, layout, kc, mode)``, made here when not given.
@@ -213,25 +227,31 @@ def gmm_loglik_fused(
     out = torch.empty((N, S), dtype=torch.float32, device=x.device)
     f32 = torch.float32
 
+    n_st = -(-S // WIDE_TS)
     if compute_dtype == "int8":
         if not isinstance(params, Int8Params):
             raise ValueError("compute_dtype='int8' needs Int8Params (kernel_params(gmm, 'int8'))")
-        _check_params(params, x, (("qab", (K, 2 * D, S), torch.int8), ("sab", (K, S), f32),
+        rp = padded_rows(D, INT8_R_ALIGN)
+        _check_params(params, x, (("panels", (K * n_st, WIDE_TS * rp), torch.int8), ("sab", (K, S), f32),
                                   ("c_t", (K, S), f32)))
-        qx, sx = quantize_int8(quadratic_features(x.to(f32)), dim=1)
-        lib = _cuda.load("gmm_int8", _INT8_SIGNATURES)
+        lib = _cuda.load("gmm_score", _SIGNATURES)
+        if lib.gmm_int8_padded_rows(D) != rp:
+            raise RuntimeError(f"csrc/gmm_tc.cuh pads int8 rows to {lib.gmm_int8_padded_rows(D)}, not {rp}")
+        # zero columns leave each row's scale and the int32 sums as they are
+        x2 = torch.nn.functional.pad(quadratic_features(x.to(f32)), (0, rp - 2 * D))
+        qx, sx = quantize_int8(x2, dim=1)
         with torch.cuda.device(x.device):
-            err = lib.gmm_int8(qx.contiguous().data_ptr(), sx.contiguous().data_ptr(),
-                               params.qab.data_ptr(), params.sab.data_ptr(), params.c_t.data_ptr(),
-                               out.data_ptr(), N, 2 * D, S, K, torch.cuda.current_stream().cuda_stream)
-        _cuda.check(lib, "gmm_int8", err, "gmm_int8 launch")
+            err = lib.gmm_int8(qx.data_ptr(), sx.data_ptr(), params.panels.data_ptr(), params.sab.data_ptr(),
+                               params.c_t.data_ptr(), out.data_ptr(), N, D, S, K,
+                               torch.cuda.current_stream().cuda_stream)
+        _cuda.check(lib, "gmm_score", err, "gmm_int8 launch")
         INT8_LAUNCHES += int(N > 0)  # the entry point returns at once on no rows
         return out
 
     dt = COMPUTE_DTYPES[compute_dtype]
     xf = x.to(f32).contiguous()
     dcode, mcode = 0 if dt == f32 else 1, 0 if mode == "sum" else 1
-    n_st, panel = -(-S // WIDE_TS), WIDE_TS * padded_rows(D)
+    panel = WIDE_TS * padded_rows(D)
     if layout == "wide":
         if not isinstance(params, WideParams) or (kc is not None and params.kc != kc):
             raise ValueError(f"layout='wide' needs WideParams with kc={kc} "

@@ -410,10 +410,12 @@ def align_batch(
             build_align_graphs(fb.words, lexicon, topo, align_fn=align_fn), dev)
     with _stage(clock, "scoring"):
         ll = score_batch(fb.feats, gmm, use_kernels, "float32", "sum", params)
-    decode = viterbi_cuda.viterbi if use_kernels else vit.viterbi
     with _stage(clock, "align"):
-        res = decode(ll, graphs, fb.n_frames, acoustic_scale=acoustic_scale)
-        labels = vit.path_to_pdfs(res, graphs)
+        if use_kernels:  # K2 writes the pdfs in its backtrace
+            res, labels = viterbi_cuda.align(ll, graphs, fb.n_frames, acoustic_scale=acoustic_scale)
+        else:
+            res = vit.viterbi(ll, graphs, fb.n_frames, acoustic_scale=acoustic_scale)
+            labels = vit.path_to_pdfs(res, graphs)
     return res, labels, graphs
 
 

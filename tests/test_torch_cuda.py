@@ -72,7 +72,8 @@ def _random_gmm(dev, S, K, D, N):
     return g, torch.as_tensor(rng.standard_normal((N, D)).astype(np.float32), device=dev)
 
 
-@pytest.mark.parametrize("S,K,D,N", [(70, 3, 39, 1000), (5, 1, 13, 7), (130, 16, 39, 200), (33, 5, 39, 129)])
+@pytest.mark.parametrize("S,K,D,N", [(70, 3, 39, 1000), (5, 1, 13, 7), (130, 16, 39, 200), (33, 5, 39, 129),
+                                     (33, 3, 200, 65)])
 def test_int8_kernel_matches_plain(dev, S, K, D, N):
     """K5 against the plain int8 scorer: bitwise the same quantized operands
     and integer products, dequantized in the same order; the online
@@ -93,6 +94,27 @@ def test_int8_kernel_matches_plain(dev, S, K, D, N):
         gmm_cuda.gmm_loglik_fused(x, g, compute_dtype="int8", mode="max")
     with pytest.raises(ValueError):
         gmm_cuda.gmm_loglik_fused(x, g, compute_dtype="int8", params=gmm_cuda.kernel_params(g))
+
+
+@pytest.mark.parametrize("D", [13, 39, 120])
+@pytest.mark.parametrize("K", [1, 17])
+@pytest.mark.parametrize("S", [5, 65, 130])
+@pytest.mark.parametrize("N", [1, 63, 129])
+def test_int8_kernel_tile_edges(dev, N, S, K, D):
+    """K5 on the shared core's wgmma s8 route at the edges of its tiles: N
+    around a warpgroup's 64 rows, S around the 64-state tile, K = 1 and 17
+    (more components than ring stages), D = 13, 39 and 120 (one chunk of 32
+    rows, one of 96, two of 128). The int32 products are exact, so it sits
+    within K1's tolerance of the plain int8 scorer (the logsumexp sums in
+    another order)."""
+    g, x = _random_gmm(dev, S, K, D, N)
+    before = gmm_cuda.INT8_LAUNCHES
+    got = gmm_cuda.gmm_loglik_fused(x, g, compute_dtype="int8")
+    want = gmm_loglik(x, g, compute_dtype="int8")
+    torch.cuda.synchronize()
+    assert gmm_cuda.INT8_LAUNCHES == before + 1
+    assert got.shape == (N, S) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -495,6 +517,147 @@ def test_viterbi_kernel_bitwise_on_align_graphs(dev):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _assert_viterbi_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("beam", [0.0, 2.0])
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("J", [37, 64, 192, 320, 1024, 2048])
+def test_viterbi_chain_arm_bitwise(dev, J, skip, beam):
+    """K2 on graphs without a loop arc (the align graphs' shape), padded
+    (rows of fewer states than J), with n_frames of T, 1, 0 and short rows:
+    the chain arm up to J = 1024 (one to eight warps of registers, 1-4 states
+    a lane), the word-loop arm without the exit argmax above it; path,
+    entered and score bitwise the plain version's, with and without skips
+    and a beam, and every row reports its arm."""
+    rng = np.random.default_rng(J + 2 * skip + int(beam))
+    B, P, T = 6, 97, J + 40
+    n_states = [J, J - 3, max(J // 2, 1), J, min(J, 5), J]
+    nf = torch.tensor([T, T - 7, 1, 0, 12, J // 3 + 2], dtype=torch.int32, device=dev)
+    graphs = vit.graphs_to_torch(_chain_graphs(rng, J, P, n_states, skip), dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3 - 5).astype(np.float32), device=dev)
+    for scale in (1.0, 0.7):
+        got = viterbi_cuda.viterbi(ll, graphs, nf, acoustic_scale=scale, beam=beam)
+        arms = viterbi_cuda.LAST_ARMS.tolist()
+        want = vit.viterbi(ll, graphs, nf, acoustic_scale=scale, beam=beam)
+        torch.cuda.synchronize()
+        _assert_viterbi_equal(got, want)
+        assert arms == [viterbi_cuda.ARM_CHAIN if J <= 1024 else viterbi_cuda.ARM_BLOCK] * B
+        if beam == 0:  # the long rows reach their final state
+            assert bool((want.score[[0, 1]] > vit.NEG_INF / 2).all())
+        score_only = viterbi_cuda.viterbi(ll, graphs, nf, acoustic_scale=scale, beam=beam, with_backtrace=False)
+        assert torch.equal(score_only.score, want.score)
+
+
+@pytest.mark.parametrize("beam", [0.0, 4.0])
+@pytest.mark.parametrize("skip", [False, True])
+def test_viterbi_chain_arm_on_align_graphs(dev, skip, beam):
+    """K2's chain arm on per-utterance align graphs (J padded to a multiple
+    of 64, a dummy row's silence graph), with CTC skips inside the chains and
+    a beam: bitwise the plain version."""
+    rng = np.random.default_rng(7 + skip)
+    topo, graphs_np = _align_graphs()
+    if skip:
+        chain = graphs_np["chain_id"]
+        same = np.zeros_like(chain, bool)
+        same[:, 2:] = (chain[:, 2:] == chain[:, :-2]) & (chain[:, 2:] >= 0)
+        graphs_np = {**graphs_np, "skip_logp": np.where(same, np.float32(-0.1), gr.NEG_INF).astype(np.float32)}
+    graphs = vit.graphs_to_torch(graphs_np, dev)
+    B, T = graphs_np["emit_id"].shape[0], 60
+    ll = torch.as_tensor((rng.standard_normal((B, T, topo.n_pdfs)) * 3 - 10).astype(np.float32), device=dev)
+    nf = torch.tensor([T, 41, 25, 0], dtype=torch.int32, device=dev)
+    got = viterbi_cuda.viterbi(ll, graphs, nf, beam=beam)
+    assert viterbi_cuda.LAST_ARMS.tolist() == [viterbi_cuda.ARM_CHAIN] * B
+    _assert_viterbi_equal(got, vit.viterbi(ll, graphs, nf, beam=beam))
+
+
+def _single_chain_row(g, b, J, rng):
+    """Row b of graph arrays g: one chain over all J states, entered and
+    left by the loop (enter/init at state 0, exit/final at J - 1)."""
+    for k in ("self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp", "final_logp"):
+        g[k][b] = gr.NEG_INF
+    g["self_logp"][b] = -rng.random(J)
+    g["adv_logp"][b, 1:] = -rng.random(J - 1)
+    g["enter_logp"][b, 0] = g["init_logp"][b, 0] = -0.5
+    g["exit_logp"][b, J - 1] = g["final_logp"][b, J - 1] = -0.5
+
+
+@pytest.mark.parametrize("beam", [0.0, 3.0])
+def test_viterbi_word_loop_arm_exit_fallbacks(dev, beam):
+    """The word-loop arm's compact exit set and its fallback to the full
+    argmax, in one launch with chain-arm rows: a row with loop arcs (random
+    chains), a row whose only exit state is never live (one chain longer
+    than T: the full argmax every frame), two rows without a loop arc; and
+    a launch whose rows have more exit states than the compact list holds
+    (J = 6000, every state a one-state chain). Bitwise the plain version."""
+    rng = np.random.default_rng(31)
+    B, J, P, T = 4, 300, 97, 40
+    g = _random_graphs(rng, B, J, P)
+    _single_chain_row(g, 1, J, rng)
+    chains = _chain_graphs(rng, J, P, [J, 120])
+    for k in chains:
+        g[k][2:] = chains[k]
+    graphs = vit.graphs_to_torch(g, dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3 - 5).astype(np.float32), device=dev)
+    nf = torch.tensor([T, T, 30, 17], dtype=torch.int32, device=dev)
+    got = viterbi_cuda.viterbi(ll, graphs, nf, beam=beam)
+    A = viterbi_cuda
+    assert A.LAST_ARMS.tolist() == [A.ARM_LOOP, A.ARM_LOOP, A.ARM_CHAIN, A.ARM_CHAIN]
+    _assert_viterbi_equal(got, vit.viterbi(ll, graphs, nf, beam=beam))
+
+    J = 6000
+    g = {k: np.full((2, J), gr.NEG_INF, np.float32) for k in
+         ("self_logp", "adv_logp", "enter_logp", "exit_logp", "init_logp", "final_logp")}
+    g["emit_id"] = rng.integers(0, P, (2, J)).astype(np.int32)
+    for k in ("self_logp", "enter_logp", "exit_logp", "init_logp", "final_logp"):
+        g[k][:] = -rng.random((2, J)).astype(np.float32)
+    graphs = vit.graphs_to_torch(g, dev)
+    ll = torch.as_tensor((rng.standard_normal((2, T, P)) * 3).astype(np.float32), device=dev)
+    nf = torch.tensor([T, 21], dtype=torch.int32, device=dev)
+    got = viterbi_cuda.viterbi(ll, graphs, nf, beam=beam)
+    assert viterbi_cuda.LAST_ARMS.tolist() == [viterbi_cuda.ARM_LOOP] * 2
+    _assert_viterbi_equal(got, vit.viterbi(ll, graphs, nf, beam=beam))
+
+
+def test_viterbi_align_writes_pdfs(dev):
+    """viterbi_cuda.align: K2 with each frame's pdf written in its backtrace,
+    on a launch mixing chain-arm and word-loop rows with n_frames of T, 0, 1
+    and short: the plain Viterbi and path_to_pdfs of it, bitwise; one
+    launch; pipeline.align_batch's labels on the kernels are path_to_pdfs of
+    its path."""
+    rng = np.random.default_rng(41)
+    B, J, P, T = 4, 192, 97, 230
+    g = _chain_graphs(rng, J, P, [J, 150, J - 5, 100])
+    loop = _random_graphs(rng, 1, J, P)
+    for k in loop:
+        g[k][0] = loop[k][0]
+    graphs = vit.graphs_to_torch(g, dev)
+    nf = torch.tensor([T, 0, 1, 120], dtype=torch.int32, device=dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3 - 5).astype(np.float32), device=dev)
+    before = viterbi_cuda.LAUNCHES
+    res, pdfs = viterbi_cuda.align(ll, graphs, nf, acoustic_scale=0.9)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.LAUNCHES == before + 1
+    assert viterbi_cuda.LAST_ARMS.tolist() == [viterbi_cuda.ARM_LOOP] + [viterbi_cuda.ARM_CHAIN] * 3
+    want = vit.viterbi(ll, graphs, nf, acoustic_scale=0.9)
+    _assert_viterbi_equal(res, want)
+    assert pdfs.dtype == torch.int32 and torch.equal(pdfs, vit.path_to_pdfs(want, graphs))
+
+    topo, graphs_np = _align_graphs()
+    B, T = graphs_np["emit_id"].shape[0], 60
+    fb = pipe.FeatBatch(["a", "b", "c", "d"], torch.as_tensor(
+        rng.standard_normal((B, T, 39)).astype(np.float32), device=dev),
+        torch.tensor([T, 41, 25, 0], dtype=torch.int32, device=dev), [["ab", "ba"], ["abc"], ["ba", "abc", "ab"], []])
+    rng_g = np.random.default_rng(5)
+    K = 2
+    gmm = gmm_from_numpy(rng_g.dirichlet(np.ones(K), size=topo.n_pdfs), rng_g.standard_normal((topo.n_pdfs, K, 39)),
+                         0.5 + rng_g.random((topo.n_pdfs, K, 39)), dev)
+    res, labels, graphs = pipe.align_batch(fb, gmm, topo.lexicon, topo)
+    assert torch.equal(labels, vit.path_to_pdfs(res, graphs))
 
 
 def test_fb_kernels_on_align_graphs(dev):

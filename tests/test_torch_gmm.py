@@ -24,6 +24,7 @@ from mogasr_torch.am.gmm import (
     component_major,
     gmm_from_numpy,
     gmm_loglik,
+    int8_params,
     natural_params,
     quantize_int8,
 )
@@ -191,16 +192,54 @@ def test_int8_quantization_matches_jax(system):
 
 
 def test_int8_kernel_params(system):
+    """K5's parameters: the int8 panels (one [64, Rp] image per component
+    and 64-state tile, Rp = 96 at D = 39), the scales and c."""
     w, mu, var, _x = system
     S, K, D = mu.shape
     params = gmm_cuda.kernel_params(gmm_from_numpy(w, mu, var, CPU), "int8")
     assert isinstance(params, gmm_cuda.Int8Params)
-    assert params.qab.shape == (K, 2 * D, S) and params.qab.dtype == torch.int8
+    rp = gmm_cuda.padded_rows(D, gmm_cuda.INT8_R_ALIGN)
+    assert rp == 96 and params.panels.shape == (K * -(-S // 64), 64 * rp) and params.panels.dtype == torch.int8
     assert params.sab.shape == params.c_t.shape == (K, S)
     assert all(p.is_contiguous() for p in params)
     # the int8 model is 4x smaller than the float32 one
-    assert params.qab.element_size() * 4 == gmm_cuda.kernel_params(
+    assert params.panels.element_size() * 4 == gmm_cuda.kernel_params(
         gmm_from_numpy(w, mu, var, CPU)).panels.element_size()
+
+
+def _read_int8_panels(panels, K, R, S, rc):
+    """The int8 image of K5's panels read back into qab [K, R, S]: element
+    (s, r) of a chunk at ((s // 8 * rc // 16 + r // 16) * 8 + s % 8) * 16 + r % 16."""
+    n_st = -(-S // 64)
+    chunks = panels.numpy().reshape(K, n_st, -1, 64 // 8, rc // 16, 8, 16)  # k, j, chunk, s//8, r//16, s%8, r%16
+    tiles = chunks.transpose(0, 2, 4, 6, 1, 3, 5).reshape(K, -1, n_st * 64)  # k, r, s
+    return tiles[:, :R, :S], tiles
+
+
+@pytest.mark.parametrize("D,n_chunks,rc", [(39, 1, 96), (120, 2, 128), (65, 2, 96)])
+def test_int8_image_matches_jax(system, D, n_chunks, rc):
+    """The int8 wgmma image that kernel_params(gmm, "int8") builds, read back
+    on the CPU: the 2D rows in equal chunks of a multiple of 32 (one of 96 at
+    D = 39, two of 128 at 120, two of 96 at 65), zero past 2D and past S;
+    within them bitwise int8_params' qab and the reference's abp
+    (gmm_pallas.py:240-244)."""
+    w, mu, var, _x = system
+    rng = np.random.default_rng(D)
+    mu = np.concatenate([mu, rng.standard_normal(mu.shape[:2] + (D,)).astype(np.float32)], -1)[..., :D]
+    var = np.concatenate([var, 0.5 + rng.random(var.shape[:2] + (D,)).astype(np.float32)], -1)[..., :D]
+    g = gmm_from_numpy(w, mu, var, CPU)
+    K, R, S = mu.shape[1], 2 * D, mu.shape[0]
+    assert gmm_cuda.row_chunks(D, gmm_cuda.INT8_R_ALIGN) == (n_chunks, rc)
+    params = gmm_cuda.kernel_params(g, "int8")
+    qab, tiles = _read_int8_panels(params.panels, K, R, S, rc)
+    assert tiles.shape[1] == n_chunks * rc and not tiles[:, R:].any() and not tiles[:, :, S:].any()
+    np.testing.assert_array_equal(qab, int8_params(g)[0].numpy())
+    ab_t, _c = _jax_ab_t(w, mu, var)
+    abf = jnp.zeros((K, 128 * -(-R // 128), S), jnp.float32).at[:, :R, :].set(ab_t)
+    sab = jnp.maximum(jnp.max(jnp.abs(abf), axis=1, keepdims=True), 1e-10) / 127.0
+    abp = jnp.clip(jnp.round(abf / sab), -127, 127).astype(jnp.int8)
+    np.testing.assert_array_equal(qab, np.asarray(abp)[:, :R, :])
+    np.testing.assert_array_equal(params.sab.numpy(), np.asarray(sab)[:, 0, :])
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
