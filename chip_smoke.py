@@ -57,7 +57,7 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    beside the plain version (and the launch's cluster size, CTAs and rows
    printed) and, for the whole layer (input GEMM + recurrence), beside
    cuDNN's ``torch.nn.LSTM`` on the packed batch (the library yardstick,
-   used nowhere else); on layer 1's inputs with every row at T, the worst
+   used nowhere else), in float32 and in bfloat16; on layer 1's inputs with every row at T, the worst
    case, where no row ends early (timed); and on a random ragged batch
    (H = 200, n_frames of 0, 1 and T);
 10. the hybrid NN-HMM decode path of ``benchmarks/bench_families.py``'s lstm
@@ -87,7 +87,29 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    set to 0 before it and read after: through K1w (bf16/max; transcripts
    identical to phase 5's K1 run) and through K5 (int8/sum; WER limit, and
    agreement with the plain float32 sum-mode path on the card);
-15. the PLP front end on the card against the NumPy oracle, 4 utterances.
+15. the PLP front end on the card against the NumPy oracle, 4 utterances;
+16. the training entry point's recipe, ``mogasr_torch.recipes.train_headline``
+   at the settings the headline bundle records in its meta (3200 utterances
+   of the training corpus of phase 8 in batches of 32, ``--min-occ 60``: 10
+   monophone Viterbi EM iterations to 8 components with re-estimated
+   transitions, tying to <= 1200 pdfs, 12 CD iterations to 16 components),
+   with its launch counts set to 0 before it and read after: tied pdfs,
+   both histories, held-out WER on its 120 utterances (limit), stage and
+   per-iteration seconds, collect_cd_stats's seconds and launches; its
+   bundle written, read back and decoding phase 5's 768 utterances (WER
+   limit); then 3 CD EM iterations stopped after the first and resumed from
+   their EM checkpoint, against the uninterrupted run;
+17. MMI and sMBR from phase 16's monophone model: on the training batch
+   with the most frames each side's statistics through K1 + K3 (numerator
+   on K3's chain arm, the word-loop denominator on its general arm, arms
+   checked) against a float64 run, and the EBW update from both; the
+   denominator's K3 timed; 2 MMI iterations and 1 sMBR iteration over the
+   corpus (launches, criterion, seconds per stage), the held-out WER of the
+   three models;
+18. ``python -m mogasr_torch.cli.train_gmm`` on a small v2 corpus with
+   --triphones, --mmi, --smbr and --bundle-out, killed once its first EM
+   iteration is saved and run again: it resumes from em_ckpt, and its bundle
+   loads.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -219,6 +241,33 @@ SWEEP_S, SWEEP_K, SWEEP_N, SWEEP_SEED = 1000, 256, 8192, 7
 # restages its frame tile for each of four chunks)
 WIDE_FEATURE_DIMS = (120, 200)
 K2_BEAM = 60.0  # in acoustic-scale-multiplied log units (headline scale 1.0)
+
+# The training entry points (phases 16-18). A stop-and-resume of CD EM on the
+# card against the uninterrupted run: the hard statistics sum by atomic adds
+# (index_add_), whose order varies between runs, so the two agree to float32
+# summation order, not bit for bit (the CPU tests hold the resume bitwise).
+RESUME_HISTORY_RTOL, RESUME_PARAM_ATOL = 1e-6, 1e-4
+# MMI at its acoustic scale on one training batch: each side's statistics
+# (numerator: align graphs, K3's chain arm; denominator: the word loop, its
+# general arm) through K1 + K3 against a float64 run of the plain
+# forward-backward on the same K1 scores, max |kernel - f64| / max |f64| per
+# statistic, and the EBW updates from them, max |kernel - f64|. Float32
+# alone moves both (the plain float32 run is measured beside): the kernels
+# must be within the limit and no further from float64 than FB_ERR_RATIO
+# times plain float32 (or the floor). At T = 550 float32 alone puts each
+# frame's posteriors ~1e-3 from summing to one (alpha + beta - loglik
+# cancels values ~1e3 at this scale), so plain float32 statistics sit ~1e-3
+# of their largest entry from float64 (6.6e-4 numerator, 9.2e-4 denominator
+# on a CPU run of a small recipe's widest batch). EBW divides by occ_num -
+# occ_den + D, so a Gaussian with little occupancy moves further than its
+# statistics.
+MMI_SCALE = 0.1
+MMI_STATS_TOL, MMI_STATS_FLOOR = 1e-2, 1e-5
+MMI_PARAM_ATOL, MMI_PARAM_FLOOR = 1e-2, 1e-4
+# the CLI twin's corpus and schedule (phase 18): small, but every stage runs
+CLI_ARGS = ["--synthetic-v2", "48", "--num-components", "2", "--num-iters", "6", "--triphones", "200",
+            "--mmi", "1", "--smbr", "1"]
+CLI_TIMEOUT_S = 300
 
 
 def phase(n: int, msg: str) -> None:
@@ -388,18 +437,6 @@ def with_chain_skips(graphs):
     return {**graphs, "skip_logp": skip}
 
 
-def held_out_corpus(topo, meta, n_utts):
-    """The held-out v2 utterances of bench.py (seed 999, 3-9 words)."""
-    from mogasr_torch.data import synthetic as syn
-
-    word_lex = {w: list(topo.lexicon.prons[w]) for w in topo.lexicon.words}
-    utts = syn.make_corpus_v2(
-        n_utts, lexicon=word_lex, speakers=syn.make_speakers(meta.get("speakers", 20)),
-        style=syn.CorpusStyle(), seed=999, words_per_utt=(3, 9),
-    )
-    return [(u.utt_id, u.wave, u.words) for u in utts]
-
-
 def training_corpus(topo):
     """The training corpus of benchmarks/train_headline.py (seed 100, 3-9
     words); its lexicon must be the bundle's."""
@@ -457,6 +494,297 @@ def k2_align_times(ll, graphs, n_frames) -> dict:
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise RuntimeError(f"K2 on align graphs: {field} differs from the plain Viterbi")
     return {"ms": device_ms, "run_ms": run_ms, "call_ms": call_ms, "plain_ms": plain_ms}
+
+
+def mmi_batch_check(gmm, fb, lexicon, topo, den_graph, acoustic_scale: float = MMI_SCALE) -> dict:
+    """One MMI batch, each side (numerator: the batch's align graphs;
+    denominator: ``den_graph`` for every row) through K1 float32/sum and
+    K3f/K3b, against a plain float64 run on the same K1 scores (the plain
+    forward-backward, posteriors and statistics in float64), plain float32
+    beside it; then the EBW updates from the kernel and the plain float32
+    statistics against the one from the float64 statistics. Raises beyond
+    the MMI_* limits. Returns each side's arms (K3f's, per row), statistic
+    errors and loglik error, and the parameter errors."""
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import mmi
+    from mogasr_torch.am.gmm import GmmSet
+    from mogasr_torch.decoder import fb_cuda
+    from mogasr_torch.decoder import viterbi as vit
+
+    dev = fb.feats.device
+    D = gmm.means.shape[-1]
+    ll = pipe.score_batch(fb.feats, gmm)
+    feats = fb.feats.reshape(-1, D)
+    gmm64 = GmmSet(*(a.double() for a in gmm))
+    sides = {"numerator": vit.graphs_to_torch(pipe.build_align_graphs(fb.words, lexicon, topo), dev),
+             "denominator": pipe.decode_graphs(den_graph, fb.feats.shape[0], dev)[1]}
+    out, stats = {}, {}
+    for side, graphs in sides.items():
+        sk, rk = mmi.fb_stats(gmm, feats, ll, graphs, fb.n_frames, acoustic_scale)
+        arms = fb_cuda.LAST_ARMS.tolist()
+        sp, _ = mmi.fb_stats(gmm, feats, ll, graphs, fb.n_frames, acoustic_scale, use_kernels=False)
+        s64, r64 = mmi.fb_stats(gmm64, feats.double(), ll.double(), graphs, fb.n_frames, acoustic_scale,
+                                use_kernels=False)
+        torch.cuda.synchronize()
+        if arms[0] != arms[1]:
+            raise RuntimeError(f"MMI {side}: K3f and K3b took different arms {arms}")
+        err, plain_err = {}, {}
+        for field in ("occ", "sx", "sxx"):
+            ref = getattr(s64, field)
+            scale = float(ref.abs().max())
+            err[field] = float((getattr(sk, field).double() - ref).abs().max()) / scale
+            plain_err[field] = float((getattr(sp, field).double() - ref).abs().max()) / scale
+            if not err[field] <= min(MMI_STATS_TOL, max(FB_ERR_RATIO * plain_err[field], MMI_STATS_FLOOR)):
+                raise RuntimeError(f"MMI {side} {field}: kernels {err[field]:.3g} of max from float64 "
+                                   f"(plain float32 {plain_err[field]:.3g}; limit {MMI_STATS_TOL} and "
+                                   f"{FB_ERR_RATIO}x plain float32's)")
+        live = fb.n_frames > 0
+        ll_rel = float(((rk.loglik.double() - r64.loglik) / r64.loglik.abs())[live].abs().max())
+        out[side] = {"arms": arms[0], "stats_err": err, "plain_f32_stats_err": plain_err, "loglik_rel_err": ll_rel}
+        stats[side] = (sk, sp, s64)
+    new_64 = mmi.ebw_update(gmm, stats["numerator"][2], stats["denominator"][2])
+    for key, i in (("param_err", 0), ("plain_f32_param_err", 1)):
+        new = mmi.ebw_update(gmm, stats["numerator"][i], stats["denominator"][i])
+        out[key] = {f: float((getattr(new, f) - getattr(new_64, f)).abs().max()) for f in ("means", "vars")}
+    for f, e in out["param_err"].items():
+        if not e <= min(MMI_PARAM_ATOL, max(FB_ERR_RATIO * out["plain_f32_param_err"][f], MMI_PARAM_FLOOR)):
+            raise RuntimeError(f"MMI EBW {f} from the kernel statistics {e:.3g} off the float64 update (plain "
+                               f"float32 {out['plain_f32_param_err'][f]:.3g}; limit {MMI_PARAM_ATOL} and "
+                               f"{FB_ERR_RATIO}x plain float32's)")
+    return out
+
+
+def cli_twin_phase(dev: torch.device) -> str:
+    """Phase 18: ``python -m mogasr_torch.cli.train_gmm`` on a small v2
+    corpus with every stage, killed once its first EM iteration is saved,
+    then run again: it must resume from em_ckpt (its em_resume record) and
+    write a bundle that ``load_system`` reads. Returns the phase's line."""
+    import shutil
+    import signal
+
+    from mogasr_torch.utils import checkpoint as ckpt
+    from mogasr_torch.utils.bundle import load_system
+
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    run_dir, bundle = os.path.join(work, "run"), os.path.join(work, "bundle")
+    em_ckpt = os.path.join(run_dir, "em_ckpt")
+    cmd = [sys.executable, "-m", "mogasr_torch.cli.train_gmm", *CLI_ARGS, "--run-dir", run_dir, "--bundle-out", bundle,
+           "--device", str(dev)]
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    t0 = time.perf_counter()
+    first = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        while ckpt.latest_step(em_ckpt) is None:
+            if first.poll() is not None:
+                raise RuntimeError(f"the CLI twin exited ({first.returncode}) before its first EM checkpoint: "
+                                   + first.stderr.read()[-2000:])
+            if time.perf_counter() - t0 > CLI_TIMEOUT_S:
+                raise RuntimeError("the CLI twin wrote no EM checkpoint in time")
+            time.sleep(0.05)
+        first.send_signal(signal.SIGKILL)
+    finally:
+        if first.poll() is None:
+            first.kill()
+        first.wait(timeout=60)
+        first.stderr.close()
+    killed_s = time.perf_counter() - t0
+    saved = ckpt.all_steps(em_ckpt)
+    t1 = time.perf_counter()
+    second = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    second_s = time.perf_counter() - t1
+    if second.returncode != 0:
+        raise RuntimeError(f"the CLI twin's second run failed ({second.returncode}): {second.stderr[-2000:]}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    resumed = [r for r in records if r["stage"] == "em_resume"]
+    if len(resumed) != 1 or resumed[0]["step"] != saved[-1]:
+        raise RuntimeError(f"the second run did not resume from the last saved step {saved}: {resumed}")
+    stages = [r["stage"] for r in records]
+    for want in ("train_gmm_done", "train_mmi_done", "train_smbr_done", "train_cd_done"):
+        if want not in stages:
+            raise RuntimeError(f"the CLI twin logged no {want!r}: {stages}")
+    gmm, _topo, _fcfg, tied, meta = load_system(bundle, dev)
+    if tied is None or gmm.n_states != tied.n_pdfs or not all(bool(torch.isfinite(a).all()) for a in gmm):
+        raise RuntimeError("the CLI twin's bundle does not hold a finite tied-triphone GMM")
+    done = {r["stage"]: r for r in records}
+    return (f"CLI twin ({' '.join(CLI_ARGS)}): killed after {killed_s:.1f} s with EM steps {saved} saved; "
+            f"run again ({second_s:.1f} s): resumed from step {resumed[0]['step']} of {done['train_gmm_done']['iters']}"
+            f", MMI criterion {done['train_mmi_done']['criterion_last']:.4f}, sMBR expected frame accuracy "
+            f"{done['train_smbr_done']['expected_acc_last']:.4f}, {tied.n_pdfs} tied pdfs (CD log-likelihood "
+            f"{done['train_cd_done']['final_avg_loglik']:.4f} per frame); bundle {gmm.n_states} x {gmm.n_components}"
+            f" x {gmm.feat_dim} loads (meta source {meta.get('source')})")
+
+
+def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) -> dict:
+    """Phases 16 (the headline recipe at the headline bundle's own settings,
+    its held-out decodes, a CD stop-and-resume), 17 (MMI and sMBR from its
+    monophone model) and 18 (the CLI twin). Returns the launches per path
+    and the numbers the kernels line takes from them."""
+    import shutil
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import gmm_cuda, mmi, smbr
+    from mogasr_torch.config import GmmConfig, TrainConfig
+    from mogasr_torch.decoder import fb_cuda, viterbi_cuda
+    from mogasr_torch.hmm import triphone as tri
+    from mogasr_torch.recipes import train_headline
+    from mogasr_torch.utils.bundle import load_system, save_system
+
+    def zero_counts():
+        gmm_cuda.LAUNCHES = viterbi_cuda.LAUNCHES = 0
+        fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = fb_cuda.COMBINE_LAUNCHES = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"gmm_score": gmm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES, "fb_forward": fb_cuda.FWD_LAUNCHES,
+                "fb_backward": fb_cuda.BWD_LAUNCHES, "fb_combine": fb_cuda.COMBINE_LAUNCHES}
+
+    # ---- phase 16: the headline recipe on the card, at the settings the
+    # headline bundle was trained with (its meta: 3200 utterances, min_occ
+    # 60; the script's defaults, 1600 and 100, give a system that decodes
+    # phase 5's utterances above MAX_WER, PERF.md)
+    work = os.path.join(ROOT, "build", "chip_smoke_recipe")
+    shutil.rmtree(work, ignore_errors=True)
+    args = train_headline.parse_args(["--train-utts", str(bundle_meta["train_utts"]), "--min-occ",
+                                      str(bundle_meta["min_occ"]), "--out", os.path.join(work, "bundle")])
+    log_lines = []
+    zero_counts()
+    out = train_headline.run(args, dev, log=log_lines.append)
+    recipe_launches = counts()
+    meta = out["meta"]
+    mono, cd, tied, gmm_cd = out["mono"], out["cd"], out["tied"], out["gmm_cd"]
+    if min(recipe_launches["gmm_score"], recipe_launches["viterbi"]) == 0:
+        raise RuntimeError(f"the recipe did not go through K1 and K2: {recipe_launches}")
+    if not (np.isfinite(mono.history).all() and np.isfinite(cd.history).all()):
+        raise RuntimeError(f"recipe histories not finite: {mono.history} {cd.history}")
+    if out["heldout_wer"] > MAX_WER:
+        raise RuntimeError(f"the recipe's CD system: held-out WER {out['heldout_wer']:.4f} > {MAX_WER}")
+    if tied.n_pdfs > args.target_pdfs or gmm_cd.means.shape != (tied.n_pdfs, args.components, out["fcfg"].feat_dim):
+        raise RuntimeError(f"the recipe's CD GMM is {tuple(gmm_cd.means.shape)} for {tied.n_pdfs} tied pdfs")
+    save_system(args.out, gmm_cd, out["topo"], out["fcfg"], tied=tied, meta=meta)
+    b_gmm, b_topo, b_fcfg, b_tied, _ = load_system(args.out, dev)
+    dcfg = out["dcfg"]
+    graph_cd = tri.word_loop_graph_cd(b_tied, insertion_penalty=dcfg.word_insertion_penalty)
+    zero_counts()
+    t0 = time.perf_counter()
+    cd_stats = pipe.collect_cd_stats(out["train"], out["gmm_mono"], b_topo.lexicon, out["topo"])
+    cd_stats_s = time.perf_counter() - t0
+    cd_stats_launches = counts()
+    zero_counts()
+    dec = pipe.decode_corpus(corpus, b_gmm, graph_cd, b_fcfg, dcfg, bcfg, dev, compute_dtype="bfloat16")
+    dec_launches = counts()
+    if dec.wer > MAX_WER or dec_launches["gmm_score"] == 0 or dec_launches["viterbi"] == 0:
+        raise RuntimeError(f"decode with the recipe's bundle: WER {dec.wer:.4f} (limit {MAX_WER}), {dec_launches}")
+    # stop-and-resume of 3 CD EM iterations from the recipe's CD model
+    gcfg_cd = GmmConfig(n_states=tied.n_pdfs, n_components=args.components, feat_dim=out["fcfg"].feat_dim,
+                        var_floor=args.var_floor, min_split_occ=args.min_split_occ)
+
+    def cd_em(iters, ckpt_dir=None):
+        return pipe.train_gmm(out["train"], b_topo.lexicon, out["topo"], gcfg_cd, TrainConfig(num_em_iters=iters),
+                              gmm=gmm_cd, align_fn=lambda p: tri.align_graph_cd(tied, p), n_pdfs=tied.n_pdfs,
+                              ckpt_dir=ckpt_dir)
+
+    whole = cd_em(3)
+    cd_em(1, os.path.join(work, "em_ckpt"))
+    resumed = cd_em(3, os.path.join(work, "em_ckpt"))
+    if len(resumed.seconds) != 2 or "restore" not in resumed.setup_seconds:
+        raise RuntimeError("the CD EM run did not resume from its checkpoint")
+    hist_rel = float(np.max(np.abs(np.asarray(resumed.history) / np.asarray(whole.history) - 1)))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(resumed.gmm, whole.gmm))
+    bitwise = resumed.history == whole.history and all(torch.equal(a, b) for a, b in zip(resumed.gmm, whole.gmm))
+    if hist_rel > RESUME_HISTORY_RTOL or param_err > RESUME_PARAM_ATOL:
+        raise RuntimeError(f"CD EM resumed after 1 of 3 iterations differs from the uninterrupted run: history "
+                           f"{hist_rel:.3g} relative, parameters {param_err:.3g}")
+
+    def iter_text(r):
+        return "; ".join(f"{s:.3f} s (" + ", ".join(f"{k} {1e3 * v:.0f}" for k, v in st.items()) + ")"
+                         for s, st in zip(r.seconds, r.stage_seconds))
+
+    n_frames = meta["train_frames"]
+    phase(16, f"headline recipe at the bundle's settings (--train-utts {args.train_utts} --min-occ {args.min_occ:g}; "
+          f"{args.train_utts} + {args.test_utts} utterances, {n_frames} training frames (bundle "
+          f"{bundle_meta['train_frames']}), {len(out['train'])} batches of {train_headline.BATCH}; corpus not cut): "
+          f"{tied.n_pdfs} tied pdfs x {gmm_cd.n_components} x {gmm_cd.feat_dim} (bundle {bundle_meta['tied_pdfs']}); "
+          f"monophone history {meta['em_loglik_mono']}, CD history {meta['em_loglik_cd']} (bundle's last "
+          f"{bundle_meta['em_loglik_mono'][-1]}, {bundle_meta['em_loglik_cd'][-1]}); held-out WER ({args.test_utts} "
+          f"utterances) monophone {out['heldout_wer_mono']:.4f}, CD {out['heldout_wer']:.4f} (bundle "
+          f"{bundle_meta['heldout_wer_mono']}, {bundle_meta['heldout_wer']}; limit {MAX_WER}); "
+          f"wall {meta['wall_s']} s, "
+          "stage s " + ", ".join(f"{k} {v:.2f}" for k, v in out["seconds"].items())
+          + f"; monophone setup s {mono.setup_seconds}, iterations (ms): {iter_text(mono)}; CD setup s (collect_cd_"
+          f"stats = cd_stats) {cd.setup_seconds}, iterations (ms): {iter_text(cd)}; launches {recipe_launches}; "
+          f"collect_cd_stats again: {len(cd_stats)} triphone states in {cd_stats_s:.3f} s, launches "
+          f"{cd_stats_launches}; the "
+          f"bundle written and read back decodes the {dec.n_utts} held-out utterances of phase 5 at WER "
+          f"{dec.wer:.4f} ({dec.n_utts / dec.seconds:.1f} utt/s; bundle {BUNDLE_WER}); CD EM stopped after 1 of 3 "
+          f"iterations and resumed: history {resumed.history} vs {whole.history} (max rel {hist_rel:.3g}), "
+          f"parameters max |diff| {param_err:.3g}, bitwise {bitwise}")
+
+    # ---- phase 17: MMI and sMBR from the recipe's monophone model
+    lex, topo_t, gmm_mono, tb = b_topo.lexicon, out["topo"], out["gmm_mono"], out["train"]
+    den_graph = pipe.word_decode_graph(lex, topo_t, type(dcfg)(acoustic_scale=MMI_SCALE))
+    # the batch with the most frames (the 700-frame bucket holds few utterances)
+    widest = max(tb, key=lambda f: (int(f.n_frames.sum()), f.feats.shape[1]))
+    check = mmi_batch_check(gmm_mono, widest, lex, topo_t, den_graph)
+    arms = {side: sorted(set(check[side]["arms"])) for side in ("numerator", "denominator")}
+    if arms["numerator"] != [fb_cuda.ARM_CHAIN] or arms["denominator"] != [fb_cuda.ARM_GENERAL]:
+        raise RuntimeError(f"MMI arms: numerator {arms['numerator']}, denominator {arms['denominator']}")
+    den_graphs = pipe.decode_graphs(den_graph, widest.feats.shape[0], dev)[1]
+    ll_w = pipe.score_batch(widest.feats, gmm_mono)
+
+    def den_fb():
+        return fb_cuda.forward_backward(ll_w, den_graphs, widest.n_frames, acoustic_scale=MMI_SCALE)
+
+    den_pair_ms = per_call_ms(den_fb, 20)
+    den_kernel_ms = kernel_device_ms(den_fb, ("fb_forward_kernel", "fb_backward_kernel", "fb_combine_kernel"), 5)
+    del ll_w, den_graphs
+    zero_counts()
+    mmi_res = mmi.train_mmi(tb, lex, topo_t, gmm_mono, n_iters=2, acoustic_scale=MMI_SCALE)
+    mmi_launches = counts()
+    last_arms = sorted(set(fb_cuda.LAST_ARMS.tolist()[0]))  # the last denominator call
+    if min(mmi_launches["gmm_score"], mmi_launches["fb_forward"]) == 0 or last_arms != [fb_cuda.ARM_GENERAL]:
+        raise RuntimeError(f"MMI launches {mmi_launches}, last denominator arms {last_arms}")
+    zero_counts()
+    smbr_res = smbr.train_smbr(tb, lex, topo_t, gmm_mono, n_iters=1, acoustic_scale=MMI_SCALE)
+    smbr_launches = counts()
+    evals = {name: pipe.evaluate(out["test"], g, lex, topo_t, dcfg)["wer"]
+             for name, g in (("ML", gmm_mono), ("MMI", mmi_res.gmm), ("sMBR", smbr_res.gmm))}
+    values = list(mmi_res.history) + list(smbr_res.history) + list(evals.values())
+    if not np.isfinite(values).all() or not all(bool(torch.isfinite(a).all()) for r in (mmi_res, smbr_res)
+                                                 for a in r.gmm):
+        raise RuntimeError(f"MMI/sMBR: a value is not finite: {values}")
+    arm_names = {fb_cuda.ARM_CHAIN: "chain", fb_cuda.ARM_BLOCK: "block", fb_cuda.ARM_GENERAL: "general"}
+    phase(17, f"MMI (acoustic scale {MMI_SCALE}) from the recipe's monophone model ({gmm_mono.n_states} x "
+          f"{gmm_mono.n_components}), word loop J={den_graph.n_states}: on the batch with the most frames "
+          f"B={widest.feats.shape[0]} T={widest.feats.shape[1]} ({int(widest.n_frames.sum())} frames in "
+          f"{int((widest.n_frames > 0).sum())} rows) K3 arms numerator {[arm_names[a] for a in arms['numerator']]}, "
+          f"denominator "
+          f"{[arm_names[a] for a in arms['denominator']]}; statistics vs float64, max |err| / max (limit "
+          f"{MMI_STATS_TOL}): " + "; ".join(
+              f"{side} " + ", ".join(f"{k} {v:.3g} (plain f32 {check[side]['plain_f32_stats_err'][k]:.3g})"
+                                     for k, v in check[side]["stats_err"].items())
+              + f", loglik rel {check[side]['loglik_rel_err']:.3g}" for side in ("numerator", "denominator"))
+          + f"; EBW update from them vs from float64: means {check['param_err']['means']:.3g}, vars "
+          f"{check['param_err']['vars']:.3g} (plain f32 {check['plain_f32_param_err']['means']:.3g}, "
+          f"{check['plain_f32_param_err']['vars']:.3g}; limit {MMI_PARAM_ATOL} and {FB_ERR_RATIO}x plain f32's); "
+          f"the denominator's K3f + K3b + combine "
+          f"{den_pair_ms:.3f} ms a call in a run of 20 (K3f {den_kernel_ms['fb_forward_kernel']:.3f}, K3b "
+          f"{den_kernel_ms['fb_backward_kernel']:.3f}, combine {den_kernel_ms['fb_combine_kernel']:.3f} ms on the "
+          f"device); 2 MMI iterations over {len(tb)} batches: criterion per frame {mmi_res.history}, "
+          f"{iter_text(mmi_res)}, launches {mmi_launches} (last denominator call's arm "
+          f"{[arm_names[a] for a in last_arms]}); 1 sMBR iteration (corpus not cut): expected frame accuracy "
+          f"{smbr_res.history}, {iter_text(smbr_res)}, launches {smbr_launches}; held-out WER "
+          + ", ".join(f"{k} {v:.4f}" for k, v in evals.items()))
+
+    # ---- phase 18: the CLI twin, killed and resumed
+    phase(18, cli_twin_phase(dev))
+    shutil.rmtree(work, ignore_errors=True)
+    return {"recipe": recipe_launches, "recipe_decode": dec_launches, "mmi": mmi_launches, "smbr": smbr_launches,
+            "mmi_denominator": {"pair_ms": den_pair_ms, **den_kernel_ms,
+                                "launches_per_iteration": mmi_launches["fb_forward"] // 2 // 2},
+            "collect_cd_stats": {"seconds": cd_stats_s, "launches": cd_stats_launches}}
 
 
 def hybrid_phases(dev: torch.device) -> dict:
@@ -571,6 +899,26 @@ def hybrid_phases(dev: torch.device) -> dict:
     layer_ms, layer_out = timed(gemm_k4_layer, 5)
     vmask = tn.valid_mask(nfh[live], Th, dev)
     lib_err = float((lib_out - layer_out[live])[vmask].abs().max())
+    # the same in bfloat16: cuDNN's LSTM with bf16 weights and inputs beside
+    # the bf16 input GEMM + K4's bf16 arm
+    cudnn_bf16 = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    cudnn_bf16.load_state_dict(cudnn.state_dict())
+    cudnn_bf16 = cudnn_bf16.to(torch.bfloat16)
+    x1_bf16 = h0["bfloat16"][live].to(torch.bfloat16)
+
+    def cudnn_layer_bf16():
+        with torch.no_grad():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(x1_bf16, lens, batch_first=True, enforce_sorted=False)
+            return torch.nn.utils.rnn.pad_packed_sequence(cudnn_bf16(packed)[0], batch_first=True,
+                                                          total_length=Th)[0]
+
+    def gemm_k4_layer_bf16():
+        with torch.no_grad():
+            return cell1(h0["bfloat16"], nfh, "bfloat16")
+
+    lib_bf16_ms, lib_bf16_out = timed(cudnn_layer_bf16, 5)
+    layer_bf16_ms, layer_bf16_out = timed(gemm_k4_layer_bf16, 5)
+    lib_bf16_err = float((lib_bf16_out.float() - layer_bf16_out[live])[vmask].abs().max())
     k4_bytes = {dt: valid_frames * 4 * H * 4 + H * 4 * H * (4 if dt == "float32" else 2) + Bh * 4 + Bh * Th * H * 4
                 for dt in ("float32", "bfloat16")}
     k4_ops = valid_frames * H * (2 * 4 * H + K4_GATE_OPS)
@@ -583,7 +931,8 @@ def hybrid_phases(dev: torch.device) -> dict:
           "in clusters of %d): K4 float32 %.3f ms (plain %.3f ms, bound %.4f ms by %s), bfloat16 %.3f ms (plain "
           "%.3f ms, bound %.4f ms by %s); "
           "every row at T (%d frames): float32 %.3f ms (bound %.4f ms), bfloat16 %.3f ms (bound %.4f ms); "
-          "whole layer, input GEMM + K4 %.3f ms vs cuDNN nn.LSTM %.3f ms (valid frames max |diff| %.3g)" % (
+          "whole layer, input GEMM + K4 %.3f ms vs cuDNN nn.LSTM %.3f ms (valid frames max |diff| %.3g); in "
+          "bfloat16 %.3f ms vs cuDNN nn.LSTM in bfloat16 %.3f ms (max |diff| %.3g)" % (
               K4_ATOL["float32"], K4_ATOL["bfloat16"],
               "; ".join(f"{n} {d} {e:.3g}" for (n, d), e in k4_err.items()), valid_frames,
               k4_launch["float32"]["ctas"], k4_launch["float32"]["cluster"], k4_launch["float32"]["rows"],
@@ -591,8 +940,8 @@ def hybrid_phases(dev: torch.device) -> dict:
               k4_ms["float32"], k4_plain_ms["float32"], *k4_bound["float32"],
               k4_ms["bfloat16"], k4_plain_ms["bfloat16"], *k4_bound["bfloat16"], all_frames,
               k4_all_ms["float32"], k4_all_bound["float32"][0], k4_all_ms["bfloat16"], k4_all_bound["bfloat16"][0],
-              layer_ms, lib_ms, lib_err))
-    del xg0, xg1, h0, k4_cases, got, want, lib_out, layer_out, x1
+              layer_ms, lib_ms, lib_err, layer_bf16_ms, lib_bf16_ms, lib_bf16_err))
+    del xg0, xg1, h0, k4_cases, got, want, lib_out, layer_out, x1, x1_bf16, lib_bf16_out, layer_bf16_out
 
     # ---- phase 10: the hybrid decode path
     peaked = seeded("lstm")
@@ -688,7 +1037,8 @@ def hybrid_phases(dev: torch.device) -> dict:
                          "max_abs_err": max(e for (n, d), e in k4_err.items() if d == "bfloat16"),
                          "ms": k4_ms["bfloat16"], "plain_ms": k4_plain_ms["bfloat16"],
                          "bound_ms": k4_bound["bfloat16"][0], "bound_by": k4_bound["bfloat16"][1],
-                         "library_ms": None}}
+                         "library_ms": lib_bf16_ms, "library": "torch.nn.LSTM (cuDNN) in bfloat16, the whole layer",
+                         "ms_with_input_gemm": layer_bf16_ms}}
 
 
 def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_exps_per_s) -> list:
@@ -921,6 +1271,7 @@ def main() -> None:
     from mogasr_torch.frontend.numpy_ref import extract_features_np
     from mogasr_torch.frontend.torch_frontend import make_frontend
     from mogasr_torch.hmm import triphone as tri
+    from mogasr_torch.recipes.decode_held_out import held_out_corpus
     from mogasr_torch.utils.bundle import load_system
 
     dev = torch.device("cuda", 0)
@@ -1285,11 +1636,14 @@ def main() -> None:
 
     k4_entry = hybrid_phases(dev)
     arm_entries = scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_exps_per_s)
+    entry = training_entry_phases(dev, corpus, bcfg, meta)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
-    launches = {k: decode_launches.get(k, 0) + train_launches[k] for k in train_launches}
-    by_path = {k: {"decode": decode_launches.get(k, 0), "train": train_launches[k]} for k in train_launches}
+    paths = {"decode": decode_launches, "train": train_launches, "recipe": entry["recipe"],
+             "recipe_bundle_decode": entry["recipe_decode"], "mmi": entry["mmi"], "smbr": entry["smbr"]}
+    by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
     k1_main = ("bfloat16", "max")
     print(smi)
     print(json.dumps({"kernels": [
@@ -1311,7 +1665,8 @@ def main() -> None:
          "launches_by_path": by_path["viterbi"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_main_bound[0], "bound_by": k2_main_bound[1], "library_ms": None,
-         "align": k2_align, "viterbi_em_align_stage_ms": 1e3 * vt.stage_seconds[0]["align"]},
+         "align": k2_align, "viterbi_em_align_stage_ms": 1e3 * vt.stage_seconds[0]["align"],
+         "collect_cd_stats": entry["collect_cd_stats"]},
         {"name": "fb_forward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
          "replaces": "mogasr/decoder/fb_pallas.py:46", "launches": launches["fb_forward"],
          "launches_by_path": by_path["fb_forward"], "arm": fb_train["arm"],
@@ -1321,7 +1676,8 @@ def main() -> None:
          "iteration_launches": prof_named["fb_forward_kernel"][1],
          "word_loop": {"arm": fb_loop["arm"], "max_abs_err": fb_loop["ll_err"], "ms": fb_loop["fb_forward_kernel"],
                        "plain_ms": fb_loop["plain_fwd_ms"], "bound_ms": fb_loop["bounds"]["fwd"][0],
-                       "bound_by": fb_loop["bounds"]["fwd"][1]}},
+                       "bound_by": fb_loop["bounds"]["fwd"][1]},
+         "mmi_denominator": entry["mmi_denominator"]},
         {"name": "fb_backward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
          "replaces": "mogasr/decoder/fb_pallas.py:77", "launches": launches["fb_backward"],
          "launches_by_path": by_path["fb_backward"], "arm": fb_train["arm"],

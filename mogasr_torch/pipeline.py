@@ -10,8 +10,12 @@ hybrid NN-HMM path scores with a neural frame classifier instead
 Training: ``train_gmm`` runs EM over featurized batches, each utterance
 against its align graph: Viterbi EM (forced alignment, hard statistics) or
 Baum-Welch EM (forward-backward, soft statistics), with the reference's
-mixture-splitting schedule and optional transition re-estimation;
-``flat_start`` gives the first model, ``evaluate`` the held-out WER.
+mixture-splitting schedule, optional transition re-estimation and resume
+from an EM checkpoint (``utils.checkpoint``); ``flat_start`` gives the first
+model, ``evaluate`` the held-out WER. The tied-triphone recipe:
+``collect_cd_stats`` (per-triphone-state statistics from a monophone
+alignment), then ``train_triphone`` (tying, the one-component CD model, CD
+EM).
 
 Device dispatch is by the tensor: on a CUDA device the scorer (K1, or K1w
 with ``layout="wide"``, or K5 with ``compute_dtype="int8"``), the Viterbi
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from mogasr_torch.am import em
-from mogasr_torch.am.gmm import GmmSet, gmm_loglik
+from mogasr_torch.am.gmm import GmmSet, gmm_from_numpy, gmm_loglik
 from mogasr_torch.am.gmm_cuda import Params, gmm_loglik_batched, kernel_params
 from mogasr_torch.am.neural import posteriors_to_loglik
 from mogasr_torch.am.quantize import make_quantized_logits
@@ -51,6 +55,7 @@ from mogasr_torch.frontend.torch_frontend import make_frontend
 from mogasr_torch.hmm import graph as gr
 from mogasr_torch.hmm.lexicon import Lexicon
 from mogasr_torch.hmm.topology import Topology
+from mogasr_torch.utils import checkpoint as ckpt
 
 Utterance = Tuple[str, np.ndarray, List[str]]  # (id, wave, words)
 Frontend = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -489,17 +494,26 @@ def batch_stats(
 class TrainGmmResult:
     """Unpacks like a (gmm, history) pair. topo carries re-estimated
     transitions when reestimate_transitions=True; ``seconds`` and
-    ``stage_seconds`` are the wall time of each EM iteration and its split
-    over ``TRAIN_STAGES``."""
+    ``stage_seconds`` are the wall time of each EM iteration that ran (not
+    those restored from a checkpoint) and its split over ``TRAIN_STAGES``;
+    ``setup_seconds`` the host work before the first of them ("flat_start",
+    "restore"; ``train_triphone`` adds "cd_stats", "tie" and "cd_init")."""
 
     gmm: GmmSet
     history: List[float]
     topo: Topology
     seconds: List[float] = dataclasses.field(default_factory=list)
     stage_seconds: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    setup_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def __iter__(self):
         return iter((self.gmm, self.history))
+
+
+def em_fingerprint(gcfg: GmmConfig, mode: str) -> np.ndarray:
+    """What an EM checkpoint must have been written for: [n_states,
+    n_components, 0 for Viterbi EM or 1 for Baum-Welch]."""
+    return np.asarray([gcfg.n_states, gcfg.n_components, 0 if mode == "viterbi" else 1])
 
 
 def train_gmm(
@@ -525,16 +539,48 @@ def train_gmm(
     reaching K needs num_em_iters >= 2*ceil(log2(K)) + 1; a shorter schedule
     warns and returns fewer components. ``n_pdfs`` is the pdf count of the
     posteriors (the tied-triphone count with a CD ``align_fn``). The GMM goes
-    to the kernel's layout once per iteration. ``ckpt_dir`` (resume from an
-    EM checkpoint) is not ported yet and raises.
+    to the kernel's layout once per iteration.
+
+    ``ckpt_dir``: after each iteration the GMM, the history, K, the
+    per-phone self-loop probabilities (all -1 when none were estimated) and
+    ``em_fingerprint`` are saved there as step ``it + 1``
+    (``utils.checkpoint``); a call that finds a step resumes after it (the
+    ``gmm`` argument unused), applying the saved transitions, and raises
+    ValueError if the step was written for another fingerprint. As in the
+    reference, the occupancies that gate a split are not saved: a split in
+    the first iteration after a resume is ungated.
     """
     if mode not in ("viterbi", "baum-welch"):
         raise ValueError(f"unknown EM mode {mode!r}")
-    if ckpt_dir is not None:
-        raise NotImplementedError("EM checkpoint resume (ckpt_dir) is not ported to mogasr_torch yet")
     device = batches[0].feats.device
-    if gmm is None:
+    history: List[float] = []
+    setup: Dict[str, float] = {}
+    start_it = 0
+    last = ckpt.latest_step(ckpt_dir) if ckpt_dir is not None else None
+    if last is not None:
+        # preemption resume: the latest EM iteration saved (written atomically)
+        t0 = time.perf_counter()
+        state = ckpt.restore_checkpoint(ckpt_dir, step=last)
+        fp, want = np.asarray(state.get("fingerprint", [-1, -1, -1])), em_fingerprint(gcfg, mode)
+        if fp.size == 3 and not np.array_equal(fp, want):
+            raise ValueError(
+                f"EM checkpoint in {ckpt_dir} was written for a different config (saved "
+                f"n_states/n_components/mode={fp.tolist()}, requested {want.tolist()}); use a fresh ckpt_dir")
+        start_it = last
+        history = [float(x) for x in state["history"]]
+        g = state["gmm"]
+        gmm = gmm_from_numpy(g["weights"], g["means"], g["vars"], device)
+        probs = np.asarray(state.get("per_phone_self_prob", [-1.0]))
+        if probs.size and float(probs.min()) >= 0.0:
+            topo = topo.with_transitions(probs)
+        setup["restore"] = time.perf_counter() - t0
+        if logger:
+            logger.log({"stage": "em_resume", "ckpt_dir": ckpt_dir, "step": last, "K": gmm.n_components,
+                        "avg_loglik": history[-1]})
+    elif gmm is None:
+        t0 = time.perf_counter()
         gmm = flat_start(batches, lexicon, topo)
+        setup["flat_start"] = time.perf_counter() - t0
     need = 2 * math.ceil(math.log2(max(gcfg.n_components, 1))) + 1
     if gcfg.n_components > gmm.n_components and tcfg.num_em_iters < need:
         msg = (f"num_em_iters={tcfg.num_em_iters} cannot reach n_components="
@@ -545,10 +591,11 @@ def train_gmm(
             warnings.warn(msg)
     npdf = n_pdfs if n_pdfs is not None else topo.n_pdfs
     pdf_to_phone = topo.pdf_to_phone()
-    history: List[float] = []
-    result = TrainGmmResult(gmm, history, topo)
-    last_state_occ = None  # state occupancies of the previous E-step, for gated splits
-    for it in range(tcfg.num_em_iters):
+    result = TrainGmmResult(gmm, history, topo, setup_seconds=setup)
+    # state occupancies of the previous E-step, for gated splits; None on the
+    # first iteration of a call (fresh or resumed)
+    last_state_occ = None
+    for it in range(start_it, tcfg.num_em_iters):
         clock = StageClock(device, TRAIN_STAGES)
         start = time.perf_counter()
         with clock("m_step"):
@@ -586,10 +633,22 @@ def train_gmm(
                 self_probs, _counts = em.estimate_transitions(
                     pad(trans_paths), pad(trans_pdfs), pdf_to_phone, lexicon.n_phones)
                 topo = topo.with_transitions(self_probs)
-        result.seconds.append(time.perf_counter() - start)
-        result.stage_seconds.append(clock.seconds)
         if logger:
             logger.log({"stage": "em", "iter": it, "K": gmm.n_components, "avg_loglik": avg_ll})
+        if ckpt_dir is not None:
+            with clock("host"):
+                ckpt.save_checkpoint(ckpt_dir, {
+                    "gmm": gmm._asdict(),
+                    "history": history,
+                    "K": gmm.n_components,
+                    # float64, so that a resumed run rebuilds the same graphs
+                    "per_phone_self_prob": (np.asarray(topo.per_phone_self_prob, np.float64)
+                                            if topo.per_phone_self_prob
+                                            else np.full(lexicon.n_phones, -1.0)),
+                    "fingerprint": em_fingerprint(gcfg, mode),
+                }, step=it + 1)
+        result.seconds.append(time.perf_counter() - start)
+        result.stage_seconds.append(clock.seconds)
     result.gmm, result.topo = gmm, topo
     return result
 
@@ -633,3 +692,134 @@ def evaluate(
         "ref_words": counts.ref_words,
         "n_utts": len(refs),
     }
+
+
+# --------------------------------------------------------- tied triphones
+
+
+def collect_cd_stats(
+    batches: Sequence[FeatBatch],
+    gmm_mono: GmmSet,
+    lexicon: Lexicon,
+    topo: Topology,
+) -> Dict[tuple, Tuple[float, np.ndarray, np.ndarray]]:
+    """Monophone alignment -> {(l, c, r, k): (occ, sum_x, sum_xx)} per
+    triphone state, float64, keyed in the order the states are first seen
+    (batch, utterance, frame), as the reference's dict is:
+    ``hmm.triphone.tie_states`` groups in that order.
+
+    The alignment runs through ``align_batch`` (K1 float32/sum, then K2 on
+    the card); only the [B, T] paths come back. The sums are ``np.add.at``
+    over each batch's frames in frame order, which adds in index order, so
+    they equal the reference's frame-by-frame sums bit for bit.
+    """
+    from mogasr_torch.hmm.triphone import contexts_of
+
+    keys: Dict[tuple, int] = {}
+    occ = np.zeros(0)
+    sx = sxx = None
+    params = kernel_params(gmm_mono, "float32")
+    for fb in batches:
+        res, _labels, _graphs = align_batch(fb, gmm_mono, lexicon, topo, params=params)
+        paths = res.path.cpu().numpy()
+        feats = fb.feats.cpu().numpy()
+        nf = fb.n_frames.cpu().numpy()
+        idx_parts, x_parts = [], []
+        for b in range(fb.size):
+            words = fb.words[b]
+            pids = lexicon.words_to_phone_ids(words, oov="sil") if words else [lexicon.sil_id]
+            g = gr.align_graph(topo, pids)
+            ctxs = contexts_of(pids, lexicon.sil_id)
+            # first graph state of each chain (phone instance)
+            chain_start = np.zeros(len(pids), np.int64)
+            new_chain = np.nonzero(g.chain_id[1:] != g.chain_id[:-1])[0] + 1
+            chain_start[g.chain_id[new_chain]] = new_chain
+            path = paths[b, : int(nf[b])]
+            states, first = np.unique(path, return_index=True)
+            key_of_state = np.full(g.n_states, -1, np.int64)
+            for j in states[np.argsort(first)]:  # first-seen order
+                ci = g.chain_id[j]
+                key = (*ctxs[ci], int(j - chain_start[ci]))
+                key_of_state[j] = keys.setdefault(key, len(keys))
+            idx_parts.append(key_of_state[path])
+            x_parts.append(feats[b, : int(nf[b])])
+        if not idx_parts:
+            continue
+        if len(keys) > len(occ):
+            grow = len(keys) - len(occ)
+            D = feats.shape[-1]
+            occ = np.concatenate([occ, np.zeros(grow)])
+            sx = np.concatenate([sx if sx is not None else np.zeros((0, D)), np.zeros((grow, D))])
+            sxx = np.concatenate([sxx if sxx is not None else np.zeros((0, D)), np.zeros((grow, D))])
+        idx = np.concatenate(idx_parts)
+        x = np.concatenate(x_parts).astype(np.float64)
+        np.add.at(occ, idx, 1.0)
+        np.add.at(sx, idx, x)
+        np.add.at(sxx, idx, x ** 2)
+    return {key: (float(occ[i]), sx[i], sxx[i]) for key, i in keys.items()}
+
+
+def train_triphone(
+    batches: Sequence[FeatBatch],
+    lexicon: Lexicon,
+    topo: Topology,
+    gcfg: GmmConfig,
+    tcfg: TrainConfig,
+    gmm_mono: GmmSet,
+    target_pdfs: int = 200,
+    min_occ: float = 10.0,
+    logger=None,
+    mode: str = "viterbi",
+):
+    """Triphone recipe: mono align -> tie states -> init CD GMM -> CD EM.
+
+    Returns (TiedTriphones, TrainGmmResult), the reference's pair; the
+    result's ``setup_seconds`` holds "cd_stats" (``collect_cd_stats``), "tie"
+    (``hmm.triphone.tie_states``) and "cd_init" (the one-component CD
+    model). Decode with ``hmm.triphone.word_loop_graph_cd``.
+    """
+    from mogasr_torch.hmm import triphone as tri
+
+    t0 = time.perf_counter()
+    raw = collect_cd_stats(batches, gmm_mono, lexicon, topo)
+    t1 = time.perf_counter()
+    mean_stats = {k: (occ, (sx / max(occ, 1e-8)).astype(np.float64)) for k, (occ, sx, _sxx) in raw.items()}
+    tied = tri.tie_states(topo, mean_stats, target_pdfs, min_occ=min_occ)
+    t2 = time.perf_counter()
+
+    # init 1-comp CD GMM from tied stats (unseen pdfs -> global stats)
+    D = batches[0].feats.shape[-1]
+    occ = np.zeros(tied.n_pdfs)
+    sx = np.zeros((tied.n_pdfs, D))
+    sxx = np.zeros((tied.n_pdfs, D))
+    for (l, c, r, k), (o, s, ss) in raw.items():
+        pdf = tied.pdf_of(l, c, r, k)
+        occ[pdf] += o
+        sx[pdf] += s
+        sxx[pdf] += ss
+        # backoff pdfs also absorb all their contexts' stats
+        if c != lexicon.sil_id:
+            bo = tied.backoff[(c, k)]
+            if bo != pdf:
+                occ[bo] += o
+                sx[bo] += s
+                sxx[bo] += ss
+    g_occ = max(occ.sum(), 1e-8)
+    g_mean = sx.sum(0) / g_occ
+    g_var = np.maximum(sxx.sum(0) / g_occ - g_mean ** 2, gcfg.var_floor)
+    means = np.where(occ[:, None] >= 1.0, sx / np.maximum(occ[:, None], 1e-8), g_mean)
+    varis = np.where(
+        occ[:, None] >= 2.0,
+        np.maximum(sxx / np.maximum(occ[:, None], 1e-8) - means ** 2, gcfg.var_floor),
+        g_var,
+    )
+    gmm_cd = gmm_from_numpy(np.ones((tied.n_pdfs, 1)), means[:, None, :], varis[:, None, :],
+                            batches[0].feats.device)
+    t3 = time.perf_counter()
+
+    result = train_gmm(
+        batches, lexicon, topo, dataclasses.replace(gcfg, n_states=tied.n_pdfs), tcfg, logger=logger,
+        gmm=gmm_cd, mode=mode, align_fn=lambda pids: tri.align_graph_cd(tied, pids), n_pdfs=tied.n_pdfs,
+    )
+    result.setup_seconds.update(cd_stats=t1 - t0, tie=t2 - t1, cd_init=t3 - t2)
+    return tied, result

@@ -1,8 +1,11 @@
-"""Load a trained-system bundle (``gmm.npz`` + ``system.json``) for the port.
+"""Save and load a trained-system bundle (``gmm.npz`` + ``system.json``) for
+the port.
 
-Mirrors ``mogasr.utils.bundle.load_system``. The lexicon, topology and
-tied-triphone objects are the port's copies of the reference's numpy classes
-(``mogasr_torch.hmm``); the GMM becomes tensors.
+Mirrors ``mogasr.utils.bundle``: the same files and fields, so each
+package's ``load_system`` reads the other's bundles. The lexicon, topology
+and tied-triphone objects are the port's copies of the reference's numpy
+classes (``mogasr_torch.hmm``); the GMM is tensors here and float32 arrays
+in the files.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -21,6 +25,55 @@ from mogasr_torch.hmm.triphone import TiedTriphones
 from mogasr_torch.am.gmm import gmm_from_numpy
 
 _FORMAT_VERSION = 1
+
+
+def save_system(
+    path: str,
+    gmm,
+    topo: Topology,
+    fcfg: FrontendConfig,
+    tied: Optional[TiedTriphones] = None,
+    meta: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Write ``gmm.npz`` + ``system.json`` under ``path``; ``system.json`` is
+    written to a temporary file and renamed into place."""
+    os.makedirs(path, exist_ok=True)
+
+    def f32(a):
+        return a.detach().cpu().numpy().astype(np.float32) if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
+
+    np.savez(os.path.join(path, "gmm.npz"), weights=f32(gmm.weights), means=f32(gmm.means), vars=f32(gmm.vars))
+    lex = topo.lexicon
+    doc: Dict[str, Any] = {
+        "format_version": _FORMAT_VERSION,
+        "lexicon": {
+            "phones": list(lex.phones),
+            "prons": {w: list(lex.prons[w]) for w in lex.words},
+            "variants": {w: [list(v) for v in vs] for w, vs in lex.variants.items()},
+        },
+        "topology": {
+            "states_per_phone": topo.states_per_phone,
+            "sil_states": topo.sil_states,
+            "self_loop_logp": topo.self_loop_logp,
+            "advance_logp": topo.advance_logp,
+            "sil_self_loop_logp": topo.sil_self_loop_logp,
+            "sil_advance_logp": topo.sil_advance_logp,
+            "per_phone_self_prob": list(topo.per_phone_self_prob),
+        },
+        "frontend": dataclasses.asdict(fcfg),
+        "tied": None,
+        "meta": dict(meta or {}),
+    }
+    if tied is not None:
+        doc["tied"] = {
+            "n_pdfs": tied.n_pdfs,
+            "tying": [[l, c, r, k, pdf] for (l, c, r, k), pdf in tied.tying.items()],
+            "backoff": [[c, k, pdf] for (c, k), pdf in tied.backoff.items()],
+        }
+    tmp = os.path.join(path, "system.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, os.path.join(path, "system.json"))
 
 
 def load_system(path: str, device: torch.device):

@@ -781,3 +781,31 @@ def test_recurrent_models_kernel_route_matches_plain(dev, arch):
     assert lstm_cuda.LAUNCHES == before + (2 if arch == "lstm" else 4)
     valid = tn.valid_mask(nf, 30, dev)
     torch.testing.assert_close(got[valid], want[valid], rtol=0, atol=1e-5)
+
+
+def test_mmi_batch_on_k3_general_arm_matches_float64(dev):
+    """One MMI batch at acoustic scale 0.1: noisy features, a ragged batch
+    (a row without frames among them), the numerator on K3's chain arm over
+    the align graphs, the denominator on its general arm over the word loop;
+    statistics and the EBW update held to a float64 run at chip_smoke's
+    phase 17 limits (``chip_smoke.mmi_batch_check``)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    from mogasr_torch.hmm.lexicon import synthetic_lexicon
+
+    lex = synthetic_lexicon()
+    topo = build_topology(lex, TopologyConfig())
+    rng = np.random.default_rng(17)
+    S, K, D, T = topo.n_pdfs, 2, 39, 90
+    gmm = gmm_from_numpy(rng.dirichlet(np.ones(K), size=S), rng.standard_normal((S, K, D)),
+                         0.5 + rng.random((S, K, D)), dev)
+    words = [[str(w) for w in rng.choice(lex.words, n)] for n in (3, 2, 0, 1, 2)]
+    nf = torch.as_tensor([T, 61, 0, 40, 77], dtype=torch.int32, device=dev)
+    feats = torch.as_tensor((rng.standard_normal((len(words), T, D)) * 2.0).astype(np.float32), device=dev)
+    fb = pipe.FeatBatch([f"u{i}" for i in range(len(words))], feats, nf, words)
+    den_graph = pipe.word_decode_graph(lex, topo, DecodeConfig(acoustic_scale=chip_smoke.MMI_SCALE))
+    out = chip_smoke.mmi_batch_check(gmm, fb, lex, topo, den_graph)
+    assert out["numerator"]["arms"] == [fb_cuda.ARM_CHAIN] * len(words)
+    assert out["denominator"]["arms"] == [fb_cuda.ARM_GENERAL] * len(words)
+    assert max(out["denominator"]["stats_err"].values()) <= chip_smoke.MMI_STATS_TOL

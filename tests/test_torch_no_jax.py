@@ -23,7 +23,10 @@ def test_port_imports_without_jax():
     for name in ("mogasr_torch.pipeline", "mogasr_torch.am.gmm_cuda", "mogasr_torch.am.em",
                  "mogasr_torch.decoder.fb_cuda", "mogasr_torch.hmm.triphone", "mogasr_torch.eval.wer",
                  "mogasr_torch.am.neural", "mogasr_torch.am.params", "mogasr_torch.am.fast_lstm",
-                 "mogasr_torch.am.lstm_cuda", "mogasr_torch.am.quantize"):
+                 "mogasr_torch.am.lstm_cuda", "mogasr_torch.am.quantize", "mogasr_torch.am.mmi",
+                 "mogasr_torch.am.smbr", "mogasr_torch.utils.checkpoint", "mogasr_torch.utils.metrics",
+                 "mogasr_torch.utils.bundle", "mogasr_torch.cli.common", "mogasr_torch.cli.train_gmm",
+                 "mogasr_torch.recipes.train_headline", "mogasr_torch.recipes.decode_held_out"):
         assert name in modules
     code = "\n".join([
         "import sys",

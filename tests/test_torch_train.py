@@ -1,6 +1,8 @@
 """The port's GMM training path against the JAX pipeline on the CPU: flat
 start, alignment, EM in both modes (splitting to K = 4, re-estimated
-transitions) on a small monophone system, held-out evaluation, and one
+transitions) on a small monophone system, EM checkpoint resume (against the
+port's own uninterrupted run, and against JAX's resume through orbax),
+held-out evaluation, and one
 Baum-Welch E-step at the full width of the headline bundle (1168 pdfs x 16
 components x 39 dims, tied-triphone align graphs).
 
@@ -35,6 +37,7 @@ from mogasr_torch.data import synthetic as syn
 from mogasr_torch.hmm import triphone as tri
 from mogasr_torch.hmm.lexicon import synthetic_lexicon
 from mogasr_torch.hmm.topology import build_topology
+from mogasr_torch.utils import checkpoint as ckpt
 from mogasr_torch.utils.bundle import load_system
 
 CPU = torch.device("cpu")
@@ -55,6 +58,17 @@ PARAM_ATOL = {"viterbi": 1e-4, "baum-welch": 1e-2}
 def _clear_jax_caches():
     yield
     jax.clear_caches()
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: it issues many small ops, and with
+    the suite's workers sharing the cores torch's thread pool spends its time
+    waiting for them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -124,13 +138,75 @@ def test_evaluate_matches_jax(small):
     assert ours == theirs
 
 
-def test_train_gmm_rejects_ckpt_dir_and_unknown_mode(small, tmp_path):
+def test_train_gmm_rejects_ckpt_dir_and_unknown_mode(small, tmp_path, one_thread):
+    """An unknown EM mode, and an EM checkpoint written for another
+    [n_states, n_components, mode] fingerprint, raise ValueError."""
     lex, topo, batches, *_ = small
     gcfg, tcfg = GmmConfig(n_states=topo.n_pdfs, n_components=1), TrainConfig(num_em_iters=1)
-    with pytest.raises(NotImplementedError):
-        pipe.train_gmm(batches, lex, topo, gcfg, tcfg, ckpt_dir=str(tmp_path))
     with pytest.raises(ValueError):
         pipe.train_gmm(batches, lex, topo, gcfg, tcfg, mode="mmi")
+    ck = str(tmp_path / "em")
+    pipe.train_gmm(batches, lex, topo, GmmConfig(n_states=topo.n_pdfs, n_components=2),
+                   TrainConfig(num_em_iters=1), ckpt_dir=ck)
+    for gcfg, mode in ((GmmConfig(n_states=topo.n_pdfs, n_components=4), "viterbi"),
+                       (GmmConfig(n_states=topo.n_pdfs, n_components=2), "baum-welch")):
+        with pytest.raises(ValueError, match="different config"):
+            pipe.train_gmm(batches, lex, topo, gcfg, TrainConfig(num_em_iters=2), mode=mode, ckpt_dir=ck)
+
+
+def _assert_same_run(a, b):
+    assert a.history == b.history
+    for x, y in zip(a.gmm, b.gmm):
+        assert torch.equal(x, y)
+    assert a.topo == b.topo
+
+
+@pytest.mark.parametrize("mode", ["viterbi", "baum-welch"])
+def test_train_gmm_resume_is_bitwise(small, tmp_path, one_thread, mode):
+    """Stopped after 3 iterations and resumed to 5 from the EM checkpoint:
+    the uninterrupted run, bit for bit (ungated splits at iterations 2 and 4,
+    re-estimated transitions in Viterbi EM)."""
+    lex, topo, batches, *_ = small
+    gcfg = GmmConfig(n_states=topo.n_pdfs, n_components=4)
+    assert gcfg.min_split_occ == 0.0
+    ck = str(tmp_path / "em")
+    whole = pipe.train_gmm(batches, lex, topo, gcfg, TrainConfig(num_em_iters=5), mode=mode,
+                           reestimate_transitions=True)
+    first = pipe.train_gmm(batches, lex, topo, gcfg, TrainConfig(num_em_iters=3), mode=mode,
+                           reestimate_transitions=True, ckpt_dir=ck)
+    assert ckpt.all_steps(ck) == [1, 2, 3]
+    resumed = pipe.train_gmm(batches, lex, topo, gcfg, TrainConfig(num_em_iters=5), mode=mode,
+                             reestimate_transitions=True, ckpt_dir=ck)
+    assert ckpt.all_steps(ck) == [1, 2, 3, 4, 5]
+    assert first.history == whole.history[:3]
+    _assert_same_run(resumed, whole)
+    assert len(resumed.seconds) == len(resumed.stage_seconds) == 2
+    assert set(resumed.setup_seconds) == {"restore"} and set(whole.setup_seconds) == {"flat_start"}
+    # a run that finds its last step done only restores it
+    again = pipe.train_gmm(batches, lex, topo, gcfg, TrainConfig(num_em_iters=5), mode=mode,
+                           reestimate_transitions=True, ckpt_dir=ck)
+    _assert_same_run(again, whole)
+    assert again.seconds == []
+
+
+def test_train_gmm_resume_matches_jax_with_gated_splits(small, tmp_path, one_thread):
+    """With min_split_occ > 0 the first split after a resume is ungated in
+    the reference (the occupancies are not saved): the port's stop (after 2
+    iterations) and resume (to 3, splitting at once) equals JAX's through
+    orbax, and differs from the uninterrupted run."""
+    lex, topo, batches, jlex, jtopo, jbatches = small
+    gcfg = GmmConfig(n_states=topo.n_pdfs, n_components=2, min_split_occ=5.0)
+    jgcfg = JaxGmmConfig(n_states=jtopo.n_pdfs, n_components=2, min_split_occ=5.0)
+    ours = [pipe.train_gmm(batches, lex, topo, gcfg, TrainConfig(num_em_iters=n), ckpt_dir=str(tmp_path / "pt"))
+            for n in (2, 3)][1]
+    theirs = [jax_pipe.train_gmm(jbatches, jlex, jtopo, jgcfg, JaxTrainConfig(num_em_iters=n),
+                                 ckpt_dir=str(tmp_path / "jax")) for n in (2, 3)][1]
+    np.testing.assert_allclose(ours.history, theirs.history, rtol=HISTORY_RTOL["viterbi"])
+    for a, b in zip(ours.gmm, theirs.gmm):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=PARAM_ATOL["viterbi"])
+    whole = pipe.train_gmm(batches, lex, topo, gcfg, TrainConfig(num_em_iters=3))
+    assert len(ours.history) == 3 and ours.gmm.n_components == 2
+    assert int((whole.gmm.weights == 0).sum()) > int((ours.gmm.weights == 0).sum())
 
 
 def test_headline_width_baum_welch_e_step_matches_jax():
