@@ -109,7 +109,31 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
 18. ``python -m mogasr_torch.cli.train_gmm`` on a small v2 corpus with
    --triphones, --mmi, --smbr and --bundle-out, killed once its first EM
    iteration is saved and run again: it resumes from em_ckpt, and its bundle
-   loads.
+   loads;
+19. LM decoding (``decoder.lm_viterbi``, plain PyTorch ops on the card) of
+   the 768 held-out utterances on K1 bf16/max emissions, batch by batch,
+   with the launch counts set to 0 before and read after: a uniform bigram
+   without insertion penalty decodes K2's transcripts over the same word loop
+   for every utterance; an add-alpha and a Kneser-Ney bigram estimated from
+   the transcripts of phase 8's training corpus, each WER held to MAX_WER
+   beside the loop decode's; the card's path and entry flags equal the
+   CPU's on 32 rows of the 600-frame batch; on that batch the recursion's
+   ms a batch and a frame (with and without the lattice), its device events
+   a frame and the card's busy share from ``torch.profiler``, beside K2;
+20. ``pipeline.decode_batch_lattices`` on the 600-frame batch with a prune
+   beam (host seconds of ``lattices_from_pass``), 16 of its lattices equal to
+   the CPU's arc for arc, trigram rescoring, 3-best, confusion-network and
+   N-best MBR decoding of them (WER of each); ``decode_batch_with_confidence``
+   and ``decode_batch_nbest`` on the 768 utterances through K2 + K3's general
+   arm (launch counts set to 0 before and read after) against the plain path
+   on the card (the same words, confidences within CONF_ATOL, the same order
+   of alternatives more than CONF_ATOL apart); K3 timed at the decode batch's
+   shape, 256 x 600 x 3048, beside its bound and the plain passes;
+21. ``python -m mogasr_torch.cli.decode`` (the bundle's LM path on 48 v2
+   utterances; the lattice flags, --trigram-rescore --nbest --consensus cn
+   --lattice-out, on the small lexicon) and ``python -m
+   mogasr_torch.cli.search``, run at once: each exits 0 and logs its record,
+   and the lattice archive reads back.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -269,6 +293,34 @@ CLI_ARGS = ["--synthetic-v2", "48", "--num-components", "2", "--num-iters", "6",
             "--mmi", "1", "--smbr", "1"]
 CLI_TIMEOUT_S = 300
 
+# LM decoding, lattices and confidence (phases 19-21). The LM recursion is
+# plain PyTorch ops, elementwise or exact reductions (first-index max, the
+# segment max and argmin through scatter_reduce's atomic amax/amin), so the
+# card's path and entry flags equal the CPU's bitwise on a slice of a decode
+# batch; its score is held to LM_SCORE_RTOL.
+LM_CPU_ROWS, LM_SCORE_RTOL = 32, 1e-5
+# Lattices: a prune beam keeps a batch's lattices small (an unpruned one
+# holds ~n_frames x 301 arcs, ~165k an utterance); LAT_CHECK_UTTS of them
+# against the CPU's lattices of the same emissions, arc for arc, the scores
+# within LAT_SCORE_ATOL (they are exit score minus entry base, ~1e3 each).
+LAT_PRUNE_BEAM, LAT_CHECK_UTTS, LAT_SCORE_ATOL = 10.0, 16, 1e-3
+# Confidence through K2 + K3's general arm against the plain path on the
+# card: K3's float32 posteriors sit up to 2.5e-4 from plain float32 on the
+# word loop (the logsumexp's order), and both round to 4 decimals.
+CONF_ATOL = 1e-3
+# The decode CLI twin (phase 21): the LM path at the bundle's width on phase
+# 18's v2 corpus size; the lattice flags on the small lexicon's shortest
+# two-word utterance (seed 34, 72 frames): the reference CLI has no prune
+# beam, and its trigram passes over an unpruned lattice cost arcs x LM
+# contexts on the host (~15 s for this one utterance on a CPU core).
+CLI_DECODE_RUNS = {
+    "bundle LM path": ["--synthetic-v2", "48", "--bundle", os.path.join("benchmarks", "headline"), "--bigram-lm",
+                       "--lm-smoothing", "kn"],
+    "lattice flags": ["--synthetic", "1", "--synthetic-seed", "34", "--bigram-lm", "--trigram-rescore", "--nbest",
+                      "3", "--consensus", "cn"],
+}
+CLI_SEARCH_ARGS = ["--synthetic", "2", "--synthetic-seed", "34", "--terms", "thin,way,bee day", "--threshold", "0.05"]
+
 
 def phase(n: int, msg: str) -> None:
     print(f"phase {n}: {msg}", flush=True)
@@ -310,18 +362,19 @@ def kernel_device_ms(fn, names, reps: int):
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    out = {}
-    for name in names:
-        us = sum(e.device_time_total for e in events if name in e.key)
-        if us <= 0:
-            raise RuntimeError(f"the profiler recorded no device time for {name}")
-        out[name] = us / 1e3 / reps
-    return out
+    # a profiling window late in a long run has come back without the
+    # kernels' device activity (phase 20 on an H100): one more, then fail
+    for _attempt in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        us = {name: sum(e.device_time_total for e in events if name in e.key) for name in names}
+        if min(us.values()) > 0:
+            return {name: t / 1e3 / reps for name, t in us.items()}
+    missing = [name for name, t in us.items() if t <= 0]
+    raise RuntimeError(f"the profiler recorded no device time for {missing}")
 
 
 def device_profile(fn, top: int = 5, names=()):
@@ -1254,6 +1307,317 @@ def scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_ex
     ]
 
 
+def _same_alternatives(got, want) -> bool:
+    """Two ranked alternative lists agree: the same words (but for one within
+    CONF_ATOL of the 0.01 cut-off), posteriors within CONF_ATOL, and the
+    words whose posteriors are more than CONF_ATOL apart in the same order."""
+    a, b = dict(got), dict(want)
+    if any(abs(a.get(w, b.get(w)) - 0.01) > CONF_ATOL for w in a.keys() ^ b.keys()):
+        return False
+    rank = {w: i for i, (w, _p) in enumerate(got)}
+    common = [w for w, _p in want if w in a]
+    for i, w in enumerate(common):
+        if abs(a[w] - b[w]) > CONF_ATOL:
+            return False
+        if any(b[w] - b[v] > CONF_ATOL and rank[w] > rank[v] for v in common[i + 1:]):
+            return False
+    return True
+
+
+def lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg, train_texts, loop_wer) -> dict:
+    """Phases 19 (LM decoding at full width) and 20 (lattices, confidence and
+    n-best). Returns the launches of their paths and K3's numbers at the
+    decode batch's shape for the kernels line."""
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import gmm_cuda
+    from mogasr_torch.data.batching import make_batches
+    from mogasr_torch.decoder import confusion as cn
+    from mogasr_torch.decoder import fb_cuda
+    from mogasr_torch.decoder import forward_backward as fbd
+    from mogasr_torch.decoder import lattice as lat_mod
+    from mogasr_torch.decoder import lm_viterbi as lv
+    from mogasr_torch.decoder import viterbi_cuda
+    from mogasr_torch.eval.wer import corpus_wer
+    from mogasr_torch.hmm import triphone as tri
+    from mogasr_torch.lm import ngram
+
+    def zero_counts():
+        gmm_cuda.LAUNCHES = viterbi_cuda.LAUNCHES = 0
+        fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = fb_cuda.COMBINE_LAUNCHES = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"gmm_score": gmm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES, "fb_forward": fb_cuda.FWD_LAUNCHES,
+                "fb_backward": fb_cuda.BWD_LAUNCHES, "fb_combine": fb_cuda.COMBINE_LAUNCHES}
+
+    def words_of(toks):
+        return [[w.lower() for w in t if w not in pipe.DROP_TOKENS] for t in toks]
+
+    # ---- phase 19: LM decoding of the held-out set on phase 5's emissions
+    toks = sorted(set(graph.labels))
+    lms = {"bigram": ngram.estimate_bigram(train_texts, toks), "kneser-ney": ngram.estimate_bigram_kn(train_texts, toks)}
+    graph0 = tri.word_loop_graph_cd(tied, insertion_penalty=0.0)
+    dcfg0 = type(dcfg)(acoustic_scale=dcfg.acoustic_scale, word_insertion_penalty=0.0)
+    uniform = ngram.uniform_bigram(graph0.labels)
+    batches = list(make_batches(corpus, bcfg, fcfg))
+    frontends = pipe.frontends_for(batches, fcfg, dev)
+    params = gmm_cuda.kernel_params(gmm, "bfloat16", mode="max")
+    graphs = pipe.decode_graphs(graph, bcfg.batch_size, dev)
+    graphs0 = pipe.decode_graphs(graph0, bcfg.batch_size, dev)
+
+    def lm_decode(fb, ll, lm, with_lattice=False):
+        return lv.viterbi_lm(ll, graph, lm, fb.n_frames, acoustic_scale=dcfg.acoustic_scale,
+                             insertion_penalty=dcfg.word_insertion_penalty, with_lattice=with_lattice)
+
+    def add_counts(total):
+        for k, n in counts().items():
+            total[k] = total.get(k, 0) + n
+
+    # the LM decode path (K1, then the recursion, which launches no kernel of
+    # the port) and the checks beside it (K2 decodes) are counted apart
+    t_start = time.perf_counter()
+    scored, refs = [], []
+    hyps = {name: [] for name in ("loop", *lms)}
+    lm_wall = {name: 0.0 for name in lms}
+    lm_launches, check_launches = {}, {}
+    uniform_diff, n_frames_total = 0, 0
+    for batch in batches:
+        zero_counts()
+        fb = pipe.featurize_batch(batch, frontends[batch.waves.shape[1]], dev)
+        ll = pipe.score_batch(fb.feats, gmm, True, "bfloat16", "max", params)
+        # (b) the two bigrams
+        for name, lm in lms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lv.path_to_tokens_lm(lm_decode(fb, ll, lm), graph)
+            lm_wall[name] += time.perf_counter() - t0
+            hyps[name] += words_of(out[: fb.size])
+        add_counts(lm_launches)
+        zero_counts()
+        scored.append((fb, ll))
+        refs += [[w.lower() for w in words] for words in fb.words[: fb.size]]
+        n_frames_total += int(fb.n_frames.sum())
+        # (a) a uniform bigram without insertion penalty decodes as K2 over the word loop
+        k2_toks = pipe.decode_batch(fb, ll, graph0, dcfg0, drop_tokens=(), graphs=graphs0)
+        u_toks = lv.path_to_tokens_lm(lv.viterbi_lm(ll, graph0, uniform, fb.n_frames,
+                                                    acoustic_scale=dcfg.acoustic_scale), graph0)[: fb.size]
+        uniform_diff += sum(a != b for a, b in zip(u_toks, k2_toks))
+        # (b) the loop decode beside them
+        hyps["loop"] += [[w.lower() for w in t] for t in pipe.decode_batch(fb, ll, graph, dcfg, graphs=graphs)]
+        add_counts(check_launches)
+    lm_path_s = time.perf_counter() - t_start
+    if uniform_diff:
+        raise RuntimeError(f"the uniform-LM decode differs from K2's on {uniform_diff} utterances")
+    if lm_launches["gmm_score"] == 0 or any(n for k, n in lm_launches.items() if k != "gmm_score"):
+        raise RuntimeError(f"the LM decode path must launch K1 and no other kernel of the port: {lm_launches}")
+    if check_launches["viterbi"] == 0:
+        raise RuntimeError(f"the uniform-LM check and the loop decode did not go through K2: {check_launches}")
+    wers = {name: corpus_wer(refs, h)[0] for name, h in hyps.items()}
+    if len(refs) != len(corpus) or any(w > MAX_WER for w in wers.values()):
+        raise RuntimeError(f"LM decoding of {len(refs)} utterances: WER {wers} (limit {MAX_WER})")
+    # (c) the card against the CPU on a slice of the widest batch
+    fb_w, ll_w = max(scored, key=lambda p: p[1].shape[1])
+    B, T, _ = ll_w.shape
+    rows = slice(0, LM_CPU_ROWS)
+    part = pipe.FeatBatch(fb_w.utt_ids[rows], fb_w.feats[rows], fb_w.n_frames[rows], fb_w.words[rows])
+    got = lm_decode(part, ll_w[rows], lms["bigram"])
+    want = lv.viterbi_lm(ll_w[rows].cpu(), graph, lms["bigram"], part.n_frames.cpu(),
+                         acoustic_scale=dcfg.acoustic_scale, insertion_penalty=dcfg.word_insertion_penalty)
+    score_rel = float(((got.score.cpu().double() - want.score.double()) / want.score.double().abs()).abs().max())
+    if not (torch.equal(got.path.cpu(), want.path) and torch.equal(got.entered.cpu(), want.entered)) \
+            or score_rel > LM_SCORE_RTOL:
+        raise RuntimeError(f"viterbi_lm on the card differs from the CPU on {LM_CPU_ROWS} rows (score rel "
+                           f"{score_rel:.3g})")
+    # K3 at the decode batch's shape (its general arm over the word loop),
+    # timed before the recursion's long profile below, printed in phase 20
+    graphs_w = graphs[1]
+
+    def k3():
+        return fb_cuda.forward_backward(ll_w, graphs_w, fb_w.n_frames, acoustic_scale=dcfg.acoustic_scale)
+
+    k3_call = per_call_ms(k3, 10)
+    k3_dev = kernel_device_ms(k3, ("fb_forward_kernel", "fb_backward_kernel", "fb_combine_kernel"), 3)
+    k3_bounds = fb_bounds(graphs_w, fb_w.n_frames, T)
+    emit_graph = fbd.gather_emissions(ll_w, graphs_w["emit_id"], dcfg.acoustic_scale)
+    plain_fwd_ms, (alphas, loglik) = timed(lambda: fbd.forward_pass(emit_graph, graphs_w, fb_w.n_frames), 1)
+    plain_bwd_ms, _ = timed(lambda: fbd.backward_pass(emit_graph, graphs_w, fb_w.n_frames, alphas, loglik), 1)
+    k3_loglik = k3().loglik
+    k3_err = float((k3_loglik - loglik).abs().max())
+    if not torch.allclose(k3_loglik, loglik, rtol=FB_LOGLIK_RTOL, atol=0.0):
+        raise RuntimeError(f"K3 at B={B} T={T}: loglik off by {k3_err} from plain f32 (rtol {FB_LOGLIK_RTOL})")
+    del k3_loglik
+    del emit_graph, alphas
+    k3_entry = {"B": B, "T": T, "J": graph.n_states, "arm": "general", "pair_ms": k3_call, **k3_dev,
+                "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms, "loglik_max_abs_err": k3_err,
+                "bounds": k3_bounds, "launches_per_batch": 2}
+    # (d) the recursion's time and device work on the widest batch
+    lm_ms, _ = timed(lambda: lm_decode(fb_w, ll_w, lms["bigram"]), 3)
+    lat_ms, _ = timed(lambda: lm_decode(fb_w, ll_w, lms["bigram"], True), 3)
+    prof_wall, prof_dev, prof_top, prof_all = device_profile(lambda: lm_decode(fb_w, ll_w, lms["bigram"]), names=("",))
+    lm_events = prof_all[""][1]
+    k2_ms, _ = timed(lambda: viterbi_cuda.viterbi(ll_w, graphs[1], fb_w.n_frames, acoustic_scale=dcfg.acoustic_scale),
+                     5)
+    phase(19, f"LM decoding of the {len(refs)} held-out utterances ({len(batches)} batches, {n_frames_total} frames) on "
+          f"K1 bf16/max emissions, bigrams over {len(toks)} tokens from the {len(train_texts)} transcripts of phase 8's "
+          f"corpus: WER loop (K2) {wers['loop']:.4f} (phase 5: {loop_wer:.4f}), bigram {wers['bigram']:.4f}, Kneser-Ney "
+          f"{wers['kneser-ney']:.4f} (limit {MAX_WER}); uniform bigram without insertion penalty = K2's transcripts on "
+          f"all {len(refs)}; the card = the CPU on {LM_CPU_ROWS} rows of the B={B} T={T} batch (path, entered bitwise, "
+          f"score max rel {score_rel:.3g}); on that batch viterbi_lm {lm_ms:.1f} ms ({lm_ms / T:.3f} ms a frame; with "
+          f"the lattice {lat_ms:.1f} ms) against K2's {k2_ms:.3f} ms; profiled: {prof_wall:.1f} ms wall, {prof_dev:.1f} "
+          f"ms on the device ({100 * prof_dev / prof_wall:.1f}% busy), {lm_events} device events "
+          f"({lm_events / T:.1f} a frame), top " + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof_top)
+          + f"; wall s over the corpus: bigram {lm_wall['bigram']:.2f}, Kneser-Ney {lm_wall['kneser-ney']:.2f}, "
+          f"the phase {lm_path_s:.1f}; launches: LM decode {lm_launches}, uniform-LM check and loop decode "
+          f"{check_launches}")
+
+    # ---- phase 20: lattices, confidence and n-best
+    lm = lms["bigram"]
+    t0 = time.perf_counter()
+    lats, _res = pipe.decode_batch_lattices(fb_w, ll_w, graph, lm, dcfg, prune_beam=LAT_PRUNE_BEAM)
+    lat_call_s = time.perf_counter() - t0
+    _r, lattice = lm_decode(fb_w, ll_w, lm, True)
+    arrays = [a.cpu().numpy() for a in lattice]
+    nf_host = fb_w.n_frames.cpu().numpy()
+    t0 = time.perf_counter()
+    lats_again = lat_mod.lattices_from_pass(*arrays, nf_host, graph.labels, prune_beam=LAT_PRUNE_BEAM)
+    host_s = time.perf_counter() - t0
+    del lattice, arrays
+    n_check = min(LAT_CHECK_UTTS, fb_w.size)
+    part = pipe.FeatBatch(fb_w.utt_ids[:n_check], fb_w.feats[:n_check].cpu(), fb_w.n_frames[:n_check].cpu(),
+                          fb_w.words[:n_check])
+    cpu_lats, _ = pipe.decode_batch_lattices(part, ll_w[:n_check].cpu(), graph, lm, dcfg, prune_beam=LAT_PRUNE_BEAM)
+    lat_err = 0.0
+    for a, b, c in zip(lats, cpu_lats, lats_again):
+        if a.n_frames != b.n_frames or [(x.start, x.end, x.chain) for x in a.arcs] != \
+                [(x.start, x.end, x.chain) for x in b.arcs] or a.arcs != c.arcs:
+            raise RuntimeError("a lattice of the card differs from the CPU's arc for arc")
+        lat_err = max([lat_err] + [abs(x.score - y.score) for x, y in zip(a.arcs, b.arcs)])
+    if lat_err > LAT_SCORE_ATOL:
+        raise RuntimeError(f"lattice arc scores: card vs CPU {lat_err:.3g} > {LAT_SCORE_ATOL}")
+    trigram = ngram.estimate_trigram(train_texts, toks)
+    t0 = time.perf_counter()
+    second = {
+        "bigram 1-best (the lattice pass)": [lat_mod.rescore_lattice(x, lm)[0] for x in lats[:n_check]],
+        "trigram rescore": [lat_mod.rescore_lattice(x, trigram)[0] for x in lats[:n_check]],
+        "trigram 3-best, top": [(lat_mod.lattice_nbest(x, trigram, 3) or [([], 0.0)])[0][0] for x in lats[:n_check]],
+        "consensus (CN)": [cn.consensus_decode(cn.confusion_network(x, trigram))[0] for x in lats[:n_check]],
+        "N-best MBR": [cn.mbr_nbest_decode(x, trigram, n=16)[0] for x in lats[:n_check]],
+    }
+    second_s = time.perf_counter() - t0
+    refs_w = [[w.lower() for w in words] for words in fb_w.words[:n_check]]
+    second_wer = {k: corpus_wer(refs_w, words_of(v))[0] for k, v in second.items()}
+    n_arcs = [len(x.arcs) for x in lats]
+
+    # confidence and n-best over the 768 utterances, K2 + K3 and plain
+    zero_counts()
+    conf, nbest = [], []
+    for fb, ll in scored:
+        conf += pipe.decode_batch_with_confidence(fb, ll, graph, dcfg)
+        nbest += pipe.decode_batch_nbest(fb, ll, graph, dcfg)
+    conf_launches = counts()
+    arms = fb_cuda.LAST_ARMS.tolist()
+    if min(conf_launches["viterbi"], conf_launches["fb_forward"], conf_launches["fb_backward"]) == 0 or \
+            set(arms[0]) | set(arms[1]) != {fb_cuda.ARM_GENERAL}:
+        raise RuntimeError(f"confidence path launches {conf_launches}, K3 arms {arms}")
+    conf_p, nbest_p = [], []
+    for fb, ll in scored:
+        conf_p += pipe.decode_batch_with_confidence(fb, ll, graph, dcfg, use_kernels=False)
+        nbest_p += pipe.decode_batch_nbest(fb, ll, graph, dcfg, use_kernels=False)
+    if [[w for w, _c in row] for row in conf] != [[w for w, _c in row] for row in conf_p]:
+        raise RuntimeError("confidence: the words through K2 + K3 differ from the plain path's")
+    conf_err = max([0.0] + [abs(c - d) for r, s in zip(conf, conf_p) for (_w, c), (_v, d) in zip(r, s)])
+    if [[(d["best"], d["span"]) for d in r] for r in nbest] != [[(d["best"], d["span"]) for d in r] for r in nbest_p] \
+            or not all(_same_alternatives(d["alternatives"], e["alternatives"])
+                       for r, s in zip(nbest, nbest_p) for d, e in zip(r, s)):
+        raise RuntimeError("n-best: the kernels' alternatives differ from the plain path's")
+    if conf_err > CONF_ATOL:
+        raise RuntimeError(f"confidences: K2 + K3 vs plain max |diff| {conf_err:.3g} > {CONF_ATOL}")
+    n_words = sum(len(r) for r in conf)
+    mean_conf = sum(c for r in conf for _w, c in r) / max(n_words, 1)
+    hyp_conf = [[w.lower() for w, _c in r] for r in conf]
+    conf_wer = corpus_wer(refs, hyp_conf)[0]
+    phase(20, f"lattices: decode_batch_lattices on the B={B} T={T} batch, prune beam {LAT_PRUNE_BEAM:g}: "
+          f"{lat_call_s:.2f} s ({sum(n_arcs)} arcs for {fb_w.size} utterances, {min(n_arcs)}-{max(n_arcs)} each), "
+          f"lattices_from_pass {host_s:.3f} s on the host; {n_check} utterances' lattices = the CPU's arc for arc "
+          f"(scores max |diff| {lat_err:.3g}, limit {LAT_SCORE_ATOL}); on them (host {second_s:.2f} s) WER "
+          + ", ".join(f"{k} {v:.4f}" for k, v in second_wer.items())
+          + f"; confidence and n-best on the {len(conf)} utterances through K2 + K3 (arm general both ways): words "
+          f"= the plain path's, confidences max |diff| {conf_err:.3g} (limit {CONF_ATOL}), alternatives agree; "
+          f"{n_words} words, mean confidence {mean_conf:.4f}, WER {conf_wer:.4f}; launches {conf_launches}; K3 at "
+          f"B={B} T={T} J={graph.n_states}: K3f + K3b + combine {k3_call:.3f} ms a call in a run of 10 (bound "
+          f"{k3_bounds['pair'][0]:.4f} ms by {k3_bounds['pair'][1]}), K3f {k3_dev['fb_forward_kernel']:.3f} ms (bound "
+          f"{k3_bounds['fwd'][0]:.4f}), K3b {k3_dev['fb_backward_kernel']:.3f} ms (bound {k3_bounds['bwd'][0]:.4f}), "
+          f"combine {k3_dev['fb_combine_kernel']:.3f} ms (bound {k3_bounds['combine'][0]:.4f}); plain forward "
+          f"{plain_fwd_ms:.1f} ms, backward {plain_bwd_ms:.1f} ms; loglik max |err| {k3_err:.3g}")
+    del scored, ll_w
+    return {"lm_decode": lm_launches, "lm_check_decodes": check_launches, "confidence": conf_launches,
+            "k3_decode_batch": k3_entry}
+
+
+def decode_cli_phase(dev: torch.device) -> str:
+    """Phase 21: ``python -m mogasr_torch.cli.decode`` (the bundle's LM path on
+    a v2 corpus; the lattice flags, with --lattice-out, on the small lexicon)
+    and ``python -m mogasr_torch.cli.search``, all three at once. Each must
+    exit 0 and log its record; the lattice archive must read back. Returns
+    the phase's line."""
+    import shutil
+
+    from mogasr_torch.decoder.lattice import read_lattices
+
+    work = os.path.join(ROOT, "build", "chip_smoke_decode_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    runs = {}
+    for i, (name, args) in enumerate([*CLI_DECODE_RUNS.items(), ("search", CLI_SEARCH_ARGS)]):
+        d = os.path.join(work, f"run{i}")
+        module = "mogasr_torch.cli.search" if name == "search" else "mogasr_torch.cli.decode"
+        extra = ["--lattice-out", os.path.join(d, "lats.txt")] if name == "lattice flags" else []
+        cmd = [sys.executable, "-m", module, *args, *extra, "--run-dir", d, "--out", os.path.join(d, "out.jsonl"),
+               "--device", str(dev)]
+        runs[name] = (d, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+    t0 = time.perf_counter()
+    results = {}
+    try:
+        for name, (d, proc) in runs.items():
+            out, err = proc.communicate(timeout=max(CLI_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            if proc.returncode != 0:
+                raise RuntimeError(f"the CLI twin ({name}) failed ({proc.returncode}): {err[-2000:]}")
+            records = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+            with open(os.path.join(d, "out.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            results[name] = (records, lines, time.perf_counter() - t0)
+    finally:
+        for _d, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    text = []
+    for name, (records, lines, secs) in results.items():
+        stage = "kws" if name == "search" else "decode"
+        rec = [r for r in records if r.get("stage") == stage]
+        if len(rec) != 1 or not lines:
+            raise RuntimeError(f"the CLI twin ({name}) printed {records} and wrote {len(lines)} lines")
+        rec = rec[0]
+        if name == "search":
+            text.append(f"search ({' '.join(CLI_SEARCH_ARGS)}): {rec['hits']} hits in {rec['utts']} utterances")
+            continue
+        if name == "lattice flags":
+            lats = read_lattices(os.path.join(runs[name][0], "lats.txt"))
+            if len(lats) != rec["utts"] or not all(lat.arcs for lat in lats.values()) or \
+                    not all(len(x["nbest"]) > 0 for x in lines):
+                raise RuntimeError(f"the CLI twin's lattice archive or N-best lists are empty: {len(lats)} lattices")
+            extra = f", its lattice archive read back ({sum(len(x.arcs) for x in lats.values())} arcs)"
+        else:
+            extra = ""
+        text.append(f"decode {name} ({' '.join(CLI_DECODE_RUNS[name])}): {rec['utts']} utterances, WER "
+                    f"{rec['wer']:.4f}, {rec['wall_sec']:.2f} s in its timer{extra}")
+    shutil.rmtree(work, ignore_errors=True)
+    return "the CLI twins, run at once, exited 0 in " + f"{max(r[2] for r in results.values()):.1f} s: " + "; ".join(text)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -1637,13 +2001,19 @@ def main() -> None:
     k4_entry = hybrid_phases(dev)
     arm_entries = scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_exps_per_s)
     entry = training_entry_phases(dev, corpus, bcfg, meta)
+    lm_entry = lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg,
+                                 [words for _id, _wave, words in train_corpus], run.wer)
+    phase(21, decode_cli_phase(dev))
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
     paths = {"decode": decode_launches, "train": train_launches, "recipe": entry["recipe"],
-             "recipe_bundle_decode": entry["recipe_decode"], "mmi": entry["mmi"], "smbr": entry["smbr"]}
+             "recipe_bundle_decode": entry["recipe_decode"], "mmi": entry["mmi"], "smbr": entry["smbr"],
+             "lm_decode": lm_entry["lm_decode"], "lm_check_decodes": lm_entry["lm_check_decodes"],
+             "confidence": lm_entry["confidence"]}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
+    k3d = lm_entry["k3_decode_batch"]
     k1_main = ("bfloat16", "max")
     print(smi)
     print(json.dumps({"kernels": [
@@ -1677,7 +2047,12 @@ def main() -> None:
          "word_loop": {"arm": fb_loop["arm"], "max_abs_err": fb_loop["ll_err"], "ms": fb_loop["fb_forward_kernel"],
                        "plain_ms": fb_loop["plain_fwd_ms"], "bound_ms": fb_loop["bounds"]["fwd"][0],
                        "bound_by": fb_loop["bounds"]["fwd"][1]},
-         "mmi_denominator": entry["mmi_denominator"]},
+         "mmi_denominator": entry["mmi_denominator"],
+         "decode_batch": {"arm": k3d["arm"], "shape": [k3d["B"], k3d["T"], k3d["J"]], "ms": k3d["fb_forward_kernel"],
+                          "plain_ms": k3d["plain_fwd_ms"], "max_abs_err": k3d["loglik_max_abs_err"],
+                          "bound_ms": k3d["bounds"]["fwd"][0], "bound_by": k3d["bounds"]["fwd"][1],
+                          "launches_per_batch": k3d["launches_per_batch"], "pair_ms": k3d["pair_ms"],
+                          "pair_bound_ms": k3d["bounds"]["pair"][0]}},
         {"name": "fb_backward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
          "replaces": "mogasr/decoder/fb_pallas.py:77", "launches": launches["fb_backward"],
          "launches_by_path": by_path["fb_backward"], "arm": fb_train["arm"],
@@ -1689,11 +2064,15 @@ def main() -> None:
          "word_loop": {"arm": fb_loop["arm"], "max_abs_err": fb_loop["post_err"], "ms": fb_loop["fb_backward_kernel"],
                        "plain_ms": fb_loop["plain_bwd_ms"], "bound_ms": fb_loop["bounds"]["bwd"][0],
                        "bound_by": fb_loop["bounds"]["bwd"][1]},
+         "decode_batch": {"arm": k3d["arm"], "shape": [k3d["B"], k3d["T"], k3d["J"]], "ms": k3d["fb_backward_kernel"],
+                          "plain_ms": k3d["plain_bwd_ms"], "bound_ms": k3d["bounds"]["bwd"][0],
+                          "bound_by": k3d["bounds"]["bwd"][1], "launches_per_batch": k3d["launches_per_batch"]},
          # the combine launch (alpha + beta - loglik) and the three launches together
          "combine": {"launches": launches["fb_combine"], "ms": fb_train["fb_combine_kernel"],
                      "bound_ms": fb_train["bounds"]["combine"][0], "bound_by": fb_train["bounds"]["combine"][1],
                      "iteration_device_ms": prof_named["fb_combine_kernel"][0],
-                     "word_loop_ms": fb_loop["fb_combine_kernel"]},
+                     "word_loop_ms": fb_loop["fb_combine_kernel"], "decode_batch_ms": k3d["fb_combine_kernel"],
+                     "decode_batch_bound_ms": k3d["bounds"]["combine"][0]},
          "pair": {"ms": fb_train["pair_ms"], "one_call_ms": fb_train["pair_one_call_ms"],
                   "bound_ms": fb_train["bounds"]["pair"][0],
                   "bound_by": fb_train["bounds"]["pair"][1], "word_loop_ms": fb_loop["pair_ms"],

@@ -5,7 +5,8 @@ layout (``frontend/``, ``am/``, ``decoder/``, ``utils/``, ``pipeline.py``) so
 each module's counterpart is easy to find. Nothing here imports ``mogasr``,
 jax or flax: the reference's numpy-only modules that the port needs
 (``config``, ``hmm/``, ``data/{batching,synthetic}``, ``eval/wer``,
-``frontend/numpy_ref``) have their own copies here.
+``frontend/numpy_ref``, ``lm/{ngram,arpa}``,
+``decoder/{lattice,confusion,kws}``) have their own copies here.
 
 Device dispatch is by the tensor: a CUDA tensor goes through the hand-written
 kernels in ``csrc/`` (built with nvcc at first use, see ``_cuda``), a CPU

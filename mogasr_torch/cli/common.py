@@ -1,5 +1,6 @@
 """Shared CLI plumbing for the port's entry points: corpus loading, run
-directories, the device. The twin of the reference's cli/common.py.
+directories, the device, the GMM of the decode CLIs. The twin of the
+reference's cli/common.py (and of ``load_or_random_gmm`` in cli/score.py).
 
 The synthetic corpora (``--synthetic``, ``--synthetic-v2``) load as in the
 reference. Real corpora (``--manifest``, ``--librispeech-root``) and the
@@ -105,3 +106,25 @@ def device_of(name: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available (pass --device cpu to run on the CPU)")
     return dev
+
+
+def load_or_random_gmm(args, feat_dim: int, device: torch.device):
+    """The GMM of ``--gmm-ckpt`` (the port's checkpoint format, as
+    ``cli.train_gmm`` writes it), or else a random one of ``--num-states`` x
+    ``--num-components`` drawn from numpy seed 0 exactly as the reference's
+    cli/score.py draws it."""
+    from mogasr_torch.am.gmm import gmm_from_numpy
+
+    if args.gmm_ckpt:
+        from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+        raw = restore_checkpoint(args.gmm_ckpt)
+        return gmm_from_numpy(raw["weights"], raw["means"], raw["vars"], device)
+    rng = np.random.default_rng(0)
+    S, K = args.num_states, args.num_components
+    return gmm_from_numpy(
+        rng.dirichlet(np.ones(K), size=S).astype(np.float32),
+        rng.standard_normal((S, K, feat_dim)).astype(np.float32),
+        (0.5 + rng.random((S, K, feat_dim))).astype(np.float32),
+        device,
+    )

@@ -6,6 +6,12 @@ padded length-bucketed batches (``data.batching``). ``decode_corpus`` runs
 the whole path over a corpus, as ``bench.py`` does for the reference. The
 hybrid NN-HMM path scores with a neural frame classifier instead
 (``make_nn_scorer``: prior-scaled log-posteriors) and decodes the same way.
+Beyond the 1-best loop decode: ``decode_batch_lattices`` (the bigram LM
+decode of ``decoder.lm_viterbi`` with its one-pass word lattices, for the
+host's rescoring, N-best and confusion networks), and
+``decode_batch_with_confidence`` / ``decode_batch_nbest`` (Viterbi and
+forward-backward over the same loop graph: per-word posterior confidence
+and alternatives).
 
 Training: ``train_gmm`` runs EM over featurized batches, each utterance
 against its align graph: Viterbi EM (forced alignment, hard statistics) or
@@ -22,9 +28,12 @@ with ``layout="wide"``, or K5 with ``compute_dtype="int8"``), the Viterbi
 decoder, forward-backward and the LSTM recurrence are the hand-written
 kernels (``am.gmm_cuda``, ``decoder.viterbi_cuda``, ``decoder.fb_cuda``,
 ``am.lstm_cuda``); on the CPU they are the plain versions.
-``decode_corpus``, ``make_nn_scorer``, ``align_batch`` and ``batch_stats``
-take ``use_kernels=False`` to run the plain versions on any device, which is
-how the kernel path is checked against them on the card.
+``decode_corpus``, ``decode_batch``, ``decode_batch_with_confidence``,
+``decode_batch_nbest``, ``make_nn_scorer``, ``align_batch`` and
+``batch_stats`` take ``use_kernels=False`` to run the plain versions on any
+device, which is how the kernel path is checked against them on the card.
+The LM decoder has no kernel: it runs as plain PyTorch ops on the device of
+its scores.
 """
 
 from __future__ import annotations
@@ -291,6 +300,138 @@ def decode_batch_scored(
         toks = vit.path_to_tokens(res, graph.labels, graphs_np["chain_id"])
         res_scores = res.score[: fb.size].tolist()
     return [[t for t in seq if t not in drop_tokens] for seq in toks[: fb.size]], res_scores
+
+
+def decode_batch_lattices(
+    fb: FeatBatch,
+    scores: torch.Tensor,
+    graph: gr.Graph,
+    lm,
+    dcfg: DecodeConfig,
+    chain_entry_logp: Optional[np.ndarray] = None,
+    prune_beam: Optional[float] = None,
+):
+    """First-pass LM decode + word-lattice materialization: the reference's
+    signature and return value, (lattices, LmViterbiResult).
+
+    ``decoder.lm_viterbi.viterbi_lm(..., with_lattice=True)`` runs on the
+    device of ``scores``; its three [B, T, C] lattice arrays come to the host
+    for ``decoder.lattice.lattices_from_pass``. Feed the lattices to
+    ``lattice_nbest`` / ``rescore_lattice`` for N-best output or second-pass
+    (e.g. trigram) rescoring."""
+    from mogasr_torch.decoder.lattice import lattices_from_pass
+    from mogasr_torch.decoder.lm_viterbi import viterbi_lm
+
+    res, lattice = viterbi_lm(
+        scores, graph, lm, fb.n_frames, acoustic_scale=dcfg.acoustic_scale,
+        insertion_penalty=dcfg.word_insertion_penalty, chain_entry_logp=chain_entry_logp, with_lattice=True,
+    )
+    lat_sc, lat_st, lat_ba = (a.cpu().numpy() for a in lattice)
+    lats = lattices_from_pass(lat_sc, lat_st, lat_ba, fb.n_frames.cpu().numpy(), graph.labels,
+                              prune_beam=prune_beam)
+    return lats[: fb.size], res
+
+
+def _word_spans_and_posteriors(fb: FeatBatch, scores: torch.Tensor, graph: gr.Graph, dcfg: DecodeConfig,
+                               use_kernels: bool):
+    """The device work of ``decode_batch_with_confidence`` and
+    ``decode_batch_nbest``: Viterbi (K2) and forward-backward (K3f/K3b) over
+    the same loop graph, chain posteriors per frame. Returns, per utterance,
+    the (chain, start frame, end frame) span of each word of the 1-best path
+    (end exclusive), and the [B, T, C] chain posteriors on the host."""
+    n_chains = int(np.max(graph.chain_id)) + 1
+    _graphs_np, graphs = decode_graphs(graph, scores.shape[0], scores.device)
+    decode = viterbi_cuda.viterbi if use_kernels else vit.viterbi
+    posteriors = fb_cuda.forward_backward if use_kernels else fbd.forward_backward
+    res = decode(scores, graphs, fb.n_frames, acoustic_scale=dcfg.acoustic_scale, beam=dcfg.beam)
+    fbr = posteriors(scores, graphs, fb.n_frames, acoustic_scale=dcfg.acoustic_scale)
+    chain_post = fbd.state_posteriors_to_pdf(fbr.log_gamma, graphs["chain_id"], n_chains).cpu().numpy()
+    del fbr
+    path = res.path.cpu().numpy()
+    entered = res.entered.cpu().numpy()
+    nf = fb.n_frames.cpu().numpy()
+    spans: List[List[Tuple[int, int, int]]] = []
+    for b in range(fb.size):
+        row: List[Tuple[int, int, int]] = []
+        for t in range(int(nf[b])):
+            if entered[b, t]:
+                if row:
+                    row[-1] = (row[-1][0], row[-1][1], t)
+                row.append((int(graph.chain_id[path[b, t]]), t, int(nf[b])))
+        spans.append(row)
+    return spans, chain_post
+
+
+def decode_batch_with_confidence(
+    fb: FeatBatch,
+    scores: torch.Tensor,
+    graph: gr.Graph,
+    dcfg: DecodeConfig,
+    drop_tokens: Tuple[str, ...] = DROP_TOKENS,
+    with_times: bool = False,
+    *,
+    use_kernels: bool = True,
+):
+    """Viterbi decode + per-word posterior confidence: the reference's
+    signature and return value.
+
+    Confidence of a decoded word = its chain's posterior mass (from
+    forward-backward over the SAME decode graph), averaged over the word's
+    Viterbi time span. Returns [(word, confidence)] per utterance, or
+    [(word, confidence, start_frame, end_frame)] with ``with_times=True``
+    (end exclusive). K2 and K3f/K3b run unless ``use_kernels`` is False."""
+    spans, chain_post = _word_spans_and_posteriors(fb, scores, graph, dcfg, use_kernels)
+    out: List[List[tuple]] = []
+    for b, row in enumerate(spans):
+        words: List[tuple] = []
+        for c, t0, t1 in row:
+            label = graph.labels[c]
+            if label in drop_tokens:
+                continue
+            conf = float(chain_post[b, t0:t1, c].mean()) if t1 > t0 else 0.0
+            # f32 posteriors can overshoot 1 by ~1e-3
+            conf = round(min(max(conf, 0.0), 1.0), 4)
+            words.append((label, conf, t0, t1) if with_times else (label, conf))
+        out.append(words)
+    return out
+
+
+def decode_batch_nbest(
+    fb: FeatBatch,
+    scores: torch.Tensor,
+    graph: gr.Graph,
+    dcfg: DecodeConfig,
+    n_best: int = 5,
+    min_posterior: float = 0.01,
+    drop_tokens: Tuple[str, ...] = DROP_TOKENS,
+    *,
+    use_kernels: bool = True,
+):
+    """Confusion-network-style word alternatives per Viterbi time span: the
+    reference's signature and return value.
+
+    For each word span of the 1-best path, ranks all vocabulary chains by
+    their average forward-backward posterior over the span. Returns per
+    utterance: [{"best": word, "span": (t0, t1), "alternatives": [(word,
+    posterior), ...]}]. K2 and K3f/K3b run unless ``use_kernels`` is False."""
+    spans, chain_post = _word_spans_and_posteriors(fb, scores, graph, dcfg, use_kernels)
+    out = []
+    for b, row in enumerate(spans):
+        words = []
+        for c, t0, t1 in row:
+            label = graph.labels[c]
+            if label in drop_tokens or t1 <= t0:
+                continue
+            avg = chain_post[b, t0:t1].mean(axis=0)  # [C]
+            order = np.argsort(-avg)[: max(n_best, 1)]
+            alts = [
+                (graph.labels[int(ci)], round(float(min(avg[ci], 1.0)), 4))
+                for ci in order
+                if avg[ci] >= min_posterior and graph.labels[int(ci)] not in drop_tokens
+            ]
+            words.append({"best": label, "span": (t0, t1), "alternatives": alts})
+        out.append(words)
+    return out
 
 
 @dataclasses.dataclass

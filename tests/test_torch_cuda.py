@@ -809,3 +809,121 @@ def test_mmi_batch_on_k3_general_arm_matches_float64(dev):
     assert out["numerator"]["arms"] == [fb_cuda.ARM_CHAIN] * len(words)
     assert out["denominator"]["arms"] == [fb_cuda.ARM_GENERAL] * len(words)
     assert max(out["denominator"]["stats_err"].values()) <= chip_smoke.MMI_STATS_TOL
+
+
+def _small_word_loop(skips: bool = False):
+    """The small lexicon's multi-pronunciation word loop (an alternate
+    pronunciation of 'fish'), optionally with a (j-2 -> j) skip of log-prob
+    -0.7 inside every chain, its pronunciation priors, a bigram over it."""
+    import dataclasses
+
+    from mogasr_torch.data.synthetic import LEXICON
+    from mogasr_torch.hmm.lexicon import make_lexicon_multi
+    from mogasr_torch.lm import ngram
+
+    variants = {w: [list(LEXICON[w])] for w in ["fish", "cat", "see", "sun", "tree", "dog"]}
+    variants["fish"].append(["f", "iy", "sh"])
+    lex = make_lexicon_multi(variants)
+    topo = build_topology(lex, TopologyConfig())
+    graph, pron_logp = pipe.word_decode_graph_multi(lex, topo, DecodeConfig(word_insertion_penalty=1.0))
+    if skips:
+        skip = np.full(graph.n_states, -1e30, np.float32)
+        same = np.zeros(graph.n_states, bool)
+        same[2:] = graph.chain_id[2:] == graph.chain_id[:-2]
+        skip[same] = -0.7
+        graph = dataclasses.replace(graph, skip_logp=skip)
+    lm = ngram.estimate_bigram_kn([["fish", "cat"], ["see", "fish", "dog"], ["sun", "tree", "cat"]],
+                                  sorted(set(graph.labels)))
+    return topo, graph, pron_logp, lm
+
+
+def _word_emissions(topo, graph, rng, B, T):
+    """[B, T, P] float32 emissions that decode to words: noise, and each row
+    walking the states of random word chains, 3 frames a state, with its
+    pdf's score raised by 8."""
+    scores = rng.standard_normal((B, T, topo.n_pdfs)) * 3 - 10
+    for b in range(B):
+        t = 0
+        while t < T:
+            c = int(rng.integers(len(graph.labels)))
+            for j in np.nonzero(graph.chain_id == c)[0]:
+                scores[b, t:t + 3, graph.emit_id[j]] += 8.0
+                t += 3
+    return scores.astype(np.float32)
+
+
+@pytest.mark.parametrize("skips", [False, True])
+@pytest.mark.parametrize("with_lattice", [False, True])
+def test_viterbi_lm_on_the_card_matches_cpu(dev, with_lattice, skips):
+    """The LM recursion on the card against the same function on the CPU,
+    bitwise: its segment argmax reduces with exact atomic max/min, every
+    other step is elementwise or a first-index max."""
+    from mogasr_torch.decoder import lm_viterbi as lv
+
+    topo, graph, pron_logp, lm = _small_word_loop(skips)
+    rng = np.random.default_rng(23)
+    B, T = 5, 53
+    scores = torch.as_tensor(_word_emissions(topo, graph, rng, B, T))
+    nf = torch.as_tensor([T, 1, 0, 37, 52], dtype=torch.int32)
+    kw = dict(acoustic_scale=0.9, insertion_penalty=1.0, chain_entry_logp=pron_logp, with_lattice=with_lattice)
+    got = lv.viterbi_lm(scores.to(dev), graph, lm, nf.to(dev), **kw)
+    want = lv.viterbi_lm(scores, graph, lm, nf, **kw)
+    if with_lattice:
+        (got, lat), (want, lat_cpu) = got, want
+        assert all(a.device.type == "cuda" for a in lat)
+        for a, b in zip(lat, lat_cpu):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    assert got.path.device.type == "cuda"
+    for field in ("path", "entered", "score"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field))
+
+
+def test_confidence_and_nbest_through_k2_and_k3(dev):
+    """decode_batch_with_confidence / decode_batch_nbest through K2 and
+    K3f/K3b (the word loop: K3's general arm) against the plain versions on
+    the card: the same words and spans, confidences within 1e-3."""
+    topo, graph, _pron, _lm = _small_word_loop()
+    rng = np.random.default_rng(29)
+    B, T = 4, 61
+    scores = torch.as_tensor(_word_emissions(topo, graph, rng, B, T), device=dev)
+    fb = pipe.FeatBatch([f"u{i}" for i in range(3)], torch.zeros((B, T, 39), device=dev),
+                        torch.as_tensor([T, 40, 0, 1], dtype=torch.int32, device=dev), [[], [], []])
+    dcfg = DecodeConfig(word_insertion_penalty=1.0)
+    k2, k3 = viterbi_cuda.LAUNCHES, fb_cuda.FWD_LAUNCHES
+    got = pipe.decode_batch_with_confidence(fb, scores, graph, dcfg, with_times=True)
+    assert viterbi_cuda.LAUNCHES == k2 + 1 and fb_cuda.FWD_LAUNCHES == k3 + 1
+    assert set(fb_cuda.LAST_ARMS.flatten().tolist()) == {fb_cuda.ARM_GENERAL}
+    want = pipe.decode_batch_with_confidence(fb, scores, graph, dcfg, with_times=True, use_kernels=False)
+    assert [[(w, a, b) for w, _c, a, b in row] for row in got] == [[(w, a, b) for w, _c, a, b in row] for row in want]
+    assert any(got)
+    np.testing.assert_allclose([c for row in got for _w, c, _a, _b in row],
+                               [c for row in want for _w, c, _a, _b in row], atol=1e-3)
+    got_n = pipe.decode_batch_nbest(fb, scores, graph, dcfg, n_best=3)
+    want_n = pipe.decode_batch_nbest(fb, scores, graph, dcfg, n_best=3, use_kernels=False)
+    assert [[(d["best"], d["span"]) for d in row] for row in got_n] == \
+        [[(d["best"], d["span"]) for d in row] for row in want_n]
+    for row, wrow in zip(got_n, want_n):
+        for d, w in zip(row, wrow):
+            a, b = dict(d["alternatives"]), dict(w["alternatives"])
+            assert all(abs(a[k] - b[k]) <= 1e-3 for k in a.keys() & b.keys())
+
+
+def test_decode_batch_lattices_on_the_card_matches_cpu(dev):
+    from mogasr_torch.decoder import lm_viterbi as lv
+
+    topo, graph, pron_logp, lm = _small_word_loop()
+    rng = np.random.default_rng(31)
+    B, T = 3, 44
+    scores = torch.as_tensor(_word_emissions(topo, graph, rng, B, T))
+    nf = torch.as_tensor([T, 30, 9], dtype=torch.int32)
+    dcfg = DecodeConfig(word_insertion_penalty=1.0)
+
+    def fb_on(d):
+        return pipe.FeatBatch(["a", "b", "c"], torch.zeros((B, T, 39), device=d), nf.to(d), [[], [], []])
+
+    lats, res = pipe.decode_batch_lattices(fb_on(dev), scores.to(dev), graph, lm, dcfg, chain_entry_logp=pron_logp,
+                                           prune_beam=8.0)
+    want, want_res = pipe.decode_batch_lattices(fb_on(torch.device("cpu")), scores, graph, lm, dcfg,
+                                                 chain_entry_logp=pron_logp, prune_beam=8.0)
+    assert isinstance(res, lv.LmViterbiResult) and torch.equal(res.path.cpu(), want_res.path)
+    assert [(lat.n_frames, lat.arcs) for lat in lats] == [(lat.n_frames, lat.arcs) for lat in want]

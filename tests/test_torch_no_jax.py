@@ -26,7 +26,10 @@ def test_port_imports_without_jax():
                  "mogasr_torch.am.lstm_cuda", "mogasr_torch.am.quantize", "mogasr_torch.am.mmi",
                  "mogasr_torch.am.smbr", "mogasr_torch.utils.checkpoint", "mogasr_torch.utils.metrics",
                  "mogasr_torch.utils.bundle", "mogasr_torch.cli.common", "mogasr_torch.cli.train_gmm",
-                 "mogasr_torch.recipes.train_headline", "mogasr_torch.recipes.decode_held_out"):
+                 "mogasr_torch.recipes.train_headline", "mogasr_torch.recipes.decode_held_out",
+                 "mogasr_torch.lm.ngram", "mogasr_torch.lm.arpa", "mogasr_torch.decoder.lm_viterbi",
+                 "mogasr_torch.decoder.lattice", "mogasr_torch.decoder.confusion", "mogasr_torch.decoder.kws",
+                 "mogasr_torch.cli.decode", "mogasr_torch.cli.search"):
         assert name in modules
     code = "\n".join([
         "import sys",

@@ -1,7 +1,9 @@
 """The port's copies of the reference's numpy-only modules (config, hmm/,
-data/{batching,synthetic}, eval/wer, frontend/numpy_ref) against the
-originals: the same configs, graph arrays, batches, waves, WER counts and
-features, bit for bit."""
+data/{batching,synthetic}, eval/wer, frontend/numpy_ref, lm/{ngram,arpa},
+decoder/{lattice,confusion,kws}) against the originals: the same configs,
+graph arrays, batches, waves, WER counts, features, LM tables, ARPA files,
+lattices, N-best lists, confusion networks and keyword hits, bit for bit;
+the last five copies' sources are the originals but for their imports."""
 
 import dataclasses
 import os
@@ -12,18 +14,28 @@ import pytest
 import mogasr.config as jax_config
 from mogasr.data import batching as jax_batching
 from mogasr.data import synthetic as jax_syn
+from mogasr.decoder import confusion as jax_cn
+from mogasr.decoder import kws as jax_kws
+from mogasr.decoder import lattice as jax_lat
 from mogasr.eval import wer as jax_wer
 from mogasr.frontend import numpy_ref as jax_numpy_ref
 from mogasr.hmm import graph as jax_gr
 from mogasr.hmm import triphone as jax_tri
+from mogasr.lm import arpa as jax_arpa
+from mogasr.lm import ngram as jax_ngram
 from mogasr.utils.bundle import load_system as jax_load_system
 from mogasr_torch import config
 from mogasr_torch.data import batching
 from mogasr_torch.data import synthetic as syn
+from mogasr_torch.decoder import confusion as cn
+from mogasr_torch.decoder import kws
+from mogasr_torch.decoder import lattice as lat_mod
 from mogasr_torch.eval import wer
 from mogasr_torch.frontend import numpy_ref
 from mogasr_torch.hmm import graph as gr
 from mogasr_torch.hmm import triphone as tri
+from mogasr_torch.lm import arpa
+from mogasr_torch.lm import ngram
 from mogasr_torch.utils.bundle import load_system
 
 BUNDLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -122,3 +134,122 @@ def test_numpy_ref_features_match(held_out):
         for u in utts[:2]:
             np.testing.assert_array_equal(numpy_ref.extract_features_np(u.wave, cfg),
                                           jax_numpy_ref.extract_features_np(u.wave, jcfg))
+
+
+# ------------------------------------------- the LM and lattice toolchain
+
+COPIED = ["lm/ngram.py", "lm/arpa.py", "decoder/lattice.py", "decoder/confusion.py", "decoder/kws.py"]
+TOKENS = ["a", "b", "c", "<sil>"]
+TEXTS = [["a", "b"], ["a", "b", "c"], ["c"], ["b", "a", "a"], ["a", "<sil>", "b"]]
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_sources_match_originals(rel):
+    """Each copy is its original with the imports pointed at the port and one
+    line saying so, nothing else."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "mogasr", rel)) as f:
+        original = f.read()
+    with open(os.path.join(repo, "mogasr_torch", rel)) as f:
+        copy = f.read()
+    note = f"The port's copy of mogasr/{rel}, its imports pointed at mogasr_torch.\n"
+    assert copy.count(note) == 1
+    copy = copy.replace("\n" + note, "").replace("mogasr_torch.", "mogasr.")
+    assert copy == original
+
+
+def _lms(pkg):
+    return {
+        "bigram": pkg.estimate_bigram(TEXTS, TOKENS),
+        "bigram_kn": pkg.estimate_bigram_kn(TEXTS, TOKENS),
+        "trigram": pkg.estimate_trigram(TEXTS, TOKENS),
+        "trigram_kn": pkg.estimate_trigram_kn(TEXTS, TOKENS),
+        "grammar": pkg.grammar_bigram([["a", "b"], ["c", "a"]], tokens=TOKENS),
+        "uniform": pkg.uniform_bigram(TOKENS),
+    }
+
+
+def _lm_arrays(lm):
+    return {k: v for k, v in vars(lm).items() if isinstance(v, np.ndarray)}
+
+
+def _random_lattices(L, n=3, seed=0):
+    """Small lattices of the given package: every span of 1-3 frames holds an
+    arc of 2-3 random chains (the 4 tokens), random scores."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for u in range(n):
+        frames = 7 + 2 * u
+        arcs = []
+        for end in range(frames):
+            for start in range(max(0, end - 2), end + 1):
+                for c in rng.choice(len(TOKENS), size=int(rng.integers(2, 4)), replace=False):
+                    arcs.append(L.Arc(start, end, int(c), TOKENS[int(c)], float(rng.normal(-3.0, 1.5))))
+        out.append(L.Lattice(frames, arcs))
+    return out
+
+
+def test_ngram_copy_matches():
+    ours, theirs = _lms(ngram), _lms(jax_ngram)
+    for name in ours:
+        _assert_same_arrays(_lm_arrays(ours[name]), _lm_arrays(theirs[name]))
+        assert ours[name].tokens == theirs[name].tokens
+        for words in (["a", "b"], ["c", "c", "<sil>"], []):
+            assert ngram.sequence_logp(ours[name], words) == jax_ngram.sequence_logp(theirs[name], words)
+        start, step, final = ngram.lm_stepper(ours[name])
+        jstart, jstep, jfinal = jax_ngram.lm_stepper(theirs[name])
+        assert start() == jstart() and step(start(), 1) == jstep(jstart(), 1)
+
+
+def test_arpa_copy_matches(tmp_path):
+    ours, theirs = _lms(ngram), _lms(jax_ngram)
+    for name in ("bigram", "trigram_kn"):
+        a, b = str(tmp_path / f"{name}_ours.arpa"), str(tmp_path / f"{name}_theirs.arpa")
+        arpa.write_arpa(a, ours[name])
+        jax_arpa.write_arpa(b, theirs[name])
+        with open(a) as fa, open(b) as fb:
+            assert fa.read() == fb.read()
+        _assert_same_arrays(_lm_arrays(arpa.read_arpa_trigram(a, tokens=TOKENS)),
+                            _lm_arrays(jax_arpa.read_arpa_trigram(b, tokens=TOKENS)))
+
+
+@pytest.mark.parametrize("lm_name", ["bigram", "trigram_kn"])
+def test_lattice_confusion_kws_copies_match(tmp_path, lm_name):
+    lm, jlm = _lms(ngram)[lm_name], _lms(jax_ngram)[lm_name]
+    lats, jlats = _random_lattices(lat_mod), _random_lattices(jax_lat)
+    terms = [["a"], ["a", "b"], ["c"]]
+    for lat, jl in zip(lats, jlats):
+        assert lat_mod.lattice_nbest(lat, lm, 5) == jax_lat.lattice_nbest(jl, jlm, 5)
+        assert lat_mod.rescore_lattice(lat, lm) == jax_lat.rescore_lattice(jl, jlm)
+        assert lat_mod.lattice_oracle_errors(lat, ["a", "b"]) == jax_lat.lattice_oracle_errors(jl, ["a", "b"])
+        arcs, post, z = cn.lattice_arc_posteriors(lat, lm)
+        jarcs, jpost, jz = jax_cn.lattice_arc_posteriors(jl, jlm)
+        assert [dataclasses.astuple(a) for a in arcs] == [dataclasses.astuple(a) for a in jarcs]
+        np.testing.assert_array_equal(post, jpost)
+        assert z == jz
+        slots, jslots = cn.confusion_network(lat, lm), jax_cn.confusion_network(jl, jlm)
+        assert [dataclasses.astuple(s) for s in slots] == [dataclasses.astuple(s) for s in jslots]
+        assert cn.consensus_decode(slots) == jax_cn.consensus_decode(jslots)
+        assert cn.mbr_nbest_decode(lat, lm, n=6) == jax_cn.mbr_nbest_decode(jl, jlm, n=6)
+        assert [dataclasses.astuple(h) for h in kws.search_slots(slots, ["a", "b"], threshold=0.01)] == \
+            [dataclasses.astuple(h) for h in jax_kws.search_slots(jslots, ["a", "b"], threshold=0.01)]
+    hits = kws.keyword_search_batch(lats, lm, terms, threshold=0.01)
+    jhits = jax_kws.keyword_search_batch(jlats, jlm, terms, threshold=0.01)
+    assert [[dataclasses.astuple(h) for h in r] for r in hits] == [[dataclasses.astuple(h) for h in r] for r in jhits]
+    assert any(hits)
+    # lattices_from_pass on random pass arrays, and the archives
+    rng = np.random.default_rng(1)
+    sc = rng.normal(-5, 2, (2, 9, 4)).astype(np.float32)
+    sc[0, 3, 1] = -1e30
+    st = np.minimum(rng.integers(0, 9, (2, 9, 4)), np.arange(9)[None, :, None]).astype(np.int32)
+    ba = rng.normal(-1, 1, (2, 9, 4)).astype(np.float32)
+    nf = np.asarray([9, 5])
+    for beam in (None, 2.0):
+        a = lat_mod.lattices_from_pass(sc, st, ba, nf, TOKENS, prune_beam=beam)
+        b = jax_lat.lattices_from_pass(sc, st, ba, nf, TOKENS, prune_beam=beam)
+        assert [(x.n_frames, [dataclasses.astuple(r) for r in x.arcs]) for x in a] == \
+            [(x.n_frames, [dataclasses.astuple(r) for r in x.arcs]) for x in b]
+    path = str(tmp_path / "lats.txt")
+    lat_mod.write_lattices(path, {f"u{i}": lat for i, lat in enumerate(lats)})
+    assert {k: [dataclasses.astuple(r) for r in v.arcs] for k, v in jax_lat.read_lattices(path).items()} == \
+        {f"u{i}": [dataclasses.astuple(r) for r in lat.arcs] for i, lat in enumerate(lats)}
