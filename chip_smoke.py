@@ -47,7 +47,9 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    stage ms of each iteration, the Viterbi EM iteration's "align" stage,
    launch counts of K1, K2, K3f, K3b and the combine), the
    held-out WER of the re-estimated GMM through the decode path, one
-   Baum-Welch E-step's statistics against the plain path on the card, and
+   Baum-Welch E-step's statistics against the plain path on the card, the
+   E-step's fixed-order sums (mogasr_torch/utils/segment.py) on the widest
+   batch timed beside the atomic scatter-adds they replaced, and
    one more Baum-Welch iteration under ``torch.profiler`` (the card's busy
    share, its top device events, and the device time of K1, K3f, K3b and the
    combine over their launches);
@@ -97,8 +99,9 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    both histories, held-out WER on its 120 utterances (limit), stage and
    per-iteration seconds, collect_cd_stats's seconds and launches; its
    bundle written, read back and decoding phase 5's 768 utterances (WER
-   limit); then 3 CD EM iterations stopped after the first and resumed from
-   their EM checkpoint, against the uninterrupted run;
+   limit); then 3 CD EM iterations run twice, and stopped after the first
+   and resumed from their EM checkpoint: both bitwise equal to the first run
+   in history and parameters;
 17. MMI and sMBR from phase 16's monophone model: on the training batch
    with the most frames each side's statistics through K1 + K3 (numerator
    on K3's chain arm, the word-loop denominator on its general arm, arms
@@ -133,7 +136,18 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    utterances; the lattice flags, --trigram-rescore --nbest --consensus cn
    --lattice-out, on the small lexicon) and ``python -m
    mogasr_torch.cli.search``, run at once: each exits 0 and logs its record,
-   and the lattice archive reads back.
+   and the lattice archive reads back;
+22. the GMM CLI twins on real corpora (:func:`gmm_cli_phase`): phase 5's
+   held-out utterances written as 16-bit WAV with a JSONL manifest, 32 of
+   them as FLAC in LibriSpeech layout, the native FLAC decoder built and
+   loaded; ``python -m mogasr_torch.cli.{features,score,align,eval}`` run at
+   once: features --check-parity --write-ark on the FLAC corpus, score and
+   align with phase 16's monophone model (one matrix within K1's tolerance
+   of the plain scorer, one batch's pdfs bitwise the plain path's), eval
+   --bundle on the WAV corpus (WER limit) and on the FLAC corpus (the same
+   transcripts), eval --consensus on the small lexicon; then score, align
+   and eval in this process with the launch counts set to 0 before and read
+   after (K1 and K2 only).
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -143,6 +157,7 @@ could take, on the paths' own batches), and the ``{"ok": true, ...}`` line.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -266,11 +281,10 @@ SWEEP_S, SWEEP_K, SWEEP_N, SWEEP_SEED = 1000, 256, 8192, 7
 WIDE_FEATURE_DIMS = (120, 200)
 K2_BEAM = 60.0  # in acoustic-scale-multiplied log units (headline scale 1.0)
 
-# The training entry points (phases 16-18). A stop-and-resume of CD EM on the
-# card against the uninterrupted run: the hard statistics sum by atomic adds
-# (index_add_), whose order varies between runs, so the two agree to float32
-# summation order, not bit for bit (the CPU tests hold the resume bitwise).
-RESUME_HISTORY_RTOL, RESUME_PARAM_ATOL = 1e-6, 1e-4
+# The training entry points (phases 16-18). The statistics sum in a fixed
+# order (mogasr_torch/utils/segment.py), so a stop-and-resume of CD EM on the
+# card equals the uninterrupted run bit for bit, as does a second
+# uninterrupted run.
 # MMI at its acoustic scale on one training batch: each side's statistics
 # (numerator: align graphs, K3's chain arm; denominator: the word loop, its
 # general arm) through K1 + K3 against a float64 run of the plain
@@ -320,6 +334,16 @@ CLI_DECODE_RUNS = {
                       "3", "--consensus", "cn"],
 }
 CLI_SEARCH_ARGS = ["--synthetic", "2", "--synthetic-seed", "34", "--terms", "thin,way,bee day", "--threshold", "0.05"]
+# The GMM CLI twins on real corpora (phase 22): phase 5's held-out utterances
+# written as 16-bit WAV with a JSONL manifest, CLI_FLAC_UTTS of them as FLAC
+# in LibriSpeech layout (the encoder is pure Python: ~0.1 s a second of
+# audio). ``eval --consensus`` runs the reference's confusion network over
+# unpruned lattices on the host: on the bundle's 301-word loop an utterance's
+# lattice holds ~1e5 arcs and takes minutes there, so, as phase 21's lattice
+# flags, it runs on the small lexicon (random GMM, seed 34).
+# CLI_COUNT_UTTS of the WAV corpus go through score, align and eval in this
+# process for the launch counts.
+CLI_FLAC_UTTS, CLI_COUNT_UTTS, CLI_CONSENSUS_UTTS = 32, 32, 8
 
 
 def phase(n: int, msg: str) -> None:
@@ -549,6 +573,35 @@ def k2_align_times(ll, graphs, n_frames) -> dict:
     return {"ms": device_ms, "run_ms": run_ms, "call_ms": call_ms, "plain_ms": plain_ms}
 
 
+def estep_sum_times(fb, gmm, topo, align_fn, graphs, n_pdfs: int) -> dict:
+    """Phase 8: the E-step's fixed-order sums (mogasr_torch/utils/segment.py)
+    on one training batch, device ms, each beside the atomic scatter-add it
+    replaced (a yardstick, used nowhere): the hard statistics' sum over
+    states on the batch's Viterbi labels (K + 2KD values a frame), and the
+    collapse of its forward-backward state posteriors to pdfs."""
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.decoder import fb_cuda
+    from mogasr_torch.utils.segment import collapse_columns, index_sum
+
+    S, K, D = gmm.means.shape
+    _, labels, _ = pipe.align_batch(fb, gmm, topo.lexicon, topo, align_fn=align_fn)
+    labels = labels.reshape(-1)
+    safe = labels.clamp(min=0).to(torch.int64)
+    per_frame = torch.rand((labels.shape[0], K * (1 + 2 * D)), device=labels.device)
+    ll = pipe.score_batch(fb.feats, gmm, True, "float32", "sum")
+    gamma = torch.exp(fb_cuda.forward_backward(ll, graphs, fb.n_frames).log_gamma)
+    B, T, J = gamma.shape
+    emit = graphs["emit_id"].to(torch.int64)
+    out = {"N": labels.shape[0], "frames": int((labels >= 0).sum()), "J": J}
+    out["index_sum_ms"], _ = timed(lambda: index_sum(per_frame, labels, S), 20)
+    out["index_add_ms"], _ = timed(lambda: torch.zeros((S, per_frame.shape[1]), device=labels.device).index_add_(
+        0, safe, per_frame), 20)
+    out["collapse_ms"], _ = timed(lambda: collapse_columns(gamma, emit, n_pdfs), 20)
+    out["scatter_add_ms"], _ = timed(lambda: torch.zeros((B, T, n_pdfs), device=gamma.device).scatter_add_(
+        2, emit[:, None, :].expand(B, T, J), gamma), 20)
+    return out
+
+
 def mmi_batch_check(gmm, fb, lexicon, topo, den_graph, acoustic_scale: float = MMI_SCALE) -> dict:
     """One MMI batch, each side (numerator: the batch's align graphs;
     denominator: ``den_graph`` for every row) through K1 float32/sum and
@@ -672,8 +725,9 @@ def cli_twin_phase(dev: torch.device) -> str:
 def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) -> dict:
     """Phases 16 (the headline recipe at the headline bundle's own settings,
     its held-out decodes, a CD stop-and-resume), 17 (MMI and sMBR from its
-    monophone model) and 18 (the CLI twin). Returns the launches per path
-    and the numbers the kernels line takes from them."""
+    monophone model) and 18 (the CLI twin). Returns the launches per path,
+    the numbers the kernels line takes from them, and the checkpoint of the
+    recipe's monophone model (``mono_ckpt``, for phase 22)."""
     import shutil
 
     from mogasr_torch import pipeline as pipe
@@ -682,6 +736,7 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
     from mogasr_torch.decoder import fb_cuda, viterbi_cuda
     from mogasr_torch.hmm import triphone as tri
     from mogasr_torch.recipes import train_headline
+    from mogasr_torch.utils import checkpoint as ckpt
     from mogasr_torch.utils.bundle import load_system, save_system
 
     def zero_counts():
@@ -740,16 +795,16 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
                               ckpt_dir=ckpt_dir)
 
     whole = cd_em(3)
+    again = cd_em(3)
     cd_em(1, os.path.join(work, "em_ckpt"))
     resumed = cd_em(3, os.path.join(work, "em_ckpt"))
     if len(resumed.seconds) != 2 or "restore" not in resumed.setup_seconds:
         raise RuntimeError("the CD EM run did not resume from its checkpoint")
-    hist_rel = float(np.max(np.abs(np.asarray(resumed.history) / np.asarray(whole.history) - 1)))
-    param_err = max(float((a - b).abs().max()) for a, b in zip(resumed.gmm, whole.gmm))
-    bitwise = resumed.history == whole.history and all(torch.equal(a, b) for a, b in zip(resumed.gmm, whole.gmm))
-    if hist_rel > RESUME_HISTORY_RTOL or param_err > RESUME_PARAM_ATOL:
-        raise RuntimeError(f"CD EM resumed after 1 of 3 iterations differs from the uninterrupted run: history "
-                           f"{hist_rel:.3g} relative, parameters {param_err:.3g}")
+    for name, run in (("a second uninterrupted run", again), ("the run resumed after 1 of 3 iterations", resumed)):
+        if run.history != whole.history or not all(torch.equal(a, b) for a, b in zip(run.gmm, whole.gmm)):
+            param_err = max(float((a - b).abs().max()) for a, b in zip(run.gmm, whole.gmm))
+            raise RuntimeError(f"CD EM: {name} is not bitwise the uninterrupted run: history {run.history} vs "
+                               f"{whole.history}, parameters max |diff| {param_err:.3g}")
 
     def iter_text(r):
         return "; ".join(f"{s:.3f} s (" + ", ".join(f"{k} {1e3 * v:.0f}" for k, v in st.items()) + ")"
@@ -771,9 +826,9 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
           f"collect_cd_stats again: {len(cd_stats)} triphone states in {cd_stats_s:.3f} s, launches "
           f"{cd_stats_launches}; the "
           f"bundle written and read back decodes the {dec.n_utts} held-out utterances of phase 5 at WER "
-          f"{dec.wer:.4f} ({dec.n_utts / dec.seconds:.1f} utt/s; bundle {BUNDLE_WER}); CD EM stopped after 1 of 3 "
-          f"iterations and resumed: history {resumed.history} vs {whole.history} (max rel {hist_rel:.3g}), "
-          f"parameters max |diff| {param_err:.3g}, bitwise {bitwise}")
+          f"{dec.wer:.4f} ({dec.n_utts / dec.seconds:.1f} utt/s; bundle {BUNDLE_WER}); 3 CD EM iterations (history "
+          f"{whole.history}): run again, and stopped after 1 and resumed, both bitwise equal to the first run in "
+          f"history and parameters")
 
     # ---- phase 17: MMI and sMBR from the recipe's monophone model
     lex, topo_t, gmm_mono, tb = b_topo.lexicon, out["topo"], out["gmm_mono"], out["train"]
@@ -834,7 +889,12 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
     # ---- phase 18: the CLI twin, killed and resumed
     phase(18, cli_twin_phase(dev))
     shutil.rmtree(work, ignore_errors=True)
-    return {"recipe": recipe_launches, "recipe_decode": dec_launches, "mmi": mmi_launches, "smbr": smbr_launches,
+    # the monophone model in the port's checkpoint format, for phase 22
+    mono_ckpt = os.path.join(ROOT, "build", "chip_smoke_mono_ckpt")
+    shutil.rmtree(mono_ckpt, ignore_errors=True)
+    ckpt.save_checkpoint(mono_ckpt, gmm_mono._asdict())
+    return {"mono_ckpt": mono_ckpt, "recipe": recipe_launches, "recipe_decode": dec_launches, "mmi": mmi_launches,
+            "smbr": smbr_launches,
             "mmi_denominator": {"pair_ms": den_pair_ms, **den_kernel_ms,
                                 "launches_per_iteration": mmi_launches["fb_forward"] // 2 // 2},
             "collect_cd_stats": {"seconds": cd_stats_s, "launches": cd_stats_launches}}
@@ -1618,6 +1678,197 @@ def decode_cli_phase(dev: torch.device) -> str:
     return "the CLI twins, run at once, exited 0 in " + f"{max(r[2] for r in results.values()):.1f} s: " + "; ".join(text)
 
 
+def write_cli_corpora(work: str, corpus, lexicon) -> dict:
+    """Phase 22's inputs: ``corpus`` as 16-bit WAV with a JSONL manifest, its
+    first CLI_FLAC_UTTS utterances as FLAC in LibriSpeech layout, and the
+    lexicon as a Kaldi-style lexicon.txt; returns their paths and the
+    seconds each took."""
+    import types
+
+    from mogasr_torch.data.audio import write_wav
+    from mogasr_torch.data.librispeech import write_fixture_corpus
+    from mogasr_torch.data.manifest import write_manifest
+
+    paths = {"wav_dir": os.path.join(work, "wav"), "manifest": os.path.join(work, "corpus.jsonl"),
+             "librispeech": os.path.join(work, "LibriSpeech"), "lexicon": os.path.join(work, "lexicon.txt")}
+    os.makedirs(paths["wav_dir"])
+    t0 = time.perf_counter()
+    for utt_id, wave, _words in corpus:
+        write_wav(os.path.join(paths["wav_dir"], f"{utt_id}.wav"), wave, 16000)
+    write_manifest(paths["manifest"], ({"audio": f"wav/{u}.wav", "text": " ".join(ws), "id": u} for u, _w, ws in corpus))
+    t1 = time.perf_counter()
+    write_fixture_corpus(paths["librispeech"], "dev-clean",
+                         [types.SimpleNamespace(wave=w, sample_rate=16000, words=ws)
+                          for _u, w, ws in corpus[:CLI_FLAC_UTTS]], fmt="flac")
+    t2 = time.perf_counter()
+    with open(paths["lexicon"], "w") as f:
+        for word in lexicon.words:
+            for pron in lexicon.variants[word]:
+                f.write(f"{word.upper()} {' '.join(pron)}\n")
+    return {**paths, "wav_s": t1 - t0, "flac_s": t2 - t1}
+
+
+def gmm_cli_phase(dev: torch.device, corpus, lexicon, mono_ckpt: str, plain_wer: float):
+    """Phase 22: ``python -m mogasr_torch.cli.{features,score,align,eval}`` on
+    real corpora, all at once: phase 5's held-out utterances as WAV with a
+    manifest, CLI_FLAC_UTTS of them as FLAC in LibriSpeech layout (the native
+    decoder must load). features --check-parity --write-ark on the FLAC
+    corpus (parity passes, the ark reads back); score and align with phase
+    16's monophone model (the port's checkpoint) on the WAV manifest, one
+    utterance's matrix held to the plain scorer at K1's tolerance and one
+    batch's pdfs bitwise to ``align_batch(use_kernels=False)`` on the same
+    features; eval --bundle on the WAV manifest (WER limit) and on the FLAC
+    corpus (the same transcripts), eval --consensus on the small lexicon.
+    Then score, align and eval in this process on CLI_COUNT_UTTS utterances
+    with the launch counts set to 0 before and read after. Returns the
+    phase's line and the counts."""
+    import shutil
+
+    from mogasr_torch import native
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import gmm_cuda, lstm_cuda
+    from mogasr_torch.am.gmm import gmm_loglik
+    from mogasr_torch.cli import align as cli_align
+    from mogasr_torch.cli import eval as cli_eval
+    from mogasr_torch.cli import features as cli_features
+    from mogasr_torch.cli import score as cli_score
+    from mogasr_torch.cli.common import load_or_random_gmm
+    from mogasr_torch.config import BatchConfig, FrontendConfig, TopologyConfig
+    from mogasr_torch.data.kaldi_io import read_ark_t
+    from mogasr_torch.data.manifest import read_manifest
+    from mogasr_torch.decoder import fb_cuda, viterbi_cuda
+    from mogasr_torch.hmm.lexicon import load_lexicon
+    from mogasr_torch.hmm.topology import build_topology
+
+    work = os.path.join(ROOT, "build", "chip_smoke_gmm_cli")
+    files = write_cli_corpora(os.path.join(work, "data"), corpus, lexicon)
+    lex = load_lexicon(files["lexicon"])
+    if (lex.phones, lex.words, lex.prons) != (lexicon.phones, lexicon.words, lexicon.prons):
+        raise RuntimeError("the lexicon file does not read back as the bundle's lexicon")
+    lib = native.load_flac_lib()
+    if lib is None or not os.path.samefile(lib._name, native.library_path("flac_native")):
+        raise RuntimeError(f"the native FLAC decoder did not build and load: {lib}")
+    wav = ["--manifest", files["manifest"], "--lexicon", files["lexicon"]]
+    flac = ["--librispeech-root", files["librispeech"], "--split", "dev-clean", "--lexicon", files["lexicon"]]
+    ark = os.path.join(work, "feats.ark")
+    runs = {
+        "features": ("features", flac + ["--check-parity", "--write-ark", ark]),
+        "score": ("score", wav + ["--gmm-ckpt", mono_ckpt, "--out", os.path.join(work, "score.npz")]),
+        "align": ("align", wav + ["--gmm-ckpt", mono_ckpt, "--out", os.path.join(work, "align.jsonl")]),
+        "eval wav": ("eval", wav + ["--bundle", BUNDLE]),
+        "eval flac": ("eval", flac + ["--bundle", BUNDLE]),
+        "eval consensus": ("eval", ["--synthetic", str(CLI_CONSENSUS_UTTS), "--synthetic-seed", "34", "--consensus"]),
+    }
+    # one intra-op thread each: six processes share the host's cores
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (module, args) in runs.items():
+        run_dir = os.path.join(work, name.replace(" ", "_"))
+        cmd = [sys.executable, "-m", f"mogasr_torch.cli.{module}", *args, "--run-dir", run_dir, "--device", str(dev)]
+        procs[name] = (run_dir, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True))
+    try:
+        # meanwhile, in this process: the same features as the twins' (the
+        # same batches on the same card), and the launch counts
+        gmm = load_or_random_gmm(argparse.Namespace(gmm_ckpt=mono_ckpt), 39, dev)
+        topo = build_topology(lex, TopologyConfig())
+        if topo.n_pdfs != gmm.n_states:
+            raise RuntimeError(f"phase 16's monophone model has {gmm.n_states} states, the topology {topo.n_pdfs}")
+        fbs = pipe.featurize(read_manifest(files["manifest"]), FrontendConfig(), BatchConfig(), dev)
+        gmm_cuda.LAUNCHES = gmm_cuda.WIDE_LAUNCHES = gmm_cuda.INT8_LAUNCHES = viterbi_cuda.LAUNCHES = 0
+        fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = fb_cuda.COMBINE_LAUNCHES = lstm_cuda.LAUNCHES = 0
+        torch.cuda.synchronize()
+        count_dir = os.path.join(work, "counted")
+        few = wav + ["--max-utts", str(CLI_COUNT_UTTS), "--device", str(dev)]
+        cli_features.main(few + ["--run-dir", os.path.join(count_dir, "features")])
+        cli_score.main(few + ["--gmm-ckpt", mono_ckpt, "--run-dir", os.path.join(count_dir, "score")])
+        cli_align.main(few + ["--gmm-ckpt", mono_ckpt, "--run-dir", os.path.join(count_dir, "align")])
+        cli_eval.main(few + ["--bundle", BUNDLE, "--run-dir", os.path.join(count_dir, "eval")])
+        torch.cuda.synchronize()
+        launches = {"gmm_score": gmm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES,
+                    "fb_forward": fb_cuda.FWD_LAUNCHES, "fb_backward": fb_cuda.BWD_LAUNCHES,
+                    "fb_combine": fb_cuda.COMBINE_LAUNCHES, "gmm_score_wide": gmm_cuda.WIDE_LAUNCHES,
+                    "gmm_score_int8": gmm_cuda.INT8_LAUNCHES, "lstm_scan": lstm_cuda.LAUNCHES}
+        if min(launches["gmm_score"], launches["viterbi"]) == 0 or \
+                any(v for k, v in launches.items() if k not in ("gmm_score", "viterbi")):
+            raise RuntimeError(f"the CLI path's launches: {launches} (K1 and K2 only)")
+        results = {}
+        for name, (run_dir, proc) in procs.items():
+            out, err = proc.communicate(timeout=max(CLI_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            if proc.returncode != 0:
+                raise RuntimeError(f"the CLI twin ({name}) failed ({proc.returncode}): {err[-2000:]}")
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                results[name] = [json.loads(line) for line in f]
+        all_s = time.perf_counter() - t0
+    finally:
+        for _run_dir, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+    def record(name, stage):
+        recs = [r for r in results[name] if r["stage"] == stage]
+        if len(recs) != 1:
+            raise RuntimeError(f"the CLI twin ({name}) logged {results[name]}")
+        return recs[0]
+
+    # features: parity against the NumPy oracle, the ark back
+    feat, parity = record("features", "features"), record("features", "parity")
+    back = dict(read_ark_t(ark))
+    if not parity["pass"] or feat["utts"] != CLI_FLAC_UTTS or len(back) != CLI_FLAC_UTTS or \
+            sum(len(m) for m in back.values()) != feat["frames"]:
+        raise RuntimeError(f"features: {feat}, {parity}, ark of {len(back)} utterances")
+    # score: one utterance's matrix against the plain scorer on the same features
+    dump = np.load(os.path.join(work, "score.npz"))
+    fb = max(fbs, key=lambda f: f.feats.shape[1])
+    i = int(torch.argmax(fb.n_frames))
+    got = torch.as_tensor(dump[fb.utt_ids[i]], device=dev)
+    want = gmm_loglik(fb.feats[i, : int(fb.n_frames[i])], gmm, mode="sum", compute_dtype="float32")
+    score_err = float((got - want).abs().max())
+    if len(dump.files) != len(corpus) or not torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL):
+        raise RuntimeError(f"score: {len(dump.files)} matrices; {fb.utt_ids[i]} {score_err:.3g} from plain")
+    # align: one batch's pdfs bitwise the plain path's
+    with open(os.path.join(work, "align.jsonl")) as f:
+        ali = {r["utt_id"]: r for r in map(json.loads, f)}
+    _res, labels, _g = pipe.align_batch(fb, gmm, lex, topo, use_kernels=False)
+    labels, nf = labels.cpu().numpy(), fb.n_frames.cpu().numpy()
+    diff = [u for b, u in enumerate(fb.utt_ids) if ali[u]["pdfs"] != labels[b, : nf[b]].tolist()]
+    if len(ali) != len(corpus) or diff:
+        raise RuntimeError(f"align: {len(ali)} alignments; pdfs differ from the plain path on {diff}")
+    # eval: WER limit on the WAV corpus, the FLAC corpus's transcripts equal
+    ev_wav, ev_flac, ev_cn = record("eval wav", "eval"), record("eval flac", "eval"), record("eval consensus", "eval")
+    if ev_wav["utts"] != len(corpus) or ev_wav["wer"] > MAX_WER:
+        raise RuntimeError(f"eval --bundle on the WAV corpus: {ev_wav} (WER limit {MAX_WER})")
+    hyps = {}
+    for name in ("eval wav", "eval flac"):
+        with open(os.path.join(work, name.replace(" ", "_"), "eval_hyps.jsonl")) as f:
+            hyps[name] = {r["utt_id"]: r["hyp"] for r in map(json.loads, f)}
+    # write_fixture_corpus names the i-th utterance 0-0-<i>
+    flac_ids = [f"0-0-{i:04d}" for i in range(CLI_FLAC_UTTS)]
+    if [hyps["eval flac"].get(u) for u in flac_ids] != [hyps["eval wav"][u] for u, _w, _ws in corpus[:CLI_FLAC_UTTS]]:
+        raise RuntimeError("eval: the FLAC corpus's transcripts differ from the WAV corpus's")
+    if ev_cn["utts"] != CLI_CONSENSUS_UTTS or not np.isfinite(ev_cn["wer"]):
+        raise RuntimeError(f"eval --consensus: {ev_cn}")
+    shutil.rmtree(work, ignore_errors=True)
+    sc, al = record("score", "score"), record("align", "align")
+    line = (f"GMM CLI twins on real corpora: {len(corpus)} held-out utterances written as WAV in "
+            f"{files['wav_s']:.1f} s, {CLI_FLAC_UTTS} as FLAC in LibriSpeech layout in {files['flac_s']:.1f} s; the "
+            f"native FLAC decoder loaded ({os.path.relpath(lib._name, ROOT)}); six runs at once, exited 0 in "
+            f"{all_s:.1f} s: features (FLAC) {feat['frames']} frames in {feat['wall_sec']:.3f} s, parity max |err| "
+            f"{parity['max_abs_err']:.3g}, the ark read back; score (WAV, phase 16's monophone model "
+            f"{gmm.n_states} x {gmm.n_components}) {sc['frames']} frames at {sc['frames_per_sec']:.0f} frames/s, "
+            f"{fb.utt_ids[i]} within {score_err:.3g} of plain (atol {K1_ATOL} rtol {K1_RTOL}); align {al['utts']} "
+            f"utterances in {al['wall_sec']:.3f} s, a batch of {fb.size} bitwise the plain path's pdfs; eval --bundle: "
+            f"WAV WER {ev_wav['wer']:.4f} over {ev_wav['utts']} (limit {MAX_WER}; phase 6's in-memory float32 "
+            f"plain path {plain_wer:.4f}), {ev_wav['utts_per_sec_per_chip']:.1f} utt/s, RTF {ev_wav['rtf']:.6f}; FLAC "
+            f"WER {ev_flac['wer']:.4f}, its {CLI_FLAC_UTTS} transcripts = the WAV run's; --consensus on "
+            f"{CLI_CONSENSUS_UTTS} utterances of the small lexicon (random GMM) WER {ev_cn['wer']:.4f} in "
+            f"{ev_cn['wall_sec']:.2f} s; launches of "
+            f"features + score + align + eval on {CLI_COUNT_UTTS} utterances in this process {launches}")
+    return line, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -1798,7 +2049,7 @@ def main() -> None:
         raise RuntimeError(f"kernel path agrees with the plain f32 path on {same:.4f} of utterances")
     phase(6, f"plain f32 path: WER {plain.wer:.4f}; transcripts identical to the kernel path "
           f"on {same:.4f} of {len(run.hyps)} utterances")
-    k1_hyps = run.hyps
+    k1_hyps, plain_wer = run.hyps, plain.wer
     del fb, plain
 
     # ---- phase 7: K3f/K3b against the plain forward-backward
@@ -1973,6 +2224,7 @@ def main() -> None:
         stats_err[field] = float((a - b).abs().max() / b.abs().max())
         if stats_err[field] > STATS_TOL:
             raise RuntimeError(f"Baum-Welch {field}: kernel path {stats_err[field]:.3g} of max from plain")
+    sums = estep_sum_times(fbw, gmm, topo, align_fn, graphs_w, S)
     # one more Baum-Welch iteration under the profiler: the card's busy share
     prof_wall, prof_dev, prof_top, prof_named = device_profile(lambda: pipe.train_gmm(
         train_fbs, topo.lexicon, topo, gcfg, TrainConfig(num_em_iters=1), gmm=trained,
@@ -1991,7 +2243,10 @@ def main() -> None:
           f"GMM {dec.wer:.4f} "
           f"(bundle {BUNDLE_WER}, limit {MAX_WER}); one Baum-Welch E-step on the widest batch, kernel vs "
           f"plain path: max |err| / max " + ", ".join(f"{k} {v:.3g}" for k, v in stats_err.items())
-          + f" (limit {STATS_TOL}); a profiled Baum-Welch iteration: {prof_wall:.1f} ms wall, "
+          + f" (limit {STATS_TOL}); the E-step's fixed-order sums on that batch ({sums['frames']} of {sums['N']} "
+          f"frames labelled): over states {sums['index_sum_ms']:.3f} ms (atomic index_add_, replaced: "
+          f"{sums['index_add_ms']:.3f} ms), posteriors J={sums['J']} to pdfs {sums['collapse_ms']:.3f} ms (atomic "
+          f"scatter_add_, replaced: {sums['scatter_add_ms']:.3f} ms); a profiled Baum-Welch iteration: {prof_wall:.1f} ms wall, "
           f"{prof_dev:.1f} ms on the device ({100 * prof_dev / prof_wall:.1f}% busy), K1 {k1_iter_ms:.1f} ms "
           f"over {k1_iter_launches} launches, "
           + ", ".join(f"{n} {prof_named[n][0]:.2f} ms over {prof_named[n][1]} launches" for n in fb_names)
@@ -2004,14 +2259,19 @@ def main() -> None:
     lm_entry = lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg,
                                  [words for _id, _wave, words in train_corpus], run.wer)
     phase(21, decode_cli_phase(dev))
+    cli_line, cli_launches = gmm_cli_phase(dev, corpus, topo.lexicon, entry["mono_ckpt"], plain_wer)
+    phase(22, cli_line)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
     paths = {"decode": decode_launches, "train": train_launches, "recipe": entry["recipe"],
              "recipe_bundle_decode": entry["recipe_decode"], "mmi": entry["mmi"], "smbr": entry["smbr"],
              "lm_decode": lm_entry["lm_decode"], "lm_check_decodes": lm_entry["lm_check_decodes"],
-             "confidence": lm_entry["confidence"]}
+             "confidence": lm_entry["confidence"], "cli": cli_launches}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
+    for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
+        e["launches_by_path"]["cli"] = cli_launches[e["name"]]
+        e["launches"] += cli_launches[e["name"]]
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     k3d = lm_entry["k3_decode_batch"]
     k1_main = ("bfloat16", "max")

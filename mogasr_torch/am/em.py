@@ -5,7 +5,9 @@ The E-step takes component posteriors on frames assigned to states, hard
 (``accumulate_stats_soft``: state posteriors from forward-backward); the
 M-step turns the weighted sums into new parameters with variance flooring,
 weight flooring and an occupancy guard; mixtures grow by occupancy-gated
-splitting. Scatter-adds over states are ``index_add_``; the soft E-step's
+splitting. Sums over states are sorted segment sums
+(``utils.segment.index_sum``: the same bits on every run, unlike the atomic
+``index_add_`` on a CUDA device); the soft E-step's
 products are float32 ``torch.matmul`` in true fp32 (TF32 is off
 package-wide), the reference's XLA products.
 """
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from mogasr_torch.am.gmm import LOG_2PI, STATE_CHUNK, GmmSet, natural_params, quadratic_features
+from mogasr_torch.utils.segment import index_sum
 
 
 class GmmStats(NamedTuple):
@@ -62,12 +65,13 @@ def accumulate_stats(
     gamma = torch.exp(ll_k - frame_ll[:, None])         # [N, K]
     gamma = torch.where(valid[:, None], gamma, torch.zeros_like(gamma))
 
-    dev = feats.device
-    occ = torch.zeros((S, K), dtype=torch.float32, device=dev).index_add_(0, safe, gamma)
-    sx = torch.zeros((S, K, D), dtype=torch.float32, device=dev).index_add_(
-        0, safe, gamma[:, :, None] * feats[:, None, :])
-    sxx = torch.zeros((S, K, D), dtype=torch.float32, device=dev).index_add_(
-        0, safe, gamma[:, :, None] * (feats ** 2)[:, None, :])
+    # one sorted segment sum over states for all three statistics
+    per_frame = torch.cat([gamma, (gamma[:, :, None] * feats[:, None, :]).reshape(-1, K * D),
+                           (gamma[:, :, None] * (feats ** 2)[:, None, :]).reshape(-1, K * D)], dim=1)
+    sums = index_sum(per_frame, labels, S)              # [S, K + 2KD]; padding frames skipped
+    occ = sums[:, :K].contiguous()
+    sx = sums[:, K: K + K * D].reshape(S, K, D)
+    sxx = sums[:, K + K * D:].reshape(S, K, D)
     total_ll = torch.where(valid, frame_ll, torch.zeros_like(frame_ll)).sum()
     return GmmStats(occ, sx, sxx, total_ll, valid.sum().to(torch.float32))
 

@@ -38,6 +38,7 @@ from mogasr_torch.am.gmm import GmmSet
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.am.mmi import den_graphs_for, ebw_update
 from mogasr_torch.config import DecodeConfig
+from mogasr_torch.utils.segment import collapse_columns
 
 NEG_INF = -1e30
 # One sMBR iteration: the reference alignment (K1 + K2; the first iteration,
@@ -143,9 +144,8 @@ def smbr_quantities(
     mask = (torch.arange(T, device=dev)[None, :] < n_frames[:, None])[:, :, None]
     gamma = torch.where(mask, _safe_exp(log_gamma), torch.zeros_like(log_gamma))
     w_state = gamma * (torch.stack(ahats, 1) + torch.stack(bhats, 1) - expected_acc[:, None, None])
-    # collapse graph states -> pdf ids
-    w_pdf = torch.zeros((B, T, n_pdfs), dtype=dt, device=dev)
-    w_pdf.scatter_add_(2, emit_id[:, None, :].expand(B, T, J), w_state)
+    # collapse graph states -> pdf ids, in state order (utils.segment)
+    w_pdf = collapse_columns(w_state, emit_id, n_pdfs)
     return SmbrQuantities(w_pdf, expected_acc, loglik)
 
 

@@ -1,12 +1,8 @@
-"""Shared CLI plumbing for the port's entry points: corpus loading, run
-directories, the device, the GMM of the decode CLIs. The twin of the
-reference's cli/common.py (and of ``load_or_random_gmm`` in cli/score.py).
-
-The synthetic corpora (``--synthetic``, ``--synthetic-v2``) load as in the
-reference. Real corpora (``--manifest``, ``--librispeech-root``) and the
-augmentation flags need the data modules that are not ported yet
-(``data/{manifest,librispeech,audio,kaldi_io,augment}.py``; ROADMAP item 16):
-they raise NotImplementedError.
+"""Shared CLI plumbing for the port's entry points: corpus loading (the
+synthetic corpora, a JSONL manifest, a LibriSpeech-layout directory),
+waveform augmentation, run directories, the device, the GMM of the decode
+CLIs. The twin of the reference's cli/common.py (and of
+``load_or_random_gmm`` in cli/score.py).
 """
 
 from __future__ import annotations
@@ -17,10 +13,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from mogasr_torch.hmm.lexicon import Lexicon, synthetic_lexicon
+from mogasr_torch.hmm.lexicon import Lexicon, load_lexicon, synthetic_lexicon
 from mogasr_torch.utils.metrics import RunLogger
-
-_NOT_PORTED = "is not ported to mogasr_torch yet (ROADMAP item 16: data/{}.py)"
 
 
 def add_corpus_args(p: argparse.ArgumentParser) -> None:
@@ -38,7 +32,9 @@ def add_corpus_args(p: argparse.ArgumentParser) -> None:
              "bundle is trained on",
     )
     p.add_argument("--manifest", metavar="FILE",
-                   help="JSONL manifest corpus (not ported yet: raises)")
+                   help="JSONL manifest corpus: one {'audio': PATH, 'text': WORDS[, 'id': ID]} per line; relative "
+                        "audio paths resolve against the manifest dir; wav + flac (data/manifest.py); requires "
+                        "--lexicon")
     p.add_argument("--lexicon", help="Kaldi-style lexicon.txt (word phone...)")
     p.add_argument("--max-utts", type=int, default=0, help="limit corpus size")
 
@@ -52,20 +48,32 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
 
 
 def add_augment_args(p: argparse.ArgumentParser) -> None:
-    """Training-time waveform augmentation flags (not ported yet: raise)."""
+    """Training-time waveform augmentation (data/augment.py)."""
     p.add_argument("--speed-perturb", action="store_true",
-                   help="Kaldi-style 3-way speed perturbation (0.9/1.0/1.1)")
+                   help="Kaldi-style 3-way speed perturbation (0.9/1.0/1.1): triples the training corpus")
     p.add_argument("--aug-snr", metavar="LO,HI",
-                   help="additive white noise at a per-utterance SNR in [LO, HI] dB")
+                   help="additive white noise at a per-utterance SNR drawn uniformly from [LO, HI] dB")
     p.add_argument("--aug-gain", metavar="LO,HI",
-                   help="random volume perturbation, gain in [LO, HI] dB")
+                   help="random volume perturbation, gain drawn uniformly from [LO, HI] dB")
 
 
 def apply_augmentation(corpus, args):
-    """The corpus unchanged when no augmentation flag is set."""
-    if getattr(args, "speed_perturb", False) or args.aug_snr or args.aug_gain:
-        raise NotImplementedError("waveform augmentation " + _NOT_PORTED.format("augment"))
-    return corpus
+    """Expand/perturb the corpus per the add_augment_args flags."""
+    if not (getattr(args, "speed_perturb", False) or args.aug_snr or args.aug_gain):
+        return corpus
+    from mogasr_torch.data.augment import augment_corpus
+
+    def _range(s):
+        lo, hi = (float(x) for x in s.split(","))
+        return (lo, hi)
+
+    return augment_corpus(
+        corpus,
+        speed_factors=(0.9, 1.0, 1.1) if args.speed_perturb else (1.0,),
+        snr_db_range=_range(args.aug_snr) if args.aug_snr else None,
+        gain_db_range=_range(args.aug_gain) if args.aug_gain else None,
+        seed=getattr(args, "synthetic_seed", 0),
+    )
 
 
 def load_corpus(args) -> Tuple[List[Tuple[str, np.ndarray, List[str]]], Lexicon]:
@@ -85,14 +93,35 @@ def load_corpus(args) -> Tuple[List[Tuple[str, np.ndarray, List[str]]], Lexicon]
         corpus = [(u.utt_id, u.wave, u.words) for u in utts]
         lex = synthetic_lexicon()
     elif getattr(args, "manifest", None):
-        raise NotImplementedError("--manifest " + _NOT_PORTED.format("{manifest,audio}"))
+        from mogasr_torch.data.manifest import read_manifest
+
+        corpus = read_manifest(args.manifest, max_utts=getattr(args, "max_utts", 0) or 0)
+        if args.lexicon:
+            lex = load_lexicon(args.lexicon)
+        else:
+            raise SystemExit("--lexicon is required with --manifest")
     elif args.librispeech_root:
-        raise NotImplementedError("--librispeech-root " + _NOT_PORTED.format("{librispeech,audio,kaldi_io}"))
+        from mogasr_torch.data.librispeech import LibriSpeech
+
+        ls = LibriSpeech(args.librispeech_root, args.split)
+        corpus = [(utt_id, wave, text.lower().split()) for utt_id, wave, text in ls]
+        if args.lexicon:
+            lex = load_lexicon(args.lexicon)
+        else:
+            raise SystemExit("--lexicon is required with --librispeech-root")
     else:
-        raise SystemExit("pass --synthetic N or --synthetic-v2 N")
+        raise SystemExit("pass --synthetic N, --synthetic-v2 N, --manifest FILE, or --librispeech-root DIR")
     if args.max_utts:
         corpus = corpus[: args.max_utts]
     return corpus, lex
+
+
+def refuse_unported(flags) -> None:
+    """Raise NotImplementedError for the first ``(flag, given, ROADMAP item)``
+    whose flag was given: its path is not ported yet."""
+    for flag, given, item in flags:
+        if given:
+            raise NotImplementedError(f"{flag} is not ported to mogasr_torch yet (ROADMAP item {item})")
 
 
 def make_logger(args) -> RunLogger:

@@ -29,7 +29,7 @@ import os
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger,
+    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger, refuse_unported,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
@@ -37,8 +37,6 @@ from mogasr_torch.hmm import graph as gr
 from mogasr_torch.hmm.topology import build_topology
 from mogasr_torch.pipeline import decode_batch, featurize, score_batch, word_decode_graph
 from mogasr_torch.utils.metrics import Timer, trace
-
-_NOT_PORTED = "{} is not ported to mogasr_torch yet (ROADMAP item {})"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -98,9 +96,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a flag whose path is not ported yet."""
-    for flag, on, item in (
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    refuse_unported((
         ("--ctc", args.ctc, "13: am/ctc.py"),
         ("--rnnt", args.rnnt, "13: am/rnnt.py"),
         ("--aed", args.aed, "13: am/aed.py"),
@@ -111,14 +109,7 @@ def refuse_unported(args) -> None:
         ("--nn-ckpt", args.nn_ckpt, "12: neural checkpoints"),
         ("--ivector-ckpt", args.ivector_ckpt, "11: am/ivector.py"),
         ("--add-pitch", args.add_pitch, "10: frontend/pitch.py"),
-    ):
-        if on:
-            raise NotImplementedError(_NOT_PORTED.format(flag, item))
-
-
-def main(argv=None) -> None:
-    args = parse_args(argv)
-    refuse_unported(args)
+    ))
     device = device_of(args.device)
     bundle = None
     if args.bundle:

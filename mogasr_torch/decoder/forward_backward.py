@@ -22,6 +22,8 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from mogasr_torch.utils.segment import collapse_columns
+
 NEG_INF = -1e30
 
 
@@ -134,10 +136,9 @@ def state_posteriors_to_pdf(
     emit_id: torch.Tensor,    # [B, J]
     n_pdfs: int,
 ) -> torch.Tensor:
-    """Collapse graph-state posteriors to pdf posteriors: [B, T, n_pdfs]."""
-    B, T, J = log_gamma.shape
+    """Collapse graph-state posteriors to pdf posteriors: [B, T, n_pdfs],
+    each pdf's states summed in state order (``utils.segment``: the same bits
+    on every run)."""
     gamma = torch.exp(torch.clamp(log_gamma, min=-80.0))
     gamma = torch.where(log_gamma <= NEG_INF / 2, torch.zeros_like(gamma), gamma)
-    out = torch.zeros((B, T, n_pdfs), dtype=gamma.dtype, device=gamma.device)
-    index = emit_id.to(device=gamma.device, dtype=torch.int64)[:, None, :].expand(B, T, J)
-    return out.scatter_add_(2, index, gamma)
+    return collapse_columns(gamma, emit_id, n_pdfs)

@@ -66,12 +66,12 @@ def test_train_gmm_cli_end_to_end_and_resume(tmp_path):
     assert again[2]["iters"] == 3 and ckpt.all_steps(os.path.join(run_dir, "em_ckpt")) == [1, 2, 3]
 
 
-@pytest.mark.parametrize("flags", [["--lda", "2"], ["--add-pitch"], ["--speed-perturb"], ["--aug-snr", "5,20"],
-                                   ["--manifest", "corpus.jsonl"], ["--librispeech-root", "LibriSpeech"]])
+@pytest.mark.parametrize("flags", [["--lda", "2"], ["--add-pitch"]])
 def test_train_gmm_cli_flags_not_ported_raise(tmp_path, flags):
-    corpus = [] if flags[0] in ("--manifest", "--librispeech-root") else ["--synthetic", "2"]
+    """(The corpora and augmentation flags that raised here until their data
+    modules were ported run in test_torch_cli_gmm.py.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        cli_train_gmm.main(corpus + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
+        cli_train_gmm.main(["--synthetic", "2"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):

@@ -927,3 +927,35 @@ def test_decode_batch_lattices_on_the_card_matches_cpu(dev):
                                                  chain_entry_logp=pron_logp, prune_beam=8.0)
     assert isinstance(res, lv.LmViterbiResult) and torch.equal(res.path.cpu(), want_res.path)
     assert [(lat.n_frames, lat.arcs) for lat in lats] == [(lat.n_frames, lat.arcs) for lat in want]
+
+
+@pytest.mark.parametrize("J,n", [(192, 1168), (3048, 1168)])
+def test_statistics_sums_repeat_bitwise(dev, J, n):
+    """The E-step's sums over states and the collapse of graph states to
+    pdfs (utils/segment.py): two runs on the card give the same bits, and
+    those of the CPU on the same inputs (both add each target's terms one
+    after another in position order); ``accumulate_stats`` and
+    ``state_posteriors_to_pdf`` twice on the card, bitwise."""
+    from mogasr_torch.am import em
+    from mogasr_torch.utils.segment import collapse_columns, index_sum
+
+    rng = np.random.default_rng(J)
+    S, K, D, N = n, 16, 39, 8 * 550
+    labels = np.where(rng.random(N) < 0.35, rng.integers(0, 3, N), rng.integers(0, S, N))
+    labels[-300:] = -1
+    labels = torch.as_tensor(labels.astype(np.int32))
+    values = torch.as_tensor(rng.standard_normal((N, 2 * K + 1)).astype(np.float32))
+    got = [index_sum(values.to(dev), labels.to(dev), S) for _ in range(2)]
+    want = index_sum(values, labels, S)
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0].cpu(), want)
+    g, x = _random_gmm(dev, S, K, D, N)
+    stats = [em.accumulate_stats(g, x, labels.to(dev)) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*stats))
+    B, T = 4, 300
+    emit_id = torch.as_tensor(rng.integers(0, n, (B, J)))
+    gamma = torch.as_tensor(rng.standard_normal((B, T, J)).astype(np.float32))
+    got = [collapse_columns(gamma.to(dev), emit_id.to(dev), n) for _ in range(2)]
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0].cpu(), collapse_columns(gamma, emit_id, n))
+    log_gamma = (gamma * 20 - 30).to(dev)
+    post = [fbd.state_posteriors_to_pdf(log_gamma, emit_id.to(dev), n) for _ in range(2)]
+    assert torch.equal(post[0], post[1])
