@@ -20,7 +20,8 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    word-loop graph, path, entered and score bitwise equal: on the decode
    path's batch (B=256, T=600, ragged frame counts, its K1 emissions), where
    it is also timed, on random emissions at another acoustic scale, and
-   there with CTC skip transitions inside every chain (K2's skip arm);
+   there with CTC skip transitions inside every chain (K2's skip arm); K3's
+   device times on the decode path's batch, reported in phase 20;
 4. the front end on the card against the NumPy oracle;
 5. the decode path on the headline bundle and the 768 held-out utterances of
    bench.py (front end -> K1 bf16 max -> K2 -> path_to_tokens -> WER):
@@ -131,7 +132,8 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    arm (launch counts set to 0 before and read after) against the plain path
    on the card (the same words, confidences within CONF_ATOL, the same order
    of alternatives more than CONF_ATOL apart); K3 timed at the decode batch's
-   shape, 256 x 600 x 3048, beside its bound and the plain passes;
+   shape, 256 x 600 x 3048, beside its bound and the plain passes (its
+   kernels' device times profiled in phase 3, early in the run);
 21. ``python -m mogasr_torch.cli.decode`` (the bundle's LM path on 48 v2
    utterances; the lattice flags, --trigram-rescore --nbest --consensus cn
    --lattice-out, on the small lexicon) and ``python -m
@@ -147,7 +149,32 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    --bundle on the WAV corpus (WER limit) and on the FLAC corpus (the same
    transcripts), eval --consensus on the small lexicon; then score, align
    and eval in this process with the launch counts set to 0 before and read
-   after (K1 and K2 only).
+   after (K1 and K2 only);
+23. the streaming front end (``pipeline.featurize_streaming``: host framing,
+   deltas and CMVN, the spectral chunk on the card) on phase 5's 768
+   held-out utterances in 500 ms chunks: features within STREAM_FEATS_ATOL
+   of the offline front end, then K1 bf16/max + K2 (launches counted): WER
+   limit, transcripts that differ from the offline features', s and RTF;
+24. the online decoder (``decoder.online.OnlineDecoder``: K2's chunk arm and
+   its backtrace alone) on the K1 float32/sum scores of the 768 utterances
+   in 3 batches of 256 streams, 25-frame chunks with a partial after each
+   (launches counted): finalize bitwise offline K2 on every utterance; on
+   the widest batch K2's chunk arm against the plain chunk step for 4
+   chunks, with and without a beam (delta, started, codes, exit argmax);
+   ms a chunk (process, partial), the codes buffer's bytes, the arm timed
+   beside its plain version and its bound;
+25. K4's carry arm (initial and final carries) on B=64, T=600, H=512 with
+   ragged n_frames and rows without frames against the plain recurrence,
+   float32 and bfloat16, those rows' carries bitwise; LstmAm 81 x 512 x 2
+   streamed in 25-frame chunks (``am.neural.LstmAmStream``) against the
+   offline LstmAm on the card (launches counted); one chunk timed beside
+   the plain version, the bound and cuDNN's nn.LSTM with (h0, c0);
+26. ``featurize`` with add_pitch on 8 utterances on the card against the
+   CPU, ``extract_pitch`` timed; ``python -m mogasr_torch.cli.stream
+   --synthetic-demo`` with and without --endpoint, ``transcribe
+   --synthetic-demo --nbest 2 --ctm`` and ``eval --bundle --streaming`` on
+   32 utterances, run at once, each output checked; the stream twin in this
+   process with its launches counted.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -345,6 +372,23 @@ CLI_SEARCH_ARGS = ["--synthetic", "2", "--synthetic-seed", "34", "--terms", "thi
 # process for the launch counts.
 CLI_FLAC_UTTS, CLI_COUNT_UTTS, CLI_CONSENSUS_UTTS = 32, 32, 8
 
+# Online and streaming (phases 23-26). The streaming front end's features
+# against the offline front end's: the reference's limit for
+# featurize_streaming (tests/test_streaming.py), at eval --streaming's
+# default chunk of 500 ms.
+STREAM_CHUNK_MS, STREAM_FEATS_ATOL = 500.0, 5e-4
+# The online decoder: streams of the held-out corpus in batches of 256,
+# 25-frame chunks (250 ms, cli/stream.py's default), K2's chunk arm against
+# the plain chunk step on the first chunks of the widest batch.
+ONLINE_BATCH, ONLINE_TC, ONLINE_CHECK_CHUNKS = 256, 25, 4
+# The streaming LstmAm (bench_families.py's lstm row, 81 pdfs x 512 x 2)
+# against the offline LstmAm on the card: the reference's contract for any
+# chunking (tests/test_nn_stream.py).
+STREAM_NN_PDFS, STREAM_NN_HIDDEN, STREAM_NN_ATOL = 81, 512, 1e-5
+# featurize with add_pitch on the card against the CPU: the reference's
+# pitch tolerance (tests/test_pitch.py); eval --streaming's corpus size.
+PITCH_UTTS, PITCH_ATOL, STREAM_CLI_EVAL_UTTS = 8, 1e-5, 32
+
 
 def phase(n: int, msg: str) -> None:
     print(f"phase {n}: {msg}", flush=True)
@@ -475,6 +519,30 @@ def k2_bound(graphs, n_frames, T: int):
     ops = float(((torch.where(loop, K2_OPS, K2_CHAIN_OPS) * nf.clamp(min=1)).sum() * J).item())
     n_arrays = 7 + int(graphs.get("skip_logp") is not None)
     return bound(emission_bytes(graphs, n_frames) + n_arrays * B * J * 4 + B * 4 + B * T * 5 + B * 4, ops, "float32")
+
+
+def k2_chunk_bound(graphs, n_valid, started, Tc: int):
+    """Least milliseconds (and what bounds it) of K2's chunk arm on one
+    chunk. A row with valid frames needs the emissions of its states, the
+    five graph arrays the recursion reads (emit_id and the self, advance,
+    enter and exit log-probs; init_logp too where the row starts in this
+    chunk, skip_logp where the graphs have it), delta in and out, and its
+    frames' codes and exit argmax; every row n_valid and started in and out
+    (a row without frames keeps delta in place). The float ops are k2_bound's
+    on the valid frames."""
+    from mogasr_torch.decoder import viterbi_cuda
+
+    B, J = graphs["emit_id"].shape
+    nv = n_valid.to(torch.int64).clamp(min=0, max=Tc)
+    live = nv > 0
+    n_live, n_start = int(live.sum()), int((live & ~started).sum())
+    n_arrays = 5 + int(graphs.get("skip_logp") is not None)
+    emissions = emission_bytes({k: graphs[k][live] for k in ("emit_id", "n_states")}, nv[live])
+    n_bytes = (emissions + ((n_arrays + 2) * n_live + n_start) * J * 4
+               + int(nv.sum()) * viterbi_cuda.code_frame_bytes(J) + B * (4 + 2))
+    loop = ((graphs["enter_logp"] > -5e29) | (graphs["exit_logp"] > -5e29)).any(dim=1)
+    ops = float(((torch.where(loop, K2_OPS, K2_CHAIN_OPS) * nv).sum() * J).item())
+    return bound(n_bytes, ops, "float32")
 
 
 def fb_bounds(graphs, n_frames, T: int) -> dict:
@@ -1384,10 +1452,11 @@ def _same_alternatives(got, want) -> bool:
     return True
 
 
-def lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg, train_texts, loop_wer) -> dict:
+def lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg, train_texts, loop_wer, k3_dev) -> dict:
     """Phases 19 (LM decoding at full width) and 20 (lattices, confidence and
-    n-best). Returns the launches of their paths and K3's numbers at the
-    decode batch's shape for the kernels line."""
+    n-best). ``k3_dev`` holds K3's device times on the decode path's widest
+    batch, profiled in phase 3. Returns the launches of their paths and K3's
+    numbers at that batch's shape for the kernels line."""
     from mogasr_torch import pipeline as pipe
     from mogasr_torch.am import gmm_cuda
     from mogasr_torch.data.batching import make_batches
@@ -1490,14 +1559,16 @@ def lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg, train_tex
         raise RuntimeError(f"viterbi_lm on the card differs from the CPU on {LM_CPU_ROWS} rows (score rel "
                            f"{score_rel:.3g})")
     # K3 at the decode batch's shape (its general arm over the word loop),
-    # timed before the recursion's long profile below, printed in phase 20
+    # timed before the recursion's long profile below, printed in phase 20;
+    # its device times are phase 3's, on the same batch
     graphs_w = graphs[1]
+    if tuple(k3_dev["shape"]) != (B, T):
+        raise RuntimeError(f"phase 3 profiled K3 on a B, T = {k3_dev['shape']} batch, not the widest one {B, T}")
 
     def k3():
         return fb_cuda.forward_backward(ll_w, graphs_w, fb_w.n_frames, acoustic_scale=dcfg.acoustic_scale)
 
     k3_call = per_call_ms(k3, 10)
-    k3_dev = kernel_device_ms(k3, ("fb_forward_kernel", "fb_backward_kernel", "fb_combine_kernel"), 3)
     k3_bounds = fb_bounds(graphs_w, fb_w.n_frames, T)
     emit_graph = fbd.gather_emissions(ll_w, graphs_w["emit_id"], dcfg.acoustic_scale)
     plain_fwd_ms, (alphas, loglik) = timed(lambda: fbd.forward_pass(emit_graph, graphs_w, fb_w.n_frames), 1)
@@ -1508,7 +1579,7 @@ def lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg, train_tex
         raise RuntimeError(f"K3 at B={B} T={T}: loglik off by {k3_err} from plain f32 (rtol {FB_LOGLIK_RTOL})")
     del k3_loglik
     del emit_graph, alphas
-    k3_entry = {"B": B, "T": T, "J": graph.n_states, "arm": "general", "pair_ms": k3_call, **k3_dev,
+    k3_entry = {"B": B, "T": T, "J": graph.n_states, "arm": "general", "pair_ms": k3_call, **k3_dev["device_ms"],
                 "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms, "loglik_max_abs_err": k3_err,
                 "bounds": k3_bounds, "launches_per_batch": 2}
     # (d) the recursion's time and device work on the widest batch
@@ -1594,6 +1665,7 @@ def lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg, train_tex
     if conf_err > CONF_ATOL:
         raise RuntimeError(f"confidences: K2 + K3 vs plain max |diff| {conf_err:.3g} > {CONF_ATOL}")
     n_words = sum(len(r) for r in conf)
+    kd = k3_dev["device_ms"]
     mean_conf = sum(c for r in conf for _w, c in r) / max(n_words, 1)
     hyp_conf = [[w.lower() for w, _c in r] for r in conf]
     conf_wer = corpus_wer(refs, hyp_conf)[0]
@@ -1606,9 +1678,10 @@ def lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg, train_tex
           f"= the plain path's, confidences max |diff| {conf_err:.3g} (limit {CONF_ATOL}), alternatives agree; "
           f"{n_words} words, mean confidence {mean_conf:.4f}, WER {conf_wer:.4f}; launches {conf_launches}; K3 at "
           f"B={B} T={T} J={graph.n_states}: K3f + K3b + combine {k3_call:.3f} ms a call in a run of 10 (bound "
-          f"{k3_bounds['pair'][0]:.4f} ms by {k3_bounds['pair'][1]}), K3f {k3_dev['fb_forward_kernel']:.3f} ms (bound "
-          f"{k3_bounds['fwd'][0]:.4f}), K3b {k3_dev['fb_backward_kernel']:.3f} ms (bound {k3_bounds['bwd'][0]:.4f}), "
-          f"combine {k3_dev['fb_combine_kernel']:.3f} ms (bound {k3_bounds['combine'][0]:.4f}); plain forward "
+          f"{k3_bounds['pair'][0]:.4f} ms by {k3_bounds['pair'][1]}), K3f {kd['fb_forward_kernel']:.3f} ms (bound "
+          f"{k3_bounds['fwd'][0]:.4f}), K3b {kd['fb_backward_kernel']:.3f} ms (bound {k3_bounds['bwd'][0]:.4f}), "
+          f"combine {kd['fb_combine_kernel']:.3f} ms (bound {k3_bounds['combine'][0]:.4f}) (profiled in phase 3); "
+          f"plain forward "
           f"{plain_fwd_ms:.1f} ms, backward {plain_bwd_ms:.1f} ms; loglik max |err| {k3_err:.3g}")
     del scored, ll_w
     return {"lm_decode": lm_launches, "lm_check_decodes": check_launches, "confidence": conf_launches,
@@ -1869,6 +1942,370 @@ def gmm_cli_phase(dev: torch.device, corpus, lexicon, mono_ckpt: str, plain_wer:
     return line, launches
 
 
+def streaming_phases(dev: torch.device, gmm, fcfg, dcfg, graph, corpus, bcfg) -> dict:
+    """Phases 23-26: the streaming front end, the online decoder on K2's
+    chunk arm, the streaming LstmAm on K4's carry arm, pitch and the CLI
+    twins. Returns the launch counts of their paths and the K2 chunk and K4
+    carry sub-entries of the kernels line."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import fast_lstm, gmm_cuda, lstm_cuda
+    from mogasr_torch.am import neural as tn
+    from mogasr_torch.am.params import init_
+    from mogasr_torch.cli import stream as cli_stream
+    from mogasr_torch.config import BatchConfig
+    from mogasr_torch.decoder import online, viterbi_cuda
+    from mogasr_torch.eval.wer import corpus_wer
+    from mogasr_torch.frontend.pitch import extract_pitch
+
+    torch.set_grad_enabled(False)
+    sr = fcfg.sample_rate
+    audio_s = sum(len(w) for _u, w, _ws in corpus) / sr
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        gmm_cuda.LAUNCHES = gmm_cuda.WIDE_LAUNCHES = gmm_cuda.INT8_LAUNCHES = 0
+        viterbi_cuda.LAUNCHES = viterbi_cuda.CHUNK_LAUNCHES = viterbi_cuda.BACKTRACE_LAUNCHES = 0
+        lstm_cuda.LAUNCHES = lstm_cuda.CARRY_LAUNCHES = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"gmm_score": gmm_cuda.LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES,
+                "viterbi_chunk": viterbi_cuda.CHUNK_LAUNCHES, "viterbi_backtrace": viterbi_cuda.BACKTRACE_LAUNCHES,
+                "lstm_scan": lstm_cuda.LAUNCHES, "lstm_scan_carry": lstm_cuda.CARRY_LAUNCHES}
+
+    def by_id(batches):
+        return {u: fb.feats[i, : int(fb.n_frames[i])] for fb in batches for i, u in enumerate(fb.utt_ids)}
+
+    # ---- phase 23: the streaming front end at full width, then K1 + K2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_batches = pipe.featurize_streaming(corpus, fcfg, bcfg, dev, chunk_samples=int(sr * STREAM_CHUNK_MS / 1e3))
+    torch.cuda.synchronize()
+    st_s = time.perf_counter() - t0
+    st_feats, off_feats = by_id(st_batches), by_id(pipe.featurize(corpus, fcfg, bcfg, dev))
+    if set(st_feats) != set(off_feats) or len(st_feats) != len(corpus):
+        raise RuntimeError(f"featurize_streaming kept {len(st_feats)} utterances, featurize {len(off_feats)}")
+    st_err = 0.0
+    for u, f in off_feats.items():
+        if st_feats[u].shape != f.shape:
+            raise RuntimeError(f"streaming features of {u}: {tuple(st_feats[u].shape)} vs offline {tuple(f.shape)}")
+        st_err = max(st_err, float((st_feats[u] - f).abs().max()))
+    if st_err > STREAM_FEATS_ATOL:
+        raise RuntimeError(f"streaming features off the offline front end by {st_err} (limit {STREAM_FEATS_ATOL})")
+    p_bf16 = gmm_cuda.kernel_params(gmm, "bfloat16", mode="max")
+    graphs_d = pipe.decode_graphs(graph, bcfg.batch_size, dev)
+
+    def decode(batches):
+        hyps = {}
+        for fb in batches:
+            ll = pipe.score_batch(fb.feats, gmm, compute_dtype="bfloat16", mode="max", params=p_bf16)
+            for u, toks in zip(fb.utt_ids, pipe.decode_batch(fb, ll, graph, dcfg, graphs=graphs_d)):
+                hyps[u] = [w.lower() for w in toks]
+        return hyps
+
+    zero_counts()
+    t0 = time.perf_counter()
+    st_hyps = decode(st_batches)
+    st_launches = counts()
+    st_dec_s = time.perf_counter() - t0
+    if min(st_launches["gmm_score"], st_launches["viterbi"]) == 0:
+        raise RuntimeError(f"the streaming path did not go through K1 and K2: {st_launches}")
+    off_hyps = decode(pipe.featurize(corpus, fcfg, bcfg, dev))
+    refs = [[w.lower() for w in words] for _u, _w, words in corpus]
+    st_wer = corpus_wer(refs, [st_hyps[u] for u, _w, _ws in corpus])[0]
+    off_wer = corpus_wer(refs, [off_hyps[u] for u, _w, _ws in corpus])[0]
+    n_diff = sum(st_hyps[u] != off_hyps[u] for u, _w, _ws in corpus)
+    if st_wer > MAX_WER:
+        raise RuntimeError(f"streaming WER {st_wer:.4f} > {MAX_WER}")
+    phase(23, f"streaming front end ({STREAM_CHUNK_MS:g} ms chunks) on the {len(corpus)} held-out utterances: "
+              f"{st_s:.2f} s, RTF {st_s / audio_s:.6f} ({audio_s:.1f} s of audio); features within {st_err:.3g} of "
+              f"the offline front end (limit {STREAM_FEATS_ATOL}); decoded (K1 bf16/max, K2) in {st_dec_s:.3f} s: WER "
+              f"{st_wer:.4f} (limit {MAX_WER}; the offline features' {off_wer:.4f}), {n_diff} transcripts differ "
+              f"from the offline pass'; launches {st_launches}")
+    del st_batches, st_feats, off_feats
+
+    # ---- phase 24: the online decoder on K2's chunk arm, at full width
+    obcfg = BatchConfig(batch_size=ONLINE_BATCH, bucket_boundaries=(600,))
+    ofbs = pipe.featurize(corpus, fcfg, obcfg, dev)
+    p32 = gmm_cuda.kernel_params(gmm, "float32")
+    graphs_o = pipe.decode_graphs(graph, ONLINE_BATCH, dev)[1]
+    J = graph.n_states
+    scale = dcfg.acoustic_scale
+    on_launches = dict.fromkeys(("gmm_score", "viterbi", "viterbi_chunk", "viterbi_backtrace"), 0)
+    proc_ms, part_ms, buf_bytes, n_frames_all, fin_ms = [], [], 0, 0, []
+    check, chunk_err = {}, 0.0
+    for bi, fb in enumerate(ofbs):
+        zero_counts()
+        ll = pipe.score_batch(fb.feats, gmm, compute_dtype="float32", mode="sum", params=p32)
+        dec = online.OnlineDecoder(graphs_o, acoustic_scale=scale)
+        nf = fb.n_frames.cpu().numpy()
+        T = ll.shape[1]
+        for off in range(0, T, ONLINE_TC):
+            tc = min(ONLINE_TC, T - off)
+            nv = np.clip(nf - off, 0, tc).astype(np.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.process(ll[:, off:off + tc], nv)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dec.partial()
+            torch.cuda.synchronize()
+            proc_ms.append(1e3 * (t1 - t0))
+            part_ms.append(1e3 * (time.perf_counter() - t1))
+        t0 = time.perf_counter()
+        path, entered, score = dec.finalize()
+        torch.cuda.synchronize()
+        fin_ms.append(1e3 * (time.perf_counter() - t0))
+        c = counts()
+        for k in on_launches:
+            on_launches[k] += c[k]
+        if c["viterbi"] or not (c["gmm_score"] and c["viterbi_chunk"] and c["viterbi_backtrace"]):
+            raise RuntimeError(f"the online path's launches: {c} (K1 and K2's chunk arm only)")
+        buf_bytes = max(buf_bytes, dec.buffer_bytes)
+        n_frames_all += int(nf.sum())
+        # the comparisons, not counted: offline K2 on the same scores
+        want = viterbi_cuda.viterbi(ll, graphs_o, fb.n_frames, acoustic_scale=scale)
+        live = fb.n_frames > 0
+        if not (torch.equal(path, want.path) and torch.equal(entered, want.entered)
+                and torch.equal(score[live], want.score[live])):
+            raise RuntimeError(f"online finalize differs from offline K2 on batch {bi}")
+        if bi == len(ofbs) - 1:  # the widest batch: the chunk arm against the plain chunk step, then timed
+            for beam in (0.0, K2_BEAM):
+                d = torch.full((ONLINE_BATCH, J), online.NEG_INF, device=dev)
+                s = torch.zeros(ONLINE_BATCH, dtype=torch.bool, device=dev)
+                pd, ps = d.clone(), s.clone()
+                bp, xa = viterbi_cuda.code_buffers(ONLINE_BATCH, J, ONLINE_CHECK_CHUNKS * ONLINE_TC, dev)
+                for ci in range(ONLINE_CHECK_CHUNKS):
+                    off = ci * ONLINE_TC
+                    nv = torch.as_tensor(np.clip(nf - off, 0, ONLINE_TC).astype(np.int32), device=dev)
+                    chunk = ll[:, off:off + ONLINE_TC]
+                    viterbi_cuda.chunk_step(d, s, chunk, nv, graphs_o, scale, beam, bp, xa, off)
+                    pd, ps, pbp, pxa = online.chunk_step(pd, ps, chunk, nv, graphs_o, scale, beam)
+                    codes = viterbi_cuda.unpack_codes(bp, slice(off, off + ONLINE_TC), J)
+                    enter = codes == 2
+                    xs = xa[:, off:off + ONLINE_TC].t()[:, :, None].expand(ONLINE_TC, ONLINE_BATCH, J)
+                    chunk_err = max(chunk_err, float((d - pd).abs().max()))
+                    if not (torch.equal(d, pd) and torch.equal(s, ps) and torch.equal(codes, pbp)
+                            and torch.equal(xs[enter], pxa[:, :, None].expand_as(xs)[enter])):
+                        raise RuntimeError(f"K2's chunk arm (beam {beam}) differs from the plain step at chunk {ci}")
+                check[beam] = int(enter.sum())
+            nv_full = torch.as_tensor(np.clip(nf, 0, ONLINE_TC).astype(np.int32), device=dev)
+            chunk0 = ll[:, :ONLINE_TC].contiguous()
+            dt_, st_ = torch.full((ONLINE_BATCH, J), online.NEG_INF, device=dev), torch.ones(
+                ONLINE_BATCH, dtype=torch.bool, device=dev)
+            dt_.copy_(dec.delta)
+            bpt, xat = viterbi_cuda.code_buffers(ONLINE_BATCH, J, ONLINE_TC, dev)
+            chunk_ms, _ = timed(lambda: viterbi_cuda.chunk_step(dt_, st_, chunk0, nv_full, graphs_o, scale, 0.0, bpt,
+                                                                xat, 0), 20)
+            chunk_plain_ms, _ = timed(lambda: online.chunk_step(dt_.clone(), st_.clone(), chunk0, nv_full, graphs_o,
+                                                                scale, 0.0), 2)
+            nft = torch.as_tensor(dec.n_frames.astype(np.int32), device=dev)
+            bt_ms, _ = timed(lambda: viterbi_cuda.backtrace(dec.delta, None, nft, dec._bp, dec._xa, dec.frames), 20)
+            chunk_bound = k2_chunk_bound(graphs_o, nv_full, st_, ONLINE_TC)
+            bt_bound = bound(ONLINE_BATCH * J * 4 + int(nft.sum()) * (8 + 4 + 5) + ONLINE_BATCH * 8,
+                             ONLINE_BATCH * J, "float32")
+            chunk_frames = int(nv_full.sum())
+        del ll, dec
+    proc_ms, part_ms = np.asarray(proc_ms), np.asarray(part_ms)
+    phase(24, f"online decode of the {len(corpus)} held-out utterances ({len(ofbs)} batches of {ONLINE_BATCH} "
+              f"streams, K1 float32/sum scores, {ONLINE_TC}-frame chunks, a partial after each): finalize bitwise "
+              f"offline K2 (path, entered, score) on every utterance; K2's chunk arm bitwise the plain chunk step on "
+              f"the first {ONLINE_CHECK_CHUNKS} chunks of the widest batch (delta, started, codes, the exit argmax "
+              f"of {check[0.0]} enter codes), also with beam {K2_BEAM:g} ({check[K2_BEAM]}); per chunk of "
+              f"{ONLINE_BATCH} streams: process median {np.median(proc_ms):.3f} ms (p90 "
+              f"{np.percentile(proc_ms, 90):.3f}), partial median {np.median(part_ms):.3f} ms (p90 "
+              f"{np.percentile(part_ms, 90):.3f}), finalize {np.median(fin_ms):.3f} ms, host clock; "
+              f"{n_frames_all} frames decoded; the chunk arm on the device {chunk_ms:.4f} ms a chunk of {chunk_frames} "
+              f"frames (plain {chunk_plain_ms:.3f} ms, bound {chunk_bound[0]:.4f} ms by {chunk_bound[1]}), the "
+              f"backtrace alone {bt_ms:.4f} ms (bound {bt_bound[0]:.4f} ms); codes buffer {buf_bytes} bytes a batch "
+              f"(uint8 backpointers would be {ONLINE_BATCH * 600 * J} bytes); launches {on_launches}")
+    k2_chunk = {"launches": on_launches["viterbi_chunk"] + on_launches["viterbi_backtrace"],
+                "launches_by_path": {"online": {"chunk": on_launches["viterbi_chunk"],
+                                                "backtrace": on_launches["viterbi_backtrace"]}},
+                "max_abs_err": chunk_err, "ms": chunk_ms, "plain_ms": chunk_plain_ms, "bound_ms": chunk_bound[0],
+                "bound_by": chunk_bound[1], "library_ms": None, "shape": [ONLINE_BATCH, ONLINE_TC, J],
+                "process_ms_host": float(np.median(proc_ms)), "partial_ms_host": float(np.median(part_ms)),
+                "codes_buffer_bytes": buf_bytes,
+                "backtrace": {"ms": bt_ms, "bound_ms": bt_bound[0], "bound_by": bt_bound[1]}}
+
+    # ---- phase 25: K4's carry arm, and the streaming LstmAm
+    B4, T4, H = 64, 600, STREAM_NN_HIDDEN
+    rng = np.random.default_rng(25)
+    xg = torch.as_tensor(rng.standard_normal((B4, T4, 4 * H)).astype(np.float32), device=dev)
+    w = torch.as_tensor((rng.standard_normal((H, 4 * H)) / np.sqrt(H)).astype(np.float32), device=dev)
+    nf4 = torch.as_tensor(np.r_[T4, 1, 0, 0, rng.integers(1, T4 + 1, B4 - 4)].astype(np.int32), device=dev)
+    h0, c0 = (torch.as_tensor(rng.standard_normal((B4, H)).astype(np.float32), device=dev) for _ in range(2))
+    zero = nf4 == 0
+    carry_err = {}
+    for dt in ("float32", "bfloat16"):
+        got, (h, c) = lstm_cuda.lstm_layer(xg, w, nf4, dt, h0=h0, c0=c0, return_carry=True)
+        want, (hp, cp) = fast_lstm.lstm_layer(xg, w, nf4, dt, h0=h0, c0=c0, return_carry=True)
+        torch.cuda.synchronize()
+        carry_err[dt] = max(float((a - b).abs().max()) for a, b in ((got, want), (h, hp), (c, cp)))
+        if carry_err[dt] > K4_ATOL[dt]:
+            raise RuntimeError(f"K4's carry arm ({dt}) off the plain recurrence by {carry_err[dt]}")
+        if not (torch.equal(h[zero], h0[zero]) and torch.equal(c[zero], c0[zero])):
+            raise RuntimeError(f"K4's carry arm ({dt}): a row with no frame changed its carries")
+    ragged_ms, _ = timed(lambda: lstm_cuda.lstm_layer(xg, w, nf4, "float32", h0=h0, c0=c0, return_carry=True), 5)
+    del xg, got, want
+    # the streaming LstmAm 81 x 512 x 2 on the widest online batch's first rows, chunked, against offline
+    model = init_(tn.LstmAmStream(STREAM_NN_PDFS, fcfg.feat_dim, hidden=H, layers=2),
+                  torch.Generator().manual_seed(0)).to(dev)
+    fbw = ofbs[-1]
+    feats, nfs = fbw.feats[:B4], fbw.n_frames[:B4]
+    offline = tn.LstmAm.forward(model, feats, nfs)
+    zero_counts()
+    carries = tn.lstm_stream_init(model, feats.shape[0], dev)
+    outs = []
+    nfs_np = nfs.cpu().numpy()
+    for off in range(0, feats.shape[1], ONLINE_TC):
+        nv = torch.as_tensor(np.clip(nfs_np - off, 0, ONLINE_TC).astype(np.int32), device=dev)
+        y, carries = model(feats[:, off:off + ONLINE_TC], carries, n_valid=nv)
+        outs.append(y)
+    nn_launches = counts()
+    if nn_launches["lstm_scan_carry"] == 0 or nn_launches["lstm_scan"] != nn_launches["lstm_scan_carry"]:
+        raise RuntimeError(f"the streaming LstmAm's launches: {nn_launches} (K4's carry arm only)")
+    vmask = tn.valid_mask(nfs, feats.shape[1], dev)
+    nn_err = float((torch.cat(outs, 1)[vmask] - offline[vmask]).abs().max())
+    if nn_err > STREAM_NN_ATOL:
+        raise RuntimeError(f"the streamed LstmAm is {nn_err} off the offline LstmAm (limit {STREAM_NN_ATOL})")
+    # one chunk of layer 1 from carries: K4's carry arm, plain, and cuDNN nn.LSTM with (h0, c0)
+    cell = model.cells[1]
+    x_c = torch.as_tensor(rng.standard_normal((B4, ONLINE_TC, H)).astype(np.float32), device=dev)
+    xg_c = cell.input_gates(x_c, "float32")
+    nv_c = torch.full((B4,), ONLINE_TC, dtype=torch.int32, device=dev)
+    k4c_ms, (y_k, _) = timed(lambda: lstm_cuda.lstm_layer(xg_c, cell.w_rec, nv_c, "float32", h0=h0, c0=c0,
+                                                          return_carry=True), 20)
+    k4c_plain_ms, _ = timed(lambda: fast_lstm.lstm_layer(xg_c, cell.w_rec, nv_c, "float32", h0=h0, c0=c0,
+                                                         return_carry=True), 3)
+    gemm_k4c_ms, _ = timed(lambda: lstm_cuda.lstm_layer(cell.input_gates(x_c, "float32"), cell.w_rec, nv_c,
+                                                        "float32", h0=h0, c0=c0, return_carry=True), 20)
+    cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    cudnn.weight_ih_l0.copy_(cell.w_in.T)
+    cudnn.weight_hh_l0.copy_(cell.w_rec.T)
+    cudnn.bias_ih_l0.zero_()
+    cudnn.bias_hh_l0.copy_(cell.bias)
+    lib_c_ms, (y_lib, _) = timed(lambda: cudnn(x_c, (h0[None], c0[None])), 20)
+    lib_c_err = float((y_lib - y_k).abs().max())
+    frames_c = B4 * ONLINE_TC
+    k4c_bound = bound(frames_c * 4 * H * 4 + frames_c * H * 4 + 4 * B4 * H * 4 + H * 4 * H * 4,
+                      frames_c * H * (2 * 4 * H + K4_GATE_OPS), "float32")
+    phase(25, f"K4's carry arm on B={B4} T={T4} H={H} (n_frames {nf4.tolist()[:5]}..., random carries) within "
+              f"K4's tolerance of plain: max |err| float32 {carry_err['float32']:.3g}, bfloat16 "
+              f"{carry_err['bfloat16']:.3g} (atol {K4_ATOL['float32']}, {K4_ATOL['bfloat16']}); the carries of the "
+              f"{int(zero.sum())} rows without frames bitwise unchanged; float32 {ragged_ms:.3f} ms; LstmAm "
+              f"{STREAM_NN_PDFS} x {H} x 2 streamed in {ONLINE_TC}-frame chunks on {feats.shape[0]} rows of the widest batch: "
+              f"max |err| against the offline LstmAm on the card {nn_err:.3g} (limit {STREAM_NN_ATOL}; "
+              f"{'bitwise' if nn_err == 0 else 'not bitwise'}), launches {nn_launches}; one chunk of layer 1 "
+              f"({B4} x {ONLINE_TC}) from carries: K4 {k4c_ms:.4f} ms (plain {k4c_plain_ms:.3f} ms, bound "
+              f"{k4c_bound[0]:.4f} ms by {k4c_bound[1]}), input GEMM + K4 {gemm_k4c_ms:.4f} ms vs cuDNN nn.LSTM with "
+              f"(h0, c0) {lib_c_ms:.4f} ms (max |diff| {lib_c_err:.3g})")
+    k4_carry = {"launches": nn_launches["lstm_scan_carry"], "launches_by_path": {"stream_nn": nn_launches["lstm_scan"]},
+                "max_abs_err": carry_err["float32"], "bfloat16_max_abs_err": carry_err["bfloat16"],
+                "ms": k4c_ms, "plain_ms": k4c_plain_ms, "bound_ms": k4c_bound[0], "bound_by": k4c_bound[1],
+                "library_ms": lib_c_ms, "library": "torch.nn.LSTM (cuDNN) with (h0, c0), the whole layer",
+                "ms_with_input_gemm": gemm_k4c_ms, "shape": [B4, ONLINE_TC, H], "ragged_600_ms": ragged_ms,
+                "stream_vs_offline_max_abs_err": nn_err}
+    del model, offline, outs, ofbs
+
+    # ---- phase 26: pitch, and the CLI twins
+    pitch_utts = corpus[:PITCH_UTTS]
+    pcfg = dataclasses.replace(fcfg, add_pitch=True)
+    pb = BatchConfig(batch_size=PITCH_UTTS, bucket_boundaries=(600,))
+    card = pipe.featurize(pitch_utts, pcfg, pb, dev)
+    cpu = pipe.featurize(pitch_utts, pcfg, pb, torch.device("cpu"))
+    D = fcfg.feat_dim
+    pitch_err = max(float((a.feats[..., D:].cpu() - b.feats[..., D:]).abs().max()) for a, b in zip(card, cpu))
+    spec_err = max(float((a.feats[..., :D].cpu() - b.feats[..., :D]).abs().max()) for a, b in zip(card, cpu))
+    if pitch_err > PITCH_ATOL or spec_err > FRONTEND_ATOL:
+        raise RuntimeError(f"add_pitch features on the card off the CPU's: pitch {pitch_err}, spectral {spec_err}")
+    waves = np.zeros((len(pitch_utts), max(len(w) for _u, w, _ws in pitch_utts)), np.float32)
+    for i, (_u, wv, _ws) in enumerate(pitch_utts):
+        waves[i, :len(wv)] = wv
+    waves_t = torch.as_tensor(waves, device=dev)
+    ns_t = torch.as_tensor([len(wv) for _u, wv, _ws in pitch_utts], device=dev)
+    pitch_ms, (_pf, pnf) = timed(lambda: extract_pitch(waves_t, ns_t), 3)
+    pitch_T = int(fcfg.num_frames(waves.shape[1]))
+    work = os.path.join(ROOT, "build", "chip_smoke_stream_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    ctm = os.path.join(work, "out.ctm")
+    runs = {
+        "stream": ("stream", ["--synthetic-demo"]),
+        "stream endpoint": ("stream", ["--synthetic-demo", "--endpoint"]),
+        "transcribe": ("transcribe", ["--synthetic-demo", "--nbest", "2", "--ctm", ctm]),
+        "eval streaming": ("eval", ["--synthetic-v2", str(STREAM_CLI_EVAL_UTTS), "--bundle", BUNDLE, "--streaming"]),
+    }
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (module, args) in runs.items():
+        run_dir = os.path.join(work, name.replace(" ", "_"))
+        cmd = [sys.executable, "-m", f"mogasr_torch.cli.{module}", *args, "--run-dir", run_dir, "--device", str(dev)]
+        procs[name] = (run_dir, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True))
+    try:
+        # meanwhile, in this process: the stream twin's launches
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+            cli_stream.main(["--synthetic-demo", "--device", str(dev), "--run-dir", os.path.join(work, "counted")])
+        cli_launches = counts()
+        if cli_launches["viterbi"] or not (cli_launches["gmm_score"] and cli_launches["viterbi_chunk"]
+                                           and cli_launches["viterbi_backtrace"]):
+            raise RuntimeError(f"the stream twin's launches: {cli_launches} (K1 and K2's chunk arm only)")
+        outs = {}
+        for name, (run_dir, proc) in procs.items():
+            out, err = proc.communicate(timeout=max(CLI_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            if proc.returncode != 0:
+                raise RuntimeError(f"the CLI twin ({name}) failed ({proc.returncode}): {err[-2000:]}")
+            outs[name] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        all_s = time.perf_counter() - t0
+    finally:
+        for _run_dir, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    counted = [json.loads(line) for line in cli_out.getvalue().splitlines() if line.startswith("{")]
+    checks = []
+    for name in ("stream", "stream endpoint"):
+        ev = [e for e in outs[name] if "partial" in e or "final" in e]
+        if len(ev) < 3 or "final" not in ev[-1] or not all("partial" in e for e in ev[:-1]):
+            raise RuntimeError(f"the stream twin ({name}) printed {ev}")
+        if name == "stream endpoint" and "endpoint" not in ev[-1]:
+            raise RuntimeError(f"the stream twin with --endpoint did not endpoint: {ev[-1]}")
+        checks.append(f"{name}: {len(ev) - 1} partials, final {ev[-1]['final']}, RTF {ev[-1]['rtf']}"
+                      + (f", endpoint {ev[-1]['endpoint']} at {ev[-1]['endpoint_t_s']} s" if "endpoint" in ev[-1]
+                         else ""))
+    if [e for e in counted if "final" in e][-1]["final"] != [e for e in outs["stream"] if "final" in e][-1]["final"]:
+        raise RuntimeError("the stream twin in this process and in its own disagree")
+    segs = [r for r in outs["transcribe"] if "words" in r]
+    with open(ctm) as f:
+        ctm_rows = [line.split() for line in f]
+    if len(segs) != 4 or any(len(r["nbest"]) != 2 or len(r["confidences"]) != len(r["words"]) for r in segs) or \
+            len(ctm_rows) != sum(len(r["words"]) for r in segs):
+        raise RuntimeError(f"the transcribe twin printed {segs}, {len(ctm_rows)} CTM rows")
+    checks.append(f"transcribe: {len(segs)} segments, {len(ctm_rows)} CTM rows, words "
+                  + " | ".join(" ".join(r["words"]) for r in segs))
+    with open(os.path.join(work, "eval_streaming", "metrics.jsonl")) as f:
+        ev = [r for r in map(json.loads, f) if r["stage"] == "eval"]
+    if len(ev) != 1 or ev[0]["utts"] != STREAM_CLI_EVAL_UTTS or not np.isfinite(ev[0]["wer"]):
+        raise RuntimeError(f"eval --streaming: {ev}")
+    checks.append(f"eval --bundle --streaming on {ev[0]['utts']} v2 utterances: WER {ev[0]['wer']:.4f}, "
+                  f"{ev[0]['utts_per_sec_per_chip']:.1f} utt/s, RTF {ev[0]['rtf']:.6f}")
+    shutil.rmtree(work, ignore_errors=True)
+    phase(26, f"featurize with add_pitch on {PITCH_UTTS} utterances on the card against the CPU: pitch columns max "
+              f"|err| {pitch_err:.3g} (limit {PITCH_ATOL}), spectral {spec_err:.3g}; extract_pitch of the "
+              f"{PITCH_UTTS} x {pitch_T} frames {pitch_ms:.1f} ms on the card ({pitch_ms / pitch_T:.3f} ms a frame of "
+              f"its lag Viterbi loop and backtrace, plain PyTorch ops); CLI twins, four runs at once, exited 0 in "
+              f"{all_s:.1f} s: " + "; ".join(checks) + f"; the stream twin in this process launched {cli_launches}")
+    return {"streaming": st_launches, "online": on_launches, "stream_cli": cli_launches, "k2_chunk": k2_chunk,
+            "k4_carry": k4_carry}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -1999,6 +2436,12 @@ def main() -> None:
     if viterbi_cuda.LAUNCHES == 0:
         raise RuntimeError("K2 was never launched")
     k2_main_bound = k2_bound(graphs_main, fb.n_frames, T)
+    # K3's device times on this batch, for phase 20 (confidence runs K3 on
+    # the same batch): profiled here, early in the run, as a profiling window
+    # late in it has come back without the kernels' device activity
+    fb_names = ("fb_forward_kernel", "fb_backward_kernel", "fb_combine_kernel")
+    k3_decode_dev = {"shape": (B, T), "device_ms": kernel_device_ms(lambda: fb_cuda.forward_backward(
+        ll_main, graphs_main, fb.n_frames, acoustic_scale=dcfg.acoustic_scale), fb_names, 3)}
     phase(3, f"K2 bitwise equal to plain on J={J}: {'; '.join(cases)}; decode-path batch "
           f"({int((fb.n_frames > 0).sum())} rows with frames, {int(fb.n_frames.sum())} frames) "
           f"{k2_ms:.3f} ms (plain {k2_plain_ms:.3f} ms, bound {k2_main_bound[0]:.4f} ms by {k2_main_bound[1]}; "
@@ -2087,7 +2530,6 @@ def main() -> None:
         "the same with skip transitions": (ll_rand, with_chain_skips(graphs_rand), nf_rand),
         loop_name: (ll_loop, graphs_loop, nf_loop),
     }
-    fb_names = ("fb_forward_kernel", "fb_backward_kernel", "fb_combine_kernel")
     arm_names = {fb_cuda.ARM_CHAIN: "chain", fb_cuda.ARM_BLOCK: "block", fb_cuda.ARM_GENERAL: "general"}
     fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = fb_cuda.COMBINE_LAUNCHES = 0
     fb_line, fb_timed, fb_arms = [], {}, {}
@@ -2257,21 +2699,32 @@ def main() -> None:
     arm_entries = scorer_arm_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg, k1_hyps, sfu_exps_per_s)
     entry = training_entry_phases(dev, corpus, bcfg, meta)
     lm_entry = lm_lattice_phases(dev, gmm, fcfg, dcfg, tied, graph, corpus, bcfg,
-                                 [words for _id, _wave, words in train_corpus], run.wer)
+                                 [words for _id, _wave, words in train_corpus], run.wer, k3_decode_dev)
     phase(21, decode_cli_phase(dev))
     cli_line, cli_launches = gmm_cli_phase(dev, corpus, topo.lexicon, entry["mono_ckpt"], plain_wer)
     phase(22, cli_line)
+    stream = streaming_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
     paths = {"decode": decode_launches, "train": train_launches, "recipe": entry["recipe"],
              "recipe_bundle_decode": entry["recipe_decode"], "mmi": entry["mmi"], "smbr": entry["smbr"],
              "lm_decode": lm_entry["lm_decode"], "lm_check_decodes": lm_entry["lm_check_decodes"],
-             "confidence": lm_entry["confidence"], "cli": cli_launches}
+             "confidence": lm_entry["confidence"], "cli": cli_launches, "streaming": stream["streaming"],
+             "online": stream["online"], "stream_cli": stream["stream_cli"]}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]
         e["launches"] += cli_launches[e["name"]]
+    # K2's chunk arm and its backtrace alone, on the online path and in the stream twin
+    k2_chunk = stream["k2_chunk"]
+    k2_chunk["launches_by_path"]["stream_cli"] = {"chunk": stream["stream_cli"]["viterbi_chunk"],
+                                                  "backtrace": stream["stream_cli"]["viterbi_backtrace"]}
+    k2_chunk["launches"] += stream["stream_cli"]["viterbi_chunk"] + stream["stream_cli"]["viterbi_backtrace"]
+    # K4's carry arm on the streaming LstmAm's path
+    k4_entry["launches_by_path"]["stream_nn"] = stream["k4_carry"]["launches"]
+    k4_entry["launches"] += stream["k4_carry"]["launches"]
+    k4_entry["carry"] = stream["k4_carry"]
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     k3d = lm_entry["k3_decode_batch"]
     k1_main = ("bfloat16", "max")
@@ -2296,7 +2749,7 @@ def main() -> None:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_main_bound[0], "bound_by": k2_main_bound[1], "library_ms": None,
          "align": k2_align, "viterbi_em_align_stage_ms": 1e3 * vt.stage_seconds[0]["align"],
-         "collect_cd_stats": entry["collect_cd_stats"]},
+         "collect_cd_stats": entry["collect_cd_stats"], "chunk": k2_chunk},
         {"name": "fb_forward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
          "replaces": "mogasr/decoder/fb_pallas.py:46", "launches": launches["fb_forward"],
          "launches_by_path": by_path["fb_forward"], "arm": fb_train["arm"],

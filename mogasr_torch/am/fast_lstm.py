@@ -18,6 +18,8 @@ only; every consumer masks by ``n_frames``.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple, Union
+
 import torch
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -33,8 +35,13 @@ def lstm_layer(
     w_rec: torch.Tensor,     # [H, 4H] recurrent weight, gate blocks i, f, g, o
     n_frames: torch.Tensor,  # [B]
     compute_dtype: str = "float32",
-) -> torch.Tensor:
-    """[B, T, H] float32 hidden states of one LSTM layer from zero carries.
+    h0: Optional[torch.Tensor] = None,  # [B, H] initial carries (zero when not given)
+    c0: Optional[torch.Tensor] = None,
+    return_carry: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
+    """[B, T, H] float32 hidden states of one LSTM layer from the carries
+    (h0, c0), zero when not given; with ``return_carry`` also (h_T, c_T), each
+    row's carries at its n_frames (a row with none keeps h0 and c0).
 
     compute_dtype "bfloat16" rounds h and w_rec to bf16 before the product
     and keeps the sum (in float32: every bf16 x bf16 product is exact), the
@@ -52,8 +59,8 @@ def lstm_layer(
         round_ = lambda a: a  # noqa: E731
     w = round_(w_rec.to(device=xg.device, dtype=torch.float32))
     nf = n_frames.to(xg.device)
-    h = torch.zeros((B, H), dtype=torch.float32, device=xg.device)
-    c = torch.zeros_like(h)
+    h = torch.zeros((B, H), dtype=torch.float32, device=xg.device) if h0 is None else h0.to(xg.device, torch.float32)
+    c = torch.zeros_like(h) if c0 is None else c0.to(xg.device, torch.float32)
     out = torch.empty((B, T, H), dtype=torch.float32, device=xg.device)
     for t in range(T):
         gates = xg[:, t] + round_(h) @ w
@@ -67,4 +74,4 @@ def lstm_layer(
         c = torch.where(keep, c_new, c)
         h = torch.where(keep, h_new, h)
         out[:, t] = h
-    return out
+    return (out, (h, c)) if return_carry else out

@@ -10,7 +10,11 @@ live at a frame are a prefix of them; up to 64 rows (four blocks of 16, each
 running on its own) go in one launch of thread-block clusters, and a wider
 batch runs one launch per 64 rows, from the one C entry point.
 ``LAUNCHES`` counts kernel launches (none for B * T = 0); ``LAST_LAUNCH``
-holds the cluster size, CTAs and rows of the last call's launches.
+holds the cluster size, CTAs and rows of the last call's launches. With
+initial carries (``h0``, ``c0``) or ``return_carry`` the kernel runs its carry
+arm (the streaming LstmAm's chunk), counted in ``CARRY_LAUNCHES`` as well:
+the carries go in and out through the row order, float32 in either
+compute dtype.
 
 Unlike the reference, which demoted its kernel behind ``use_pallas_lstm``
 after a TPU measurement, every LSTM of the port runs through this kernel on
@@ -21,7 +25,7 @@ or cuDNN, a library kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -29,10 +33,11 @@ from mogasr_torch import _cuda
 from mogasr_torch.am import fast_lstm as plain
 
 LAUNCHES = 0
+CARRY_LAUNCHES = 0
 LAST_LAUNCH: Dict[str, int] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"lstm_scan": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P, ctypes.POINTER(ctypes.c_int)]}
+_SIGNATURES = {"lstm_scan": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P] * 5 + [ctypes.POINTER(ctypes.c_int)]}
 
 
 def row_order(n_frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -52,14 +57,20 @@ def lstm_layer(
     w_rec: torch.Tensor,     # [H, 4H] recurrent weight, gate blocks i, f, g, o
     n_frames: torch.Tensor,  # [B]
     compute_dtype: str = "float32",
-) -> torch.Tensor:
-    """[B, T, H] float32 hidden states of one LSTM layer from zero carries,
-    frozen past each row's n_frames. compute_dtype "bfloat16" rounds h and
-    w_rec to bf16 for the product; sums, gates and carries stay float32."""
-    global LAUNCHES, LAST_LAUNCH
+    h0: Optional[torch.Tensor] = None,  # [B, H] float32 initial carries (zero when not given)
+    c0: Optional[torch.Tensor] = None,
+    return_carry: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
+    """[B, T, H] float32 hidden states of one LSTM layer from the carries
+    (h0, c0), zero when not given, frozen past each row's n_frames; with
+    ``return_carry`` also (h_T, c_T) [B, H], each row's carries at its
+    n_frames (a row with none keeps h0 and c0). compute_dtype "bfloat16"
+    rounds h and w_rec to bf16 for the product; sums, gates and carries stay
+    float32."""
+    global LAUNCHES, CARRY_LAUNCHES, LAST_LAUNCH
     plain.check_compute_dtype(compute_dtype)
     if xg.device.type == "cpu":
-        return plain.lstm_layer(xg, w_rec, n_frames, compute_dtype)
+        return plain.lstm_layer(xg, w_rec, n_frames, compute_dtype, h0=h0, c0=c0, return_carry=return_carry)
     if xg.device.type != "cuda":
         raise ValueError(f"lstm_layer: unsupported device {xg.device}")
     if xg.dim() != 3 or xg.dtype != torch.float32 or xg.shape[2] % 4 or xg.shape[2] == 0:
@@ -71,9 +82,23 @@ def lstm_layer(
     if tuple(n_frames.shape) != (B,):
         raise ValueError(f"n_frames must be [{B}], got {tuple(n_frames.shape)}")
     dev = xg.device
+    carry = h0 is not None or c0 is not None or return_carry
+    if carry:
+        zero = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        h0 = zero if h0 is None else h0
+        c0 = zero if c0 is None else c0
+        for name, t in (("h0", h0), ("c0", c0)):
+            if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, H):
+                raise ValueError(f"{name} must be float32 [{B}, {H}] on {dev}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        h0, c0 = h0.contiguous(), c0.contiguous()
+        h_out, c_out = torch.empty_like(h0), torch.empty_like(c0)
     out = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     if B * T == 0:
-        return out
+        if carry:  # no frame: the carries go through unchanged
+            h_out.copy_(h0)
+            c_out.copy_(c0)
+        return (out, (h_out, c_out)) if return_carry else out
     bf16 = compute_dtype == "bfloat16"
     w = w_rec.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
     x = xg.contiguous()
@@ -87,8 +112,11 @@ def lstm_layer(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lstm_scan(x.data_ptr(), w.data_ptr(), perm.data_ptr(), nfs.data_ptr(), out.data_ptr(),
-                            ws.data_ptr(), ws.numel() * 4, B, T, H, int(bf16), stream, info)
+                            ws.data_ptr(), ws.numel() * 4, B, T, H, int(bf16),
+                            *((h0.data_ptr(), c0.data_ptr(), h_out.data_ptr(), c_out.data_ptr()) if carry
+                              else (None,) * 4), stream, info)
     _cuda.check(lib, "lstm_scan", err, "lstm_scan launch")
     LAUNCHES += info[0]
+    CARRY_LAUNCHES += info[0] if carry else 0
     LAST_LAUNCH = {"launches": info[0], "cluster": info[1], "ctas": info[2], "rows": info[3]}
-    return out
+    return (out, (h_out, c_out)) if return_carry else out

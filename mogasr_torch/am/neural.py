@@ -25,7 +25,7 @@ them); valid frames agree.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +127,66 @@ class LstmAm(nn.Module):
         for cell in self.cells:
             x = cell(x, n_frames, compute_dtype, use_kernels)
         return dense(self.head, x, compute_dtype)
+
+
+Carries = List[Tuple[torch.Tensor, torch.Tensor]]  # per layer (c, h) [B, H], flax's order
+
+
+def lstm_stream_apply(
+    model: LstmAm,
+    feats: torch.Tensor,                  # [B, Tc, D] a chunk
+    carries: Carries,
+    n_valid: Optional[torch.Tensor] = None,  # [B]; None: every frame
+    compute_dtype: str = "float32",
+    use_kernels: bool = True,
+) -> Tuple[torch.Tensor, Carries]:
+    """(logits [B, Tc, P], the carries after the chunk): LstmAm's forward
+    from the given carries, each layer's recurrence on K4's carry arm on the
+    card (``lstm_cuda.lstm_layer`` with h0, c0 and return_carry). The carries
+    are each row's at its n_valid, and a row with n_valid == 0 keeps its own,
+    as the reference restores them. Past n_valid the outputs repeat the
+    frozen h, where flax's go on; valid frames agree."""
+    B, T = feats.shape[:2]
+    nv = torch.full((B,), T, dtype=torch.int32, device=feats.device) if n_valid is None else n_valid
+    layer = lstm_cuda.lstm_layer if use_kernels else fast_lstm.lstm_layer
+    x = feats.to(torch.float32)
+    new: Carries = []
+    for cell, (c, h) in zip(model.cells, carries):
+        x, (h, c) = layer(cell.input_gates(x, compute_dtype), cell.w_rec, nv, compute_dtype, h0=h, c0=c,
+                          return_carry=True)
+        new.append((c, h))
+    return dense(model.head, x, compute_dtype), new
+
+
+class LstmAmStream(LstmAm):
+    """Chunked stateful forward of LstmAm, the port of the reference's
+    ``LstmAmStream``: the same parameters (so ``am.params.from_flax`` of an
+    LstmAm checkpoint loads into it), carrying each layer's (c, h) across
+    calls, so any chunking gives the offline LstmAm's outputs."""
+
+    def forward(self, feats, carries: Carries, n_valid=None, compute_dtype: str = "float32",
+                use_kernels: bool = True) -> Tuple[torch.Tensor, Carries]:
+        return lstm_stream_apply(self, feats, carries, n_valid, compute_dtype, use_kernels)
+
+
+def lstm_stream_init(model: LstmAm, batch: int, device: torch.device) -> Carries:
+    """Zero (c, h) carries for a batch of streams."""
+    zero = torch.zeros((batch, model.hidden), dtype=torch.float32, device=device)
+    return [(zero, zero) for _ in range(model.layers)]
+
+
+def make_lstm_stream_step(model: LstmAm, log_priors: torch.Tensor, compute_dtype: str = "float32",
+                          use_kernels: bool = True):
+    """(carries, feats chunk [B, Tc, D]) -> (carries, loglik chunk): the
+    offline LstmAm's parameters used as they are, with the prior scaling of
+    ``pipeline.make_nn_scorer``."""
+
+    @torch.no_grad()
+    def step(carries: Carries, feats: torch.Tensor) -> Tuple[Carries, torch.Tensor]:
+        logits, new = lstm_stream_apply(model, feats, carries, None, compute_dtype, use_kernels)
+        return new, posteriors_to_loglik(logits, log_priors)
+
+    return step
 
 
 class BlstmAm(nn.Module):

@@ -11,8 +11,8 @@ phones and the Viterbi score, as the reference writes them. ``--gmm-ckpt``
 reads the port's checkpoint format, not orbax; without it a random GMM of
 ``--num-states`` (default: the topology's pdfs) x ``--num-components`` is
 drawn as the reference draws it. Records go to <run-dir>/metrics.jsonl and
-are printed. Runs on ``--device`` (default cuda). ``--add-pitch`` is not
-ported yet (ROADMAP item 10) and raises NotImplementedError.
+are printed. Runs on ``--device`` (default cuda). ``--add-pitch`` appends
+the pitch triple (``frontend/pitch.py``) to the features.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import json
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger, refuse_unported,
+    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger,
 )
 from mogasr_torch.config import BatchConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.hmm.topology import build_topology
@@ -33,7 +33,7 @@ from mogasr_torch.utils.metrics import Timer
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--add-pitch", action="store_true",
-                   help="append the pitch triple to the features (not ported yet: raises)")
+                   help="append the pitch triple (POV, centered log-f0, delta log-f0) to the features")
     add_corpus_args(p)
     add_run_args(p)
     p.add_argument("--gmm-ckpt", help="GMM checkpoint dir (the port's format, from cli.train_gmm)")
@@ -46,10 +46,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported([("--add-pitch", args.add_pitch, "10: frontend/pitch.py")])
     device = device_of(args.device)
     corpus, lex = load_corpus(args)
-    fcfg = FrontendConfig()
+    fcfg = FrontendConfig(add_pitch=args.add_pitch)
     topo = build_topology(lex, TopologyConfig())
     if args.num_states == 0:
         args.num_states = topo.n_pdfs

@@ -17,8 +17,9 @@ printed. Runs on ``--device`` (default cuda).
 it), not orbax. Not ported yet, and raising NotImplementedError: the neural
 and end-to-end acoustic models (``--am`` other than gmm, ``--nn-ckpt``,
 ``--ctc``, ``--rnnt``, ``--aed``), ``--ivector-ckpt``, ``--bias``,
-``--fusion-lm``, ``--nnlm-rescore`` and ``--add-pitch``; each message names
-the ROADMAP item that ports it.
+``--fusion-lm`` and ``--nnlm-rescore``; each message names the ROADMAP
+item that ports it. ``--add-pitch`` appends the pitch triple
+(``frontend/pitch.py``) to the features.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from mogasr_torch.utils.metrics import Timer, trace
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--add-pitch", action="store_true",
-                   help="append the pitch triple to the features (not ported yet: raises)")
+                   help="append the pitch triple (POV, centered log-f0, delta log-f0) to the features")
     add_corpus_args(p)
     add_run_args(p)
     p.add_argument("--gmm-ckpt", help="GMM checkpoint dir (the port's format, from cli.train_gmm)")
@@ -108,7 +109,6 @@ def main(argv=None) -> None:
         (f"--am {args.am}", args.am != "gmm", "12: neural checkpoints"),
         ("--nn-ckpt", args.nn_ckpt, "12: neural checkpoints"),
         ("--ivector-ckpt", args.ivector_ckpt, "11: am/ivector.py"),
-        ("--add-pitch", args.add_pitch, "10: frontend/pitch.py"),
     ))
     device = device_of(args.device)
     bundle = None

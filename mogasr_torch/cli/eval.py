@@ -2,9 +2,11 @@
 the reference's cli/eval.py on its GMM paths.
 
     python -m mogasr_torch.cli.eval --manifest corpus.jsonl --lexicon lexicon.txt --bundle benchmarks/headline \\
-        [--consensus] [--run-dir DIR] [--profile] [--device cpu]
+        [--consensus] [--streaming [--chunk-ms MS]] [--add-pitch] [--run-dir DIR] [--profile] [--device cpu]
 
-featurize -> K1 (float32, sum mode) -> K2 over the word-loop graph (the
+featurize (or, with ``--streaming``, the chunked streaming front end,
+``pipeline.featurize_streaming``, in chunks of ``--chunk-ms``) -> K1
+(float32, sum mode) -> K2 over the word-loop graph (the
 bundle's context-dependent loop with ``--bundle``), or with ``--consensus``
 the lattice pass (``pipeline.decode_batch_lattices`` over a bigram of the
 corpus transcripts) then confusion-network consensus decoding on the host
@@ -20,9 +22,10 @@ of 16). Records go to <run-dir>/metrics.jsonl and are printed; ``--profile``
 records a ``torch.profiler`` trace of the sweep into <run-dir>/profile. Runs
 on ``--device`` (default cuda).
 
-Not ported yet, and raising NotImplementedError naming the ROADMAP item that
-ports them: ``--add-pitch``, ``--streaming`` and ``--chunk-ms`` (item 10),
-``--fmllr``, ``--mllr`` and ``--vtln`` (item 11), ``--am`` other than gmm and
+``--add-pitch`` appends the pitch triple (``frontend/pitch.py``) to the
+features. Not ported yet, and raising NotImplementedError naming the ROADMAP
+item that ports them: ``--fmllr``, ``--mllr`` and ``--vtln`` (item 11),
+``--am`` other than gmm and
 ``--nn-ckpt`` (item 12), ``--ctc``, ``--rnnt``, ``--aed`` and ``--bpe`` (item
 13). The options that only those paths read are left out.
 """
@@ -40,7 +43,7 @@ from mogasr_torch.cli.common import (
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
 from mogasr_torch.hmm.topology import build_topology
-from mogasr_torch.pipeline import decode_batch, featurize, score_batch, word_decode_graph
+from mogasr_torch.pipeline import decode_batch, featurize, featurize_streaming, score_batch, word_decode_graph
 from mogasr_torch.utils.metrics import Timer, trace
 
 N_CHIPS = 1  # one card; the reference's batch is 16 a chip
@@ -49,7 +52,7 @@ N_CHIPS = 1  # one card; the reference's batch is 16 a chip
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--add-pitch", action="store_true",
-                   help="append the pitch triple to the features (not ported yet: raises)")
+                   help="append the pitch triple (POV, centered log-f0, delta log-f0) to the features")
     add_corpus_args(p)
     add_run_args(p)
     p.add_argument("--gmm-ckpt", help="GMM checkpoint dir (the port's format, from cli.train_gmm)")
@@ -75,8 +78,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="acoustic model (only gmm is ported: the others raise)")
     p.add_argument("--nn-ckpt", help="neural checkpoint dir (not ported yet: raises)")
     p.add_argument("--streaming", action="store_true",
-                   help="the chunked streaming front end (not ported yet: raises)")
-    p.add_argument("--chunk-ms", type=float, help="streaming chunk size in milliseconds (not ported yet: raises)")
+                   help="extract features through the chunked streaming front end instead of the offline batch path")
+    p.add_argument("--chunk-ms", type=float, default=500.0, help="streaming chunk size in milliseconds")
     return p.parse_args(argv)
 
 
@@ -107,9 +110,6 @@ def main(argv=None) -> None:
         ("--fmllr", args.fmllr, "11: am/fmllr.py"),
         ("--mllr", args.mllr, "11: am/mllr.py"),
         ("--vtln", args.vtln, "11: pipeline.decode_with_vtln"),
-        ("--streaming", args.streaming, "10: frontend/streaming.py"),
-        ("--chunk-ms", args.chunk_ms is not None, "10: frontend/streaming.py"),
-        ("--add-pitch", args.add_pitch, "10: frontend/pitch.py"),
     ))
     device = device_of(args.device)
     bundle = None
@@ -122,13 +122,18 @@ def main(argv=None) -> None:
         _gmm_b, topo, fcfg, _tied_b, _bmeta = bundle
         lex = topo.lexicon
     else:
-        fcfg = FrontendConfig()
+        fcfg = FrontendConfig(add_pitch=args.add_pitch)
         topo = build_topology(lex, TopologyConfig())
     if args.num_states == 0:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
     logger = make_logger(args)
-    batches = featurize(corpus, fcfg, BatchConfig(batch_size=16 * N_CHIPS), device)
+    bcfg = BatchConfig(batch_size=16 * N_CHIPS)
+    if args.streaming:
+        chunk = int(fcfg.sample_rate * args.chunk_ms / 1000.0)
+        batches = featurize_streaming(corpus, fcfg, bcfg, device, chunk_samples=chunk)
+    else:
+        batches = featurize(corpus, fcfg, bcfg, device)
     gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
     if bundle is not None and bundle[3] is not None:
         from mogasr_torch.hmm.triphone import word_loop_graph_cd

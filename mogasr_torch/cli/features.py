@@ -9,8 +9,8 @@ every utterance to the NumPy oracle (``frontend/numpy_ref.py``) at the
 reference's fp32 tolerance and logs the result; ``--out`` writes the
 features to an .npz, ``--write-ark`` as a Kaldi text archive
 (``data/kaldi_io.py``). Records go to <run-dir>/metrics.jsonl and are
-printed. ``--add-pitch`` is not ported yet (ROADMAP item 10) and raises
-NotImplementedError.
+printed. ``--add-pitch`` appends the pitch triple (``frontend/pitch.py``);
+``--check-parity`` compares the spectral columns, as the reference does.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import argparse
 import numpy as np
 
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_run_args, device_of, load_corpus, make_logger, refuse_unported,
+    add_corpus_args, add_run_args, device_of, load_corpus, make_logger,
 )
 from mogasr_torch.config import BatchConfig, FrontendConfig
 from mogasr_torch.pipeline import featurize
@@ -38,16 +38,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--check-parity", action="store_true", help="compare vs the NumPy oracle (fp32 tolerance)")
     p.add_argument("--feature-type", default="mfcc", choices=["mfcc", "fbank", "plp"])
     p.add_argument("--add-pitch", action="store_true",
-                   help="append the pitch triple to the features (not ported yet: raises)")
+                   help="append the pitch triple (POV, centered log-f0, delta log-f0) to the features")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported([("--add-pitch", args.add_pitch, "10: frontend/pitch.py")])
     device = device_of(args.device)
     corpus, _lex = load_corpus(args)
-    fcfg = FrontendConfig(feature_type=args.feature_type)
+    fcfg = FrontendConfig(feature_type=args.feature_type, add_pitch=args.add_pitch)
     logger = make_logger(args)
 
     with Timer() as t:

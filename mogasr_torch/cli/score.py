@@ -12,8 +12,8 @@ format (``cli.train_gmm`` writes it), not orbax; without it the GMM is drawn
 at random from numpy seed 0 as the reference draws it (1000 x 256 by
 default). ``--compute-dtype`` is accepted and, as in the reference, never
 read. Records go to <run-dir>/metrics.jsonl and are printed. Runs on
-``--device`` (default cuda). ``--add-pitch`` is not ported yet (ROADMAP
-item 10) and raises NotImplementedError.
+``--device`` (default cuda). ``--add-pitch`` appends the pitch triple
+(``frontend/pitch.py``) to the features.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger, refuse_unported,
+    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger,
 )
 from mogasr_torch.config import BatchConfig, FrontendConfig
 from mogasr_torch.pipeline import featurize, score_batch
@@ -34,7 +34,7 @@ from mogasr_torch.utils.metrics import Timer
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--add-pitch", action="store_true",
-                   help="append the pitch triple to the features (not ported yet: raises)")
+                   help="append the pitch triple (POV, centered log-f0, delta log-f0) to the features")
     add_corpus_args(p)
     add_run_args(p)
     p.add_argument("--gmm-ckpt", help="GMM checkpoint dir (the port's format, from cli.train_gmm)")
@@ -48,10 +48,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported([("--add-pitch", args.add_pitch, "10: frontend/pitch.py")])
     device = device_of(args.device)
     corpus, _lex = load_corpus(args)
-    fcfg = FrontendConfig()
+    fcfg = FrontendConfig(add_pitch=args.add_pitch)
     logger = make_logger(args)
     batches = featurize(corpus, fcfg, BatchConfig(), device)
     gmm = load_or_random_gmm(args, fcfg.feat_dim, device)

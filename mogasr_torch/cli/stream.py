@@ -1,0 +1,157 @@
+"""Online (streaming) recognition on the card, audio chunks in and hypotheses
+out: the twin of the reference's cli/stream.py on its GMM path.
+
+    python -m mogasr_torch.cli.stream (--synthetic-demo | --audio FILE) [--gmm-ckpt DIR] \\
+        [--chunk-ms 250] [--cmvn-window 600] [--endpoint [--endpoint-trailing-sil S]] [--device cpu]
+
+The causal sliding-window CMVN features of the chunked StreamingFrontend
+(``frontend/streaming.py``, its spectral chunk on the card) are scored by K1
+(float32, sum mode) and fed to the OnlineDecoder (``decoder/online.py``: K2's
+chunk arm) as the audio arrives; a partial hypothesis is printed after every
+chunk (K2's backtrace alone) and the exact result at the end. One JSON line
+per event, as the reference prints them: {"t_audio_s", "partial"} per chunk
+(with "endpoint" when ``--endpoint``'s causal endpointer fires and decoding
+stops), then {"final", "rtf"}. ``--gmm-ckpt`` reads the port's checkpoint
+format; without it a random GMM is drawn as the reference draws it. Records
+go to <run-dir>/metrics.jsonl. Runs on ``--device`` (default cuda).
+
+Not ported yet, and raising NotImplementedError naming ROADMAP item 13: the
+neural families ``--ctc``, ``--rnnt`` and ``--aed``, and ``--bpe``,
+``--bias`` and ``--fusion-lm``. The options that only those paths read are
+left out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from mogasr_torch.am.gmm_cuda import kernel_params
+from mogasr_torch.cli.common import add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported
+from mogasr_torch.config import DecodeConfig, FrontendConfig, TopologyConfig
+from mogasr_torch.decoder import viterbi as vit
+from mogasr_torch.decoder.online import OnlineDecoder
+from mogasr_torch.frontend.streaming import StreamingFrontend
+from mogasr_torch.hmm import graph as gr
+from mogasr_torch.hmm.lexicon import load_lexicon, synthetic_lexicon
+from mogasr_torch.hmm.topology import build_topology
+from mogasr_torch.pipeline import DROP_TOKENS, score_batch, word_decode_graph
+from mogasr_torch.utils.metrics import Timer
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_run_args(p)
+    p.add_argument("--audio", help="wav file to stream")
+    p.add_argument("--synthetic-demo", action="store_true", help="stream a generated utterance instead of a file")
+    p.add_argument("--lexicon", help="Kaldi-style lexicon.txt (default: synthetic)")
+    p.add_argument("--gmm-ckpt", help="GMM checkpoint dir (the port's format, from cli.train_gmm)")
+    p.add_argument("--num-states", type=int, default=0)
+    p.add_argument("--num-components", type=int, default=8)
+    p.add_argument("--acoustic-scale", type=float, default=1.0)
+    p.add_argument("--insertion-penalty", type=float, default=2.0)
+    p.add_argument("--chunk-ms", type=float, default=250.0)
+    p.add_argument("--cmvn-window", type=int, default=600)
+    p.add_argument("--endpoint", action="store_true",
+                   help="causal endpointing (frontend/endpoint.py): stop decoding and finalize when a rule fires "
+                        "(trailing silence / no speech / max length)")
+    p.add_argument("--endpoint-trailing-sil", type=float, default=0.5, help="rule-1 trailing-silence seconds")
+    # the neural families' primary flags, accepted as the reference's are; they raise
+    p.add_argument("--ctc", action="store_true", help="neural online CTC (not ported yet: raises)")
+    p.add_argument("--rnnt", action="store_true", help="online RNN-transducer (not ported yet: raises)")
+    p.add_argument("--aed", action="store_true", help="streaming AED (not ported yet: raises)")
+    p.add_argument("--bpe", metavar="FILE", help="BPE subword units (not ported yet: raises)")
+    p.add_argument("--bias", metavar="FILE", help="contextual phrase biasing (not ported yet: raises)")
+    p.add_argument("--fusion-lm", metavar="FILE", help="unit-bigram shallow fusion (not ported yet: raises)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    refuse_unported((
+        ("--ctc", args.ctc, "13: am/ctc.py"),
+        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
+        ("--aed", args.aed, "13: am/aed.py"),
+        ("--bpe", args.bpe, "13: data/bpe.py"),
+        ("--bias", args.bias, "13: decoder/biasing.py"),
+        ("--fusion-lm", args.fusion_lm, "13: lm/unit_ngram.py"),
+    ))
+    device = device_of(args.device)
+    fcfg = FrontendConfig(cmvn="sliding", cmvn_window=args.cmvn_window)
+    if args.synthetic_demo:
+        from mogasr_torch.data.synthetic import make_corpus
+
+        wave = make_corpus(1, words_per_utt=(4, 6), seed=7)[0].wave
+        if args.endpoint:  # give rule 1 trailing silence to detect
+            wave = np.concatenate([wave, np.zeros(int(2.0 * fcfg.sample_rate), np.float32)])
+    elif args.audio:
+        from mogasr_torch.data.audio import read_audio
+
+        wave, _sr = read_audio(args.audio, target_sr=fcfg.sample_rate)
+    else:
+        raise SystemExit("pass --audio FILE or --synthetic-demo")
+
+    lex = load_lexicon(args.lexicon) if args.lexicon else synthetic_lexicon()
+    topo = build_topology(lex, TopologyConfig())
+    if args.num_states == 0:
+        args.num_states = topo.n_pdfs
+    dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
+    logger = make_logger(args)
+    gmm = load_or_random_gmm(args, fcfg.feat_dim, device)
+    params = kernel_params(gmm, "float32")
+    graph = word_decode_graph(lex, topo, dcfg)
+    graphs_np = gr.batch_graphs([graph])
+    graphs = vit.graphs_to_torch(graphs_np, device)
+
+    def words_of(path, entered):
+        toks = vit.path_to_tokens(vit.ViterbiResult(path, entered, None), graph.labels, graphs_np["chain_id"])[0]
+        return [w for w in toks if w not in DROP_TOKENS]
+
+    def score_feats(feats):
+        return score_batch(torch.as_tensor(feats[None], device=device), gmm, params=params)
+
+    sf = StreamingFrontend(fcfg, device=device)
+    dec = OnlineDecoder(graphs, acoustic_scale=dcfg.acoustic_scale)
+    chunk = int(fcfg.sample_rate * args.chunk_ms / 1000.0)
+    consumed = 0
+    ep = None
+    if args.endpoint:
+        from mogasr_torch.frontend.endpoint import EndpointConfig, StreamingEndpointer
+
+        ep = StreamingEndpointer(fcfg, EndpointConfig(rule1_trailing_sil_s=args.endpoint_trailing_sil))
+    with Timer() as t:
+        for i in range(0, len(wave), chunk):
+            consumed = min(i + chunk, len(wave))
+            feats = sf.process(wave[i : i + chunk])
+            if feats.size:
+                dec.process(score_feats(feats), np.asarray([feats.shape[0]]))
+            path, entered, _score = dec.partial()
+            event = {"t_audio_s": round(consumed / fcfg.sample_rate, 2), "partial": words_of(path, entered)}
+            if ep is not None and ep.feed(wave[i : i + chunk]):
+                event["endpoint"] = ep.rule
+                print(json.dumps(event), flush=True)
+                break
+            print(json.dumps(event), flush=True)
+        feats = sf.finalize()
+        if feats.size:
+            dec.process(score_feats(feats), np.asarray([feats.shape[0]]))
+        path, entered, _score = dec.finalize()
+    audio_s = consumed / fcfg.sample_rate  # decoded audio (the endpoint may stop early)
+    final = words_of(path, entered)
+    rec = {"final": final, "rtf": round(t.seconds / max(audio_s, 1e-9), 4)}
+    if ep is not None and ep.endpointed:
+        rec["endpoint"] = ep.rule
+        rec["endpoint_t_s"] = round(ep.endpoint_frame * fcfg.frame_shift_ms / 1000.0, 2)
+    print(json.dumps(rec))
+    logger.log({
+        "stage": "stream", "audio_s": round(audio_s, 2), "wall_sec": t.seconds,
+        "rtf": t.seconds / max(audio_s, 1e-9), "final_words": final,
+        **({"endpoint": ep.rule} if ep is not None and ep.endpointed else {}),
+    })
+
+
+if __name__ == "__main__":
+    main()

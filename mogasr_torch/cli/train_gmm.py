@@ -11,8 +11,9 @@ system (<run-dir>/gmm_cd) -> optional deployable bundle (utils/bundle.py),
 which both packages' ``load_system`` read. Records go to
 <run-dir>/metrics.jsonl. Runs on ``--device`` (default cuda).
 
-Not ported yet: ``--lda`` (LDA/MLLT, ROADMAP item 11) and ``--add-pitch``
-(frontend/pitch.py, ROADMAP item 10) raise NotImplementedError.
+``--add-pitch`` appends the pitch triple (``frontend/pitch.py``) to the
+features. Not ported yet: ``--lda`` (LDA/MLLT, ROADMAP item 11) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from mogasr_torch.utils.metrics import Timer, trace
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--add-pitch", action="store_true",
-                   help="append the pitch triple to the features (not ported yet: raises)")
+                   help="append the pitch triple (POV, centered log-f0, delta log-f0) to the features")
     add_corpus_args(p)
     add_run_args(p)
     add_augment_args(p)
@@ -63,8 +64,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.add_pitch:
-        raise NotImplementedError("--add-pitch: frontend/pitch.py is not ported to mogasr_torch yet (ROADMAP item 10)")
     if args.lda > 0:
         raise NotImplementedError("--lda: LDA/MLLT is not ported to mogasr_torch yet (ROADMAP item 11)")
     device = device_of(args.device)

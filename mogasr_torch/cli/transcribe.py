@@ -1,0 +1,163 @@
+"""Transcribe a long recording on the card, VAD segmentation -> decode ->
+timestamps: the twin of the reference's cli/transcribe.py on its GMM path.
+
+    python -m mogasr_torch.cli.transcribe (--synthetic-demo | --audio FILE) [--gmm-ckpt DIR] \\
+        [--nbest N] [--ctm FILE] [--out FILE] [--max-segment-s 30] [--device cpu]
+
+Energy VAD (``frontend/vad.py``) splits the recording into utterance-sized
+segments; each goes through the front end, K1 (float32, sum mode) and
+``pipeline.decode_batch_with_confidence`` (K2 over the word loop, then K3's
+forward-backward for each word's posterior confidence and its Viterbi time
+span); ``--nbest`` adds the top-N word sequences of each segment from its
+word lattice under a uniform word LM (``decode_batch_lattices``,
+``decoder.lattice.lattice_nbest``). The output is the reference's: one JSON
+line per segment (start/end seconds, words, confidences, word times[,
+nbest]), and with ``--ctm`` a CTM file. ``--gmm-ckpt`` reads the port's
+checkpoint format; without it a random GMM is drawn as the reference draws
+it. Records go to <run-dir>/metrics.jsonl. Runs on ``--device`` (default
+cuda).
+
+Not ported yet, and raising NotImplementedError naming the ROADMAP item that
+ports them: ``--diarize`` (item 11), and the neural families ``--ctc``,
+``--rnnt``, ``--aed`` with ``--bpe`` (item 13). The options that only those
+paths read are left out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+from mogasr_torch.am.gmm_cuda import kernel_params
+from mogasr_torch.cli.common import add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported
+from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
+from mogasr_torch.frontend.vad import VadConfig, segment_utterances
+from mogasr_torch.hmm.lexicon import load_lexicon, synthetic_lexicon
+from mogasr_torch.hmm.topology import build_topology
+from mogasr_torch.pipeline import decode_batch_with_confidence, featurize, score_batch, word_decode_graph
+from mogasr_torch.utils.metrics import Timer
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_run_args(p)
+    p.add_argument("--audio", help="wav file to transcribe")
+    p.add_argument("--synthetic-demo", action="store_true",
+                   help="transcribe a generated long recording instead of a file")
+    p.add_argument("--lexicon", help="Kaldi-style lexicon.txt (default: synthetic)")
+    p.add_argument("--gmm-ckpt", help="GMM checkpoint dir (the port's format, from cli.train_gmm)")
+    p.add_argument("--num-states", type=int, default=0)
+    p.add_argument("--num-components", type=int, default=8)
+    p.add_argument("--acoustic-scale", type=float, default=1.0)
+    p.add_argument("--insertion-penalty", type=float, default=2.0)
+    p.add_argument("--max-segment-s", type=float, default=30.0)
+    p.add_argument("--nbest", type=int, default=0,
+                   help="also emit the top-N alternative word sequences per segment from a word lattice (uniform "
+                        "word LM)")
+    p.add_argument("--out", help="write transcript (jsonl)")
+    p.add_argument("--ctm", help="also write a CTM file (standard scoring format: utt channel start dur word conf)")
+    # the unported paths' primary flags, accepted as the reference's are; they raise
+    p.add_argument("--diarize", action="store_true", help="speaker diarization (not ported yet: raises)")
+    p.add_argument("--ctc", action="store_true", help="CTC acoustic model (not ported yet: raises)")
+    p.add_argument("--rnnt", action="store_true", help="RNN-transducer (not ported yet: raises)")
+    p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
+    p.add_argument("--bpe", metavar="FILE", help="BPE inventory (not ported yet: raises)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    refuse_unported((
+        ("--ctc", args.ctc, "13: am/ctc.py"),
+        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
+        ("--aed", args.aed, "13: am/aed.py"),
+        ("--bpe", args.bpe, "13: data/bpe.py"),
+        ("--diarize", args.diarize, "11: diarize.py"),
+    ))
+    device = device_of(args.device)
+    fcfg = FrontendConfig()
+    if args.synthetic_demo:
+        from mogasr_torch.data.synthetic import make_corpus
+
+        utts = make_corpus(4, words_per_utt=(2, 3), seed=5)
+        gap = np.zeros(16000, np.float32)
+        wave = np.concatenate(sum(([u.wave, gap] for u in utts), [gap]))
+    elif args.audio:
+        from mogasr_torch.data.audio import read_audio
+
+        wave, _sr = read_audio(args.audio, target_sr=fcfg.sample_rate)
+    else:
+        raise SystemExit("pass --audio FILE or --synthetic-demo")
+
+    lex = load_lexicon(args.lexicon) if args.lexicon else synthetic_lexicon()
+    topo = build_topology(lex, TopologyConfig())
+    if args.num_states == 0:
+        args.num_states = topo.n_pdfs
+    dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
+    gmm = load_or_random_gmm(args, fcfg.feat_dim, device)
+    params = kernel_params(gmm, "float32")
+    logger = make_logger(args)
+
+    with Timer() as t:
+        segments = segment_utterances(wave, fcfg, VadConfig(max_segment_s=args.max_segment_s))
+        corpus = [(f"seg-{i:04d}", wave[a:b], []) for i, (a, b) in enumerate(segments)]
+        results = []
+        if corpus:
+            graph = word_decode_graph(lex, topo, dcfg)
+            # bucket ceilings cover max_segment_s, or make_batches would drop
+            # segments between the default 20 s ceiling and the VAD cap
+            max_frames = int(args.max_segment_s * 1000 / fcfg.frame_shift_ms) + 10
+            bcfg = BatchConfig(bucket_boundaries=tuple(sorted({500, 1000, 2000, max_frames})))
+            if args.nbest > 0:
+                from mogasr_torch.decoder.lattice import lattice_nbest
+                from mogasr_torch.lm.ngram import uniform_bigram
+                from mogasr_torch.pipeline import decode_batch_lattices
+
+                nbest_lm = uniform_bigram(sorted(set(graph.labels)))
+            shift_s = fcfg.frame_shift_ms / 1000.0
+            for fb in featurize(corpus, fcfg, bcfg, device):
+                scores = score_batch(fb.feats, gmm, params=params)
+                out = decode_batch_with_confidence(fb, scores, graph, dcfg, with_times=True)
+                nbests = None
+                if args.nbest > 0:
+                    lats, _res = decode_batch_lattices(fb, scores, graph, nbest_lm, dcfg)
+                    nbests = [[{"words": h, "logp": s} for h, s in lattice_nbest(lat, nbest_lm, args.nbest)]
+                              for lat in lats]
+                for b in range(fb.size):
+                    a, e = segments[int(fb.utt_ids[b].split("-")[1])]
+                    seg_start = a / fcfg.sample_rate
+                    rec = {
+                        "start_s": round(seg_start, 2),
+                        "end_s": round(e / fcfg.sample_rate, 2),
+                        "words": [w for w, _c, _t0, _t1 in out[b]],
+                        "confidences": [c for _w, c, _t0, _t1 in out[b]],
+                        # per-word absolute timestamps from the Viterbi spans
+                        "word_times": [[round(seg_start + t0 * shift_s, 2), round(seg_start + t1 * shift_s, 2)]
+                                       for _w, _c, t0, t1 in out[b]],
+                    }
+                    if nbests is not None:
+                        rec["nbest"] = nbests[b]
+                    results.append(rec)
+    results.sort(key=lambda r: r["start_s"])
+    audio_s = len(wave) / fcfg.sample_rate
+    logger.log({
+        "stage": "transcribe", "audio_s": round(audio_s, 1), "segments": len(segments), "wall_sec": t.seconds,
+        "rtf": t.seconds / max(audio_s, 1e-9),
+    })
+    lines = [json.dumps(r) for r in results]
+    if args.ctm:
+        with open(args.ctm, "w") as f:
+            for r in results:
+                for w, c, (t0, t1) in zip(r["words"], r["confidences"], r["word_times"]):
+                    f.write(f"rec 1 {t0:.2f} {max(t1 - t0, 0.01):.2f} {w} {c:.3f}\n")
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    else:
+        print("\n".join(lines))
+
+
+if __name__ == "__main__":
+    main()

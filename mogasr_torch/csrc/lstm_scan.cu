@@ -66,6 +66,15 @@
 //     shuffle gives each thread all four gates of its unit. Either way every
 //     thread then owns a unit of one or two rows and their carries.
 //
+// The carry arm (h0 != NULL) is the step of mogasr/am/neural.py's
+// LstmAmStream, flax's nn.RNN with initial_carry and return_carry: the
+// recurrence starts from the carries (h0, c0) [B, H] of each row (through
+// perm, as xg and out), so frame 0 has a product too, with h0's image sent
+// around the row block by one more exchange before it; and each row's
+// carries at its n_frames go to (h_out, c_out), those of a row with no frame
+// copied through unchanged. The carries stay float32; in bf16 h is rounded
+// for the product only.
+//
 // No fast math: expf and tanhf are the accurate ones.
 
 #include <cuda_bf16.h>
@@ -102,6 +111,10 @@ struct Args {
   unsigned* counters;   // per row block a frame counter, zero, CTR_STRIDE apart
   size_t hstride;       // bytes between frame buffers
   int T, H, KC, NUB, n_rows, b0;  // NUB: CTAs (unit blocks) per row block
+  const float* h0;      // [B, H] initial carries, or NULL: zero, no carry out
+  const float* c0;      // [B, H]
+  float* h_out;         // [B, H] the carries at each row's n_frames
+  float* c_out;         // [B, H]
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
@@ -307,7 +320,9 @@ __global__ void __launch_bounds__(WORKERS<BF16, U> + 32, 1) lstm_scan_kernel(con
     orig[r] = in ? a.perm[row[r] * NRB + rb] : 0;
     nf[r] = in ? min(max(a.nfs[row[r] * NRB + rb], 0), T) : 0;
     h_at[r] = img.at(row[r], u);  // where h[row, u] goes in the h image
-    c[r] = h[r] = 0.f;
+    const size_t at = (size_t)orig[r] * H + u;
+    c[r] = a.h0 != nullptr && mine && in ? a.c0[at] : 0.f;
+    h[r] = a.h0 != nullptr && mine && in ? a.h0[at] : 0.f;
 #pragma unroll
     for (int g = 0; g < 4; ++g)
       xv[r][g] = mine && nf[r] > 0 ? a.xg[(size_t)orig[r] * T * H4 + g * (size_t)H + u] : 0.f;
@@ -320,13 +335,62 @@ __global__ void __launch_bounds__(WORKERS<BF16, U> + 32, 1) lstm_scan_kernel(con
     return m;
   };
 
+  // After a CTA barrier (this CTA's h written to its frame buffer src, and
+  // its reads of the previous h done), the producer thread adds to the row
+  // block's counter (release), waits for all its CTAs' count (acquire),
+  // fences the async proxy and issues its share of the copies of the first
+  // n_live rows' h image to the cluster.
+  auto exchange = [&](const char* src, unsigned target, int n_live) {
+    __syncthreads();
+    if (tid == PRODUCER) {  // no writes of its own to wait for before the proxy fence
+      // the release orders the CTA's h writes, acquired through the CTA
+      // barrier, before the count; once every CTA of the row block has
+      // counted, none reads its copy of the previous h any more
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" :: "l"(counter) : "memory");
+      const long long t0 = clock64();
+      for (;;) {
+        unsigned v;
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
+        if (v >= target) break;
+        if (clock64() - t0 > PATIENCE) __trap();
+      }
+      asm volatile("fence.proxy.async;\n" ::: "memory");  // the generic writes of h, before the bulk reads
+      // the live rows' 8-row groups of a chunk are contiguous: each chunk
+      // goes as `parts` copies of whole groups, spread over the cluster
+      const int groups = (n_live + 7) / 8, parts = min(max((int)cs / NK, 1), groups);
+      const uint32_t piece = img.piece_bytes();
+      for (int kc = 0; kc < NK; ++kc) mbar_expect_tx(&bars[kc], groups * piece);
+      const uint16_t mask = (uint16_t)((1u << cs) - 1);
+      for (int p = (int)rank; p < NK * parts; p += (int)cs) {
+        const int kc = p / parts, g0 = groups * (p % parts) / parts, g1 = groups * (p % parts + 1) / parts;
+        const int off = kc * img.chunk_bytes() + g0 * piece;
+        bulk_multicast(reinterpret_cast<char*>(hs) + off, src + off, (g1 - g0) * piece, &bars[kc], mask);
+      }
+    }
+    __syncwarp();
+  };
+
   int n = live_after(0, rows);
+  // the carry arm: h0 of the rows live at frame 0 is h_{-1}, in frame buffer 1
+  const int ph = a.h0 != nullptr ? 1 : 0;
+  if (ph && t_end > 0) {
+    Elem* hprev = reinterpret_cast<Elem*>(hbuf + a.hstride);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!mine || row[r] >= n) continue;
+      if constexpr (BF16)
+        hprev[h_at[r]] = __float2bfloat16_rn(h[r]);
+      else
+        __stcg(hprev + h_at[r], h[r]);
+    }
+    exchange(hbuf + a.hstride, a.NUB, n);
+  }
   for (int t = 0; t < t_end; ++t) {
     const bool more = t + 1 < t_end;
     const int n_next = more ? live_after(t + 1, n) : 0;
     float acc[R][4] = {};
-    if (t > 0 && tid < PRODUCER) {  // h_{-1} = 0: frame 0 has no product
-      const uint32_t parity = (t - 1) & 1;
+    if ((t > 0 || ph) && tid < PRODUCER) {  // without carries h_{-1} = 0: frame 0 has no product
+      const uint32_t parity = (t - 1 + ph) & 1;
       if constexpr (BF16) {
         for (int kc = 0; kc < NK; ++kc) mbar_wait(&bars[kc], parity);
         float d[8] = {};
@@ -398,43 +462,21 @@ __global__ void __launch_bounds__(WORKERS<BF16, U> + 32, 1) lstm_scan_kernel(con
     }
     if (!more) break;
     // h_t of this CTA is written and its threads are done reading h_{t-1}
-    __syncthreads();
-    if (tid == PRODUCER) {  // no writes of its own to wait for before the proxy fence
-      // the release orders the CTA's h_t writes, acquired through the CTA
-      // barrier, before the count; once every CTA of the row block has
-      // counted, none reads its copy of h_{t-1} any more
-      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" :: "l"(counter) : "memory");
-      const unsigned target = a.NUB * (unsigned)(t + 1);
-      const long long t0 = clock64();
-      for (;;) {
-        unsigned v;
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
-        if (v >= target) break;
-        if (clock64() - t0 > PATIENCE) __trap();
-      }
-      asm volatile("fence.proxy.async;\n" ::: "memory");  // the generic writes of h_t, before the bulk reads
-      // the live rows' 8-row groups of a chunk are contiguous: each chunk
-      // goes as `parts` copies of whole groups, spread over the cluster
-      const int groups = (n_next + 7) / 8, parts = min(max((int)cs / NK, 1), groups);
-      const uint32_t piece = img.piece_bytes();
-      for (int kc = 0; kc < NK; ++kc) mbar_expect_tx(&bars[kc], groups * piece);
-      const char* src = hbuf + (size_t)(t & 1) * a.hstride;
-      const uint16_t mask = (uint16_t)((1u << cs) - 1);
-      for (int p = (int)rank; p < NK * parts; p += (int)cs) {
-        const int kc = p / parts, g0 = groups * (p % parts) / parts, g1 = groups * (p % parts + 1) / parts;
-        const int off = kc * img.chunk_bytes() + g0 * piece;
-        bulk_multicast(reinterpret_cast<char*>(hs) + off, src + off, (g1 - g0) * piece, &bars[kc], mask);
-      }
-    }
-    __syncwarp();
+    exchange(hbuf + (size_t)(t & 1) * a.hstride, a.NUB * (unsigned)(t + 1 + ph), n_next);
     n = n_next;
   }
-  // frames n_frames .. T-1 of each row repeat its frozen h (zeros for none)
+  // frames n_frames .. T-1 of each row repeat its frozen h (h0, or zeros,
+  // for none); the carry arm writes each row's carries, a row without
+  // frames its h0 and c0
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (!mine || row[r] >= rows) continue;
     float* o = a.out + (size_t)orig[r] * T * H + u;
     for (int t = nf[r]; t < T; ++t) o[(size_t)t * H] = h[r];
+    if (a.h_out != nullptr) {
+      a.h_out[(size_t)orig[r] * H + u] = h[r];
+      a.c_out[(size_t)orig[r] * H + u] = c[r];
+    }
   }
   cluster_sync();  // no CTA leaves while its cluster may still address it
 }
@@ -466,8 +508,13 @@ extern "C" {
 // rows (and 4 more). Launches on `stream`, in blocks of at most 64 rows of
 // the order, one launch each. info[0] += the launches; info[1], info[2],
 // info[3] = the cluster size, the CTAs and the rows of a launch.
+//
+// h0, c0 [B, H] float32 (or NULL: zero carries, and no carry out): the
+// carries each row starts from; h_out, c_out [B, H] float32 (with h0): its
+// carries at n_frames.
 int lstm_scan(const void* xg, const void* w, const void* perm, const void* nfs, void* out,
-              void* ws, long long ws_bytes, int B, int T, int H, int dtype, void* stream, int* info) {
+              void* ws, long long ws_bytes, int B, int T, int H, int dtype, const void* h0, const void* c0,
+              void* h_out, void* c_out, void* stream, int* info) {
   if (B <= 0 || T <= 0 || H <= 0) return cudaSuccess;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const bool bf16 = dtype == 1;
@@ -537,7 +584,8 @@ int lstm_scan(const void* xg, const void* w, const void* perm, const void* nfs, 
     Args args{static_cast<const float*>(xg), w, static_cast<const int*>(perm) + b0,
               static_cast<const int*>(nfs) + b0, static_cast<float*>(out),
               hbuf, counters + (size_t)l * NRB * CTR_STRIDE, hstride, T, H, KC, NUB,
-              B - b0 < rows ? B - b0 : rows, b0};
+              B - b0 < rows ? B - b0 : rows, b0, static_cast<const float*>(h0), static_cast<const float*>(c0),
+              static_cast<float*>(h_out), static_cast<float*>(c_out)};
     void* params[] = {&args};
     e = cudaLaunchKernelExC(&cfg, (const void*)kernel, params);
     if (e != cudaSuccess) return e;

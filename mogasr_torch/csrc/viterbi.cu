@@ -69,6 +69,21 @@
 // backtrace starts at the last valid frame. Without a backtrace (path ==
 // NULL) no code is stored: only the score.
 //
+// The chunk arm (viterbi_chunk) is the step of mogasr/decoder/online.py's
+// _chunk_step, the online decoder's: the same forward over one chunk of Tc
+// frames of a batch of streams, from the carried delta [B, J] of a row that
+// has started (its first valid frame initializes from init_logp as frame 0
+// does here), and back into it; started [B] switches on at a row's first
+// valid frame; a row past its n_valid (n_valid == 0 included) keeps its delta
+// bit for bit. Its codes and exit argmax go into a per-stream buffer on the
+// card at the chunk's frame offset (frame0; rows t_cap frames apart), which
+// stays there: 2-bit planes are a quarter of the reference's uint8
+// backpointers, which went to the host every chunk. viterbi_backtrace is the
+// backtrace alone, on that buffer, from the argmax of delta (a partial) or of
+// delta + final_logp (the end of the stream): only the path comes back. The
+// arms and the frame are the decoder's own, so the chunk arm is bitwise the
+// plain chunk step, and a stream's finalize the offline decode of its frames.
+//
 // Beam pruning (mogasr/decoder/viterbi.py:92-94) is a template arm: each
 // frame, after the emission add, a max over the row's J states gives thresh
 // = max - beam, and every state below it becomes NEG_INF (in the chain arm
@@ -222,23 +237,27 @@ struct Args {
   const int* emit_id;  // [B, J], and the log-probs [B, J]
   const float *self_logp, *adv_logp, *enter_logp, *exit_logp, *init_logp, *final_logp;
   const float* skip_logp;  // [B, J]; read only by the SKIP arms
-  const int* n_frames;     // [B]
+  const int* n_frames;     // [B] (the chunk arm: n_valid)
   int J, chain_warps;
-  uint2* bp;         // [B, T, ceil(J / 32)] code bit planes, or NULL: no backtrace
-  int* exit_arg;     // [B, T], or NULL with bp
-  int* path;         // [B, T], or NULL with bp
+  uint2* bp;         // [B, t_cap, ceil(J / 32)] code bit planes, or NULL: no backtrace
+  int* exit_arg;     // [B, t_cap], or NULL with bp
+  int* path;         // [B, T], or NULL with bp (and in the chunk arm)
   uint8_t* entered;  // [B, T] (torch.bool storage), or NULL with bp
   int* pdfs;         // [B, T]: emit_id of the path's state, -1 past n_frames; or NULL
   float* score;      // [B]
   int* arm;          // [B]: the arm each row took
+  int t_cap;         // frames between rows of bp and exit_arg: T, or a stream buffer's capacity
+  int frame0;        // the frame of bp and exit_arg that frame 0 of ll is stored at (0 offline)
+  float* delta_io;   // the chunk arm: [B, J] carried delta, read and written; NULL offline
+  uint8_t* started_io;  // the chunk arm: [B] (torch.bool storage), read and written
 };
 
 // The chain arm: a row without a loop arc, J <= CHAIN_MAX_J, on the block's
 // first nw warps, C states a lane (group k * nw + w, lane order). Writes the
 // score and the final state.
-template <int C, bool BEAM, bool SKIP>
-__device__ __forceinline__ void chain_arm(const Args& a, int b, int nf, uint2* bpb, float* red_v, int* red_i,
-                                          int* j_final) {
+template <int C, bool BEAM, bool SKIP, bool CHUNK>
+__device__ __forceinline__ void chain_arm(const Args& a, int b, int nf, int t_first, const float* din, uint2* bpb,
+                                          float* red_v, int* red_i, int* j_final) {
   constexpr int PD = C <= 2 ? 8 : 4;  // frames of emissions in flight
   __shared__ float xch[2][CHAIN_MAX_WARPS * CHAIN_MAX_C][2];  // [frame parity][group]: its lanes 30, 31
   __shared__ float red_b[2][CHAIN_MAX_WARPS];                 // [frame parity][warp]: the beam's max
@@ -259,12 +278,12 @@ __device__ __forceinline__ void chain_arm(const Args& a, int b, int nf, uint2* b
     sl[k] = v ? a.self_logp[g0 + j] : NEG_INF;
     al[k] = v ? a.adv_logp[g0 + j] : NEG_INF;
     sk[k] = (SKIP && v) ? a.skip_logp[g0 + j] : NEG_INF;
-    d[k] = v ? __fadd_rn(a.init_logp[g0 + j], __fmul_rn(llb[eid[k]], scale)) : NEG_INF;
+    d[k] = !v ? NEG_INF : (din != nullptr ? din[j] : __fadd_rn(a.init_logp[g0 + j], __fmul_rn(llb[eid[k]], scale)));
   }
 #pragma unroll
   for (int u = 0; u < PD; ++u) {
 #pragma unroll
-    for (int k = 0; k < C; ++k) ring[u][k] = __ldg(llb + (size_t)min(1 + u, T - 1) * P + eid[k]);
+    for (int k = 0; k < C; ++k) ring[u][k] = __ldg(llb + (size_t)min(t_first + u, T - 1) * P + eid[k]);
   }
   const auto publish = [&](int t) {  // a group's last two states, for the next group's lanes 0 and 1
     if (lane >= 30) {
@@ -272,10 +291,10 @@ __device__ __forceinline__ void chain_arm(const Args& a, int b, int nf, uint2* b
       for (int k = 0; k < C; ++k) xch[t & 1][k * nw + w][lane - 30] = d[k];
     }
   };
-  publish(0);
+  publish(t_first - 1);
   chain_sync(nw);
 
-  for (int t0 = 1; t0 < nf; t0 += PD) {
+  for (int t0 = t_first; t0 < nf; t0 += PD) {
 #pragma unroll
     for (int u = 0; u < PD; ++u) {
       const int t = t0 + u;
@@ -334,6 +353,14 @@ __device__ __forceinline__ void chain_arm(const Args& a, int b, int nf, uint2* b
     }
   }
 
+  if constexpr (CHUNK) {  // delta back for the next chunk
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = 32 * (k * nw + w) + lane;
+      if (j < J) a.delta_io[g0 + j] = d[k];
+    }
+    return;
+  }
   ArgMax fin{-INFINITY, INT_MAX};
 #pragma unroll
   for (int k = 0; k < C; ++k) {
@@ -380,9 +407,10 @@ __device__ __forceinline__ void chain_arm(const Args& a, int b, int nf, uint2* b
 //   offsets fold into its instructions (a width read at run time took a
 //   register per state and array, and those spilled).
 // Writes the score and the final state.
-template <int SPT, int NTH, bool BEAM, bool SKIP>
-__device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, bool loops, uint2* bpb, float* smem,
-                                         float* red_v, int* red_i, float* red_m, int* j_final) {
+template <int SPT, int NTH, bool BEAM, bool SKIP, bool CHUNK>
+__device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, int t_first, const float* din, bool loops,
+                                         uint2* bpb, float* smem, float* red_v, int* red_i, float* red_m,
+                                         int* j_final) {
   __shared__ int slot_k[2][32], slot_i[2][32];  // [frame parity][warp]: its best exit offer (key, state)
   const int tid = threadIdx.x, nth = NTH > 0 ? NTH : blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int n_warps = nth >> 5;
@@ -422,10 +450,10 @@ __device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, bool loop
     xl[k] = loops && x > NEG_INF ? x : -INFINITY;
     eid[j] = e;
     el[j] = v ? a.enter_logp[g0 + j] : NEG_INF;
-    cur[j] = v ? __fadd_rn(a.init_logp[g0 + j], __fmul_rn(llb[e], scale)) : NEG_INF;
+    cur[j] = !v ? NEG_INF : (din != nullptr ? din[j] : __fadd_rn(a.init_logp[g0 + j], __fmul_rn(llb[e], scale)));
   }
-  fetch(1);
-  fetch(2);
+  fetch(t_first);
+  fetch(t_first + 1);
   // the first of a thread's exit states with the largest delta + exit_logp,
   // then the warp's into its slot
   float bv = -INFINITY;
@@ -449,11 +477,11 @@ __device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, bool loop
         bi = tid + k * nth;
       }
     }
-    post(0);
+    post((t_first - 1) & 1);  // read by frame t_first
   }
   __syncthreads();
 
-  for (int t = 1; t < nf; ++t) {
+  for (int t = t_first; t < nf; ++t) {
     copy_wait<1>();  // frame t's group is in (frame t + 1's may still be on its way)
     const float* em = ring + (t % 3) * SPT * nth;
     ArgMax ex{-INFINITY, INT_MAX};
@@ -532,13 +560,22 @@ __device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, bool loop
     }
     if (loops) post(t & 1);
     fetch(t + 2);  // into the slot frame t - 1 used
-    if (bpb != nullptr && loops && tid == 0) a.exit_arg[(size_t)b * T + t] = ex.i;
+    if (bpb != nullptr && loops && tid == 0)
+      a.exit_arg[(CHUNK ? (size_t)b * a.t_cap + a.frame0 : (size_t)b * T) + t] = ex.i;
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
 
+  if constexpr (CHUNK) {  // delta back for the next chunk
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      const int j = tid + k * nth;
+      if (j < J) a.delta_io[g0 + j] = cur[j];
+    }
+    return;
+  }
   ArgMax fin{-INFINITY, INT_MAX};
 #pragma unroll
   for (int k = 0; k < SPT; ++k) {
@@ -552,7 +589,9 @@ __device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, bool loop
   }
 }
 
-// The backtrace of row b on one warp, from state j_final at frame nf - 1.
+// The backtrace of row b on one warp, from state j_final at frame nf - 1, over
+// the row's codes bpb and exit argmax xb, into path, entered (and pdfs) rows
+// of t_out frames.
 // A round takes frames t, t-1, ..., t-15: lanes 2d and 2d+1 load frame t-d's
 // bit planes of the two 32-state groups that hold [j - 2d, j] (stay, advance
 // and skip move back at most 2 states a frame), lane d its exit argmax; the
@@ -560,14 +599,14 @@ __device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, bool loop
 // the exit argmax) ends the round. The codes were stored by this block, so
 // they are read through L2 (ld.global.cg), not the read-only cache. With
 // pdfs, each frame's pdf (its state's emit_id) is written beside its state.
-__device__ __forceinline__ void backtrace(const Args& a, int b, int nf, int j_final, const uint2* bpb) {
-  const int lane = threadIdx.x & 31, T = a.T, G = (a.J + 31) >> 5;
-  int* pb = a.path + (size_t)b * T;
-  uint8_t* eb = a.entered + (size_t)b * T;
-  int* db = a.pdfs != nullptr ? a.pdfs + (size_t)b * T : nullptr;
-  const int* ids = a.emit_id + (size_t)b * a.J;
-  const int* xb = a.exit_arg + (size_t)b * T;
-  for (int t = nf + lane; t < T; t += 32) {
+__device__ __forceinline__ void backtrace(const Args& a, int b, int nf, int j_final, const uint2* bpb, const int* xb,
+                                          int t_out) {
+  const int lane = threadIdx.x & 31, G = (a.J + 31) >> 5;
+  int* pb = a.path + (size_t)b * t_out;
+  uint8_t* eb = a.entered + (size_t)b * t_out;
+  int* db = a.pdfs != nullptr ? a.pdfs + (size_t)b * t_out : nullptr;
+  const int* ids = a.pdfs != nullptr ? a.emit_id + (size_t)b * a.J : nullptr;
+  for (int t = nf + lane; t < t_out; t += 32) {
     pb[t] = -1;
     eb[t] = 0;
     if (db != nullptr) db[t] = -1;
@@ -613,29 +652,60 @@ __device__ __forceinline__ void backtrace(const Args& a, int b, int nf, int j_fi
 // decode batch's 256 rows in one wave on 132 SMs), or 1024: 64 registers a
 // thread; narrower ones at most 512 threads (NTH 0: the launch's), with up
 // to 128.
-template <int SPT, int C, int NTH, bool BEAM, bool SKIP>
+template <int SPT, int C, int NTH, bool BEAM, bool SKIP, bool CHUNK>
 __global__ void __launch_bounds__(C > 0 ? 512 : 1024, 1) viterbi_kernel(const Args a) {
   extern __shared__ float smem[];  // the word-loop arm's delta, enter_logp, emit_id and emission ring
   __shared__ float red_v[33], red_m[33];
   __shared__ int red_i[33], j_final;
   const int b = blockIdx.x;
   const int nf = max(min(a.n_frames[b], a.T), 0);
-  const bool loops = row_has_loop(a.enter_logp, a.exit_logp, (size_t)b * a.J, a.J);
-  uint2* bpb = a.bp != nullptr ? a.bp + (size_t)b * a.T * ((a.J + 31) >> 5) : nullptr;
+  // the chunk arm: a row that has started (or has no frame in this chunk)
+  // goes on from its carried delta at frame 0; one that starts here
+  // initializes at frame 0 and steps from frame 1, as the offline decode
+  const bool from_delta = CHUNK && (a.started_io[b] != 0 || nf == 0);
+  const int t_first = from_delta ? 0 : 1;
+  const bool loops = row_has_loop(a.enter_logp, a.exit_logp, (size_t)b * a.J, a.J);  // a barrier: started is read
+  const size_t bp_row = CHUNK ? (size_t)b * a.t_cap + a.frame0 : (size_t)b * a.T;  // the row's frame 0 in bp
+  uint2* bpb = a.bp != nullptr ? a.bp + bp_row * ((a.J + 31) >> 5) : nullptr;
+  const float* din = from_delta ? a.delta_io + (size_t)b * a.J : nullptr;
   const bool chain = C > 0 && !loops;
   if (threadIdx.x == 0) a.arm[b] = chain ? ARM_CHAIN : (loops ? ARM_LOOP : ARM_BLOCK);
   if constexpr (C > 0) {
-    if (chain) chain_arm<C, BEAM, SKIP>(a, b, nf, bpb, red_v, red_i, &j_final);
+    if (chain) chain_arm<C, BEAM, SKIP, CHUNK>(a, b, nf, t_first, din, bpb, red_v, red_i, &j_final);
   }
-  if (!chain) loop_arm<SPT, NTH, BEAM, SKIP>(a, b, nf, loops, bpb, smem, red_v, red_i, red_m, &j_final);
+  if (!chain) loop_arm<SPT, NTH, BEAM, SKIP, CHUNK>(a, b, nf, t_first, din, loops, bpb, smem, red_v, red_i, red_m,
+                                                    &j_final);
+  if constexpr (CHUNK) {
+    if (threadIdx.x == 0 && nf > 0) a.started_io[b] = 1;
+    return;
+  }
   if (a.path != nullptr) {
     __syncthreads();  // every code of the row is stored
-    if (threadIdx.x < 32) backtrace(a, b, nf, j_final, bpb);
+    if (threadIdx.x < 32) backtrace(a, b, nf, j_final, bpb, a.exit_arg + (size_t)b * a.T, a.T);
   }
 }
 
-template <int SPT, int C, int NTH = 0>
-cudaError_t launch(int threads, size_t smem, int B, cudaStream_t stream, const Args& a) {
+// The backtrace alone, one block per row: the first-index argmax of delta
+// (final_logp NULL: a partial result) or of delta + final_logp (the end of
+// the stream) gives the score and the last state, then one warp walks the
+// row's stored codes from its frame n_frames[b] - 1.
+__global__ void __launch_bounds__(256) backtrace_kernel(const Args a, const float* delta, int t_out) {
+  __shared__ float red_v[33];
+  __shared__ int red_i[33];
+  const int b = blockIdx.x, J = a.J;
+  const size_t g0 = (size_t)b * J;
+  ArgMax x{-INFINITY, INT_MAX};
+  for (int j = threadIdx.x; j < J; j += blockDim.x)
+    x = better(x, ArgMax{a.final_logp != nullptr ? __fadd_rn(delta[g0 + j], a.final_logp[g0 + j]) : delta[g0 + j], j});
+  const ArgMax fin = block_argmax(x, red_v, red_i);
+  if (threadIdx.x == 0) a.score[b] = fin.v;
+  const int nf = max(min(a.n_frames[b], t_out), 0);
+  if (threadIdx.x < 32)
+    backtrace(a, b, nf, fin.i, a.bp + (size_t)b * a.t_cap * ((J + 31) >> 5), a.exit_arg + (size_t)b * a.t_cap, t_out);
+}
+
+template <int SPT, int C, int NTH, bool CHUNK>
+cudaError_t launch_arms(int threads, size_t smem, int B, cudaStream_t stream, const Args& a) {
   const bool beam = a.beam > 0.f, skip = a.skip_logp != nullptr;
   const auto go = [&](auto kernel) {
     if (smem > 48 * 1024) {
@@ -645,35 +715,27 @@ cudaError_t launch(int threads, size_t smem, int B, cudaStream_t stream, const A
     kernel<<<B, threads, smem, stream>>>(a);
     return cudaGetLastError();
   };
-  if (beam) return skip ? go(viterbi_kernel<SPT, C, NTH, true, true>) : go(viterbi_kernel<SPT, C, NTH, true, false>);
-  return skip ? go(viterbi_kernel<SPT, C, NTH, false, true>) : go(viterbi_kernel<SPT, C, NTH, false, false>);
+  if (beam)
+    return skip ? go(viterbi_kernel<SPT, C, NTH, true, true, CHUNK>)
+                : go(viterbi_kernel<SPT, C, NTH, true, false, CHUNK>);
+  return skip ? go(viterbi_kernel<SPT, C, NTH, false, true, CHUNK>)
+              : go(viterbi_kernel<SPT, C, NTH, false, false, CHUNK>);
 }
 
-}  // namespace
+// The decode's kernels, or the chunk arm's (delta_io set): a template arm, so
+// the decode's compile as they did without it.
+template <int SPT, int C, int NTH = 0>
+cudaError_t launch(int threads, size_t smem, int B, cudaStream_t stream, const Args& a) {
+  return a.delta_io != nullptr ? launch_arms<SPT, C, NTH, true>(threads, smem, B, stream, a)
+                               : launch_arms<SPT, C, NTH, false>(threads, smem, B, stream, a);
+}
 
-extern "C" {
-
-// Forward pass plus backtrace for B utterances. ll [B, T, P] float32; the
-// seven graph arrays [B, J] (emit_id int32, the rest float32), and skip_logp
-// [B, J] float32 for a graph with CTC skip transitions or NULL; n_frames [B]
-// int32. Scratch: bp [B, T, ceil(J / 32)] uint2 (two int32 each), exit_arg
-// int32 [B, T]. Outputs: path int32 [B, T], entered uint8/bool [B, T], pdfs
-// int32 [B, T] or NULL (the path's pdfs, -1 past n_frames), score float32
-// [B], arm int32 [B] (0 chain, 1 word loop, 2 block without a loop arc).
-// beam > 0 prunes each frame to [max - beam, max]; 0 is exact. With path ==
-// NULL there is no backtrace: bp, exit_arg, entered and pdfs may be NULL,
-// and only score and arm are written. J may be at most MAX_SPT * 1024 = 8192
-// (cudaErrorInvalidValue otherwise); an emit_id outside [0, P) stops the
-// kernel with a trap, as an out-of-range index stops torch.gather on the
-// device.
-int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam, const void* emit_id,
-                   const void* self_logp, const void* adv_logp, const void* enter_logp, const void* exit_logp,
-                   const void* init_logp, const void* final_logp, const void* skip_logp, const void* n_frames,
-                   int J, void* bp, void* exit_arg, void* path, void* entered, void* pdfs, void* score,
-                   void* arm, void* stream) {
-  if (B <= 0 || T <= 0) return cudaSuccess;
+// The launch configuration of a batch of B rows of J states, and the launch:
+// the word-loop arm's states per thread and block width, the chain arm's
+// warps and states per lane.
+cudaError_t dispatch(Args a, int B, cudaStream_t st) {
+  const int J = a.J;
   if (J <= 0 || J > MAX_SPT * 1024) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   // 512 threads keep two blocks on an SM; wider graphs take 1024. Small
   // graphs take one thread per state. The chain arm runs on the first
   // chain_warps warps.
@@ -681,23 +743,14 @@ int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam,
   const int j32 = (J + 31) / 32 * 32;
   if (j32 < threads) threads = j32;
   const int spt = (J + threads - 1) / threads;
-  int chain_warps = 0, c = 0;
+  int c = 0;
+  a.chain_warps = 0;
   if (J <= CHAIN_MAX_J) {
-    chain_warps = std::min(CHAIN_MAX_WARPS, (J + 31) / 32);
-    c = (J + 32 * chain_warps - 1) / (32 * chain_warps);
+    a.chain_warps = std::min(CHAIN_MAX_WARPS, (J + 31) / 32);
+    c = (J + 32 * a.chain_warps - 1) / (32 * a.chain_warps);
   }
   // the word-loop arm: delta [2, spt * threads + 2], enter_logp, emit_id [spt * threads], emissions [3, spt * threads]
   const size_t smem = (7 * (size_t)spt * threads + 4) * sizeof(float);
-  const bool backtrace = path != nullptr;
-  const Args a{static_cast<const float*>(ll), T, P, scale, beam, static_cast<const int*>(emit_id),
-               static_cast<const float*>(self_logp), static_cast<const float*>(adv_logp),
-               static_cast<const float*>(enter_logp), static_cast<const float*>(exit_logp),
-               static_cast<const float*>(init_logp), static_cast<const float*>(final_logp),
-               static_cast<const float*>(skip_logp), static_cast<const int*>(n_frames), J, chain_warps,
-               backtrace ? static_cast<uint2*>(bp) : nullptr, backtrace ? static_cast<int*>(exit_arg) : nullptr,
-               backtrace ? static_cast<int*>(path) : nullptr,
-               backtrace ? static_cast<uint8_t*>(entered) : nullptr,
-               backtrace ? static_cast<int*>(pdfs) : nullptr, static_cast<float*>(score), static_cast<int*>(arm)};
   // J <= CHAIN_MAX_J: spt 1 (J <= 512) with c 1 or 2, or spt 2 with c 3 or 4
   // (eight warps); wider graphs: c 0
   if (spt == 1 && c == 1) return launch<1, 1>(threads, smem, B, st, a);
@@ -723,6 +776,118 @@ int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam,
     }
   }
   return cudaErrorInvalidValue;
+}
+
+Args graph_args(const void* ll, int T, int P, float scale, float beam, const void* emit_id, const void* self_logp,
+                const void* adv_logp, const void* enter_logp, const void* exit_logp, const void* init_logp,
+                const void* final_logp, const void* skip_logp, const void* n_frames, int J) {
+  Args a{};
+  a.ll = static_cast<const float*>(ll);
+  a.T = T;
+  a.P = P;
+  a.scale = scale;
+  a.beam = beam;
+  a.emit_id = static_cast<const int*>(emit_id);
+  a.self_logp = static_cast<const float*>(self_logp);
+  a.adv_logp = static_cast<const float*>(adv_logp);
+  a.enter_logp = static_cast<const float*>(enter_logp);
+  a.exit_logp = static_cast<const float*>(exit_logp);
+  a.init_logp = static_cast<const float*>(init_logp);
+  a.final_logp = static_cast<const float*>(final_logp);
+  a.skip_logp = static_cast<const float*>(skip_logp);
+  a.n_frames = static_cast<const int*>(n_frames);
+  a.J = J;
+  a.t_cap = T;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward pass plus backtrace for B utterances. ll [B, T, P] float32; the
+// seven graph arrays [B, J] (emit_id int32, the rest float32), and skip_logp
+// [B, J] float32 for a graph with CTC skip transitions or NULL; n_frames [B]
+// int32. Scratch: bp [B, T, ceil(J / 32)] uint2 (two int32 each), exit_arg
+// int32 [B, T]. Outputs: path int32 [B, T], entered uint8/bool [B, T], pdfs
+// int32 [B, T] or NULL (the path's pdfs, -1 past n_frames), score float32
+// [B], arm int32 [B] (0 chain, 1 word loop, 2 block without a loop arc).
+// beam > 0 prunes each frame to [max - beam, max]; 0 is exact. With path ==
+// NULL there is no backtrace: bp, exit_arg, entered and pdfs may be NULL,
+// and only score and arm are written. J may be at most MAX_SPT * 1024 = 8192
+// (cudaErrorInvalidValue otherwise); an emit_id outside [0, P) stops the
+// kernel with a trap, as an out-of-range index stops torch.gather on the
+// device.
+int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam, const void* emit_id,
+                   const void* self_logp, const void* adv_logp, const void* enter_logp, const void* exit_logp,
+                   const void* init_logp, const void* final_logp, const void* skip_logp, const void* n_frames,
+                   int J, void* bp, void* exit_arg, void* path, void* entered, void* pdfs, void* score,
+                   void* arm, void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  Args a = graph_args(ll, T, P, scale, beam, emit_id, self_logp, adv_logp, enter_logp, exit_logp, init_logp,
+                      final_logp, skip_logp, n_frames, J);
+  if (path != nullptr) {
+    a.bp = static_cast<uint2*>(bp);
+    a.exit_arg = static_cast<int*>(exit_arg);
+    a.path = static_cast<int*>(path);
+    a.entered = static_cast<uint8_t*>(entered);
+    a.pdfs = static_cast<int*>(pdfs);
+  }
+  a.score = static_cast<float*>(score);
+  a.arm = static_cast<int*>(arm);
+  return dispatch(a, B, static_cast<cudaStream_t>(stream));
+}
+
+// The online decoder's chunk step for B streams: ll [B, Tc, P] float32 (this
+// chunk's scores), the graph arrays as viterbi_decode's, n_valid [B] int32
+// (valid frames of the chunk, a prefix), delta [B, J] float32 and started
+// [B] uint8/bool carried in and out (in place). Each frame's code planes go
+// to bp [B, t_cap, ceil(J / 32)] uint2 and the exit argmax of a word-loop
+// row to exit_arg [B, t_cap] int32, at frames frame0 .. frame0 + n_valid - 1
+// of the row; frames past n_valid are not written (the caller's buffer is
+// zero there: code 0). arm [B] as viterbi_decode's.
+int viterbi_chunk(const void* ll, int B, int Tc, int P, float scale, float beam, const void* emit_id,
+                  const void* self_logp, const void* adv_logp, const void* enter_logp, const void* exit_logp,
+                  const void* init_logp, const void* final_logp, const void* skip_logp, const void* n_valid, int J,
+                  void* delta, void* started, void* bp, void* exit_arg, int frame0, int t_cap, void* arm,
+                  void* stream) {
+  if (B <= 0 || Tc <= 0) return cudaSuccess;
+  if (frame0 < 0 || frame0 + Tc > t_cap) return cudaErrorInvalidValue;
+  Args a = graph_args(ll, Tc, P, scale, beam, emit_id, self_logp, adv_logp, enter_logp, exit_logp, init_logp,
+                      final_logp, skip_logp, n_valid, J);
+  a.bp = static_cast<uint2*>(bp);
+  a.exit_arg = static_cast<int*>(exit_arg);
+  a.t_cap = t_cap;
+  a.frame0 = frame0;
+  a.delta_io = static_cast<float*>(delta);
+  a.started_io = static_cast<uint8_t*>(started);
+  a.arm = static_cast<int*>(arm);
+  return dispatch(a, B, static_cast<cudaStream_t>(stream));
+}
+
+// The backtrace alone, over viterbi_chunk's buffers: for each of B streams
+// the first-index argmax of delta [B, J] (final_logp NULL) or of delta +
+// final_logp [B, J], its value into score [B] float32, then the path from
+// frame n_frames[b] - 1 (int32 [B], the stream's frames so far) back to 0
+// over bp [B, t_cap, ceil(J / 32)] and exit_arg [B, t_cap], into path int32
+// and entered uint8/bool [B, t_out] (-1 and 0 past n_frames).
+int viterbi_backtrace(int B, int J, const void* delta, const void* final_logp, const void* n_frames, const void* bp,
+                      const void* exit_arg, int t_cap, int t_out, void* path, void* entered, void* score,
+                      void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (J <= 0 || t_out < 0 || t_out > t_cap) return cudaErrorInvalidValue;
+  Args a{};
+  a.J = J;
+  a.final_logp = static_cast<const float*>(final_logp);
+  a.n_frames = static_cast<const int*>(n_frames);
+  a.bp = static_cast<uint2*>(const_cast<void*>(bp));
+  a.exit_arg = static_cast<int*>(const_cast<void*>(exit_arg));
+  a.t_cap = t_cap;
+  a.path = static_cast<int*>(path);
+  a.entered = static_cast<uint8_t*>(entered);
+  a.score = static_cast<float*>(score);
+  backtrace_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(a, static_cast<const float*>(delta), t_out);
+  return cudaGetLastError();
 }
 
 const char* viterbi_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

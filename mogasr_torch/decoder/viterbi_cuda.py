@@ -16,6 +16,12 @@ wide for the chain arm. :func:`align` is forced alignment: the same call
 that also returns each frame's pdf (``decoder.viterbi.path_to_pdfs``), which
 the kernel writes in its backtrace.
 
+The online decoder (``decoder/online.py``) runs the kernel's chunk arm,
+:func:`chunk_step` (``CHUNK_LAUNCHES``, one per chunk), which carries delta
+and started across chunks and stores the codes in a per-stream buffer on the
+card, and :func:`backtrace` (``BACKTRACE_LAUNCHES``, one per partial or final
+result), the kernel's backtrace alone over that buffer.
+
 The graph arrays go to the kernel as ``graphs_to_torch`` makes them from
 ``batch_graphs``: ``emit_id`` int32, the log-probs (``skip_logp`` too, where
 the graphs have it) float32, contiguous, on
@@ -37,12 +43,16 @@ from mogasr_torch.decoder import viterbi as plain
 from mogasr_torch.decoder.viterbi import ViterbiResult
 
 LAUNCHES = 0
+CHUNK_LAUNCHES = 0
+BACKTRACE_LAUNCHES = 0
 ARM_CHAIN, ARM_LOOP, ARM_BLOCK = 0, 1, 2
 LAST_ARMS: Optional[torch.Tensor] = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "viterbi_decode": [_P, _I, _I, _I, _F, _F] + [_P] * 9 + [_I] + [_P] * 8,
+    "viterbi_chunk": [_P, _I, _I, _I, _F, _F] + [_P] * 9 + [_I] + [_P] * 4 + [_I, _I, _P, _P],
+    "viterbi_backtrace": [_I, _I] + [_P] * 5 + [_I, _I] + [_P] * 4,
 }
 _GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp",
                "init_logp", "final_logp")
@@ -107,7 +117,7 @@ def _decode(emit_ll, graphs, n_frames, acoustic_scale, beam, with_backtrace, wit
     pdfs = torch.empty((B, T), dtype=torch.int32, device=dev) if with_pdfs else None
     if with_backtrace:
         # the codes' two bit planes per 32-state group, and the exit argmax per frame
-        bp = torch.empty((B, T, -(-J // 32), 2), dtype=torch.int32, device=dev)
+        bp = torch.empty(_code_shape(B, T, J), dtype=torch.int32, device=dev)
         exit_arg = torch.empty((B, T), dtype=torch.int32, device=dev)
         path = torch.empty((B, T), dtype=torch.int32, device=dev)
         entered = torch.empty((B, T), dtype=torch.bool, device=dev)
@@ -130,3 +140,126 @@ def _decode(emit_ll, graphs, n_frames, acoustic_scale, beam, with_backtrace, wit
         path = torch.zeros((B, T), dtype=torch.int32, device=dev)
         entered = path.to(torch.bool)
     return ViterbiResult(path, entered, score), pdfs
+
+
+def _code_shape(B: int, frames: int, J: int) -> Tuple[int, int, int, int]:
+    """The code planes' shape: per row and frame, two int32 bit planes for
+    each group of 32 states."""
+    return (B, frames, -(-J // 32), 2)
+
+
+def code_frame_bytes(J: int) -> int:
+    """Bytes one stream's frame takes in the code buffers: the two code
+    planes and the exit argmax."""
+    return -(-J // 32) * 2 * 4 + 4
+
+
+def code_buffers(B: int, J: int, cap: int, device, keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed stream buffers of ``cap`` frames for :func:`chunk_step` and
+    :func:`backtrace`: the code planes [B, cap, ceil(J / 32), 2] int32 and
+    the exit argmax [B, cap] int32. ``keep`` = (bp, exit_arg, frames) copies
+    the first ``frames`` frames of smaller buffers in (to grow them)."""
+    bp = torch.zeros(_code_shape(B, cap, J), dtype=torch.int32, device=device)
+    exit_arg = torch.zeros((B, cap), dtype=torch.int32, device=device)
+    if keep is not None:
+        old_bp, old_exit_arg, frames = keep
+        bp[:, :frames] = old_bp[:, :frames]
+        exit_arg[:, :frames] = old_exit_arg[:, :frames]
+    return bp, exit_arg
+
+
+def unpack_codes(bp: torch.Tensor, frames: slice, J: int) -> torch.Tensor:
+    """The 2-bit code planes [B, cap, ceil(J / 32), 2] of ``frames`` as uint8
+    codes [frames, B, J] (0 stay, 1 advance, 2 enter, 3 skip), the layout of
+    the plain chunk step's backpointers."""
+    p = bp[:, frames].to(torch.int64) & 0xFFFFFFFF
+    j = torch.arange(J, device=bp.device)
+    lo = (p[..., 0][:, :, j // 32] >> (j % 32)) & 1
+    hi = (p[..., 1][:, :, j // 32] >> (j % 32)) & 1
+    return (lo | (hi << 1)).to(torch.uint8).permute(1, 0, 2)
+
+
+def chunk_step(
+    delta: torch.Tensor,              # [B, J] float32, carried in and out (in place)
+    started: torch.Tensor,            # [B] bool, carried in and out (in place)
+    emit_ll: torch.Tensor,            # [B, Tc, P] float32: the chunk's scores
+    n_valid: torch.Tensor,            # [B] int32: valid frames of the chunk
+    graphs: Dict[str, torch.Tensor],
+    acoustic_scale: float,
+    beam: float,
+    bp: torch.Tensor,                 # code_buffers(B, J, t_cap): the code planes, zero past what is stored
+    exit_arg: torch.Tensor,           # and the exit argmax
+    frame0: int,                      # the buffers' frame of the chunk's frame 0
+) -> None:
+    """The online decoder's chunk step on the kernel's chunk arm (CUDA
+    tensors only): ``decoder.online.chunk_step``, with the codes and exit
+    argmax written into the stream buffers at frames ``frame0 ..`` instead
+    of returned."""
+    global CHUNK_LAUNCHES, LAST_ARMS
+    if emit_ll.device.type != "cuda":
+        raise ValueError(f"chunk_step: unsupported device {emit_ll.device}")
+    if emit_ll.dim() != 3 or emit_ll.dtype != torch.float32:
+        raise ValueError(f"emit_ll must be float32 [B, Tc, P], got {emit_ll.dtype} {tuple(emit_ll.shape)}")
+    B, Tc, P = emit_ll.shape
+    dev = emit_ll.device
+    skip = graphs.get("skip_logp")
+    J = check_graphs(graphs, _GRAPH_KEYS + (() if skip is None else ("skip_logp",)), B, dev)
+    t_cap = bp.shape[1]
+    for name, t, shape, dtype in (("delta", delta, (B, J), torch.float32), ("started", started, (B,), torch.bool),
+                                  ("bp", bp, _code_shape(B, t_cap, J), torch.int32),
+                                  ("exit_arg", exit_arg, (B, t_cap), torch.int32)):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {list(shape)} on {dev}, "
+                             f"got {t.dtype} {list(t.shape)} on {t.device}")
+    ll = emit_ll.contiguous()
+    nv = n_valid.to(device=dev, dtype=torch.int32).contiguous()
+    arms = torch.empty((B,), dtype=torch.int32, device=dev)
+    lib = _cuda.load("viterbi", _SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.viterbi_chunk(
+            ll.data_ptr(), B, Tc, P, float(acoustic_scale), float(beam),
+            *(graphs[k].data_ptr() for k in _GRAPH_KEYS), None if skip is None else skip.data_ptr(),
+            nv.data_ptr(), J, delta.data_ptr(), started.data_ptr(), bp.data_ptr(), exit_arg.data_ptr(),
+            int(frame0), t_cap, arms.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(lib, "viterbi", err, "viterbi_chunk launch")
+    CHUNK_LAUNCHES += int(B * Tc > 0)
+    LAST_ARMS = arms
+
+
+def backtrace(
+    delta: torch.Tensor,                   # [B, J] float32
+    final_logp: Optional[torch.Tensor],    # [B, J] float32, or None: a partial result
+    n_frames: torch.Tensor,                # [B] int32: each stream's frames so far
+    bp: torch.Tensor,                      # chunk_step's buffers
+    exit_arg: torch.Tensor,
+    t_out: int,                            # frames of the result (the buffers' frames so far)
+) -> ViterbiResult:
+    """The kernel's backtrace alone over ``chunk_step``'s buffers, from the
+    first-index argmax of delta (+ final_logp): (path [B, t_out] int32, -1
+    past n_frames; entered; score [B], that maximum)."""
+    global BACKTRACE_LAUNCHES
+    dev = delta.device
+    if dev.type != "cuda":
+        raise ValueError(f"backtrace: unsupported device {dev}")
+    B, J = delta.shape
+    t_cap = bp.shape[1]
+    if not 0 <= t_out <= t_cap:
+        raise ValueError(f"t_out {t_out} outside [0, {t_cap}]")
+    if final_logp is not None and (final_logp.dtype != torch.float32 or tuple(final_logp.shape) != (B, J)
+                                   or not final_logp.is_contiguous() or final_logp.device != dev):
+        raise ValueError(f"final_logp must be contiguous float32 [{B}, {J}] on {dev}")
+    nf = n_frames.to(device=dev, dtype=torch.int32).contiguous()
+    path = torch.empty((B, t_out), dtype=torch.int32, device=dev)
+    entered = torch.empty((B, t_out), dtype=torch.bool, device=dev)
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    lib = _cuda.load("viterbi", _SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.viterbi_backtrace(
+            B, J, delta.contiguous().data_ptr(), None if final_logp is None else final_logp.data_ptr(),
+            nf.data_ptr(), bp.data_ptr(), exit_arg.data_ptr(), t_cap, int(t_out), path.data_ptr(),
+            entered.data_ptr(), score.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(lib, "viterbi", err, "viterbi_backtrace launch")
+    BACKTRACE_LAUNCHES += int(B > 0)
+    return ViterbiResult(path, entered, score)

@@ -43,7 +43,7 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -115,11 +115,36 @@ class FeatBatch:
         return len(self.utt_ids)
 
 
+def frontend_for(fcfg: FrontendConfig, max_samples: int, device: torch.device) -> Frontend:
+    """The front end of one bucket width (samples). ``fcfg.add_pitch``
+    appends the (POV, centered log-f0, delta log-f0) pitch triple
+    (``frontend/pitch.py``) frame-aligned to the spectral stream; feat_dim
+    already counts it."""
+    if not fcfg.add_pitch:
+        return make_frontend(fcfg, max_samples, device)
+    from mogasr_torch.frontend.pitch import PitchConfig, features_with_pitch
+
+    if not fcfg.snip_edges:
+        raise NotImplementedError(
+            "add_pitch requires snip_edges=True (extract_pitch mirrors the snip_edges frame-count formula)"
+        )
+    spectral = make_frontend(dataclasses.replace(fcfg, add_pitch=False), max_samples, device)
+    # pitch frames share the spectral grid, whatever it is
+    pcfg = PitchConfig(window_ms=fcfg.frame_length_ms, shift_ms=fcfg.frame_shift_ms)
+
+    def extract(waves: torch.Tensor, num_samples: torch.Tensor):
+        feats, n_frames = spectral(waves, num_samples)
+        waves = waves.to(device=device, dtype=torch.float32)
+        feats = features_with_pitch(feats, n_frames, waves, num_samples.to(device), cfg=pcfg,
+                                    sample_rate=fcfg.sample_rate)
+        return feats, n_frames
+
+    return extract
+
+
 def frontends_for(batches: Sequence[Batch], fcfg: FrontendConfig, device: torch.device) -> Dict[int, Frontend]:
     """One front end per bucket width (samples) among ``batches``."""
-    if fcfg.add_pitch:
-        raise NotImplementedError("add_pitch is not ported to mogasr_torch yet")
-    return {w: make_frontend(fcfg, w, device) for w in sorted({b.waves.shape[1] for b in batches})}
+    return {w: frontend_for(fcfg, w, device) for w in sorted({b.waves.shape[1] for b in batches})}
 
 
 def featurize_batch(
@@ -138,9 +163,99 @@ def featurize(
     utts: Sequence[Utterance], fcfg: FrontendConfig, bcfg: BatchConfig, device: torch.device
 ) -> List[FeatBatch]:
     """Batch + run the front end on ``device``, one FeatBatch per bucket batch."""
-    batches = list(make_batches(utts, bcfg, fcfg))
-    frontends = frontends_for(batches, fcfg, device)
-    return [featurize_batch(b, frontends[b.waves.shape[1]], device) for b in batches]
+    return list(featurize_iter(utts, fcfg, bcfg, device))
+
+
+def featurize_iter(
+    utts: Sequence[Utterance], fcfg: FrontendConfig, bcfg: BatchConfig, device: torch.device
+) -> Iterator[FeatBatch]:
+    """Lazy generator behind ``featurize``: one FeatBatch per bucket batch,
+    produced on demand (compose with ``data.prefetch.prefetch`` to overlap
+    host staging with device work). One front end per bucket width."""
+    frontends: Dict[int, Frontend] = {}
+    for batch in make_batches(utts, bcfg, fcfg):
+        w = batch.waves.shape[1]
+        if w not in frontends:
+            frontends[w] = frontend_for(fcfg, w, device)
+        yield featurize_batch(batch, frontends[w], device)
+
+
+def featurize_streaming(
+    utts: Sequence[Utterance],
+    fcfg: FrontendConfig,
+    bcfg: BatchConfig,
+    device: torch.device,
+    chunk_samples: int = 8000,
+) -> List[FeatBatch]:
+    """Featurize through the chunked streaming front end
+    (``frontend/streaming.py``, its spectral chunk on ``device``).
+
+    Each utterance is fed chunk by chunk to a StreamingFrontend; sliding CMVN
+    runs online in it, per-utterance CMVN after finalize (it is acausal).
+    The results batch into ``featurize``'s FeatBatch shape, bucketed by frame
+    count as ``make_batches`` buckets, and match it numerically."""
+    from mogasr_torch.frontend.numpy_ref import cmvn_np
+    from mogasr_torch.frontend.streaming import StreamingFrontend
+
+    stream_cfg = fcfg if fcfg.cmvn == "sliding" else dataclasses.replace(fcfg, cmvn="none")
+    per_utt = []
+    for utt_id, wave, words in utts:
+        sf = StreamingFrontend(stream_cfg, device=device)
+        outs = [sf.process(wave[i : i + chunk_samples]) for i in range(0, len(wave), chunk_samples)]
+        outs.append(sf.finalize())
+        feats = np.concatenate(outs)
+        if fcfg.cmvn == "utterance" and feats.shape[0] > 0:
+            feats = cmvn_np(feats, fcfg.cmvn_norm_var).astype(np.float32)
+        per_utt.append((utt_id, feats, words))
+
+    if bcfg.sort_by_length:
+        per_utt.sort(key=lambda it: it[1].shape[0])
+    out: List[FeatBatch] = []
+    group: List = []
+    group_bucket = 0
+
+    def emit(group, bucket):
+        B = bcfg.batch_size
+        arr = np.zeros((B, bucket, fcfg.feat_dim), np.float32)
+        nf = np.zeros(B, np.int32)
+        for i, (_utt_id, feats, _words) in enumerate(group):
+            arr[i, : feats.shape[0]] = feats
+            nf[i] = feats.shape[0]
+        words_out = [list(w) for _u, _f, w in group] + [[]] * (B - len(group))
+        return FeatBatch([u for u, _f, _w in group], torch.as_tensor(arr, device=device),
+                         torch.as_tensor(nf, device=device), words_out)
+
+    for item in per_utt:
+        b = next((fb for fb in bcfg.bucket_boundaries if item[1].shape[0] <= fb), None)
+        if b is None:
+            continue  # overlong: dropped, like make_batches
+        if group and (b != group_bucket or len(group) >= bcfg.batch_size):
+            out.append(emit(group, group_bucket))
+            group = []
+        group.append(item)
+        group_bucket = b
+    if group:
+        out.append(emit(group, group_bucket))
+    return out
+
+
+def compute_global_cmvn(batches: Sequence[FeatBatch]) -> Tuple[np.ndarray, np.ndarray]:
+    """Corpus-level (mean, inv_std) float32 over valid frames: the stats that
+    streaming global CMVN (``frontend/streaming.py``) applies frame-wise.
+    Sums in float64 on the host, as the reference's."""
+    total = total_sq = None
+    count = 0.0
+    for fb in batches:
+        feats = fb.feats.cpu().numpy()
+        mask = (np.arange(feats.shape[1])[None, :] < fb.n_frames.cpu().numpy()[:, None]).astype(np.float64)[:, :, None]
+        s = (feats * mask).sum((0, 1))
+        sq = (feats ** 2 * mask).sum((0, 1))
+        total = s if total is None else total + s
+        total_sq = sq if total_sq is None else total_sq + sq
+        count += mask.sum()
+    mean = total / max(count, 1.0)
+    var = np.maximum(total_sq / max(count, 1.0) - mean ** 2, 1e-10)
+    return mean.astype(np.float32), (1.0 / np.sqrt(var)).astype(np.float32)
 
 
 def score_batch(

@@ -959,3 +959,163 @@ def test_statistics_sums_repeat_bitwise(dev, J, n):
     log_gamma = (gamma * 20 - 30).to(dev)
     post = [fbd.state_posteriors_to_pdf(log_gamma, emit_id.to(dev), n) for _ in range(2)]
     assert torch.equal(post[0], post[1])
+
+
+def _stream_chunks(n_frames, sizes):
+    off = 0
+    for tc in sizes:
+        yield off, tc, np.clip(n_frames - off, 0, tc).astype(np.int32)
+        off += tc
+
+
+@pytest.mark.parametrize("beam", [0.0, 3.0])
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("J", [37, 200, 3048])
+def test_viterbi_chunk_arm_bitwise_equals_plain(dev, J, skip, beam):
+    """K2's chunk arm against the plain chunk step, chunk after chunk: delta
+    and started bitwise, the stored codes equal, the exit argmax equal where
+    a code enters; word-loop rows (J 3048, random graphs) and chain rows
+    (align graphs of J 37 and 200, without enter or exit arcs), a stream that
+    never starts, one that starts in a later chunk and streams ending inside
+    a chunk."""
+    from mogasr_torch.decoder import online
+
+    rng = np.random.default_rng(J + int(skip))
+    B, T, P = 5, 40, 97
+    g = _random_graphs(rng, B, J, P, skip)
+    if J < 3048:  # align-shaped rows: no loop arc, the chain arm
+        for k in ("enter_logp", "exit_logp"):
+            g[k][:] = gr.NEG_INF
+        g["init_logp"][:] = gr.NEG_INF
+        g["init_logp"][:, 0] = 0.0
+        g["final_logp"][:] = gr.NEG_INF
+        g["final_logp"][:, -1] = 0.0
+    graphs = vit.graphs_to_torch(g, dev)
+    ll = torch.as_tensor((rng.standard_normal((B, T, P)) * 3).astype(np.float32), device=dev)
+    # valid frames of each stream in chunks of 7, 9 and 24 frames: full,
+    # ending inside the second chunk, one frame, none, and one that joins at
+    # the second chunk (its first frame initializes there)
+    schedule = np.asarray([[7, 9, 24], [7, 9, 1], [1, 0, 0], [0, 0, 0], [0, 9, 5]], np.int32)
+    delta = torch.full((B, J), online.NEG_INF, device=dev)
+    started = torch.zeros(B, dtype=torch.bool, device=dev)
+    pd, ps = delta.clone(), started.clone()
+    bp, xa = viterbi_cuda.code_buffers(B, J, T, dev)
+    for c, (off, tc) in enumerate(((0, 7), (7, 9), (16, 24))):
+        nv = schedule[:, c]
+        before = viterbi_cuda.CHUNK_LAUNCHES
+        viterbi_cuda.chunk_step(delta, started, ll[:, off:off + tc], torch.as_tensor(nv, device=dev), graphs, 0.7,
+                                beam, bp, xa, off)
+        pd, ps, pbp, pxa = online.chunk_step(pd, ps, ll[:, off:off + tc], torch.as_tensor(nv, device=dev), graphs,
+                                             0.7, beam)
+        torch.cuda.synchronize()
+        assert viterbi_cuda.CHUNK_LAUNCHES == before + 1
+        assert torch.equal(delta, pd) and torch.equal(started, ps)
+        codes = viterbi_cuda.unpack_codes(bp, slice(off, off + tc), J)
+        assert torch.equal(codes, pbp)
+        enter = codes == 2
+        want_x = pxa[:, :, None].expand(tc, B, J)[enter]
+        assert torch.equal(xa[:, off:off + tc].t()[:, :, None].expand(tc, B, J)[enter], want_x)
+    arm = viterbi_cuda.ARM_CHAIN if J < 3048 else viterbi_cuda.ARM_LOOP
+    assert bool((viterbi_cuda.LAST_ARMS == arm).all())
+
+
+@pytest.mark.parametrize("beam", [0.0, 3.0])
+@pytest.mark.parametrize("J", [37, 3048])
+def test_online_decoder_on_the_card_matches_cpu_and_offline(dev, J, beam):
+    """The online decoder on the card (K2's chunk arm, its backtrace alone)
+    against the same decoder on the CPU (the plain step, the host backtrace):
+    every partial and the final result bitwise; the final result bitwise the
+    offline K2 decode; the stream buffer grown by doubling."""
+    from mogasr_torch.decoder import online
+
+    rng = np.random.default_rng(J)
+    B, T, P = 5, 70, 97
+    g = _random_graphs(rng, B, J, P)
+    ll = (rng.standard_normal((B, T, P)) * 3).astype(np.float32)
+    n_frames = np.asarray([T, 17, 1, 0, 52], np.int32)
+    card = online.OnlineDecoder(vit.graphs_to_torch(g, dev), acoustic_scale=0.7, beam=beam)
+    cpu = online.OnlineDecoder(vit.graphs_to_torch(g, torch.device("cpu")), acoustic_scale=0.7, beam=beam)
+    caps = []
+    for off, tc, nv in _stream_chunks(n_frames, [25, 25, 20]):
+        before = viterbi_cuda.BACKTRACE_LAUNCHES
+        card.process(torch.as_tensor(ll[:, off:off + tc], device=dev), nv)
+        cpu.process(torch.as_tensor(ll[:, off:off + tc]), nv)
+        caps.append(card._bp.shape[1])
+        for a, b in zip(card.partial(), cpu.partial()):
+            assert torch.equal(a.cpu(), b)
+        assert viterbi_cuda.BACKTRACE_LAUNCHES == before + 1
+    assert caps == [64, 64, 128]
+    final = card.finalize()
+    for a, b in zip(final, cpu.finalize()):
+        assert torch.equal(a.cpu(), b)
+    off = viterbi_cuda.viterbi(torch.as_tensor(ll, device=dev), vit.graphs_to_torch(g, dev),
+                               torch.as_tensor(n_frames, device=dev), acoustic_scale=0.7, beam=beam)
+    assert torch.equal(final[0], off.path) and torch.equal(final[1], off.entered)
+    # a stream without frames never starts (score NEG_INF); the offline
+    # decode initializes every row at frame 0
+    live = torch.as_tensor(n_frames > 0, device=dev)
+    assert torch.equal(final[2][live], off.score[live])
+
+
+def test_viterbi_chunk_arm_checks_buffers(dev):
+    rng = np.random.default_rng(1)
+    graphs = vit.graphs_to_torch(_random_graphs(rng, 2, 37, 9), dev)
+    ll = torch.zeros((2, 4, 9), device=dev)
+    delta = torch.zeros((2, 37), device=dev)
+    started = torch.zeros(2, dtype=torch.bool, device=dev)
+    bp = torch.zeros((2, 8, 2, 2), dtype=torch.int32, device=dev)
+    xa = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    nv = torch.full((2,), 4, device=dev)
+    with pytest.raises(ValueError):
+        viterbi_cuda.chunk_step(delta[:, :-1], started, ll, nv, graphs, 1.0, 0.0, bp, xa, 0)
+    with pytest.raises(ValueError):
+        viterbi_cuda.chunk_step(delta, started, ll, nv, graphs, 1.0, 0.0, bp[:, :, :1], xa, 0)
+    with pytest.raises(RuntimeError):  # the chunk does not fit the buffer
+        viterbi_cuda.chunk_step(delta, started, ll, nv, graphs, 1.0, 0.0, bp, xa, 6)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H", [(3, 17, 11), (64, 40, 512), (70, 12, 200)])
+def test_lstm_carry_arm_matches_plain(dev, compute_dtype, B, T, H):
+    """K4's carry arm: from random carries, ragged n_frames with rows at 0,
+    against the plain recurrence; the outputs and the final carries within
+    K4's tolerance, the carries of rows without frames h0 and c0 bitwise."""
+    rng = np.random.default_rng(B + T + H)
+    xg, w, nf = _lstm_inputs(rng, B, T, H, dev)
+    h0, c0 = (torch.as_tensor(rng.standard_normal((B, H)).astype(np.float32), device=dev) for _ in range(2))
+    before = lstm_cuda.LAUNCHES, lstm_cuda.CARRY_LAUNCHES
+    got, (h, c) = lstm_cuda.lstm_layer(xg, w, nf, compute_dtype, h0=h0, c0=c0, return_carry=True)
+    want, (hp, cp) = fast_lstm.lstm_layer(xg, w, nf, compute_dtype, h0=h0, c0=c0, return_carry=True)
+    torch.cuda.synchronize()
+    launched = lstm_cuda.LAUNCHES - before[0]
+    assert launched >= 1 and lstm_cuda.CARRY_LAUNCHES - before[1] == launched
+    for a, b in ((got, want), (h, hp), (c, cp)):
+        torch.testing.assert_close(a, b, rtol=0, atol=K4_ATOL[compute_dtype])
+    zero = nf == 0
+    assert bool(zero.any())
+    assert torch.equal(h[zero], h0[zero]) and torch.equal(c[zero], c0[zero])
+    assert torch.equal(got[zero], h0[zero][:, None].expand(-1, T, H))
+
+
+def test_lstm_stream_on_the_card_matches_offline(dev):
+    """LstmAmStream on K4's carry arm, in chunks of 7, against the offline
+    LstmAm on K4 (float32, the reference's 1e-5), and against the plain
+    stream."""
+    torch.manual_seed(0)
+    B, T, D = 6, 30, 13
+    model = tn.LstmAmStream(11, D, hidden=64, layers=2)
+    init_(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    feats = torch.randn((B, T, D), generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+        offline = tn.LstmAm.forward(model, feats, torch.full((B,), T, device=dev))
+        carries = tn.lstm_stream_init(model, B, dev)
+        plain_carries = carries
+        outs, plain_outs = [], []
+        for t0 in range(0, T, 7):
+            y, carries = model(feats[:, t0:t0 + 7], carries)
+            yp, plain_carries = model(feats[:, t0:t0 + 7], plain_carries, use_kernels=False)
+            outs.append(y)
+            plain_outs.append(yp)
+    torch.testing.assert_close(torch.cat(outs, 1), offline, rtol=0, atol=1e-5)
+    torch.testing.assert_close(torch.cat(outs, 1), torch.cat(plain_outs, 1), rtol=0, atol=1e-5)

@@ -47,7 +47,7 @@ def _clear_jax_caches():
 
 def _models(arch, n_pdfs, hidden, layers, feat_dim, seed, head_gain=1.0):
     jm = jn.build_model(arch, n_pdfs, JaxTrainConfig(nn_hidden=hidden, nn_layers=layers))
-    params = {"params": jm.init(jax.random.key(seed), jnp.zeros((2, 8, feat_dim)), jnp.asarray([8, 8]))["params"]}
+    params = {"params": jax.jit(jm.init)(jax.random.key(seed), jnp.zeros((2, 8, feat_dim)), jnp.asarray([8, 8]))["params"]}
     if head_gain != 1.0:
         params["params"]["Dense_0"]["kernel"] = params["params"]["Dense_0"]["kernel"] * head_gain
     tm = tn.build_model(arch, n_pdfs, TrainConfig(nn_hidden=hidden, nn_layers=layers), feat_dim)

@@ -54,7 +54,7 @@ CLI_RTOL = 1e-5
 # --synthetic-seed 34: its first utterance is the shortest two-word one of
 # the small corpus's seeds (72 frames), so the trigram passes stay cheap
 CLI_CORPUS = ["--synthetic", "1", "--synthetic-seed", "34"]
-SEARCH_CORPUS = ["--synthetic", "2", "--synthetic-seed", "34"]
+SEARCH_CORPUS = ["--synthetic", "1", "--synthetic-seed", "34"]
 SEARCH_TERMS = "thin,way,bee day"
 
 
@@ -288,10 +288,19 @@ def test_search_cli_matches_reference(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--ctc"], ["--rnnt"], ["--aed"], ["--nnlm-rescore", "lm"], ["--bias", "p.txt"],
                                    ["--fusion-lm", "u.npz"], ["--am", "lstm"], ["--nn-ckpt", "nn"],
-                                   ["--ivector-ckpt", "iv"], ["--add-pitch"]])
+                                   ["--ivector-ckpt", "iv"]])
 def test_decode_cli_flags_not_ported_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         cli_decode.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
+
+
+def test_decode_cli_add_pitch(tmp_path):
+    """``--add-pitch`` (ROADMAP item 10, refused until pitch.py was ported):
+    the free decode runs on the features with the pitch triple."""
+    cli_decode.main(["--synthetic", "1", "--add-pitch", "--num-components", "1", "--device", "cpu", "--run-dir",
+                     str(tmp_path / "run"), "--out", str(tmp_path / "hyps.jsonl")])
+    with open(tmp_path / "hyps.jsonl") as f:
+        assert len(f.readlines()) == 1
 
 
 @pytest.mark.parametrize("cli,flags", [(cli_decode, ["--nn-precision", "int8"]), (cli_decode, ["--bpe", "x"]),

@@ -33,7 +33,7 @@ def _pair(arch, hidden, layers, seed=0, feats=None, nf=None, **cfg):
     jm = jn.build_model(arch, P, JaxTrainConfig(nn_hidden=hidden, nn_layers=layers, **cfg))
     if feats is None:
         feats, nf = _inputs(seed)
-    params = {"params": jm.init(jax.random.key(seed), jnp.asarray(feats), jnp.asarray(nf))["params"]}
+    params = {"params": jax.jit(jm.init)(jax.random.key(seed), jnp.asarray(feats), jnp.asarray(nf))["params"]}
     tm = tn.build_model(arch, P, TrainConfig(nn_hidden=hidden, nn_layers=layers, **cfg), feats.shape[-1])
     tm.load_state_dict(from_flax(tm, params))
     return jm, params, tm

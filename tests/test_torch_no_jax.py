@@ -33,7 +33,10 @@ def test_port_imports_without_jax():
                  "mogasr_torch.native", "mogasr_torch.data.kaldi_io", "mogasr_torch.data.audio",
                  "mogasr_torch.data.flac_write", "mogasr_torch.data.manifest", "mogasr_torch.data.librispeech",
                  "mogasr_torch.data.augment", "mogasr_torch.cli.features", "mogasr_torch.cli.score",
-                 "mogasr_torch.cli.align", "mogasr_torch.cli.eval"):
+                 "mogasr_torch.cli.align", "mogasr_torch.cli.eval", "mogasr_torch.frontend.streaming",
+                 "mogasr_torch.frontend.pitch", "mogasr_torch.frontend.pitch_stream", "mogasr_torch.frontend.vad",
+                 "mogasr_torch.frontend.endpoint", "mogasr_torch.decoder.online", "mogasr_torch.data.prefetch",
+                 "mogasr_torch.cli.stream", "mogasr_torch.cli.transcribe"):
         assert name in modules
     code = "\n".join([
         "import sys",

@@ -32,7 +32,7 @@ def _pair(arch, hidden=16, layers=2, seed=0, B=3, T=12, D=6):
     feats = rng.standard_normal((B, T, D)).astype(np.float32)
     nf = np.asarray([T, 7, 3][:B], np.int32)
     jm = jn.build_model(arch, 5, JaxTrainConfig(nn_hidden=hidden, nn_layers=layers, nn_context=1))
-    params = {"params": jm.init(jax.random.key(seed), jnp.asarray(feats), jnp.asarray(nf))["params"]}
+    params = {"params": jax.jit(jm.init)(jax.random.key(seed), jnp.asarray(feats), jnp.asarray(nf))["params"]}
     tm = tn.build_model(arch, 5, TrainConfig(nn_hidden=hidden, nn_layers=layers, nn_context=1), D)
     tm.load_state_dict(from_flax(tm, params))
     return jm, params, tm, feats, nf

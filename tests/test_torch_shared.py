@@ -140,7 +140,8 @@ def test_numpy_ref_features_match(held_out):
 
 COPIED = ["lm/ngram.py", "lm/arpa.py", "decoder/lattice.py", "decoder/confusion.py", "decoder/kws.py",
           "data/kaldi_io.py", "data/audio.py", "data/flac_write.py", "data/manifest.py", "data/librispeech.py",
-          "data/augment.py", "native/flac_native.cpp"]
+          "data/augment.py", "native/flac_native.cpp", "frontend/vad.py", "frontend/endpoint.py",
+          "frontend/pitch_stream.py"]
 TOKENS = ["a", "b", "c", "<sil>"]
 TEXTS = [["a", "b"], ["a", "b", "c"], ["c"], ["b", "a", "a"], ["a", "<sil>", "b"]]
 
