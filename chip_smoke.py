@@ -174,6 +174,27 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    --synthetic-demo`` with and without --endpoint, ``transcribe
    --synthetic-demo --nbest 2 --ctm`` and ``eval --bundle --streaming`` on
    32 utterances, run at once, each output checked; the stream twin in this
+   process with its launches counted;
+27. two-pass adaptation of phase 5's 768 utterances grouped by their speaker
+   (20): ``pipeline.decode_with_{fmllr,mllr,vtln}`` over the bundle's CD
+   loop and align graphs, each through K1/K2 (launches counted) and again
+   with ``use_kernels=False`` on the card: pass-2 WER limit, transcripts
+   agreeing, equal warps with each speaker's margin, transforms within
+   ADAPT_W_ATOL where the pass-1 alignments agree; seconds of each pass and
+   peak memory; then 5 speakers corrupted (A = 0.8 I, b) and decoded SI and
+   with two-pass fMLLR (tests/test_fmllr.py's check);
+28. on phase 8's training corpus: ``train_sat`` (2 iterations from phase 8's
+   model, run twice: bitwise equal, rising history), ``estimate_stc_batches``
+   (held-out WER in its space), ``train_lda_mllt`` (context 3, 40 dims, from
+   phase 16's monophone model; held-out WER against the monophone's);
+29. ``am.ivector.train_ivector_extractor`` at its defaults on that corpus
+   without CMVN (held-out same- against different-speaker cosine),
+   ``diarize_wave`` on a 2-speaker session (DER limits) and the diarize twin
+   on a 3-speaker one;
+30. ``python -m mogasr_torch.cli.{eval --fmllr,eval --mllr,eval --vtln}
+   --bundle`` on the 768 utterances as WAV (WER limit), ``train_gmm --lda
+   3``, ``transcribe --diarize`` and ``diarize --synthetic-session``, run at
+   once, each output checked; ``eval --fmllr`` on 32 utterances in this
    process with its launches counted.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
@@ -185,6 +206,7 @@ could take, on the paths' own batches), and the ``{"ok": true, ...}`` line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -389,6 +411,34 @@ STREAM_NN_PDFS, STREAM_NN_HIDDEN, STREAM_NN_ATOL = 81, 512, 1e-5
 # pitch tolerance (tests/test_pitch.py); eval --streaming's corpus size.
 PITCH_UTTS, PITCH_ATOL, STREAM_CLI_EVAL_UTTS = 8, 1e-5, 32
 
+# Speaker adaptation (phases 27-30). The two-pass decodes of the held-out
+# corpus group it by each utterance's speaker (20 speakers); each runs
+# through K1/K2 and again with use_kernels=False on the card: transcripts
+# agree on MIN_AGREEMENT of the utterances, VTLN's warps are equal, and a
+# speaker whose pass-1 alignment is the same on both paths gets a transform
+# within ADAPT_W_ATOL (float32 statistics summed in another order). The
+# reference's adaptation check (tests/test_fmllr.py:128-167): CORRUPT_SPEAKERS
+# speakers' features through A = 0.8 I, b = CORRUPT_B N(0, 1) (seed 9, one
+# draw burnt), the SI WER on them above CORRUPT_MIN_SI_WER (the test's
+# precondition: the corruption must hurt) and the adapted WER below
+# CORRUPT_RATIO x the SI WER. The test's own b = 0.5 N(0, 1) (TEST_B) hardly
+# hurts the headline system, so its precondition fails there; the phase
+# prints that SI WER beside the one at CORRUPT_B, where pass 1 is still
+# partly right (b = 1.0 N(0, 1) puts the SI WER above 1).
+ADAPT_W_ATOL = 1e-3
+CORRUPT_SPEAKERS, CORRUPT_B, TEST_B, CORRUPT_MIN_SI_WER, CORRUPT_RATIO = 5, 0.7, 0.5, 0.15, 0.6
+# SAT from phase 8's model; LDA+MLLT booted from phase 16's monophone model
+# at its recipe's settings (8 components, 10 EM iterations); its held-out
+# WER within LDA_WER_GAP of the monophone's (tests/test_lda.py:178), STC's
+# within STC_WER_GAP of its model's (tests/test_stc.py).
+SAT_ITERS, LDA_CONTEXT, LDA_DIM, LDA_WER_GAP, STC_WER_GAP = 2, 3, 40, 0.02, 0.05
+# i-vectors: same-speaker cosine above different-speaker by IVEC_MARGIN
+# (tests/test_ivector.py:134); diarization: tests/test_diarization.py:83-87.
+IVEC_MARGIN, DER_MAX, DER_ONE_SPEAKER_GAP = 0.1, 0.30, 0.05
+ADAPT_CLI_TIMEOUT_S = 600
+KERNEL_COUNTERS = ("gmm_score", "gmm_score_wide", "gmm_score_int8", "viterbi", "fb_forward", "fb_backward",
+                   "fb_combine", "lstm_scan")
+
 
 def phase(n: int, msg: str) -> None:
     print(f"phase {n}: {msg}", flush=True)
@@ -584,7 +634,8 @@ def with_chain_skips(graphs):
 
 def training_corpus(topo):
     """The training corpus of benchmarks/train_headline.py (seed 100, 3-9
-    words); its lexicon must be the bundle's."""
+    words) as data.synthetic Utterances, each with its speaker; its lexicon
+    must be the bundle's."""
     from mogasr_torch.data import synthetic as syn
     from mogasr_torch.hmm.lexicon import make_lexicon
 
@@ -596,25 +647,27 @@ def training_corpus(topo):
         TRAIN_UTTS, lexicon=word_lex, speakers=syn.make_speakers(TRAIN_SPEAKERS),
         style=syn.CorpusStyle(), seed=TRAIN_SEED, words_per_utt=(3, 9),
     )
-    return [(u.utt_id, u.wave, u.words) for u in utts]
+    return utts
 
 
 def training_batches(topo, fcfg, dev):
     """The training corpus of benchmarks/train_headline.py featurized on the
     card in its batches, the widest of them (the widest bucket used, 550
-    frames, the one with the most frames) and the seconds its synthesis took."""
+    frames, the one with the most frames), the seconds its synthesis took
+    and each utterance's speaker."""
     from mogasr_torch import pipeline as pipe
     from mogasr_torch.config import BatchConfig
     from mogasr_torch.data.batching import make_batches
 
     t0 = time.perf_counter()
-    corpus = training_corpus(topo)
+    utts = training_corpus(topo)
+    corpus = [(u.utt_id, u.wave, u.words) for u in utts]
     synth_s = time.perf_counter() - t0
     batches = list(make_batches(corpus, BatchConfig(batch_size=TRAIN_BATCH, bucket_boundaries=TRAIN_BUCKETS), fcfg))
     frontends = pipe.frontends_for(batches, fcfg, dev)
     fbs = [pipe.featurize_batch(b, frontends[b.waves.shape[1]], dev) for b in batches]
     widest = max(fbs, key=lambda f: (f.feats.shape[1], int(f.n_frames.sum())))
-    return corpus, fbs, widest, synth_s
+    return corpus, fbs, widest, synth_s, {u.utt_id: u.speaker for u in utts}
 
 
 def k2_align_times(ll, graphs, n_frames) -> dict:
@@ -961,7 +1014,7 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
     mono_ckpt = os.path.join(ROOT, "build", "chip_smoke_mono_ckpt")
     shutil.rmtree(mono_ckpt, ignore_errors=True)
     ckpt.save_checkpoint(mono_ckpt, gmm_mono._asdict())
-    return {"mono_ckpt": mono_ckpt, "recipe": recipe_launches, "recipe_decode": dec_launches, "mmi": mmi_launches,
+    return {"mono_ckpt": mono_ckpt, "mono_gmm": gmm_mono, "mono_topo": topo_t, "recipe": recipe_launches, "recipe_decode": dec_launches, "mmi": mmi_launches,
             "smbr": smbr_launches,
             "mmi_denominator": {"pair_ms": den_pair_ms, **den_kernel_ms,
                                 "launches_per_iteration": mmi_launches["fb_forward"] // 2 // 2},
@@ -2306,6 +2359,355 @@ def streaming_phases(dev: torch.device, gmm, fcfg, dcfg, graph, corpus, bcfg) ->
             "k4_carry": k4_carry}
 
 
+def zero_launches() -> None:
+    from mogasr_torch.am import gmm_cuda, lstm_cuda
+    from mogasr_torch.decoder import fb_cuda, viterbi_cuda
+
+    torch.cuda.synchronize()
+    gmm_cuda.LAUNCHES = gmm_cuda.WIDE_LAUNCHES = gmm_cuda.INT8_LAUNCHES = viterbi_cuda.LAUNCHES = 0
+    fb_cuda.FWD_LAUNCHES = fb_cuda.BWD_LAUNCHES = fb_cuda.COMBINE_LAUNCHES = lstm_cuda.LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    from mogasr_torch.am import gmm_cuda, lstm_cuda
+    from mogasr_torch.decoder import fb_cuda, viterbi_cuda
+
+    torch.cuda.synchronize()
+    return dict(zip(KERNEL_COUNTERS, (gmm_cuda.LAUNCHES, gmm_cuda.WIDE_LAUNCHES, gmm_cuda.INT8_LAUNCHES,
+                                      viterbi_cuda.LAUNCHES, fb_cuda.FWD_LAUNCHES, fb_cuda.BWD_LAUNCHES,
+                                      fb_cuda.COMBINE_LAUNCHES, lstm_cuda.LAUNCHES)))
+
+
+def require_k1_k2_only(name: str, counts: dict) -> None:
+    if min(counts["gmm_score"], counts["viterbi"]) == 0 or \
+            any(v for k, v in counts.items() if k not in ("gmm_score", "viterbi")):
+        raise RuntimeError(f"{name}: launches {counts} (K1 float32/sum and K2 only)")
+
+
+def peak_gib() -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def adaptation_phases(dev, gmm, fcfg, dcfg, graph, tied, topo, held_out, bcfg, train_corpus, train_fbs,
+                      train_speakers, trained, gcfg, entry, plain_wer) -> dict:
+    """Phases 27 (two-pass fMLLR, MLLR and VTLN decodes of the held-out
+    corpus, kernel path against the plain path, and the corrupted-speaker
+    check), 28 (SAT, STC and LDA+MLLT on the training corpus) and 29
+    (i-vectors and diarization). Returns the launches per path."""
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import ivector as iv
+    from mogasr_torch.cli import diarize as cli_diarize
+    from mogasr_torch.cli.diarize import build_session
+    from mogasr_torch.config import BatchConfig, FrontendConfig, GmmConfig, TrainConfig
+    from mogasr_torch.diarize import diarize_wave, train_diarizer
+    from mogasr_torch.eval.diarization import der
+    from mogasr_torch.eval.wer import corpus_wer
+    from mogasr_torch.hmm import triphone as tri
+
+    lex = topo.lexicon
+    corpus = [(u.utt_id, u.wave, u.words) for u in held_out]
+    speaker = {u.utt_id: u.speaker for u in held_out}
+    refs = {u.utt_id: [w.lower() for w in u.words] for u in held_out}
+    utts_of = {}
+    for u in held_out:
+        utts_of.setdefault(u.speaker, []).append(u.utt_id)
+    align_fn = lambda p: tri.align_graph_cd(tied, p)  # noqa: E731
+    fbs = pipe.featurize(corpus, fcfg, bcfg, dev)
+    paths = {}
+
+    def wer_of(hyps, ids=None):
+        ids = list(refs) if ids is None else ids
+        return corpus_wer([refs[u] for u in ids], [[w.lower() for w in hyps[u]] for u in ids])[0]
+
+    def measured(name, fn):
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts(), peak_gib()
+
+    # ---- phase 27: two-pass adaptation on the headline bundle
+    two_pass = {
+        "fmllr": lambda uk, rep: pipe.decode_with_fmllr(fbs, gmm, lex, topo, dcfg, speaker.__getitem__, graph=graph,
+                                                        align_fn=align_fn, use_kernels=uk, report=rep),
+        "mllr": lambda uk, rep: pipe.decode_with_mllr(fbs, gmm, lex, topo, dcfg, speaker.__getitem__, graph=graph,
+                                                      align_fn=align_fn, use_kernels=uk, report=rep),
+        "vtln": lambda uk, rep: pipe.decode_with_vtln(corpus, gmm, lex, topo, fcfg, bcfg, dcfg,
+                                                      speaker_of=speaker.__getitem__, graph=graph, align_fn=align_fn,
+                                                      use_kernels=uk, report=rep),
+    }
+    lines = []
+    for name, fn in two_pass.items():
+        runs = {}
+        for uk in (True, False):
+            rep = {}
+            (hyps, per_spk), secs, counts, peak = measured(name, lambda: fn(uk, rep))
+            runs[uk] = dict(hyps=hyps, per_spk=per_spk, rep=rep, s=secs, launches=counts, peak=peak)
+        k, p = runs[True], runs[False]
+        require_k1_k2_only(f"two-pass {name} (kernel path)", k["launches"])
+        if any(p["launches"].values()):
+            raise RuntimeError(f"two-pass {name} with use_kernels=False launched {p['launches']}")
+        paths[f"adapt_{name}"] = k["launches"]
+        wer_k, wer_p = wer_of(k["hyps"]), wer_of(p["hyps"])
+        same = sum(k["hyps"][u] == p["hyps"][u] for u in refs) / len(refs)
+        if len(k["hyps"]) != len(refs) or wer_k > MAX_WER or same < MIN_AGREEMENT:
+            raise RuntimeError(f"two-pass {name}: {len(k['hyps'])} utterances, WER {wer_k:.4f} (limit {MAX_WER}), "
+                               f"transcripts agree with the plain path on {same:.4f}")
+        if name == "vtln":
+            if k["per_spk"] != p["per_spk"]:
+                raise RuntimeError(f"VTLN warps differ: kernel {k['per_spk']} plain {p['per_spk']}")
+            margins = {spk: sorted(ll.values())[-1] - sorted(ll.values())[-2] for spk, ll in k["rep"]["loglik"].items()}
+            detail = (f"warps {dict(sorted(k['per_spk'].items()))} equal on both paths; each speaker's margin "
+                      f"best - second-best aligned loglik (nats over its frames): "
+                      + ", ".join(f"{spk} {m:.1f}" for spk, m in sorted(margins.items())))
+        else:
+            same_spk = [spk for spk in k["per_spk"] if all(
+                np.array_equal(k["rep"]["labels1"][u], p["rep"]["labels1"][u]) for u in utts_of[spk])]
+            dw = max((float(np.abs(k["per_spk"][spk] - p["per_spk"][spk]).max()) for spk in same_spk), default=0.0)
+            if not same_spk or dw > ADAPT_W_ATOL:
+                raise RuntimeError(f"two-pass {name}: {len(same_spk)} speakers with identical pass-1 labels, "
+                                   f"max |dW| {dw:.3g} (limit {ADAPT_W_ATOL})")
+            detail = (f"{len(k['per_spk'])} speakers' transforms, {len(same_spk)} with identical pass-1 labels on "
+                      f"both paths: max |dW| {dw:.3g} (limit {ADAPT_W_ATOL})")
+        sec = lambda r: ", ".join(f"{kk} {v:.2f}" for kk, v in r["rep"]["seconds"].items())  # noqa: E731
+        lines.append(f"{name}: pass-2 WER {wer_k:.4f} (plain path {wer_p:.4f}; limit {MAX_WER}; phase 5 "
+                     f"{BUNDLE_WER}, phase 6's float32 sum path {plain_wer:.4f}), transcripts agree on {same:.4f}; "
+                     f"{detail}; kernel path {k['s']:.2f} s (s {sec(k)}), launches {k['launches']}, peak "
+                     f"{k['peak']:.2f} GiB; plain path {p['s']:.2f} s (s {sec(p)}), peak {p['peak']:.2f} GiB")
+    # the reference's adaptation check on CORRUPT_SPEAKERS speakers
+    D = fcfg.feat_dim
+    bad = sorted(utts_of)[:CORRUPT_SPEAKERS]
+    bad_ids = [u for spk in bad for u in utts_of[spk]]
+
+    def corrupted(b_scale):
+        rng = np.random.default_rng(9)
+        rng.standard_normal(D)
+        W_bad = np.concatenate([np.eye(D) * 0.8, b_scale * rng.standard_normal(D)[:, None]], axis=1)
+        return [pipe._apply_fmllr_batch(fb, {spk: W_bad.astype(np.float32) for spk in bad}, speaker.__getitem__)
+                for fb in fbs]
+
+    def si_hyps(batches):
+        return {uid: hyp for fb in batches
+                for uid, hyp in zip(fb.utt_ids, pipe.decode_batch(fb, pipe.score_batch(fb.feats, gmm), graph, dcfg))}
+
+    test_b_si_wer = wer_of(si_hyps(corrupted(TEST_B)), bad_ids)
+    bad_fbs = corrupted(CORRUPT_B)
+    si = si_hyps(bad_fbs)
+    (ad, _W), ad_s, ad_counts, ad_peak = measured("fmllr", lambda: pipe.decode_with_fmllr(
+        bad_fbs, gmm, lex, topo, dcfg, speaker.__getitem__, graph=graph, align_fn=align_fn))
+    si_wer, ad_wer = wer_of(si, bad_ids), wer_of(ad, bad_ids)
+    if not (si_wer > CORRUPT_MIN_SI_WER and ad_wer < CORRUPT_RATIO * si_wer):
+        raise RuntimeError(f"fMLLR on {CORRUPT_SPEAKERS} corrupted speakers: adapted WER {ad_wer:.4f}, SI WER "
+                           f"{si_wer:.4f} (SI must be > {CORRUPT_MIN_SI_WER}, adapted < {CORRUPT_RATIO} x SI)")
+    phase(27, f"two-pass adaptation of the {len(refs)} held-out utterances by speaker ({len(utts_of)} speakers, "
+          f"{len(fbs)} batches; K1 float32/sum, K2's word-loop arm for the decodes and its chain arm for the "
+          f"hypothesis alignment; CD loop and align graphs): " + "; ".join(lines)
+          + f"; the reference's check, {CORRUPT_SPEAKERS} speakers ({len(bad_ids)} utterances) corrupted by "
+          f"A = 0.8 I, b = {CORRUPT_B} N(0, 1) (the test's b = {TEST_B} N(0, 1): SI WER {test_b_si_wer:.4f}; "
+          f"uncorrupted SI {wer_of(si_hyps(fbs), bad_ids):.4f}): SI WER {si_wer:.4f} (> {CORRUPT_MIN_SI_WER}), fMLLR two-pass "
+          f"{ad_wer:.4f} (< {CORRUPT_RATIO} x SI) in {ad_s:.2f} s, launches {ad_counts}, peak {ad_peak:.2f} GiB")
+
+    # ---- phase 28: SAT, STC and LDA+MLLT on the training corpus
+    tspk = train_speakers.__getitem__
+    sat_runs = []
+    for _ in range(2):
+        (sat_gmm, sat_W, sat_hist), sat_s, sat_counts, sat_peak = measured("sat", lambda: pipe.train_sat(
+            train_fbs, lex, topo, gcfg, trained, tspk, n_iters=SAT_ITERS, align_fn=align_fn))
+        sat_runs.append((sat_gmm, sat_W, sat_hist, sat_s, sat_counts, sat_peak))
+    (g1, W1, h1, s1, c1, pk1), (g2, W2, h2, s2, _c2, _pk2) = sat_runs
+    require_k1_k2_only("SAT", c1)
+    paths["sat"] = c1
+    if not (np.isfinite(h1).all() and h1[-1] > h1[0]):
+        raise RuntimeError(f"SAT history {h1} does not rise")
+    if h1 != h2 or W1.keys() != W2.keys() or not all(np.array_equal(W1[k], W2[k]) for k in W1) or \
+            not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+        raise RuntimeError("SAT: two runs are not bitwise equal")
+    eye = np.concatenate([np.eye(D), np.zeros((D, 1))], axis=1)
+    dev_w = sorted(float(np.abs(W - eye).max()) for W in W1.values())
+    base_eval = pipe.evaluate(fbs, trained, lex, topo, dcfg, graph=graph)["wer"]
+    (stc_out, stc_s, stc_counts, stc_peak) = measured("stc", lambda: pipe.estimate_stc_batches(
+        train_fbs, trained, lex, topo, align_fn=align_fn))
+    A_stc, _vars_y, gmm_y, tf = stc_out
+    require_k1_k2_only("STC", stc_counts)
+    paths["stc"] = stc_counts
+    stc_wer = pipe.evaluate(tf(fbs), gmm_y, lex, topo, dcfg, graph=graph)["wer"]
+    if not (np.isfinite(A_stc).all() and stc_wer <= base_eval + STC_WER_GAP):
+        raise RuntimeError(f"STC: WER {stc_wer:.4f} against {base_eval:.4f} (gap limit {STC_WER_GAP})")
+    gmm_mono, topo_m = entry["mono_gmm"], entry["mono_topo"]
+    gcfg_lda = GmmConfig(n_states=topo_m.n_pdfs, n_components=8, feat_dim=LDA_DIM, var_floor=0.01,
+                         min_split_occ=40.0)
+    (lda, lda_s, lda_counts, lda_peak) = measured("lda", lambda: pipe.train_lda_mllt(
+        train_corpus, lex, topo_m, fcfg, BatchConfig(batch_size=TRAIN_BATCH, bucket_boundaries=TRAIN_BUCKETS),
+        gcfg_lda, TrainConfig(num_em_iters=10), gmm_mono, context=LDA_CONTEXT, lda_dim=LDA_DIM))
+    require_k1_k2_only("LDA+MLLT", lda_counts)
+    paths["lda_mllt"] = lda_counts
+    mono_wer = pipe.evaluate(fbs, gmm_mono, lex, topo_m, dcfg)["wer"]
+    lda_wer = pipe.evaluate(lda.featurize(corpus, bcfg), lda.gmm, lex, lda.topo, dcfg)["wer"]
+    if lda.transform.shape != (LDA_DIM, (2 * LDA_CONTEXT + 1) * fcfg.base_dim + 1) or \
+            not lda_wer <= mono_wer + LDA_WER_GAP or not lda.history[-1] > lda.history[0]:
+        raise RuntimeError(f"LDA+MLLT: transform {lda.transform.shape}, history {lda.history}, held-out WER "
+                           f"{lda_wer:.4f} against the monophone's {mono_wer:.4f} (+{LDA_WER_GAP})")
+    phase(28, f"training-side transforms on the training corpus of phase 8 ({len(train_fbs)} batches, "
+          f"{len(set(train_speakers.values()))} speakers): SAT {SAT_ITERS} iterations from phase 8's model: "
+          f"Jacobian-corrected loglik per frame {[round(h, 4) for h in h1]}, {len(W1)} transforms (max |W - I| min "
+          f"{dev_w[0]:.3f}, median {dev_w[len(dev_w) // 2]:.3f}, max {dev_w[-1]:.3f}), run twice bitwise equal "
+          f"(transforms, history, model), {s1:.2f} and {s2:.2f} s, launches {c1}, peak {pk1:.2f} GiB; STC from "
+          f"phase 8's model: {stc_s:.2f} s, launches {stc_counts}, peak {stc_peak:.2f} GiB, held-out WER "
+          f"{stc_wer:.4f} in its space (the model's {base_eval:.4f}); LDA+MLLT at context {LDA_CONTEXT}, "
+          f"{LDA_DIM} dims, booted from phase 16's monophone model ({gmm_mono.n_states} x {gmm_mono.n_components}): "
+          f"{lda_s:.2f} s, history {[round(h, 3) for h in lda.history]}, launches {lda_counts}, peak "
+          f"{lda_peak:.2f} GiB; held-out WER {lda_wer:.4f} against the monophone's {mono_wer:.4f} (limit "
+          f"+{LDA_WER_GAP})")
+
+    # ---- phase 29: i-vectors and diarization
+    fcfg_nc = dataclasses.replace(fcfg, cmvn="none")  # utterance CMVN strips the speaker cues
+    tbcfg = BatchConfig(batch_size=TRAIN_BATCH, bucket_boundaries=TRAIN_BUCKETS)
+    train_nc = pipe.featurize(train_corpus, fcfg_nc, tbcfg, dev)
+    held_nc = pipe.featurize(corpus, fcfg_nc, bcfg, dev)
+    (ext, ext_s, _c, ext_peak) = measured("ivector", lambda: iv.train_ivector_extractor(train_nc))
+    t0 = time.perf_counter()
+    train_vecs = iv.extract_ivectors_batches(train_nc, ext.ubm, ext.t_mat)
+    by_utt = iv.extract_ivectors_batches(held_nc, ext.ubm, ext.t_mat)
+    ext_x_s = time.perf_counter() - t0
+    ids = list(by_utt)
+    norm = iv.length_normalize(np.stack([by_utt[u] for u in ids]) - np.stack(list(train_vecs.values())).mean(0))
+    sims = norm @ norm.T
+    lab = np.array([speaker[u] for u in ids])
+    same_mask = (lab[:, None] == lab[None, :]) & ~np.eye(len(ids), dtype=bool)
+    same_cos, diff_cos = float(sims[same_mask].mean()), float(sims[lab[:, None] != lab[None, :]].mean())
+    if not same_cos > diff_cos + IVEC_MARGIN:
+        raise RuntimeError(f"i-vectors: same-speaker cosine {same_cos:.4f}, different {diff_cos:.4f} "
+                           f"(margin {IVEC_MARGIN})")
+    wave, drefs, dtrain = build_session(2, 10, seed=4)
+    t0 = time.perf_counter()
+    ubm, t_mat = train_diarizer(dtrain[:24], FrontendConfig(cmvn="none"), n_components=16, rank=8, ubm_iters=6,
+                                tv_iters=6, device=dev)
+    t1 = time.perf_counter()
+    turns = diarize_wave(wave, FrontendConfig(cmvn="none"), ubm, t_mat, n_speakers=2)
+    t2 = time.perf_counter()
+    d2 = der(drefs, turns, collar_s=0.25)
+    d1 = der(drefs, [(a, b, 0) for a, b, _l in turns], collar_s=0.25)
+    if len({lab_ for _a, _b, lab_ in turns}) != 2 or not d2["der"] < DER_MAX or \
+            not d2["der"] < d1["der"] - DER_ONE_SPEAKER_GAP:
+        raise RuntimeError(f"diarization of the 2-speaker session: {d2} (one speaker: {d1['der']:.4f})")
+    work = os.path.join(ROOT, "build", "chip_smoke_diarize")
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    t3 = time.perf_counter()
+    cli_diarize.main(["--synthetic-session", "12", "--speakers", "3", "--n-speakers", "3", "--run-dir", work,
+                      "--device", str(dev)])
+    t4 = time.perf_counter()
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rec3 = json.loads(f.readlines()[-1])
+    shutil.rmtree(work, ignore_errors=True)
+    phase(29, f"i-vectors: train_ivector_extractor at its defaults ({ext.ubm.n_components} components, rank "
+          f"{ext.rank}) on the training corpus without CMVN ({len(train_nc)} batches) in {ext_s:.2f} s, peak "
+          f"{ext_peak:.2f} GiB; {len(ids)} held-out and {len(train_vecs)} training i-vectors in {ext_x_s:.2f} s; "
+          f"held-out cosine, centred on the training mean: same speaker {same_cos:.4f}, different {diff_cos:.4f} "
+          f"(margin limit {IVEC_MARGIN}); diarization of build_session(2, 10, seed=4): diarizer trained in "
+          f"{t1 - t0:.2f} s, diarize_wave {t2 - t1:.2f} s, DER {d2['der']:.4f} (miss {d2['miss']:.4f}, false alarm "
+          f"{d2['false_alarm']:.4f}, confusion {d2['confusion']:.4f}; limit {DER_MAX}), one speaker "
+          f"{d1['der']:.4f}; the diarize twin on a 3-speaker 12-utterance session (--n-speakers 3) in {t4 - t3:.2f} s: "
+          f"{rec3['speakers_found']} speakers found, DER {rec3['der']:.4f}")
+    return paths
+
+
+def adaptation_cli_phase(dev: torch.device, corpus, lexicon) -> dict:
+    """Phase 30: ``python -m mogasr_torch.cli.eval --fmllr/--mllr/--vtln
+    --bundle`` on the held-out corpus as WAV with a manifest (WER limit),
+    ``train_gmm --lda 3`` on a small demo corpus (the checkpoint read back),
+    ``transcribe --synthetic-demo --diarize`` and ``diarize
+    --synthetic-session``, all at once; then ``eval --fmllr --bundle`` on
+    CLI_COUNT_UTTS of them in this process with the launch counts set to 0
+    before and read after. Returns the counts."""
+    import shutil
+
+    from mogasr_torch.cli import eval as cli_eval
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    work = os.path.join(ROOT, "build", "chip_smoke_adapt_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    files = write_cli_corpora(os.path.join(work, "data"), corpus, lexicon)
+    wav = ["--manifest", files["manifest"], "--lexicon", files["lexicon"]]
+    runs = {
+        "eval --fmllr": ("eval", wav + ["--bundle", BUNDLE, "--fmllr"]),
+        "eval --mllr": ("eval", wav + ["--bundle", BUNDLE, "--mllr"]),
+        "eval --vtln": ("eval", wav + ["--bundle", BUNDLE, "--vtln"]),
+        "train_gmm --lda": ("train_gmm", ["--synthetic", "16", "--num-components", "2", "--num-iters", "4",
+                                          "--lda", str(LDA_CONTEXT)]),
+        "transcribe --diarize": ("transcribe", ["--synthetic-demo", "--diarize", "--num-speakers", "2", "--out",
+                                                os.path.join(work, "transcript.jsonl")]),
+        "diarize": ("diarize", ["--synthetic-session", "8", "--rttm", os.path.join(work, "session.rttm")]),
+    }
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (module, args) in runs.items():
+        run_dir = os.path.join(work, name.replace(" ", "_").replace("-", ""))
+        cmd = [sys.executable, "-m", f"mogasr_torch.cli.{module}", *args, "--run-dir", run_dir, "--device", str(dev)]
+        procs[name] = (run_dir, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True))
+    try:
+        zero_launches()
+        few = wav + ["--max-utts", str(CLI_COUNT_UTTS), "--device", str(dev)]
+        cli_eval.main(few + ["--bundle", BUNDLE, "--fmllr", "--run-dir", os.path.join(work, "counted")])
+        launches = launch_counts()
+        require_k1_k2_only("eval --fmllr in this process", launches)
+        results = {}
+        for name, (run_dir, proc) in procs.items():
+            _out, err = proc.communicate(timeout=max(ADAPT_CLI_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            if proc.returncode != 0:
+                raise RuntimeError(f"the CLI twin ({name}) failed ({proc.returncode}): {err[-2000:]}")
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                results[name] = [json.loads(line) for line in f]
+        all_s = time.perf_counter() - t0
+    finally:
+        for _run_dir, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+    def record(name, stage):
+        recs = [r for r in results[name] if r["stage"] == stage]
+        if len(recs) != 1:
+            raise RuntimeError(f"the CLI twin ({name}) logged {results[name]}")
+        return recs[0]
+
+    evals = {name: record(name, "eval") for name in ("eval --fmllr", "eval --mllr", "eval --vtln")}
+    for name, rec in evals.items():
+        if rec["utts"] != len(corpus) or rec["wer"] > MAX_WER:
+            raise RuntimeError(f"{name} --bundle: {rec} (WER limit {MAX_WER})")
+    lda_rec = record("train_gmm --lda", "train_lda_mllt_done")
+    ck = restore_checkpoint(os.path.join(work, "train_gmm_lda", "gmm_lda"))
+    if ck["lda_transform"].shape != (LDA_DIM, (2 * LDA_CONTEXT + 1) * 13 + 1) or \
+            ck["lda_context"].tolist() != [LDA_CONTEXT] or not np.isfinite(ck["means"]).all():
+        raise RuntimeError(f"train_gmm --lda: checkpoint {ck['lda_transform'].shape} {ck['lda_context']}")
+    with open(os.path.join(work, "transcript.jsonl")) as f:
+        segs = [json.loads(line) for line in f]
+    if not segs or any(r.get("speaker") not in (0, 1) for r in segs):
+        raise RuntimeError(f"transcribe --diarize: {segs}")
+    drec = record("diarize", "diarize_done")
+    with open(os.path.join(work, "session.rttm")) as f:
+        rttm = f.read().splitlines()
+    if len(rttm) != drec["turns"] or not rttm:
+        raise RuntimeError(f"diarize: {drec}, {len(rttm)} RTTM lines")
+    shutil.rmtree(work, ignore_errors=True)
+    phase(30, f"adaptation CLI twins, six runs at once, exited 0 in {all_s:.1f} s: eval --bundle on the "
+          f"{len(corpus)} held-out utterances as WAV: " + "; ".join(
+              f"{name} WER {r['wer']:.4f} in {r['wall_sec']:.1f} s ({r['utts_per_sec_per_chip']:.1f} utt/s)"
+              for name, r in evals.items()) + f" (limit {MAX_WER}); train_gmm --lda {LDA_CONTEXT} (16 utterances): "
+          f"loglik {lda_rec['final_avg_loglik']:.3f} in {lda_rec['wall_sec']:.2f} s, gmm_lda read back "
+          f"({ck['means'].shape}, transform {ck['lda_transform'].shape}); transcribe --diarize: {len(segs)} segments, "
+          f"speakers {[r['speaker'] for r in segs]}; diarize --synthetic-session 8 (3 speakers, threshold "
+          f"clustering): {drec['speakers_found']} speakers found, "
+          f"DER {drec['der']:.4f}, {drec['turns']} RTTM turns; eval --fmllr --bundle on {CLI_COUNT_UTTS} utterances "
+          f"in this process: launches {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -2323,7 +2725,7 @@ def main() -> None:
     from mogasr_torch.frontend.numpy_ref import extract_features_np
     from mogasr_torch.frontend.torch_frontend import make_frontend
     from mogasr_torch.hmm import triphone as tri
-    from mogasr_torch.recipes.decode_held_out import held_out_corpus
+    from mogasr_torch.recipes.decode_held_out import held_out_utterances
     from mogasr_torch.utils.bundle import load_system
 
     dev = torch.device("cuda", 0)
@@ -2351,7 +2753,8 @@ def main() -> None:
                         word_insertion_penalty=dmeta.get("word_insertion_penalty", 2.0))
     graph = tri.word_loop_graph_cd(tied, insertion_penalty=dcfg.word_insertion_penalty)
     J = graph.n_states
-    corpus = held_out_corpus(topo, meta, 768)
+    held_out = held_out_utterances(topo, meta, 768)
+    corpus = [(u.utt_id, u.wave, u.words) for u in held_out]
     bcfg = BatchConfig(batch_size=256, bucket_boundaries=(250, 350, 450, 600))
     # the decode path's widest batch: 256 rows x 600 frames, ragged n_frames
     batch = max(make_batches(corpus, bcfg, fcfg), key=lambda b: b.waves.shape[1])
@@ -2496,7 +2899,7 @@ def main() -> None:
     del fb, plain
 
     # ---- phase 7: K3f/K3b against the plain forward-backward
-    train_corpus, train_fbs, fbw, synth_s = training_batches(topo, fcfg, dev)
+    train_corpus, train_fbs, fbw, synth_s, train_speakers = training_batches(topo, fcfg, dev)
     Bw, Tw, _ = fbw.feats.shape
 
     def align_fn(pids):
@@ -2704,6 +3107,9 @@ def main() -> None:
     cli_line, cli_launches = gmm_cli_phase(dev, corpus, topo.lexicon, entry["mono_ckpt"], plain_wer)
     phase(22, cli_line)
     stream = streaming_phases(dev, gmm, fcfg, dcfg, graph, corpus, bcfg)
+    adapt_paths = adaptation_phases(dev, gmm, fcfg, dcfg, graph, tied, topo, held_out, bcfg, train_corpus, train_fbs,
+                                    train_speakers, trained, gcfg, entry, plain_wer)
+    adapt_cli = adaptation_cli_phase(dev, corpus, topo.lexicon)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -2711,7 +3117,8 @@ def main() -> None:
              "recipe_bundle_decode": entry["recipe_decode"], "mmi": entry["mmi"], "smbr": entry["smbr"],
              "lm_decode": lm_entry["lm_decode"], "lm_check_decodes": lm_entry["lm_check_decodes"],
              "confidence": lm_entry["confidence"], "cli": cli_launches, "streaming": stream["streaming"],
-             "online": stream["online"], "stream_cli": stream["stream_cli"]}
+             "online": stream["online"], "stream_cli": stream["stream_cli"], **adapt_paths,
+             "adapt_cli": adapt_cli}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]

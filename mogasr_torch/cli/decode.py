@@ -16,7 +16,9 @@ printed. Runs on ``--device`` (default cuda).
 ``--gmm-ckpt`` reads the port's checkpoint format (``cli.train_gmm`` writes
 it), not orbax. Not ported yet, and raising NotImplementedError: the neural
 and end-to-end acoustic models (``--am`` other than gmm, ``--nn-ckpt``,
-``--ctc``, ``--rnnt``, ``--aed``), ``--ivector-ckpt``, ``--bias``,
+``--ctc``, ``--rnnt``, ``--aed``), ``--ivector-ckpt`` (the i-vectors
+augment the neural models' features; the extractor is ``am.ivector``),
+``--bias``,
 ``--fusion-lm`` and ``--nnlm-rescore``; each message names the ROADMAP
 item that ports it. ``--add-pitch`` appends the pitch triple
 (``frontend/pitch.py``) to the features.
@@ -108,7 +110,7 @@ def main(argv=None) -> None:
         ("--fusion-lm", args.fusion_lm, "13: lm/unit_ngram.py"),
         (f"--am {args.am}", args.am != "gmm", "12: neural checkpoints"),
         ("--nn-ckpt", args.nn_ckpt, "12: neural checkpoints"),
-        ("--ivector-ckpt", args.ivector_ckpt, "11: am/ivector.py"),
+        ("--ivector-ckpt", args.ivector_ckpt, "12: i-vectors augment the neural acoustic models' features"),
     ))
     device = device_of(args.device)
     bundle = None

@@ -2,7 +2,8 @@
 the reference's cli/eval.py on its GMM paths.
 
     python -m mogasr_torch.cli.eval --manifest corpus.jsonl --lexicon lexicon.txt --bundle benchmarks/headline \\
-        [--consensus] [--streaming [--chunk-ms MS]] [--add-pitch] [--run-dir DIR] [--profile] [--device cpu]
+        [--consensus | --fmllr | --mllr | --vtln] [--streaming [--chunk-ms MS]] [--add-pitch] [--run-dir DIR] \\
+        [--profile] [--device cpu]
 
 featurize (or, with ``--streaming``, the chunked streaming front end,
 ``pipeline.featurize_streaming``, in chunks of ``--chunk-ms``) -> K1
@@ -23,11 +24,20 @@ records a ``torch.profiler`` trace of the sweep into <run-dir>/profile. Runs
 on ``--device`` (default cuda).
 
 ``--add-pitch`` appends the pitch triple (``frontend/pitch.py``) to the
-features. Not ported yet, and raising NotImplementedError naming the ROADMAP
-item that ports them: ``--fmllr``, ``--mllr`` and ``--vtln`` (item 11),
-``--am`` other than gmm and
-``--nn-ckpt`` (item 12), ``--ctc``, ``--rnnt``, ``--aed`` and ``--bpe`` (item
-13). The options that only those paths read are left out.
+features. ``--fmllr``, ``--mllr`` and ``--vtln`` decode in two passes with
+per-speaker adaptation (``pipeline.decode_with_{fmllr,mllr,vtln}``: pass 1,
+the alignment of its hypotheses, K1 and K2 on the card; the transforms or
+warps per speaker, the utterance-id prefix before the first '-'), the
+reference's semantics: the sweep is resumed as a whole (a transform depends
+on all of its speaker's utterances), so a started-again sweep skips the
+two-pass decode once every utterance is in eval_hyps.jsonl. With
+``--bundle`` the two passes decode the bundle's CD word loop and align with
+its CD align graphs, as the 1-best sweep decodes (the reference's two-pass
+functions take no graph and use the monophone loop there). Not ported yet,
+and raising NotImplementedError naming the ROADMAP item that ports them:
+``--am`` other than gmm and ``--nn-ckpt`` (item 12), ``--ctc``, ``--rnnt``,
+``--aed`` and ``--bpe`` (item 13). The options that only those paths read
+are left out.
 """
 
 from __future__ import annotations
@@ -66,10 +76,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--consensus", action="store_true",
                    help="confusion-network consensus (MBR) decoding instead of Viterbi 1-best: bigram lattice "
                         "pass -> CN -> argmax per slot")
+    p.add_argument("--fmllr", action="store_true",
+                   help="unsupervised two-pass per-speaker fMLLR adaptation (resumed as a whole sweep: the "
+                        "transforms depend on all of a speaker's utterances)")
+    p.add_argument("--mllr", action="store_true",
+                   help="unsupervised two-pass per-speaker MLLR (model-space mean) adaptation; same resume "
+                        "granularity as --fmllr")
+    p.add_argument("--vtln", action="store_true",
+                   help="unsupervised two-pass per-speaker VTLN warp estimation (grid search over warped mel "
+                        "front ends)")
     # the unported paths' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--fmllr", action="store_true", help="per-speaker fMLLR adaptation (not ported yet: raises)")
-    p.add_argument("--mllr", action="store_true", help="per-speaker MLLR adaptation (not ported yet: raises)")
-    p.add_argument("--vtln", action="store_true", help="per-speaker VTLN warps (not ported yet: raises)")
     p.add_argument("--ctc", action="store_true", help="BPE-CTC neural AM (not ported yet: raises)")
     p.add_argument("--rnnt", action="store_true", help="BPE-RNNT checkpoint (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="BPE-AED checkpoint (not ported yet: raises)")
@@ -98,8 +114,42 @@ def read_hyps(path: str):
     return refs, hyps
 
 
+def two_pass_sweep(args, corpus, batches, gmm, lex, topo, fcfg, bcfg, dcfg, graph, bundle, done, resume_path):
+    """``--fmllr``/``--mllr``/``--vtln``: the whole corpus in two passes
+    (skipped when every utterance is already in ``resume_path``), then the
+    hypotheses of the utterances not yet there appended."""
+    from mogasr_torch.pipeline import decode_with_fmllr, decode_with_mllr, decode_with_vtln
+
+    if {u for fb in batches for u in fb.utt_ids} <= done:
+        return
+    align_fn = None
+    if bundle is not None and bundle[3] is not None:
+        from mogasr_torch.hmm.triphone import align_graph_cd
+
+        align_fn = lambda pids: align_graph_cd(bundle[3], pids)  # noqa: E731
+    if args.vtln:
+        hyp_map, _warps = decode_with_vtln(corpus, gmm, lex, topo, fcfg, bcfg, dcfg, graph=graph, align_fn=align_fn)
+    else:
+        two_pass = decode_with_fmllr if args.fmllr else decode_with_mllr
+        hyp_map, _transforms = two_pass(batches, gmm, lex, topo, dcfg, graph=graph, align_fn=align_fn)
+    with open(resume_path, "a") as out_f:
+        for fb in batches:
+            for b in range(fb.size):
+                uid = fb.utt_ids[b]
+                if uid not in done:
+                    out_f.write(json.dumps({"utt_id": uid, "ref": fb.words[b], "hyp": hyp_map[uid]}) + "\n")
+        out_f.flush()
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
+    adapt = args.fmllr or args.mllr or args.vtln
+    lexicon_free = [f for f, on in (("--ctc", args.ctc), ("--rnnt", args.rnnt), ("--aed", args.aed)) if on]
+    if lexicon_free and (adapt or args.consensus or args.bundle):
+        raise SystemExit(f"{lexicon_free[0]} is lexicon-free decoding: incompatible with GMM "
+                         "adaptation/consensus/bundle")
+    if args.am != "gmm" and adapt:
+        raise SystemExit("--fmllr/--mllr/--vtln are GMM adaptation: incompatible with a hybrid --am")
     refuse_unported((
         ("--ctc", args.ctc, "13: am/ctc.py"),
         ("--rnnt", args.rnnt, "13: am/rnnt.py"),
@@ -107,9 +157,6 @@ def main(argv=None) -> None:
         ("--bpe", args.bpe, "13: data/bpe.py"),
         (f"--am {args.am}", args.am != "gmm", "12: neural checkpoints"),
         ("--nn-ckpt", args.nn_ckpt, "12: neural checkpoints"),
-        ("--fmllr", args.fmllr, "11: am/fmllr.py"),
-        ("--mllr", args.mllr, "11: am/mllr.py"),
-        ("--vtln", args.vtln, "11: pipeline.decode_with_vtln"),
     ))
     device = device_of(args.device)
     bundle = None
@@ -152,26 +199,30 @@ def main(argv=None) -> None:
     audio_sec = sum(len(w) for _, w, _ in corpus) / fcfg.sample_rate
     prof_dir = os.path.join(args.run_dir, "profile") if args.profile else None
     with trace(prof_dir), Timer() as t:
-        if args.consensus:
-            from mogasr_torch.decoder.confusion import confusion_network, consensus_decode
-            from mogasr_torch.lm.ngram import estimate_bigram
-            from mogasr_torch.pipeline import decode_batch_lattices
+        if args.fmllr or args.mllr or args.vtln:
+            two_pass_sweep(args, corpus, batches, gmm, lex, topo, fcfg, bcfg, dcfg, graph, bundle, done,
+                           resume_path)
+        else:
+            if args.consensus:
+                from mogasr_torch.decoder.confusion import confusion_network, consensus_decode
+                from mogasr_torch.lm.ngram import estimate_bigram
+                from mogasr_torch.pipeline import decode_batch_lattices
 
-            transcripts = [fb.words[b] for fb in batches for b in range(fb.size)]
-            cn_lm = estimate_bigram(transcripts, sorted(set(graph.labels)))
-        with open(resume_path, "a") as out_f:
-            for fb in batches:
-                if all(u in done for u in fb.utt_ids):
-                    continue
-                scores = score_batch(fb.feats, gmm, params=params)
-                if args.consensus:
-                    lats, _ = decode_batch_lattices(fb, scores, graph, cn_lm, dcfg)
-                    out = [consensus_decode(confusion_network(lat, cn_lm))[0] for lat in lats]
-                else:
-                    out = decode_batch(fb, scores, graph, dcfg)
-                for b in range(fb.size):
-                    out_f.write(json.dumps({"utt_id": fb.utt_ids[b], "ref": fb.words[b], "hyp": out[b]}) + "\n")
-                out_f.flush()
+                transcripts = [fb.words[b] for fb in batches for b in range(fb.size)]
+                cn_lm = estimate_bigram(transcripts, sorted(set(graph.labels)))
+            with open(resume_path, "a") as out_f:
+                for fb in batches:
+                    if all(u in done for u in fb.utt_ids):
+                        continue
+                    scores = score_batch(fb.feats, gmm, params=params)
+                    if args.consensus:
+                        lats, _ = decode_batch_lattices(fb, scores, graph, cn_lm, dcfg)
+                        out = [consensus_decode(confusion_network(lat, cn_lm))[0] for lat in lats]
+                    else:
+                        out = decode_batch(fb, scores, graph, dcfg)
+                    for b in range(fb.size):
+                        out_f.write(json.dumps({"utt_id": fb.utt_ids[b], "ref": fb.words[b], "hyp": out[b]}) + "\n")
+                    out_f.flush()
 
     refs, hyps = read_hyps(resume_path)
     wer, counts = corpus_wer(refs, hyps)

@@ -1,25 +1,30 @@
 """GMM-HMM training on the card: the twin of the reference's cli/train_gmm.py.
 
     python -m mogasr_torch.cli.train_gmm --synthetic-v2 200 --run-dir runs/gmm \
-        [--triphones N_PDFS] [--mmi ITERS] [--smbr ITERS] [--bundle-out DIR] [--device cpu]
+        [--triphones N_PDFS] [--mmi ITERS] [--smbr ITERS] [--lda CONTEXT [--lda-dim N]] [--bundle-out DIR] \
+        [--device cpu]
 
 featurize -> flat start -> ML EM with mixture splitting (Viterbi or
 Baum-Welch), checkpointed after every iteration under <run-dir>/em_ckpt and
 resumed from there when the run is started again -> optional MMI and sMBR
-refinement -> the GMM checkpoint <run-dir>/gmm -> optional tied-triphone
-system (<run-dir>/gmm_cd) -> optional deployable bundle (utils/bundle.py),
-which both packages' ``load_system`` read. Records go to
+refinement -> the GMM checkpoint <run-dir>/gmm -> optional splice -> LDA
+-> MLLT system (``pipeline.train_lda_mllt``, booted from that GMM;
+<run-dir>/gmm_lda holds its GMM with ``lda_transform`` and ``lda_context``)
+-> optional tied-triphone system (<run-dir>/gmm_cd) -> optional deployable
+bundle (utils/bundle.py), which both packages' ``load_system`` read. The
+checkpoints are the port's format (``utils/checkpoint.py``). Records go to
 <run-dir>/metrics.jsonl. Runs on ``--device`` (default cuda).
 
 ``--add-pitch`` appends the pitch triple (``frontend/pitch.py``) to the
-features. Not ported yet: ``--lda`` (LDA/MLLT, ROADMAP item 11) raises
-NotImplementedError.
+features.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import numpy as np
 
 from mogasr_torch.cli.common import (
     add_augment_args, add_corpus_args, add_run_args, apply_augmentation, device_of, load_corpus, make_logger,
@@ -57,15 +62,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="export the trained system (GMM + lexicon + topology "
                         "[+ tied triphones] + frontend config) as a bundle dir")
     p.add_argument("--lda", type=int, default=0, metavar="CONTEXT",
-                   help="splice(+-CONTEXT)->LDA->MLLT system (not ported yet: raises)")
+                   help="also train a splice(+-CONTEXT)->LDA->MLLT system booted from the ML GMM; saved to "
+                        "<run-dir>/gmm_lda with its transform")
     p.add_argument("--lda-dim", type=int, default=40, help="LDA projection dimension (with --lda)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.lda > 0:
-        raise NotImplementedError("--lda: LDA/MLLT is not ported to mogasr_torch yet (ROADMAP item 11)")
     device = device_of(args.device)
     corpus, lex = load_corpus(args)
     corpus = apply_augmentation(corpus, args)
@@ -109,6 +113,21 @@ def main(argv=None) -> None:
         ckpt = os.path.join(run_dir, "gmm")
         save_checkpoint(ckpt, gmm._asdict(), step=len(history))
         print(f"saved GMM ({gmm.n_states} states x {gmm.n_components} comps) to {ckpt}")
+
+        if args.lda > 0:
+            from mogasr_torch.pipeline import train_lda_mllt
+
+            with Timer() as tl:
+                sys_lda = train_lda_mllt(corpus, lex, topo, fcfg, BatchConfig(), gcfg, tcfg, gmm, context=args.lda,
+                                         lda_dim=args.lda_dim, logger=logger, mode=args.mode)
+            logger.log({
+                "stage": "train_lda_mllt_done", "context": args.lda, "lda_dim": args.lda_dim,
+                "final_avg_loglik": sys_lda.history[-1], "wall_sec": tl.seconds,
+            })
+            lda_ckpt = os.path.join(run_dir, "gmm_lda")
+            save_checkpoint(lda_ckpt, {**sys_lda.gmm._asdict(), "lda_transform": np.asarray(sys_lda.transform),
+                                       "lda_context": np.asarray([args.lda], np.int32)}, step=len(sys_lda.history))
+            print(f"saved LDA+MLLT GMM ({args.lda_dim}-dim, context +-{args.lda}) to {lda_ckpt}")
 
         if args.triphones > 0:
             from mogasr_torch.pipeline import train_triphone

@@ -2,7 +2,8 @@
 timestamps: the twin of the reference's cli/transcribe.py on its GMM path.
 
     python -m mogasr_torch.cli.transcribe (--synthetic-demo | --audio FILE) [--gmm-ckpt DIR] \\
-        [--nbest N] [--ctm FILE] [--out FILE] [--max-segment-s 30] [--device cpu]
+        [--nbest N] [--ctm FILE] [--out FILE] [--max-segment-s 30] [--diarize [--num-speakers N]] \
+        [--device cpu]
 
 Energy VAD (``frontend/vad.py``) splits the recording into utterance-sized
 segments; each goes through the front end, K1 (float32, sum mode) and
@@ -17,10 +18,15 @@ checkpoint format; without it a random GMM is drawn as the reference draws
 it. Records go to <run-dir>/metrics.jsonl. Runs on ``--device`` (default
 cuda).
 
-Not ported yet, and raising NotImplementedError naming the ROADMAP item that
-ports them: ``--diarize`` (item 11), and the neural families ``--ctc``,
-``--rnnt``, ``--aed`` with ``--bpe`` (item 13). The options that only those
-paths read are left out.
+``--diarize`` also diarizes the recording (``diarize.train_diarizer`` on
+its own VAD segments, then ``diarize.diarize_wave``: i-vectors on the card,
+clustering on the host) and tags every segment with the speaker that
+overlaps it most, ``--num-speakers`` (0: found by the clustering's distance
+threshold), ``--diarize-components`` and ``--diarize-rank`` as in the
+reference. Not ported yet, and raising NotImplementedError naming the
+ROADMAP item that ports them: the neural families ``--ctc``, ``--rnnt``,
+``--aed`` with ``--bpe`` (item 13). The options that only those paths read
+are left out.
 """
 
 from __future__ import annotations
@@ -58,8 +64,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "word LM)")
     p.add_argument("--out", help="write transcript (jsonl)")
     p.add_argument("--ctm", help="also write a CTM file (standard scoring format: utt channel start dur word conf)")
+    p.add_argument("--diarize", action="store_true",
+                   help="also diarize the recording (per-recording UBM+TV i-vector clustering trained on the "
+                        "recording's own VAD speech) and tag every segment with a speaker label")
+    p.add_argument("--num-speakers", "--diarize-speakers", dest="num_speakers", type=int, default=0,
+                   help="with --diarize: known speaker count (0 = find it by the AHC distance threshold)")
+    p.add_argument("--diarize-components", type=int, default=16)
+    p.add_argument("--diarize-rank", type=int, default=8)
     # the unported paths' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--diarize", action="store_true", help="speaker diarization (not ported yet: raises)")
     p.add_argument("--ctc", action="store_true", help="CTC acoustic model (not ported yet: raises)")
     p.add_argument("--rnnt", action="store_true", help="RNN-transducer (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
@@ -74,7 +86,6 @@ def main(argv=None) -> None:
         ("--rnnt", args.rnnt, "13: am/rnnt.py"),
         ("--aed", args.aed, "13: am/aed.py"),
         ("--bpe", args.bpe, "13: data/bpe.py"),
-        ("--diarize", args.diarize, "11: diarize.py"),
     ))
     device = device_of(args.device)
     fcfg = FrontendConfig()
@@ -140,6 +151,20 @@ def main(argv=None) -> None:
                     if nbests is not None:
                         rec["nbest"] = nbests[b]
                     results.append(rec)
+        if args.diarize and results:
+            from mogasr_torch.diarize import diarize_wave, train_diarizer
+
+            seg_utts = [(f"d-{i:04d}", wave[a:b], []) for i, (a, b) in enumerate(segments)]
+            ubm, t_mat = train_diarizer(seg_utts, fcfg, n_components=args.diarize_components,
+                                        rank=args.diarize_rank, device=device)
+            turns = diarize_wave(wave, fcfg, ubm, t_mat, n_speakers=args.num_speakers or None)
+            for r in results:
+                overlap = {}
+                for t0, t1, spk in turns:
+                    o = min(r["end_s"], t1) - max(r["start_s"], t0)
+                    if o > 0:
+                        overlap[spk] = overlap.get(spk, 0.0) + o
+                r["speaker"] = max(overlap, key=overlap.get) if overlap else None
     results.sort(key=lambda r: r["start_s"])
     audio_s = len(wave) / fcfg.sample_rate
     logger.log({

@@ -1079,3 +1079,520 @@ def train_triphone(
     )
     result.setup_seconds.update(cd_stats=t1 - t0, tie=t2 - t1, cd_init=t3 - t2)
     return tied, result
+
+
+# ------------------------------------------------------- speaker adaptation
+#
+# The adaptation half of the reference's pipeline: two-pass decoding with
+# per-speaker fMLLR, MLLR or VTLN, speaker-adaptive training, semi-tied
+# covariance, splice + LDA (+ MLLT), i-vector features. Every decode and
+# alignment is ``decode_batch`` / ``align_batch`` (K1 float32/sum, then K2's
+# word-loop arm or its chain arm on the card; ``use_kernels=False`` runs the
+# plain versions); the statistics accumulate on the device of the features
+# (``am.aligned``), the transforms are solved on the host. Beyond the
+# reference's arguments the two-pass decodes take, keyword-only, the decode
+# ``graph`` and the ``align_fn`` of the hypothesis alignment (defaults: the
+# monophone word loop and align graphs, as the reference builds them; a
+# tied-triphone system passes ``hmm.triphone.word_loop_graph_cd`` and
+# ``align_graph_cd``), ``use_kernels``, and ``report``: a dict they fill
+# with the pass-1 hypotheses ("hyps1"), each utterance's pass-1 alignment
+# ("labels1", numpy pdfs of its frames) and the wall seconds of each pass
+# ("seconds": pass1, align, estimate, pass2; VTLN also "loglik", each
+# speaker's aligned log-likelihood at each warp).
+
+
+def _default_speaker_of(uid: str) -> str:
+    """The reference's default: the utt-id prefix before the first '-'."""
+    return uid.split("-")[0] if "-" in uid else "global"
+
+
+def _wall(dev: torch.device) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def _rows_by_speaker(fb: FeatBatch, speaker_of) -> Dict[str, List[int]]:
+    by_spk: Dict[str, List[int]] = {}
+    for b in range(fb.size):
+        by_spk.setdefault(speaker_of(fb.utt_ids[b]), []).append(b)
+    return by_spk
+
+
+def _hyp_batch(fb: FeatBatch, hyps: Dict[str, List[str]]) -> FeatBatch:
+    """``fb`` with its pass-1 hypotheses as transcripts (empty hypotheses
+    align to silence)."""
+    hyp_words = [hyps.get(uid, []) for uid in fb.utt_ids]
+    hyp_words += [[]] * (len(fb.words) - len(hyp_words))
+    return FeatBatch(fb.utt_ids, fb.feats, fb.n_frames, hyp_words)
+
+
+def _first_pass(batches, gmm, lexicon, topo, dcfg, graph, align_fn, use_kernels, report):
+    """Pass 1 (decode) and the alignment of its hypotheses -> (hyps1,
+    [labels [B, T] per batch])."""
+    dev = batches[0].feats.device
+    params = kernel_params(gmm, "float32") if use_kernels else None
+    t0 = _wall(dev)
+    hyps1: Dict[str, List[str]] = {}
+    for fb in batches:
+        scores = score_batch(fb.feats, gmm, use_kernels, params=params)
+        out = decode_batch(fb, scores, graph, dcfg, use_kernels=use_kernels)
+        for b in range(fb.size):
+            hyps1[fb.utt_ids[b]] = out[b]
+    t1 = _wall(dev)
+    labels_per_batch = []
+    for fb in batches:
+        _res, labels, _ = align_batch(_hyp_batch(fb, hyps1), gmm, lexicon, topo, align_fn=align_fn,
+                                      use_kernels=use_kernels, params=params)
+        labels_per_batch.append(labels)
+    t2 = _wall(dev)
+    if report is not None:
+        report["hyps1"] = hyps1
+        report["labels1"] = {}
+        for fb, labels in zip(batches, labels_per_batch):
+            lab, nf = labels.cpu().numpy(), fb.n_frames.cpu().numpy()
+            for b in range(fb.size):
+                report["labels1"][fb.utt_ids[b]] = lab[b, : int(nf[b])]
+        report["seconds"] = {"pass1": t1 - t0, "align": t2 - t1}
+    return hyps1, labels_per_batch
+
+
+def _speaker_stats(batches, labels_per_batch, speaker_of, accumulate, add):
+    """{speaker: statistics}, one ``accumulate(feats [N, D], labels [N])``
+    per (batch, speaker) group of rows, summed over batches in order."""
+    stats_by_spk: Dict[str, object] = {}
+    for fb, labels in zip(batches, labels_per_batch):
+        D = fb.feats.shape[-1]
+        for spk, rows in _rows_by_speaker(fb, speaker_of).items():
+            idx = torch.as_tensor(rows, device=fb.feats.device)
+            s = accumulate(fb.feats[idx].reshape(-1, D), labels.to(fb.feats.device)[idx].reshape(-1))
+            prev = stats_by_spk.get(spk)
+            stats_by_spk[spk] = s if prev is None else add(prev, s)
+    return stats_by_spk
+
+
+def decode_with_fmllr(
+    batches: Sequence[FeatBatch],
+    gmm: GmmSet,
+    lexicon: Lexicon,
+    topo: Topology,
+    dcfg: DecodeConfig,
+    speaker_of=None,
+    n_sweeps: int = 8,
+    si_gmm: Optional[GmmSet] = None,
+    *,
+    graph: Optional[gr.Graph] = None,
+    align_fn=None,
+    use_kernels: bool = True,
+    report: Optional[dict] = None,
+):
+    """Unsupervised two-pass decoding with per-speaker fMLLR adaptation: the
+    reference's signature and return value, (hyps_pass2, {speaker: W}).
+
+    Pass 1 decodes with the speaker-independent model; the hypotheses are
+    force-aligned to get frame labels; per-speaker fMLLR statistics
+    accumulate on the device (``am.fmllr``), one call per (batch, speaker)
+    group, and the transforms are solved on the host; pass 2 re-decodes the
+    adapted features (one batched product per batch, the identity for
+    padding rows). speaker_of(utt_id) groups utterances (default: the
+    utt-id prefix before the first '-'; one group if absent). With a SAT
+    model (``train_sat``) pass ``si_gmm`` = the speaker-independent model:
+    pass 1 and the hypothesis alignment use it, the transforms and pass 2
+    target ``gmm``.
+    """
+    from mogasr_torch.am import fmllr as fm
+
+    speaker_of = speaker_of or _default_speaker_of
+    first = si_gmm if si_gmm is not None else gmm
+    graph = graph if graph is not None else word_decode_graph(lexicon, topo, dcfg)
+    dev = batches[0].feats.device
+
+    hyps1, labels_per_batch = _first_pass(batches, first, lexicon, topo, dcfg, graph, align_fn, use_kernels, report)
+    t0 = _wall(dev)
+    stats_by_spk = _speaker_stats(batches, labels_per_batch, speaker_of,
+                                  lambda x, y: fm.accumulate_fmllr_stats(gmm, x, y), fm.add_fmllr_stats)
+    transforms = {spk: fm.solve_fmllr(st, n_sweeps=n_sweeps) for spk, st in stats_by_spk.items()}
+    t1 = _wall(dev)
+
+    params = kernel_params(gmm, "float32") if use_kernels else None
+    hyps2: Dict[str, List[str]] = {}
+    for fb in batches:
+        fb2 = _apply_fmllr_batch(fb, transforms, speaker_of)
+        scores = score_batch(fb2.feats, gmm, use_kernels, params=params)
+        out = decode_batch(fb2, scores, graph, dcfg, use_kernels=use_kernels)
+        for b in range(fb.size):
+            hyps2[fb.utt_ids[b]] = out[b]
+    if report is not None:
+        report["seconds"].update(estimate=t1 - t0, pass2=_wall(dev) - t1)
+    return hyps2, transforms
+
+
+def _apply_fmllr_batch(fb: FeatBatch, transforms, speaker_of):
+    """Per-utterance affine feature transform in one batched product; rows
+    past fb.size (batch padding) and speakers without a transform get the
+    identity."""
+    D = fb.feats.shape[-1]
+    eye = np.concatenate([np.eye(D, dtype=np.float32), np.zeros((D, 1), np.float32)], axis=1)
+    Wb = np.stack([
+        np.asarray(transforms.get(speaker_of(fb.utt_ids[bi]), eye), np.float32) if bi < fb.size else eye
+        for bi in range(fb.feats.shape[0])
+    ])  # [B, D, D+1]
+    Wt = torch.as_tensor(Wb, device=fb.feats.device)
+    feats_t = torch.einsum("btd,bed->bte", fb.feats, Wt[:, :, :-1]) + Wt[:, None, :, -1]
+    return FeatBatch(fb.utt_ids, feats_t, fb.n_frames, fb.words)
+
+
+def train_sat(
+    batches: Sequence[FeatBatch],
+    lexicon: Lexicon,
+    topo: Topology,
+    gcfg: GmmConfig,
+    gmm: GmmSet,
+    speaker_of=None,
+    n_iters: int = 4,
+    n_sweeps: int = 8,
+    align_fn=None,
+    logger=None,
+    *,
+    use_kernels: bool = True,
+):
+    """Speaker-adaptive training (SAT): fMLLR inside the EM loop. Returns
+    (gmm, transforms, history), the reference's triple.
+
+    Each iteration (1) force-aligns the speaker-transformed features with the
+    current model (K1 float32/sum, K2's chain arm), (2) re-estimates
+    per-speaker fMLLR transforms from those alignments against the RAW
+    features, (3) runs one EM step (``em.accumulate_stats``, sorted segment
+    sums) on the re-transformed features. The monitored log-likelihood is
+    the raw-feature likelihood under (model, transform): the alignment score
+    in the transformed space plus log|det A| per frame. On the card two runs
+    give the same transforms bit for bit.
+    """
+    from mogasr_torch.am import fmllr as fm
+
+    speaker_of = speaker_of or _default_speaker_of
+    transforms: Dict[str, np.ndarray] = {}
+    history: List[float] = []
+    for it in range(n_iters):
+        labels_per_batch = []
+        loglik_sum, frames_sum = 0.0, 0
+        logdet = {spk: float(np.linalg.slogdet(np.asarray(W)[:, :-1])[1]) for spk, W in transforms.items()}
+        params = kernel_params(gmm, "float32") if use_kernels else None
+        for fb in batches:
+            fb_t = _apply_fmllr_batch(fb, transforms, speaker_of)
+            res, labels, _ = align_batch(fb_t, gmm, lexicon, topo, align_fn=align_fn, use_kernels=use_kernels,
+                                         params=params)
+            labels_per_batch.append(labels)
+            nf = fb.n_frames.cpu().numpy()
+            valid = nf > 0
+            loglik_sum += float(res.score.cpu().numpy()[valid].sum())
+            loglik_sum += sum(logdet.get(speaker_of(uid), 0.0) * int(n) for uid, n in zip(fb.utt_ids, nf))
+            frames_sum += int(nf[valid].sum())
+        history.append(loglik_sum / max(frames_sum, 1))
+
+        stats_by_spk = _speaker_stats(batches, labels_per_batch, speaker_of,
+                                      lambda x, y: fm.accumulate_fmllr_stats(gmm, x, y), fm.add_fmllr_stats)
+        transforms = {spk: fm.solve_fmllr(st, n_sweeps=n_sweeps) for spk, st in stats_by_spk.items()}
+
+        stats = None
+        for fb, labels in zip(batches, labels_per_batch):
+            fb_t = _apply_fmllr_batch(fb, transforms, speaker_of)
+            s = em.accumulate_stats(gmm, fb_t.feats.reshape(-1, fb_t.feats.shape[-1]), labels.reshape(-1))
+            stats = s if stats is None else em.add_stats(stats, s)
+        gmm = em.m_step(gmm, stats, var_floor=gcfg.var_floor, weight_floor=gcfg.weight_floor)
+        if logger:
+            logger.log({"stage": "sat", "iter": it, "avg_loglik": history[-1]})
+    return gmm, transforms, history
+
+
+def estimate_stc_batches(
+    batches: Sequence[FeatBatch],
+    gmm: GmmSet,
+    lexicon: Lexicon,
+    topo: Topology,
+    n_iters: int = 10,
+    *,
+    align_fn=None,
+    use_kernels: bool = True,
+):
+    """A global semi-tied covariance transform from forced alignments of the
+    batches (``am.stc``): the reference's (A, vars_y, gmm_y,
+    transform_batches), where gmm_y scores the A-transformed features and
+    transform_batches maps FeatBatches into that space."""
+    from mogasr_torch.am import stc as st
+    from mogasr_torch.am.fmllr import apply_fmllr
+
+    params = kernel_params(gmm, "float32") if use_kernels else None
+    stats = None
+    for fb in batches:
+        _res, labels, _ = align_batch(fb, gmm, lexicon, topo, align_fn=align_fn, use_kernels=use_kernels,
+                                      params=params)
+        D = fb.feats.shape[-1]
+        s = st.accumulate_stc_stats(gmm, fb.feats.reshape(-1, D), labels.reshape(-1))
+        stats = s if stats is None else st.add_stc_stats(stats, s)
+    A, vars_y = st.solve_stc(gmm, stats, n_iters=n_iters)
+    gmm_y = st.apply_stc(gmm, A, vars_y)
+    W = st.stc_feature_transform(A)
+
+    def transform_batches(bs: Sequence[FeatBatch]) -> List[FeatBatch]:
+        return [FeatBatch(fb.utt_ids, apply_fmllr(fb.feats, W), fb.n_frames, fb.words) for fb in bs]
+
+    return A, vars_y, gmm_y, transform_batches
+
+
+@dataclasses.dataclass
+class LdaMlltResult:
+    """A trained LDA(+MLLT)-space system: ``gmm`` scores features produced by
+    splicing base (delta-free) features +-context frames and applying the
+    single affine ``transform`` [lda_dim, (2*context+1)*base_dim + 1]."""
+
+    gmm: GmmSet
+    transform: np.ndarray
+    context: int
+    base_fcfg: FrontendConfig
+    history: List[float]
+    topo: Topology
+
+    def transform_featbatches(self, bs: Sequence[FeatBatch]) -> List[FeatBatch]:
+        from mogasr_torch.am import lda as ld
+        from mogasr_torch.am.fmllr import apply_fmllr
+
+        return [
+            FeatBatch(fb.utt_ids, apply_fmllr(ld.splice_frames(fb.feats, fb.n_frames, self.context),
+                                              self.transform), fb.n_frames, fb.words)
+            for fb in bs
+        ]
+
+    def featurize(self, utts: Sequence[Utterance], bcfg: BatchConfig) -> List[FeatBatch]:
+        """The system's features on the device of its GMM."""
+        return self.transform_featbatches(featurize(utts, self.base_fcfg, bcfg, self.gmm.means.device))
+
+
+def train_lda_mllt(
+    utts: Sequence[Utterance],
+    lexicon: Lexicon,
+    topo: Topology,
+    fcfg: FrontendConfig,
+    bcfg: BatchConfig,
+    gcfg: GmmConfig,
+    tcfg: TrainConfig,
+    boot_gmm: GmmSet,
+    boot_fcfg: Optional[FrontendConfig] = None,
+    context: int = 3,
+    lda_dim: int = 40,
+    mllt: bool = True,
+    mllt_iters: int = 8,
+    mode: str = "viterbi",
+    logger=None,
+    *,
+    use_kernels: bool = True,
+) -> LdaMlltResult:
+    """Kaldi tri2b-shaped recipe: splice -> LDA -> GMM EM (-> MLLT), on the
+    device of ``boot_gmm``.
+
+    ``boot_gmm`` (trained on ``boot_fcfg`` features, default ``fcfg``)
+    supplies forced-alignment class labels; LDA statistics are the
+    class-conditional scatters of the spliced delta-free base features; a
+    fresh GMM trains from flat start in the projected space (``train_gmm``);
+    optional MLLT (``estimate_stc_batches``) re-rotates it, composes into the
+    single returned affine transform, and 2 EM iterations refit the model in
+    the rotated space.
+    """
+    from mogasr_torch.am import lda as ld
+    from mogasr_torch.am.fmllr import apply_fmllr
+
+    dev = boot_gmm.means.device
+    boot_fcfg = boot_fcfg or fcfg
+    base_fcfg = dataclasses.replace(fcfg, delta_order=0)
+    batches_boot = featurize(utts, boot_fcfg, bcfg, dev)
+    batches_base = featurize(utts, base_fcfg, bcfg, dev)
+
+    n_classes = boot_gmm.means.shape[0]
+    params = kernel_params(boot_gmm, "float32") if use_kernels else None
+    stats = None
+    spliced_all: List[torch.Tensor] = []
+    for fb_boot, fb_base in zip(batches_boot, batches_base):
+        if fb_boot.utt_ids != fb_base.utt_ids:
+            raise RuntimeError("boot/base featurization batch order diverged")
+        _res, labels, _ = align_batch(fb_boot, boot_gmm, lexicon, topo, use_kernels=use_kernels, params=params)
+        spliced = ld.splice_frames(fb_base.feats, fb_base.n_frames, context)
+        spliced_all.append(spliced)
+        ds = spliced.shape[-1]
+        s = ld.accumulate_lda_stats(spliced.reshape(-1, ds), labels.reshape(-1), n_classes)
+        stats = s if stats is None else ld.add_lda_stats(stats, s)
+    w_lda = ld.solve_lda(stats, lda_dim)
+
+    lda_batches = [FeatBatch(fb.utt_ids, apply_fmllr(spl, w_lda), fb.n_frames, fb.words)
+                   for fb, spl in zip(batches_base, spliced_all)]
+    res = train_gmm(lda_batches, lexicon, topo, gcfg, tcfg, logger=logger, mode=mode)
+    gmm_lda, history, topo_out = res.gmm, res.history, res.topo
+
+    transform = w_lda
+    gmm_out = gmm_lda
+    if mllt:
+        from mogasr_torch.am.stc import stc_feature_transform
+
+        a_mllt, _vars_y, gmm_y, tb = estimate_stc_batches(lda_batches, gmm_lda, lexicon, topo_out,
+                                                          n_iters=mllt_iters, use_kernels=use_kernels)
+        transform = ld.compose_affine(stc_feature_transform(a_mllt), w_lda)
+        # refit means/weights in the rotated space (the scatter-derived
+        # variances alone are noisy on small data)
+        res2 = train_gmm(tb(lda_batches), lexicon, topo_out,
+                         dataclasses.replace(gcfg, n_components=gmm_y.n_components),
+                         dataclasses.replace(tcfg, num_em_iters=2), gmm=gmm_y, logger=logger, mode=mode)
+        gmm_out = res2.gmm
+        history = history + res2.history
+    return LdaMlltResult(gmm_out, transform, context, base_fcfg, history, topo_out)
+
+
+def _aligned_loglik_sum(gmm: GmmSet, feats: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sum over valid frames of log p(x_t | pdf label_t): the VTLN warp
+    selection objective (labels == -1 rows are padding), in frame chunks."""
+    from mogasr_torch.am.aligned import component_loglik, frame_chunks, gather_bytes
+
+    labels = labels.to(feats.device)
+    total = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for a, b in frame_chunks(feats.shape[0], gather_bytes(gmm)):
+        ll_k, valid, _mu, _var = component_loglik(gmm, feats[a:b], labels[a:b])
+        ll = torch.logsumexp(ll_k, dim=-1)
+        total += torch.where(valid, ll, torch.zeros_like(ll)).sum()
+    return total
+
+
+def decode_with_vtln(
+    utts: Sequence[Utterance],   # (id, wave, words)
+    gmm: GmmSet,
+    lexicon: Lexicon,
+    topo: Topology,
+    fcfg: FrontendConfig,
+    bcfg: BatchConfig,
+    dcfg: DecodeConfig,
+    warps: Sequence[float] = (0.88, 0.92, 0.96, 1.0, 1.04, 1.08, 1.12),
+    speaker_of=None,
+    *,
+    graph: Optional[gr.Graph] = None,
+    align_fn=None,
+    use_kernels: bool = True,
+    report: Optional[dict] = None,
+):
+    """Unsupervised two-pass decoding with per-speaker VTLN warp selection,
+    on the device of ``gmm``: the reference's signature and return value,
+    (hyps_pass2, {speaker: warp}).
+
+    Pass 1 decodes unwarped; hypotheses are force-aligned to frame labels;
+    for each candidate warp the audio is featurized again through the warped
+    mel filterbank (framing is warp-invariant, so the labels transfer) and
+    each speaker's aligned log-likelihood summed; each speaker takes its
+    argmax warp for the pass-2 decode.
+    """
+    speaker_of = speaker_of or _default_speaker_of
+    graph = graph if graph is not None else word_decode_graph(lexicon, topo, dcfg)
+    dev = gmm.means.device
+    base_batches = featurize(utts, fcfg, bcfg, dev)
+    _hyps1, labels_per_batch = _first_pass(base_batches, gmm, lexicon, topo, dcfg, graph, align_fn, use_kernels,
+                                           report)
+    labels_by_utt: Dict[str, torch.Tensor] = {}
+    for fb, labels in zip(base_batches, labels_per_batch):
+        for b in range(fb.size):
+            labels_by_utt[fb.utt_ids[b]] = labels[b]
+
+    t0 = _wall(dev)
+    ll_by_spk: Dict[str, Dict[float, float]] = {}
+    for warp in warps:
+        wcfg = dataclasses.replace(fcfg, vtln_warp=float(warp))
+        for fb in featurize(utts, wcfg, bcfg, dev):
+            D = fb.feats.shape[-1]
+            for spk, rows in _rows_by_speaker(fb, speaker_of).items():
+                idx = torch.as_tensor(rows, device=dev)
+                labs = torch.stack([labels_by_utt[fb.utt_ids[b]] for b in rows]).reshape(-1)
+                ll = float(_aligned_loglik_sum(gmm, fb.feats[idx].reshape(-1, D), labs))
+                ll_by_spk.setdefault(spk, {})
+                ll_by_spk[spk][warp] = ll_by_spk[spk].get(warp, 0.0) + ll
+    best_warp = {spk: max(lls, key=lls.get) for spk, lls in ll_by_spk.items()}
+    t1 = _wall(dev)
+
+    params = kernel_params(gmm, "float32") if use_kernels else None
+    hyps2: Dict[str, List[str]] = {}
+    for warp in sorted(set(best_warp.values())):
+        wcfg = dataclasses.replace(fcfg, vtln_warp=float(warp))
+        w_utts = [u for u in utts if best_warp[speaker_of(u[0])] == warp]
+        for fb in featurize(w_utts, wcfg, bcfg, dev):
+            out = decode_batch(fb, score_batch(fb.feats, gmm, use_kernels, params=params), graph, dcfg,
+                               use_kernels=use_kernels)
+            for b in range(fb.size):
+                hyps2[fb.utt_ids[b]] = out[b]
+    if report is not None:
+        report["loglik"] = ll_by_spk
+        report["seconds"].update(estimate=t1 - t0, pass2=_wall(dev) - t1)
+    return hyps2, best_warp
+
+
+def decode_with_mllr(
+    batches: Sequence[FeatBatch],
+    gmm: GmmSet,
+    lexicon: Lexicon,
+    topo: Topology,
+    dcfg: DecodeConfig,
+    speaker_of=None,
+    min_occ: float = 1.0,
+    *,
+    graph: Optional[gr.Graph] = None,
+    align_fn=None,
+    use_kernels: bool = True,
+    report: Optional[dict] = None,
+):
+    """Unsupervised two-pass decoding with per-speaker mean-MLLR adaptation:
+    the reference's signature and return value, (hyps_pass2, {speaker: W}).
+
+    Pass 1 decodes with the speaker-independent GMM, hypotheses are
+    force-aligned, a global mean transform mu' = A mu + b is solved in closed
+    form per speaker (``am.mllr``: statistics on the device, solve on the
+    host), and pass 2 re-decodes with each speaker's adapted model: as in the
+    reference, one scoring and one decode of the whole batch per (batch,
+    speaker in it), the other speakers' rows discarded.
+    """
+    from mogasr_torch.am import mllr as ml
+
+    speaker_of = speaker_of or _default_speaker_of
+    graph = graph if graph is not None else word_decode_graph(lexicon, topo, dcfg)
+    dev = batches[0].feats.device
+
+    _hyps1, labels_per_batch = _first_pass(batches, gmm, lexicon, topo, dcfg, graph, align_fn, use_kernels, report)
+    t0 = _wall(dev)
+    stats_by_spk = _speaker_stats(batches, labels_per_batch, speaker_of,
+                                  lambda x, y: ml.accumulate_mllr_stats(gmm, x, y), ml.add_mllr_stats)
+    transforms = {spk: ml.solve_mllr(gmm, st, min_occ=min_occ) for spk, st in stats_by_spk.items()}
+    adapted = {spk: ml.apply_mllr(gmm, W) for spk, W in transforms.items()}
+    params = {spk: kernel_params(g, "float32") if use_kernels else None for spk, g in adapted.items()}
+    t1 = _wall(dev)
+
+    hyps2: Dict[str, List[str]] = {}
+    for fb in batches:
+        graphs = decode_graphs(graph, fb.feats.shape[0], dev)
+        for spk, rows in _rows_by_speaker(fb, speaker_of).items():
+            scores = score_batch(fb.feats, adapted[spk], use_kernels, params=params[spk])
+            out = decode_batch(fb, scores, graph, dcfg, use_kernels=use_kernels, graphs=graphs)
+            for b in rows:
+                hyps2[fb.utt_ids[b]] = out[b]
+    if report is not None:
+        report["seconds"].update(estimate=t1 - t0, pass2=_wall(dev) - t1)
+    return hyps2, transforms
+
+
+def append_ivectors(
+    batches: Sequence[FeatBatch],
+    extractor,
+    length_norm: bool = True,
+) -> List[FeatBatch]:
+    """Speaker-aware features: each utterance's i-vector
+    (``am.ivector.IvectorExtractor``) concatenated to every frame (feat_dim
+    grows by extractor.rank; decode with the same extractor)."""
+    from mogasr_torch.am.ivector import utterance_ivectors
+
+    out = []
+    for fb in batches:
+        vecs = utterance_ivectors(extractor, fb.feats, fb.n_frames, length_norm=length_norm)
+        tiled = torch.as_tensor(vecs, device=fb.feats.device)[:, None, :].expand(
+            fb.feats.shape[0], fb.feats.shape[1], vecs.shape[-1])
+        out.append(dataclasses.replace(fb, feats=torch.cat([fb.feats, tiled], dim=-1)))
+    return out

@@ -27,12 +27,17 @@ from mogasr_torch.utils.bundle import load_system
 BCFG = BatchConfig(batch_size=256, bucket_boundaries=(250, 350, 450, 600))
 
 
-def held_out_corpus(topo, meta, n_utts):
-    """bench.py's held-out v2 utterances (seed 999, 3-9 words)."""
+def held_out_utterances(topo, meta, n_utts):
+    """bench.py's held-out v2 utterances (seed 999, 3-9 words) as
+    ``data.synthetic`` Utterances, each with its speaker."""
     word_lex = {w: list(topo.lexicon.prons[w]) for w in topo.lexicon.words}
-    utts = syn.make_corpus_v2(n_utts, lexicon=word_lex, speakers=syn.make_speakers(meta.get("speakers", 20)),
+    return syn.make_corpus_v2(n_utts, lexicon=word_lex, speakers=syn.make_speakers(meta.get("speakers", 20)),
                               style=syn.CorpusStyle(), seed=999, words_per_utt=(3, 9))
-    return [(u.utt_id, u.wave, u.words) for u in utts]
+
+
+def held_out_corpus(topo, meta, n_utts):
+    """bench.py's held-out v2 utterances as (id, wave, words)."""
+    return [(u.utt_id, u.wave, u.words) for u in held_out_utterances(topo, meta, n_utts)]
 
 
 def decode_bundle(path: str, device: torch.device, n_utts: int = 768) -> pipe.CorpusResult:

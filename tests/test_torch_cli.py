@@ -66,15 +66,6 @@ def test_train_gmm_cli_end_to_end_and_resume(tmp_path):
     assert again[2]["iters"] == 3 and ckpt.all_steps(os.path.join(run_dir, "em_ckpt")) == [1, 2, 3]
 
 
-@pytest.mark.parametrize("flags", [["--lda", "2"]])
-def test_train_gmm_cli_flags_not_ported_raise(tmp_path, flags):
-    """(The corpora and augmentation flags that raised here until their data
-    modules were ported run in test_torch_cli_gmm.py, ``--add-pitch`` in the
-    test below.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        cli_train_gmm.main(["--synthetic", "2"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
-
-
 def test_train_gmm_cli_add_pitch(tmp_path):
     """``--add-pitch`` (ROADMAP item 10, refused until pitch.py was ported):
     the GMM is trained on the 42-wide features with the pitch triple."""

@@ -162,7 +162,7 @@ STREAM_REFUSED = [
     (cli_stream, ["--synthetic-demo", "--aed"], "13"), (cli_stream, ["--synthetic-demo", "--bpe", "b.json"], "13"),
     (cli_stream, ["--synthetic-demo", "--bias", "p.txt"], "13"),
     (cli_stream, ["--synthetic-demo", "--fusion-lm", "u.npz"], "13"),
-    (cli_transcribe, ["--synthetic-demo", "--diarize"], "11"), (cli_transcribe, ["--synthetic-demo", "--ctc"], "13"),
+    (cli_transcribe, ["--synthetic-demo", "--ctc"], "13"),
     (cli_transcribe, ["--synthetic-demo", "--rnnt"], "13"), (cli_transcribe, ["--synthetic-demo", "--aed"], "13"),
     (cli_transcribe, ["--synthetic-demo", "--bpe", "b.json"], "13"),
 ]
@@ -177,7 +177,7 @@ def test_stream_cli_flags_not_ported_raise(tmp_path, cli, flags, item):
 
 
 @pytest.mark.parametrize("cli,flags", [(cli_stream, ["--nn-ckpt", "nn"]), (cli_stream, ["--rnnt-pred", "lstm"]),
-                                       (cli_transcribe, ["--nn-arch", "lstm"]), (cli_transcribe, ["--num-speakers", "2"])])
+                                       (cli_transcribe, ["--nn-arch", "lstm"]), (cli_transcribe, ["--aed-beam", "2"])])
 def test_stream_cli_companion_flags_are_rejected(tmp_path, cli, flags, capsys):
     with pytest.raises(SystemExit):
         cli.main(["--synthetic-demo"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])

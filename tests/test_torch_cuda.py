@@ -1119,3 +1119,98 @@ def test_lstm_stream_on_the_card_matches_offline(dev):
             plain_outs.append(yp)
     torch.testing.assert_close(torch.cat(outs, 1), offline, rtol=0, atol=1e-5)
     torch.testing.assert_close(torch.cat(outs, 1), torch.cat(plain_outs, 1), rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def adapt_system():
+    """8 utterances of the small lexicon on the card in one ragged batch, two
+    'speakers' (ids spkA-/spkB-), B's features through A = 0.8 I, b; a K = 2
+    GMM trained on them on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mogasr_torch.config import BatchConfig, FrontendConfig, GmmConfig
+    from mogasr_torch.data.synthetic import make_corpus
+    from mogasr_torch.hmm.lexicon import synthetic_lexicon
+
+    dev = torch.device("cuda", 0)
+    utts = [(f"spk{'B' if i % 2 else 'A'}-{u.utt_id}", u.wave, u.words) for i, u in enumerate(make_corpus(8, seed=3))]
+    lex = synthetic_lexicon()
+    topo = build_topology(lex, TopologyConfig())
+    fcfg = FrontendConfig()
+    fbs = pipe.featurize(utts, fcfg, BatchConfig(batch_size=16), dev)
+    rng = np.random.default_rng(9)
+    W = np.concatenate([np.eye(fcfg.feat_dim) * 0.8, 0.5 * rng.standard_normal((fcfg.feat_dim, 1))], axis=1)
+    fbs = [pipe._apply_fmllr_batch(fb, {"spkB": W.astype(np.float32)}, lambda u: u.split("-")[0]) for fb in fbs]
+    gcfg = GmmConfig(n_states=topo.n_pdfs, n_components=2, feat_dim=fcfg.feat_dim)
+    gmm, _ = pipe.train_gmm(fbs, lex, topo, gcfg, TrainConfig(num_em_iters=4))
+    return dev, fbs, lex, topo, gcfg, gmm
+
+
+@pytest.mark.parametrize("method", ["fmllr", "mllr"])
+def test_two_pass_through_k1_k2_matches_plain(adapt_system, method):
+    """The two-pass decode through K1/K2 against use_kernels=False on the
+    card: the same transcripts, and the transforms of the speakers whose
+    pass-1 alignment is the same on both paths within 1e-3."""
+    dev, fbs, lex, topo, _gcfg, gmm = adapt_system
+    fn = pipe.decode_with_fmllr if method == "fmllr" else pipe.decode_with_mllr
+    k1, k2 = gmm_cuda.LAUNCHES, viterbi_cuda.LAUNCHES
+    rep_k, rep_p = {}, {}
+    hyps_k, W_k = fn(fbs, gmm, lex, topo, DecodeConfig(), report=rep_k)
+    torch.cuda.synchronize()
+    assert gmm_cuda.LAUNCHES > k1 and viterbi_cuda.LAUNCHES > k2
+    k1, k2 = gmm_cuda.LAUNCHES, viterbi_cuda.LAUNCHES
+    hyps_p, W_p = fn(fbs, gmm, lex, topo, DecodeConfig(), use_kernels=False, report=rep_p)
+    torch.cuda.synchronize()
+    assert (gmm_cuda.LAUNCHES, viterbi_cuda.LAUNCHES) == (k1, k2)
+    assert hyps_k == hyps_p and set(W_k) == set(W_p) == {"spkA", "spkB"}
+    same = [s for s in W_k if all(np.array_equal(rep_k["labels1"][u], rep_p["labels1"][u])
+                                  for u in rep_k["labels1"] if u.startswith(s))]
+    assert same
+    for s in same:
+        np.testing.assert_allclose(W_k[s], W_p[s], atol=1e-3)
+
+
+def test_train_sat_repeats_bitwise(adapt_system):
+    dev, fbs, lex, topo, gcfg, gmm = adapt_system
+    runs = [pipe.train_sat(fbs, lex, topo, gcfg, gmm, n_iters=2) for _ in range(2)]
+    (g1, W1, h1), (g2, W2, h2) = runs
+    assert h1 == h2 and W1.keys() == W2.keys() == {"spkA", "spkB"}
+    assert all(np.array_equal(W1[k], W2[k]) for k in W1)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("chunk_bytes", [1 << 14, 1 << 28])
+def test_adaptation_state_sums_match_one_hot_einsum(dev, chunk_bytes, monkeypatch):
+    """The chunked, sorted segment sums of MLLR, STC and LDA against the
+    reference's one-hot einsums on the card (float32 in another order), and
+    bitwise equal between two runs."""
+    from mogasr_torch.am import aligned, lda, mllr, stc
+    from mogasr_torch.am.aligned import component_posteriors
+
+    monkeypatch.setattr(aligned, "CHUNK_BYTES", chunk_bytes)
+    rng = np.random.default_rng(5)
+    S, K, D, N = 40, 3, 13, 3001
+    g = gmm_from_numpy(rng.dirichlet(np.ones(K), size=S), 2 * rng.standard_normal((S, K, D)),
+                       0.3 + rng.random((S, K, D)), dev)
+    x = torch.as_tensor(rng.standard_normal((N, D)).astype(np.float32), device=dev)
+    labels = torch.as_tensor(np.where(rng.random(N) < 0.1, -1, rng.integers(0, S, N)), device=dev)
+    valid = labels >= 0
+    one_hot = torch.nn.functional.one_hot(labels.clamp(min=0), S).to(torch.float32) * valid[:, None]
+    gamma, mu, _var = component_posteriors(g, x, labels)
+    d = x[:, None, :] - mu
+    want_m = (torch.einsum("ns,nk->sk", one_hot, gamma), torch.einsum("ns,nk,nd->skd", one_hot, gamma, x))
+    want_s = torch.einsum("ns,nk,nkd,nke->skde", one_hot, gamma, d, d)
+    want_l = (one_hot.sum(0), one_hot.T @ (x * valid[:, None]))
+    for _ in range(2):
+        got_m = mllr.accumulate_mllr_stats(g, x, labels)
+        got_s = stc.accumulate_stc_stats(g, x, labels)
+        got_l = lda.accumulate_lda_stats(x, labels, S)
+        torch.testing.assert_close(got_m.occ, want_m[0], atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(got_m.xsum, want_m[1], atol=1e-5 * float(want_m[1].abs().max()), rtol=0)
+        torch.testing.assert_close(got_s.scatter, want_s, atol=1e-5 * float(want_s.abs().max()), rtol=0)
+        torch.testing.assert_close(got_l.occ, want_l[0], atol=0, rtol=1e-6)
+        torch.testing.assert_close(got_l.first, want_l[1], atol=1e-5 * float(want_l[1].abs().max()), rtol=0)
+        again = mllr.accumulate_mllr_stats(g, x, labels)
+        assert torch.equal(again.occ, got_m.occ) and torch.equal(again.xsum, got_m.xsum)
+        again_s = stc.accumulate_stc_stats(g, x, labels)
+        assert torch.equal(again_s.scatter, got_s.scatter)

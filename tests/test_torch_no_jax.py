@@ -36,7 +36,10 @@ def test_port_imports_without_jax():
                  "mogasr_torch.cli.align", "mogasr_torch.cli.eval", "mogasr_torch.frontend.streaming",
                  "mogasr_torch.frontend.pitch", "mogasr_torch.frontend.pitch_stream", "mogasr_torch.frontend.vad",
                  "mogasr_torch.frontend.endpoint", "mogasr_torch.decoder.online", "mogasr_torch.data.prefetch",
-                 "mogasr_torch.cli.stream", "mogasr_torch.cli.transcribe"):
+                 "mogasr_torch.cli.stream", "mogasr_torch.cli.transcribe", "mogasr_torch.am.aligned",
+                 "mogasr_torch.am.fmllr", "mogasr_torch.am.mllr", "mogasr_torch.am.stc", "mogasr_torch.am.lda",
+                 "mogasr_torch.am.ivector", "mogasr_torch.diarize", "mogasr_torch.eval.diarization",
+                 "mogasr_torch.cli.diarize"):
         assert name in modules
     code = "\n".join([
         "import sys",

@@ -1,9 +1,10 @@
 """The port's copies of the reference's numpy-only modules (config, hmm/,
-data/{batching,synthetic}, eval/wer, frontend/numpy_ref, lm/{ngram,arpa},
-decoder/{lattice,confusion,kws}) against the originals: the same configs,
-graph arrays, batches, waves, WER counts, features, LM tables, ARPA files,
-lattices, N-best lists, confusion networks and keyword hits, bit for bit;
-the last five copies' sources are the originals but for their imports."""
+data/{batching,synthetic}, eval/{wer,diarization}, frontend/numpy_ref,
+lm/{ngram,arpa}, decoder/{lattice,confusion,kws}) against the originals:
+the same configs, graph arrays, batches, waves, WER counts, DER dicts,
+features, LM tables, ARPA files, lattices, N-best lists, confusion networks
+and keyword hits, bit for bit; the sources in COPIED are the originals but
+for their imports."""
 
 import dataclasses
 import os
@@ -17,6 +18,7 @@ from mogasr.data import synthetic as jax_syn
 from mogasr.decoder import confusion as jax_cn
 from mogasr.decoder import kws as jax_kws
 from mogasr.decoder import lattice as jax_lat
+from mogasr.eval import diarization as jax_diarization
 from mogasr.eval import wer as jax_wer
 from mogasr.frontend import numpy_ref as jax_numpy_ref
 from mogasr.hmm import graph as jax_gr
@@ -30,6 +32,7 @@ from mogasr_torch.data import synthetic as syn
 from mogasr_torch.decoder import confusion as cn
 from mogasr_torch.decoder import kws
 from mogasr_torch.decoder import lattice as lat_mod
+from mogasr_torch.eval import diarization
 from mogasr_torch.eval import wer
 from mogasr_torch.frontend import numpy_ref
 from mogasr_torch.hmm import graph as gr
@@ -141,7 +144,7 @@ def test_numpy_ref_features_match(held_out):
 COPIED = ["lm/ngram.py", "lm/arpa.py", "decoder/lattice.py", "decoder/confusion.py", "decoder/kws.py",
           "data/kaldi_io.py", "data/audio.py", "data/flac_write.py", "data/manifest.py", "data/librispeech.py",
           "data/augment.py", "native/flac_native.cpp", "frontend/vad.py", "frontend/endpoint.py",
-          "frontend/pitch_stream.py"]
+          "frontend/pitch_stream.py", "eval/diarization.py"]
 TOKENS = ["a", "b", "c", "<sil>"]
 TEXTS = [["a", "b"], ["a", "b", "c"], ["c"], ["b", "a", "a"], ["a", "<sil>", "b"]]
 
@@ -261,3 +264,19 @@ def test_lattice_confusion_kws_copies_match(tmp_path, lm_name):
     lat_mod.write_lattices(path, {f"u{i}": lat for i, lat in enumerate(lats)})
     assert {k: [dataclasses.astuple(r) for r in v.arcs] for k, v in jax_lat.read_lattices(path).items()} == \
         {f"u{i}": [dataclasses.astuple(r) for r in lat.arcs] for i, lat in enumerate(lats)}
+
+
+def test_der_copy_matches():
+    """``eval/diarization.der`` (the copy) against the original on random
+    turn sets, with and without a collar: the same dict, bit for bit."""
+    rng = np.random.default_rng(0)
+
+    def turns(n, labels):
+        edges = np.sort(rng.uniform(0.0, 30.0, 2 * n)).round(2)
+        return [(float(a), float(b), labels[int(rng.integers(len(labels)))]) for a, b in edges.reshape(n, 2)]
+
+    for _ in range(5):
+        ref, hyp = turns(6, ["a", "b", "c"]), turns(8, [0, 1, 2, 3])
+        for collar in (0.0, 0.25):
+            assert diarization.der(ref, hyp, collar_s=collar) == jax_diarization.der(ref, hyp, collar_s=collar)
+    assert diarization.der([], [(0.0, 1.0, 0)]) == jax_diarization.der([], [(0.0, 1.0, 0)])
