@@ -195,7 +195,28 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
    --bundle`` on the 768 utterances as WAV (WER limit), ``train_gmm --lda
    3``, ``transcribe --diarize`` and ``diarize --synthetic-session``, run at
    once, each output checked; ``eval --fmllr`` on 32 utterances in this
-   process with its launches counted.
+   process with its launches counted;
+31. neural CE training: phase 8's training corpus aligned with the bundle
+   (K1 float32/sum, K2's chain arm) as frame labels and priors; LstmAm 1168
+   x 512 x 2 (the CLI's --arch lstm --hidden 512 --layers 3) trained for
+   NN_STEPS steps on the card (``am.train_nn``: the plain recurrence under
+   autograd), ms a step, loss and frame accuracy first and last; every
+   parameter gets a nonzero gradient, K4 in a training forward raises, and
+   no kernel launches in training;
+32. sequence training: ``am.nn_seq.FbLoglik`` (align graphs: K3's chain
+   arm; the CD word loop: its general arm) and ``SmbrAcc`` against autograd
+   through the plain forward-backward on one training batch, values and
+   gradients; SEQ_STEPS MMI and sMBR steps (K3's launches counted), ms a
+   step and the sMBR backward's share;
+33. the trained LstmAm's hybrid decode of phase 5's 768 utterances through
+   K4 and K2 (launches counted): WER against the untrained model's, which it
+   must beat;
+34. ConformerAm at the CLI's widths: CONF_STEPS CE steps, a hybrid decode
+   of the 768 utterances (K2), its logits on the card against the CPU's;
+35. the neural CLI twins in this process (launches counted): ``train_nn
+   --arch lstm`` with i-vectors, MMI, --save-every and --average-last, then
+   ``decode --am lstm --nn-ckpt --ivector-ckpt``; ``train_nn`` without
+   i-vectors, then ``eval --am lstm --nn-ckpt``.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -436,6 +457,33 @@ SAT_ITERS, LDA_CONTEXT, LDA_DIM, LDA_WER_GAP, STC_WER_GAP = 2, 3, 40, 0.02, 0.05
 # (tests/test_ivector.py:134); diarization: tests/test_diarization.py:83-87.
 IVEC_MARGIN, DER_MAX, DER_ONE_SPEAKER_GAP = 0.1, 0.30, 0.05
 ADAPT_CLI_TIMEOUT_S = 600
+# Neural acoustic-model training (phases 31-35). Phase 31 aligns the
+# training corpus of phase 8 with the headline bundle (K1 float32/sum, K2's
+# chain arm) and trains the CLI's --arch lstm --hidden 512 --layers 3
+# (LstmAm, 2 x 512, 1168 pdfs) on its batches of at most NN_TRAIN_T frames
+# for NN_STEPS frame-CE steps at peak learning rate NN_LR: the plain
+# recurrence under autograd (K4 has no backward). Phase 32 holds the
+# sequence-training Functions on K3 against autograd through the plain
+# forward-backward on one such batch: FbLoglik on the align graphs (K3's
+# chain arm) to the reference's identity tolerance, on the CD word loop (its
+# general arm) and SmbrAcc within SEQ_LOOP_ATOL (K3's word-loop posteriors
+# sit up to 2.5e-4 from plain float32, phase 7, and the gradients are
+# kappa times pdf sums of them); then SEQ_STEPS MMI and sMBR steps.
+# The recurrence's step is paced by its launches, about as many at 128
+# rows as at 32, so the steps take NN_MERGE of the corpus's batches of 32
+# of one width at once.
+NN_HIDDEN, NN_LAYERS, NN_STEPS, NN_LR, NN_TRAIN_T, NN_MERGE = 512, 3, 48, 3e-3, 400, 4
+SEQ_SCALE, SEQ_STEPS = 0.1, 3
+SEQ_CHAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+SEQ_LOOP_ATOL = 1e-3
+# E[acc] sums the posteriors of every frame: K3's and plain float32's differ
+# by their word-loop posteriors' distance
+SEQ_ACC_RTOL = 1e-3
+# ConformerAm at the CLI's widths (hidden 512, 3 blocks, 4 heads, kernel 15):
+# CONF_STEPS CE steps, a hybrid decode, and its forward on the card against
+# the CPU on CONF_CPU_UTTS held-out utterances (float32 both: cuBLAS with
+# TF32 off and the CPU's GEMMs sum in other orders).
+CONF_STEPS, CONF_LR, CONF_CPU_UTTS, CONF_CPU_ATOL = 12, 1e-3, 4, 1e-3
 KERNEL_COUNTERS = ("gmm_score", "gmm_score_wide", "gmm_score_int8", "viterbi", "fb_forward", "fb_backward",
                    "fb_combine", "lstm_scan")
 
@@ -2708,6 +2756,285 @@ def adaptation_cli_phase(dev: torch.device, corpus, lexicon) -> dict:
     return launches
 
 
+def neural_phases(dev, gmm, topo, tied, fcfg, dcfg, graph, corpus, bcfg, train_fbs) -> dict:
+    """Phases 31 (CE training of the CLI's LstmAm on the card), 32 (the
+    sequence-training Functions on K3 against plain autograd, then MMI and
+    sMBR steps), 33 (the trained model's hybrid decode of the held-out
+    corpus through K4 and K2, against the untrained model's WER) and 34
+    (ConformerAm: CE steps, a hybrid decode, card against CPU). Returns the
+    launch counts of each path and the kernels line's entries."""
+    import copy
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import gmm_cuda
+    from mogasr_torch.am import nn_seq
+    from mogasr_torch.am import train_nn as ttrain
+    from mogasr_torch.am.neural import build_model, frame_ce_loss, posteriors_to_loglik, state_priors
+    from mogasr_torch.am.params import init_
+    from mogasr_torch.am.smbr import smbr_quantities
+    from mogasr_torch.config import TrainConfig
+    from mogasr_torch.decoder import fb_cuda
+    from mogasr_torch.decoder.viterbi import graphs_to_torch
+    from mogasr_torch.hmm import graph as gr
+    from mogasr_torch.hmm import triphone as tri
+
+    lex = topo.lexicon
+    S, D = gmm.means.shape[0], gmm.means.shape[2]
+    align_fn = lambda pids: tri.align_graph_cd(tied, pids)  # noqa: E731
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    # ---- phase 31: CE training
+    params = gmm_cuda.kernel_params(gmm, "float32")
+    zero_launches()
+    align_ms, labels = wall(lambda: [pipe.align_batch(fb, gmm, lex, topo, align_fn=align_fn, params=params)[1]
+                                     for fb in train_fbs])
+    align_launches = launch_counts()
+    require_k1_k2_only("the CE labels' alignment", align_launches)
+    priors = state_priors(np.concatenate([lab.cpu().numpy().reshape(-1) for lab in labels]), S)
+    lp = torch.as_tensor(priors, device=dev)
+    cfg = TrainConfig(nn_arch="lstm", nn_hidden=NN_HIDDEN, nn_layers=NN_LAYERS, lr=NN_LR, num_nn_steps=NN_STEPS)
+    model = init_(build_model("lstm", S, cfg, D), torch.Generator().manual_seed(0)).to(dev)
+    untrained = copy.deepcopy(model)
+    train_set = [(fb, lab) for fb, lab in zip(train_fbs, labels) if fb.feats.shape[1] <= NN_TRAIN_T]
+    by_width = {}
+    for fb, lab in train_set:
+        by_width.setdefault(fb.feats.shape[1], []).append((fb, lab))
+    merged = []
+    for group in by_width.values():
+        for k in range(0, len(group), NN_MERGE):
+            part = group[k:k + NN_MERGE]
+            merged.append((pipe.FeatBatch([u for fb, _l in part for u in fb.utt_ids],
+                                          torch.cat([fb.feats for fb, _l in part]),
+                                          torch.cat([fb.n_frames for fb, _l in part]),
+                                          [w for fb, _l in part for w in fb.words]),
+                           torch.cat([lab for _fb, lab in part])))
+    merged = [merged[i] for i in np.random.default_rng(0).permutation(len(merged))]
+    fb0, lab0 = train_set[0]
+    refusal = None
+    with torch.enable_grad():
+        try:
+            model(fb0.feats, fb0.n_frames)  # K4 in a forward that needs a gradient
+        except RuntimeError as err:
+            refusal = str(err)
+        if refusal is None or "K4" not in refusal:
+            raise RuntimeError(f"K4 ran a forward whose result needs a gradient: {refusal}")
+        logits, _aux = ttrain.train_logits(model, fb0.feats, fb0.n_frames)
+        frame_ce_loss(logits, lab0)[0].backward()
+    no_grad = [n for n, p in model.named_parameters() if p.grad is None or float(p.grad.abs().sum()) == 0.0]
+    if no_grad:
+        raise RuntimeError(f"CE training: parameters without a gradient: {no_grad}")
+    model.zero_grad(set_to_none=True)
+    state, step = ttrain.init_train_state(model, cfg), ttrain.make_train_step(cfg)
+    zero_launches()
+    metrics, step_ms = [], []
+    for i in range(NN_STEPS):
+        fb, lab = merged[i % len(merged)]
+        ms, (state, m) = wall(lambda: step(state, fb.feats, fb.n_frames, lab))
+        step_ms.append(ms)
+        metrics.append(m)
+    ce_launches = launch_counts()
+    if any(ce_launches.values()):
+        raise RuntimeError(f"CE training launched kernels: {ce_launches} (K4 has no backward)")
+    if not np.isfinite([m["loss"] for m in metrics]).all():
+        raise RuntimeError(f"CE training: loss not finite: {[m['loss'] for m in metrics]}")
+    frames = [int(fb.n_frames.sum()) for fb, _lab in merged]
+    ce = {"steps": NN_STEPS, "ms_per_step": float(np.median(step_ms[1:])), "first_step_ms": step_ms[0],
+          "loss_first": metrics[0]["loss"], "loss_last": metrics[-1]["loss"],
+          "frame_acc_first": metrics[0]["frame_acc"], "frame_acc_last": metrics[-1]["frame_acc"],
+          "batches": len(merged), "rows": NN_MERGE * train_fbs[0].feats.shape[0],
+          "max_T": max(fb.feats.shape[1] for fb, _lab in merged), "frames_per_step": float(np.mean(frames))}
+    phase(31, f"CE training of LstmAm {S} x {NN_HIDDEN} x {model.layers} on the card: the {len(train_fbs)} training "
+              f"batches aligned with the bundle in {align_ms:.0f} ms (launches {align_launches}); "
+              f"{NN_STEPS} steps (lr {NN_LR:g}) over the {len(train_set)} batches of at most {NN_TRAIN_T} frames, "
+              f"{NN_MERGE} of one width a step ({len(merged)} batches of up to {ce['rows']} rows, "
+              f"{ce['frames_per_step']:.0f} frames a step on average): {ce['ms_per_step']:.1f} ms a step "
+              f"(median; first {step_ms[0]:.0f} ms), loss {ce['loss_first']:.3f} -> {ce['loss_last']:.3f}, frame "
+              f"accuracy {ce['frame_acc_first']:.3f} -> {ce['frame_acc_last']:.3f}; every parameter got a nonzero "
+              f"gradient; no kernel launched in training; K4 in a training forward raised: {refusal[:80]}...")
+
+    # ---- phase 32: sequence training through K3
+    fbs_, labs_ = min(train_set, key=lambda it: it[0].feats.shape[1])
+    B = fbs_.feats.shape[0]
+    num = graphs_to_torch(pipe.build_align_graphs(fbs_.words, lex, topo, align_fn=align_fn), dev)
+    den = graphs_to_torch(gr.batch_graphs([graph] * B), dev)
+    with torch.no_grad():
+        ll = posteriors_to_loglik(model(fbs_.feats, fbs_.n_frames), lp)
+    # (the criterion with a gradient, the gradient's tolerance, the value's relative one)
+    cases = {"loglik, align graphs (chain arm)": (lambda x, k: nn_seq.fb_loglik(x, num, fbs_.n_frames, SEQ_SCALE, k),
+                                                  SEQ_CHAIN_TOL, FB_LOGLIK_RTOL),
+             "loglik, CD word loop (general arm)": (lambda x, k: nn_seq.fb_loglik(x, den, fbs_.n_frames, SEQ_SCALE, k),
+                                                    dict(rtol=0.0, atol=SEQ_LOOP_ATOL), FB_LOGLIK_RTOL),
+             "E[acc], CD word loop (general arm)": (lambda x, k: nn_seq.smbr_accuracy(x, den, labs_, fbs_.n_frames,
+                                                                                      SEQ_SCALE, k),
+                                                    dict(rtol=0.0, atol=SEQ_LOOP_ATOL), SEQ_ACC_RTOL)}
+    seq_err, seq_ms = {}, {}
+    for name, (fn, tol, value_rtol) in cases.items():
+        out = {}
+        for use_kernels in (True, False):
+            x = ll.clone().requires_grad_()
+
+            def run():
+                with torch.enable_grad():
+                    y = fn(x, use_kernels)
+                    y.sum().backward()
+                return y.detach()
+
+            ms, y = wall(run)
+            out[use_kernels] = (y, x.grad)
+            seq_ms[(name, use_kernels)] = ms
+        val_err = float((out[True][0] - out[False][0]).abs().max() / out[False][0].abs().max())
+        grad_err = float((out[True][1] - out[False][1]).abs().max())
+        seq_err[name] = (val_err, grad_err)
+        if val_err > value_rtol or not torch.allclose(out[True][1], out[False][1], **tol):
+            raise RuntimeError(f"{name}: the Function on K3 against plain autograd: value {val_err:.3g} relative, "
+                               f"gradient max |err| {grad_err:.3g} (tolerance {tol})")
+    smbr_bwd_ms, _q = wall(lambda: smbr_quantities(ll, den, labs_, fbs_.n_frames, SEQ_SCALE, S))
+    seq_model = copy.deepcopy(model)
+    zero_launches()
+    mmi_ms, (_m, mmi_hist) = wall(lambda: nn_seq.finetune_nn_mmi(
+        [fbs_], lex, topo, seq_model, priors, cfg, steps=SEQ_STEPS, acoustic_scale=SEQ_SCALE, den_graph=graph,
+        align_fn=align_fn))
+    smbr_ms, (_m, smbr_hist) = wall(lambda: nn_seq.finetune_nn_smbr(
+        [(fbs_, labs_)], lex, topo, seq_model, priors, cfg, steps=SEQ_STEPS, acoustic_scale=SEQ_SCALE,
+        den_graph=graph))
+    seq_launches = launch_counts()
+    if min(seq_launches[k] for k in ("fb_forward", "fb_backward", "fb_combine")) == 0 or \
+            seq_launches["lstm_scan"] or not np.isfinite(mmi_hist + smbr_hist).all():
+        raise RuntimeError(f"sequence training: launches {seq_launches}, MMI {mmi_hist}, sMBR {smbr_hist}")
+    seq = {"batch": [B, int(fbs_.feats.shape[1]), int(den["emit_id"].shape[1])],
+           "mmi_ms_per_step": mmi_ms / SEQ_STEPS, "smbr_ms_per_step": smbr_ms / SEQ_STEPS,
+           "smbr_backward_ms": smbr_bwd_ms, "smbr_backward_share": smbr_bwd_ms / (smbr_ms / SEQ_STEPS),
+           "mmi_per_frame": mmi_hist, "acc_per_frame": smbr_hist,
+           "errors": {k: {"value_rel": v, "grad_max_abs": g} for k, (v, g) in seq_err.items()},
+           "function_ms": {k: seq_ms[(k, True)] for k in cases}, "plain_ms": {k: seq_ms[(k, False)] for k in cases}}
+    phase(32, f"sequence training on a batch of B={B} T={seq['batch'][1]} (CD word loop J={seq['batch'][2]}): "
+              + "; ".join(f"{k}: value {v:.2g} rel, gradient max |err| {g:.3g}, Function {seq_ms[(k, True)]:.0f} ms "
+                          f"(plain autograd {seq_ms[(k, False)]:.0f} ms)" for k, (v, g) in seq_err.items())
+              + f" (limits: chain {SEQ_CHAIN_TOL}, word loop atol {SEQ_LOOP_ATOL}); {SEQ_STEPS} MMI steps "
+              f"{seq['mmi_ms_per_step']:.0f} ms a step (criterion {[round(v, 4) for v in mmi_hist]}), {SEQ_STEPS} sMBR "
+              f"steps {seq['smbr_ms_per_step']:.0f} ms a step (accuracy {[round(v, 4) for v in smbr_hist]}), its "
+              f"backward's plain frame loops {smbr_bwd_ms:.0f} ms ({100 * seq['smbr_backward_share']:.0f}% of a "
+              f"step); launches {seq_launches}")
+
+    # ---- phase 33: the trained hybrid decode of the held-out corpus
+    held = pipe.featurize(corpus, fcfg, bcfg, dev)
+    zero_launches()
+    dec_ms, res = wall(lambda: pipe.evaluate(held, None, lex, topo, dcfg, scorer=pipe.make_nn_scorer(model, priors),
+                                             graph=graph))
+    decode_launches = launch_counts()
+    if min(decode_launches["lstm_scan"], decode_launches["viterbi"]) == 0 or \
+            any(v for k, v in decode_launches.items() if k not in ("lstm_scan", "viterbi")):
+        raise RuntimeError(f"the trained hybrid decode: launches {decode_launches} (K4 and K2 only)")
+    base = pipe.evaluate(held, None, lex, topo, dcfg, scorer=pipe.make_nn_scorer(untrained, priors), graph=graph)
+    if not res["wer"] < base["wer"]:
+        raise RuntimeError(f"the trained LstmAm's held-out WER {res['wer']:.4f} does not beat the untrained "
+                           f"model's {base['wer']:.4f}")
+    hybrid = {"wer": res["wer"], "untrained_wer": base["wer"], "utts": res["n_utts"], "ms": dec_ms,
+              "sub_del_ins": [res["sub"], res["del"], res["ins"]],
+              "untrained_sub_del_ins": [base["sub"], base["del"], base["ins"]]}
+    phase(33, f"hybrid decode of the {res['n_utts']} held-out utterances with the trained LstmAm (K4, K2): WER "
+              f"{res['wer']:.4f} (sub/del/ins {hybrid['sub_del_ins']}) against the untrained model's "
+              f"{base['wer']:.4f} ({hybrid['untrained_sub_del_ins']}); {dec_ms:.0f} ms; launches {decode_launches}")
+
+    # ---- phase 34: ConformerAm
+    ccfg = TrainConfig(nn_arch="conformer", nn_hidden=NN_HIDDEN, nn_layers=NN_LAYERS, lr=CONF_LR,
+                       num_nn_steps=CONF_STEPS)
+    conf = init_(build_model("conformer", S, ccfg, D), torch.Generator().manual_seed(0)).to(dev)
+    cstate, cstep = ttrain.init_train_state(conf, ccfg), ttrain.make_train_step(ccfg)
+    cmetrics, cstep_ms = [], []
+    zero_launches()
+    for i in range(CONF_STEPS):
+        fb, lab = merged[i % len(merged)]
+        ms, (cstate, m) = wall(lambda: cstep(cstate, fb.feats, fb.n_frames, lab))
+        cstep_ms.append(ms)
+        cmetrics.append(m)
+    cdec_ms, cres = wall(lambda: pipe.evaluate(held, None, lex, topo, dcfg, scorer=pipe.make_nn_scorer(conf, priors),
+                                               graph=graph))
+    conf_launches = launch_counts()
+    if conf_launches["viterbi"] == 0 or any(v for k, v in conf_launches.items() if k != "viterbi") or \
+            not np.isfinite([m["loss"] for m in cmetrics]).all():
+        raise RuntimeError(f"ConformerAm: launches {conf_launches} (K2 only), losses {[m['loss'] for m in cmetrics]}")
+    few = held[0]
+    x, nf = few.feats[:CONF_CPU_UTTS], few.n_frames[:CONF_CPU_UTTS]
+    with torch.no_grad():
+        conf.eval()
+        on_card = conf(x, nf).cpu()
+        on_cpu = copy.deepcopy(conf).cpu()(x.cpu(), nf.cpu())
+    valid = (torch.arange(x.shape[1])[None, :] < nf.cpu()[:, None])
+    conf_err = float((on_card - on_cpu).abs()[valid].max())
+    if conf_err > CONF_CPU_ATOL:
+        raise RuntimeError(f"ConformerAm on the card against the CPU: max |err| {conf_err:.3g} > {CONF_CPU_ATOL}")
+    conformer = {"steps": CONF_STEPS, "ms_per_step": float(np.median(cstep_ms[1:])),
+                 "loss_first": cmetrics[0]["loss"], "loss_last": cmetrics[-1]["loss"],
+                 "frame_acc_last": cmetrics[-1]["frame_acc"], "wer": cres["wer"], "decode_ms": cdec_ms,
+                 "cpu_max_abs_err": conf_err}
+    phase(34, f"ConformerAm (d {conf.enc.d_model}, {NN_LAYERS} blocks, 4 heads, kernel 15) on the card: "
+              f"{CONF_STEPS} CE steps {conformer['ms_per_step']:.1f} ms a step, loss {conformer['loss_first']:.3f} "
+              f"-> {conformer['loss_last']:.3f}; hybrid decode of the held-out set WER {cres['wer']:.4f} in "
+              f"{cdec_ms:.0f} ms; its logits on {CONF_CPU_UTTS} utterances within {conf_err:.3g} of the CPU's "
+              f"(atol {CONF_CPU_ATOL}); launches {conf_launches}")
+    return {"paths": {"nn_align": align_launches, "nn_ce": ce_launches, "nn_seq": seq_launches,
+                      "nn_decode": decode_launches, "conformer": conf_launches},
+            "ce": ce, "seq": seq, "hybrid": hybrid, "conformer": conformer}
+
+
+def nn_cli_phase(dev: torch.device) -> dict:
+    """Phase 35: the neural-AM twins in this process, the launch counts set to
+    0 before and read after: ``train_nn --arch lstm`` with i-vectors, MMI,
+    periodic checkpoints and their average, then ``decode --am lstm
+    --nn-ckpt --ivector-ckpt``; a second ``train_nn`` without i-vectors,
+    then ``eval --am lstm --nn-ckpt`` on it."""
+    import shutil
+
+    from mogasr_torch.cli import decode as cli_decode
+    from mogasr_torch.cli import eval as cli_eval
+    from mogasr_torch.cli import train_nn as cli_train_nn
+    from mogasr_torch.utils.checkpoint import all_steps
+
+    work = os.path.join(ROOT, "build", "chip_smoke_nn_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = ["--synthetic-v2", "32", "--synthetic-seed", "5", "--device", str(dev)]
+    nn = ["--am", "lstm", "--nn-hidden", str(NN_HIDDEN), "--nn-layers", str(NN_LAYERS)]
+    arch = ["--arch", "lstm", "--hidden", str(NN_HIDDEN), "--layers", str(NN_LAYERS)]
+    iv, plain = os.path.join(work, "iv"), os.path.join(work, "plain")
+    zero_launches()
+    t0 = time.perf_counter()
+    cli_train_nn.main(corpus + arch + ["--steps", "4", "--bootstrap-iters", "2", "--bootstrap-components", "1",
+                                       "--ivector-dim", "8",
+                                "--ivector-components", "16", "--seq-mmi-steps", "2", "--save-every", "2",
+                                "--average-last", "2", "--run-dir", iv])
+    cli_decode.main(corpus + nn + ["--nn-ckpt", os.path.join(iv, "nn_lstm"), "--ivector-ckpt",
+                                   os.path.join(iv, "ivector_extractor"), "--ivector-dim", "8",
+                                   "--ivector-components", "16", "--run-dir", os.path.join(work, "decode")])
+    cli_train_nn.main(corpus + arch + ["--steps", "2", "--bootstrap-iters", "1", "--bootstrap-components", "1",
+                                       "--run-dir", plain])
+    cli_eval.main(corpus + nn + ["--nn-ckpt", os.path.join(plain, "nn_lstm"), "--run-dir", os.path.join(work, "eval")])
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    if min(launches[k] for k in ("gmm_score", "viterbi", "fb_forward", "fb_backward", "fb_combine", "lstm_scan")) == 0:
+        raise RuntimeError(f"the neural CLI twins did not go through every kernel of their path: {launches}")
+    steps = all_steps(os.path.join(iv, "nn_lstm"))
+    if steps != [2, 4, 5]:
+        raise RuntimeError(f"train_nn --save-every 2 --seq-mmi-steps 2 --average-last 2 saved steps {steps}")
+    recs = {}
+    for name in ("decode", "eval"):
+        with open(os.path.join(work, name, "metrics.jsonl")) as f:
+            recs[name] = json.loads(f.read().splitlines()[-1])
+        if recs[name]["utts"] != 32 or not np.isfinite(recs[name]["wer"]):
+            raise RuntimeError(f"{name} --am lstm --nn-ckpt: {recs[name]}")
+    phase(35, f"neural CLI twins in this process, {seconds:.1f} s: train_nn --arch lstm (--ivector-dim 8, "
+              f"--seq-mmi-steps 2, --save-every 2, --average-last 2: steps {steps}), decode --am lstm --nn-ckpt "
+              f"--ivector-ckpt WER {recs['decode']['wer']:.4f}, train_nn without i-vectors, eval --am lstm "
+              f"--nn-ckpt WER {recs['eval']['wer']:.4f} (4 and 2 steps: no limit); launches {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -3110,6 +3437,8 @@ def main() -> None:
     adapt_paths = adaptation_phases(dev, gmm, fcfg, dcfg, graph, tied, topo, held_out, bcfg, train_corpus, train_fbs,
                                     train_speakers, trained, gcfg, entry, plain_wer)
     adapt_cli = adaptation_cli_phase(dev, corpus, topo.lexicon)
+    neural = neural_phases(dev, gmm, topo, tied, fcfg, dcfg, graph, corpus, bcfg, train_fbs)
+    nn_cli = nn_cli_phase(dev)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -3118,7 +3447,7 @@ def main() -> None:
              "lm_decode": lm_entry["lm_decode"], "lm_check_decodes": lm_entry["lm_check_decodes"],
              "confidence": lm_entry["confidence"], "cli": cli_launches, "streaming": stream["streaming"],
              "online": stream["online"], "stream_cli": stream["stream_cli"], **adapt_paths,
-             "adapt_cli": adapt_cli}
+             "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]
@@ -3132,6 +3461,11 @@ def main() -> None:
     k4_entry["launches_by_path"]["stream_nn"] = stream["k4_carry"]["launches"]
     k4_entry["launches"] += stream["k4_carry"]["launches"]
     k4_entry["carry"] = stream["k4_carry"]
+    # K4 on the neural-training slice's paths: the trained hybrid decode and the CLI twins (never in training)
+    for name in ("nn_align", "nn_ce", "nn_seq", "nn_decode", "conformer", "nn_cli"):
+        k4_entry["launches_by_path"][name] = paths[name]["lstm_scan"]
+        k4_entry["launches"] += paths[name]["lstm_scan"]
+    k4_entry["trained_decode"] = {**neural["hybrid"], "ce_training": neural["ce"]}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     k3d = lm_entry["k3_decode_batch"]
     k1_main = ("bfloat16", "max")
@@ -3156,7 +3490,8 @@ def main() -> None:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_main_bound[0], "bound_by": k2_main_bound[1], "library_ms": None,
          "align": k2_align, "viterbi_em_align_stage_ms": 1e3 * vt.stage_seconds[0]["align"],
-         "collect_cd_stats": entry["collect_cd_stats"], "chunk": k2_chunk},
+         "collect_cd_stats": entry["collect_cd_stats"], "chunk": k2_chunk,
+         "conformer_hybrid": neural["conformer"]},
         {"name": "fb_forward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
          "replaces": "mogasr/decoder/fb_pallas.py:46", "launches": launches["fb_forward"],
          "launches_by_path": by_path["fb_forward"], "arm": fb_train["arm"],
@@ -3168,6 +3503,7 @@ def main() -> None:
                        "plain_ms": fb_loop["plain_fwd_ms"], "bound_ms": fb_loop["bounds"]["fwd"][0],
                        "bound_by": fb_loop["bounds"]["fwd"][1]},
          "mmi_denominator": entry["mmi_denominator"],
+         "sequence_training": neural["seq"],
          "decode_batch": {"arm": k3d["arm"], "shape": [k3d["B"], k3d["T"], k3d["J"]], "ms": k3d["fb_forward_kernel"],
                           "plain_ms": k3d["plain_fwd_ms"], "max_abs_err": k3d["loglik_max_abs_err"],
                           "bound_ms": k3d["bounds"]["fwd"][0], "bound_by": k3d["bounds"]["fwd"][1],

@@ -23,7 +23,9 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -131,3 +133,17 @@ def check(lib: ctypes.CDLL, name: str, err: int, what: str) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(kernel: str, instead: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise RuntimeError when autograd would need a gradient through a
+    kernel: grad mode is on and one of ``tensors`` requires grad.
+
+    The kernels write their outputs through ctypes into tensors autograd
+    knows nothing of, so their results carry no ``grad_fn``: a backward pass
+    would leave the inputs' gradients at None, and an optimizer skips such
+    parameters without a word. ``instead`` says what to call in their place.
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward: its result would carry no gradient to the inputs that "
+                           f"require one; {instead}")

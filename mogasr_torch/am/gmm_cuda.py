@@ -23,7 +23,9 @@ as the shared-memory image its route reads (:func:`kernel_panels`).
 ``kernel_params`` derives them from the reference's chunked layout
 (``am.gmm.component_major``), its wide layout (:func:`wide_layout`) or the
 quantized chunked layout (``am.gmm.int8_params``). K5's frames are quantized
-here, as ``am.gmm.quantize_int8`` does, into rows zero-padded to Rp.
+here, as ``am.gmm.quantize_int8`` does, into rows zero-padded to Rp. The
+kernels have no backward: on the card a call with grad mode on and frames
+or a GMM that require grad raises (``_cuda.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -219,6 +221,8 @@ def gmm_loglik_fused(
         return gmm_loglik(x, gmm, mode=mode, compute_dtype=compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"gmm_loglik_fused: unsupported device {x.device}")
+    _cuda.refuse_grad("K1/K1w/K5 (gmm_cuda.gmm_loglik_fused)", "score with am.gmm.gmm_loglik (the plain "
+                      "scorer) under autograd, or run the kernels under torch.no_grad()", x, *gmm)
     if x.dim() != 2 or x.shape[1] != gmm.feat_dim:
         raise ValueError(f"x must be [N, {gmm.feat_dim}], got {tuple(x.shape)}")
     if params is None:

@@ -16,6 +16,11 @@ arm (the streaming LstmAm's chunk), counted in ``CARRY_LAUNCHES`` as well:
 the carries go in and out through the row order, float32 in either
 compute dtype.
 
+K4 has no backward, as the reference's kernel has none: on the card a call
+with grad mode on and an input that requires grad raises
+(``_cuda.refuse_grad``) rather than return a result without a gradient;
+training runs the plain recurrence (``use_kernels=False``).
+
 Unlike the reference, which demoted its kernel behind ``use_pallas_lstm``
 after a TPU measurement, every LSTM of the port runs through this kernel on
 the card: the alternatives are the plain loop (about ten launches per frame)
@@ -73,6 +78,8 @@ def lstm_layer(
         return plain.lstm_layer(xg, w_rec, n_frames, compute_dtype, h0=h0, c0=c0, return_carry=return_carry)
     if xg.device.type != "cuda":
         raise ValueError(f"lstm_layer: unsupported device {xg.device}")
+    _cuda.refuse_grad("K4 (lstm_cuda.lstm_layer)", "train with use_kernels=False (the plain recurrence, "
+                      "am.fast_lstm, under autograd), or run the kernel under torch.no_grad()", xg, w_rec, h0, c0)
     if xg.dim() != 3 or xg.dtype != torch.float32 or xg.shape[2] % 4 or xg.shape[2] == 0:
         raise ValueError(f"xg must be float32 [B, T, 4H], got {xg.dtype} {tuple(xg.shape)}")
     B, T, H4 = xg.shape

@@ -290,15 +290,47 @@ class MoeAm(nn.Module):
         self.ln_out = nn.LayerNorm(hidden, eps=LN_EPS)
         self.head = nn.Linear(hidden, n_pdfs)
 
-    def forward(self, feats: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, n_frames: torch.Tensor, return_aux: bool = False):
+        """Logits [B, T, n_pdfs]; with ``return_aux`` also the list of each
+        block's load-balance loss, which training adds (the reference sows
+        them into its "losses" collection)."""
         B, T, _ = feats.shape
         x = self.in_proj(splice_frames(feats, n_frames, self.context))
         valid = valid_mask(n_frames, T, feats.device).reshape(-1)
+        lbs = []
         for blk in self.blocks:
             h = blk.ln(x).reshape(B * T, self.hidden)
-            y, _lb = moe_block_dense(h, blk.Wr, blk.W1, blk.b1, blk.W2, blk.b2, valid)
+            y, lb = moe_block_dense(h, blk.Wr, blk.W1, blk.b1, blk.W2, blk.b2, valid)
+            lbs.append(lb)
             x = x + y.reshape(B, T, self.hidden)
-        return self.head(self.ln_out(x))
+        logits = self.head(self.ln_out(x))
+        return (logits, lbs) if return_aux else logits
+
+
+class ConformerAm(nn.Module):
+    """Conformer frame classifier: the 4x-subsampled Conformer encoder
+    (``am.aed.ConformerEncoder``) and an output head, its logits repeated 4x
+    back to the input frame rate and cut to T, so that every consumer sees
+    [B, T, n_pdfs]. ``subsampled`` gives the 25 Hz head without the repeat."""
+
+    def __init__(self, n_pdfs: int, feat_dim: int, hidden: int = 256, layers: int = 3, heads: int = 4,
+                 conv_kernel: int = 15):
+        super().__init__()
+        from mogasr_torch.am.aed import ConformerEncoder  # aed imports this module
+
+        self.n_pdfs, self.hidden, self.layers = n_pdfs, hidden, layers
+        d = max(heads * (hidden // heads), heads)
+        self.enc = ConformerEncoder(feat_dim, d_model=d, blocks=layers, heads=heads, conv_kernel=conv_kernel)
+        self.head = nn.Linear(d, n_pdfs)
+
+    def forward(self, feats: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:
+        enc, _n_out = self.enc(feats, n_frames)
+        return torch.repeat_interleave(self.head(enc), 4, dim=1)[:, : feats.shape[1]]
+
+    def subsampled(self, feats: torch.Tensor, n_frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits [B, ceil(T/4), P], n_out [B]) without the repeat-upsample."""
+        enc, n_out = self.enc(feats, n_frames)
+        return self.head(enc), n_out
 
 
 RECURRENT = (LstmAm, BlstmAm)  # families whose forward takes compute_dtype and use_kernels
@@ -308,7 +340,7 @@ def build_model(arch: str, n_pdfs: int, cfg: TrainConfig, feat_dim: int) -> nn.M
     """The reference's ``build_model`` with the input width given; weights
     are uninitialised (``am.params.init_`` or a ``from_flax`` state_dict)."""
     if arch == "conformer":
-        raise NotImplementedError("ConformerAm is not ported to mogasr_torch yet (it comes with the AED slice)")
+        return ConformerAm(n_pdfs, feat_dim, hidden=cfg.nn_hidden, layers=cfg.nn_layers)
     if arch == "mlp":
         return MlpAm(n_pdfs, feat_dim, hidden=cfg.nn_hidden, layers=cfg.nn_layers, context=cfg.nn_context)
     if arch == "lstm":
@@ -321,6 +353,45 @@ def build_model(arch: str, n_pdfs: int, cfg: TrainConfig, feat_dim: int) -> nn.M
         return MoeAm(n_pdfs, feat_dim, hidden=cfg.nn_hidden, layers=max(cfg.nn_layers - 1, 1),
                      context=cfg.nn_context, n_experts=cfg.nn_experts, ffn=cfg.moe_ffn)
     raise ValueError(f"unknown arch {arch!r}")
+
+
+def spec_augment(
+    feats: torch.Tensor,        # [B, T, D]
+    n_frames: torch.Tensor,     # [B]
+    generator: torch.Generator,
+    n_time_masks: int = 2,
+    time_mask_width: int = 20,
+    n_feat_masks: int = 2,
+    feat_mask_width: int = 8,
+) -> torch.Tensor:
+    """SpecAugment-style time and feature masking: zeroed regions (the
+    features are about CMVN-normalized, so zero is the mean), widths fixed,
+    positions drawn from ``generator`` (a CPU generator: the draws do not
+    depend on the device).
+
+    The widths are capped as the reference caps them: a time mask by T (the
+    bucket) and by each utterance's n_frames, so that a short utterance in a
+    long bucket is never zeroed whole, a feature mask by D. A time mask
+    starts inside the utterance, so padding is never masked past it.
+    """
+    B, T, D = feats.shape
+    dev = feats.device
+    nf = n_frames.to(device=dev, dtype=torch.int64)
+    tw_static = max(min(time_mask_width, T // (4 * max(n_time_masks, 1))), 1)
+    tw = torch.clamp(torch.clamp(nf // (4 * max(n_time_masks, 1)), max=tw_static), min=1)[:, None, None]
+    fw = max(min(feat_mask_width, D // (4 * max(n_feat_masks, 1))), 1)
+    t_idx = torch.arange(T, device=dev)[None, :, None]
+    d_idx = torch.arange(D, device=dev)[None, None, :]
+    out = feats
+    for _ in range(n_time_masks):
+        hi = torch.clamp(nf[:, None, None] - tw + 1, min=1)  # exclusive: the last frame can be masked
+        u = torch.rand((B, 1, 1), generator=generator).to(dev)
+        start = torch.minimum((u * hi).long(), hi - 1)
+        out = torch.where((t_idx >= start) & (t_idx < start + tw), torch.zeros_like(out), out)
+    for _ in range(n_feat_masks):
+        start = torch.randint(0, max(D - fw + 1, 1), (B, 1, 1), generator=generator).to(dev)
+        out = torch.where((d_idx >= start) & (d_idx < start + fw), torch.zeros_like(out), out)
+    return out
 
 
 def frame_ce_loss(

@@ -10,6 +10,12 @@ bias and recurrent kernels ``hi/hf/hg/ho`` [H, H] with bias, which the port
 concatenates in that gate order into ``w_in``, ``w_rec`` and ``bias``. A
 BlstmAm's cells are numbered in construction order: cell 2l is layer l's
 forward LSTM, cell 2l + 1 its backward one.
+
+ConformerAm (``am.aed``): a 2-D ``Conv`` kernel is [kh, kw, in, out] (torch
+``Conv2d``: [out, in, kh, kw]), the depthwise one [k, 1, D] (torch: [D, 1,
+k]); an FFN's Dense that flax numbers 0 is its second layer (``fc2``: the
+outer ``Dense(D)`` is built before the inner one), and ``rel_bias`` [heads,
+2 max_rel + 1] is taken as it is.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mogasr_torch.am.neural import BlstmAm, LstmAm, LstmLayer, MlpAm, MoeAm, MoeBlock, TdnnAm
+from mogasr_torch.am.aed import RelSelfAttention
+from mogasr_torch.am.neural import BlstmAm, ConformerAm, LstmAm, LstmLayer, MlpAm, MoeAm, MoeBlock, TdnnAm
 
 _IN_GATES = ("ii", "if", "ig", "io")
 _REC_GATES = ("hi", "hf", "hg", "ho")
@@ -48,6 +55,25 @@ def _lstm(prefix: str, cell: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         f"{prefix}.w_rec": torch.cat([_t(cell[g]["kernel"]) for g in _REC_GATES], dim=1),
         f"{prefix}.bias": torch.cat([_t(cell[g]["bias"]) for g in _REC_GATES]),
     }
+
+
+def _conformer_block(prefix: str, p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for ln in ("ln_ffn1", "ln_attn", "ln_conv", "ln_dconv", "ln_ffn2", "ln_out"):
+        sd.update(_norm(f"{prefix}.{ln}", p[ln]))
+    for ffn in ("ffn1", "ffn2"):
+        sd.update(_dense(f"{prefix}.{ffn}.fc1", p[ffn]["Dense_1"]))
+        sd.update(_dense(f"{prefix}.{ffn}.fc2", p[ffn]["Dense_0"]))
+    a = p["attn"]
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        sd[f"{prefix}.attn.{proj}.weight"] = _t(a[proj]["kernel"]).T.contiguous()
+    sd.update(_dense(f"{prefix}.attn.o_proj", a["o_proj"]))
+    sd[f"{prefix}.attn.rel_bias"] = _t(a["rel_bias"])
+    sd.update(_dense(f"{prefix}.conv_in", p["conv_in"]))
+    sd.update(_dense(f"{prefix}.conv_out", p["conv_out"]))
+    sd[f"{prefix}.dconv.weight"] = _t(p["dconv"]["kernel"]).permute(2, 1, 0).contiguous()
+    sd[f"{prefix}.dconv.bias"] = _t(p["dconv"]["bias"])
+    return sd
 
 
 def from_flax(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -86,6 +112,15 @@ def from_flax(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, torch.Te
                 sd[f"blocks.{i}.{name}"] = _t(p[f"{name}_{i}"])
         sd.update(_norm("ln_out", p["ln_out"]))
         sd.update(_dense("head", p["head"]))
+    elif isinstance(model, ConformerAm):
+        enc = p["enc"]
+        for conv in ("conv1", "conv2"):
+            sd[f"enc.sub.{conv}.weight"] = _t(enc["sub"][conv]["kernel"]).permute(3, 2, 0, 1).contiguous()
+            sd[f"enc.sub.{conv}.bias"] = _t(enc["sub"][conv]["bias"])
+        sd.update(_dense("enc.sub.proj", enc["sub"]["proj"]))
+        for i in range(model.layers):
+            sd.update(_conformer_block(f"enc.blks.{i}", enc[f"blks_{i}"]))
+        sd.update(_dense("head", p["head"]))
     else:
         raise TypeError(f"from_flax: unsupported model {type(model).__name__}")
     return sd
@@ -103,14 +138,18 @@ def init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     fan-in) for Dense and Conv kernels and the LSTM input kernels, an
     orthogonal matrix per gate for the recurrent kernels, zero biases,
     LayerNorm scale 1 and bias 0; MoeAm's router and expert kernels normal
-    with std 1/sqrt(fan-in), as MoeAm declares them."""
+    with std 1/sqrt(fan-in), as MoeAm declares them; a Conformer's
+    relative-position bias zero."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, m.in_features, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)  # fan-in: (in / groups) x kernel
             nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.Conv1d):
-            _lecun_normal_(m.weight, m.in_channels * m.kernel_size[0], generator)
-            nn.init.zeros_(m.bias)
+        elif isinstance(m, RelSelfAttention):
+            nn.init.zeros_(m.rel_bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

@@ -1,6 +1,6 @@
 """Shared CLI plumbing for the port's entry points: corpus loading (the
 synthetic corpora, a JSONL manifest, a LibriSpeech-layout directory),
-waveform augmentation, run directories, the device, the GMM of the decode
+waveform augmentation, run directories, the device, the GMM and the hybrid NN of the decode
 CLIs. The twin of the reference's cli/common.py (and of
 ``load_or_random_gmm`` in cli/score.py).
 """
@@ -122,6 +122,41 @@ def refuse_unported(flags) -> None:
     for flag, given, item in flags:
         if given:
             raise NotImplementedError(f"{flag} is not ported to mogasr_torch yet (ROADMAP item {item})")
+
+
+HYBRID_ARCHS = ["mlp", "lstm", "blstm", "tdnn", "conformer", "moe"]
+
+
+def add_nn_args(p: argparse.ArgumentParser) -> None:
+    """The hybrid acoustic model of the decode CLIs: ``--am`` and its
+    checkpoint and sizes, which must match training (``cli.train_nn``)."""
+    p.add_argument("--am", default="gmm", choices=["gmm"] + HYBRID_ARCHS,
+                   help="acoustic model: gmm (default) or a trained hybrid frame classifier (needs --nn-ckpt)")
+    p.add_argument("--nn-ckpt", help="hybrid NN checkpoint dir (the port's format, <run-dir>/nn_<arch> of "
+                                     "cli.train_nn)")
+    p.add_argument("--nn-precision", default="float32", choices=["float32", "bfloat16", "int8"],
+                   help="hybrid-AM inference precision (am/quantize.py; int8 for mlp and lstm)")
+    p.add_argument("--nn-hidden", type=int, default=512)
+    p.add_argument("--nn-layers", type=int, default=3)
+    p.add_argument("--nn-experts", type=int, default=4, help="with --am moe: expert count; must match training")
+
+
+def load_nn_scorer(args, n_pdfs: int, feat_dim: int, device: torch.device):
+    """``pipeline.make_nn_scorer`` of the ``--am`` model in ``--nn-ckpt``
+    (its latest step: ``{"params": state_dict, "log_priors"}``) at
+    ``--nn-precision``, on ``device``; a checkpoint of other sizes raises."""
+    from mogasr_torch.am.neural import build_model
+    from mogasr_torch.config import TrainConfig
+    from mogasr_torch.pipeline import make_nn_scorer
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    tcfg = TrainConfig(nn_arch=args.am, nn_hidden=args.nn_hidden, nn_layers=args.nn_layers,
+                       nn_experts=args.nn_experts)
+    model = build_model(args.am, n_pdfs, tcfg, feat_dim)
+    ck = restore_checkpoint(args.nn_ckpt)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in ck["params"].items()})
+    model.to(device).eval()
+    return make_nn_scorer(model, ck["log_priors"], precision=args.nn_precision)
 
 
 def make_logger(args) -> RunLogger:

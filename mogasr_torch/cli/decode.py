@@ -14,14 +14,16 @@ branches are the reference's. Records go to <run-dir>/metrics.jsonl and are
 printed. Runs on ``--device`` (default cuda).
 
 ``--gmm-ckpt`` reads the port's checkpoint format (``cli.train_gmm`` writes
-it), not orbax. Not ported yet, and raising NotImplementedError: the neural
-and end-to-end acoustic models (``--am`` other than gmm, ``--nn-ckpt``,
-``--ctc``, ``--rnnt``, ``--aed``), ``--ivector-ckpt`` (the i-vectors
-augment the neural models' features; the extractor is ``am.ivector``),
-``--bias``,
-``--fusion-lm`` and ``--nnlm-rescore``; each message names the ROADMAP
-item that ports it. ``--add-pitch`` appends the pitch triple
-(``frontend/pitch.py``) to the features.
+it), not orbax. ``--am mlp|lstm|blstm|tdnn|conformer|moe --nn-ckpt DIR``
+scores with a trained hybrid model instead (``cli.train_nn``'s checkpoint;
+``--nn-hidden/--nn-layers/--nn-experts`` as trained, ``--nn-precision``
+float32, bfloat16 or int8; LstmAm and BlstmAm on K4), and
+``--ivector-ckpt`` appends the extractor's i-vectors to its features. Each
+batch's dummy rows are left out before scoring. Not ported yet, and raising
+NotImplementedError: the end-to-end acoustic models (``--ctc``, ``--rnnt``,
+``--aed``), ``--bias``, ``--fusion-lm`` and ``--nnlm-rescore``;
+each message names the ROADMAP item that ports it. ``--add-pitch`` appends
+the pitch triple (``frontend/pitch.py``) to the features.
 """
 
 from __future__ import annotations
@@ -32,13 +34,14 @@ import os
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger, refuse_unported,
+    add_corpus_args, add_nn_args, add_run_args, device_of, load_corpus, load_nn_scorer, load_or_random_gmm,
+    make_logger, refuse_unported,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
 from mogasr_torch.hmm import graph as gr
 from mogasr_torch.hmm.topology import build_topology
-from mogasr_torch.pipeline import decode_batch, featurize, score_batch, word_decode_graph
+from mogasr_torch.pipeline import decode_batch, featurize, live_rows, score_batch, word_decode_graph
 from mogasr_torch.utils.metrics import Timer, trace
 
 
@@ -55,14 +58,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "--gmm-ckpt/--lexicon/--num-*")
     p.add_argument("--num-states", type=int, default=0)
     p.add_argument("--num-components", type=int, default=8)
-    p.add_argument("--am", default="gmm", choices=["gmm", "mlp", "lstm", "blstm", "tdnn", "conformer", "moe"],
-                   help="acoustic model (only gmm is ported: the others raise)")
-    # the neural and end-to-end families' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--nn-ckpt", help="neural checkpoint dir (not ported yet: raises)")
+    add_nn_args(p)
+    # the end-to-end families' primary flags, accepted as the reference's are; they raise
     p.add_argument("--ctc", action="store_true", help="CTC model (not ported yet: raises)")
     p.add_argument("--rnnt", action="store_true", help="RNN-transducer (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
-    p.add_argument("--ivector-ckpt", metavar="DIR", help="i-vector extractor (not ported yet: raises)")
+    p.add_argument("--ivector-ckpt", metavar="DIR",
+                   help="i-vector extractor (cli.train_nn --ivector-dim): append per-utterance i-vectors to the "
+                        "hybrid model's features")
+    p.add_argument("--ivector-dim", type=int, default=16)
+    p.add_argument("--ivector-components", type=int, default=64)
     p.add_argument("--bias", metavar="FILE", help="contextual biasing (not ported yet: raises)")
     p.add_argument("--fusion-lm", metavar="FILE", help="unit-bigram shallow fusion (not ported yet: raises)")
     p.add_argument("--mode", default="word", choices=["word", "phone"])
@@ -108,10 +113,13 @@ def main(argv=None) -> None:
         ("--nnlm-rescore", args.nnlm_rescore, "13: lm/neural.py"),
         ("--bias", args.bias, "13: decoder/biasing.py"),
         ("--fusion-lm", args.fusion_lm, "13: lm/unit_ngram.py"),
-        (f"--am {args.am}", args.am != "gmm", "12: neural checkpoints"),
-        ("--nn-ckpt", args.nn_ckpt, "12: neural checkpoints"),
-        ("--ivector-ckpt", args.ivector_ckpt, "12: i-vectors augment the neural acoustic models' features"),
     ))
+    if args.am != "gmm" and not args.nn_ckpt:
+        raise SystemExit("--nn-ckpt is required with --am mlp/lstm")
+    if args.am != "gmm" and args.bundle:
+        raise SystemExit("--bundle carries a GMM system: incompatible with a hybrid --am")
+    if args.ivector_ckpt and args.am == "gmm":
+        raise SystemExit("--ivector-ckpt augments hybrid/CTC neural features: use --am mlp/lstm/blstm/tdnn")
     device = device_of(args.device)
     bundle = None
     if args.bundle:
@@ -141,7 +149,22 @@ def main(argv=None) -> None:
     run_dir = os.path.abspath(args.run_dir)
     with trace(os.path.join(run_dir, "profile") if args.profile else None):
         batches = featurize(corpus, fcfg, BatchConfig(), device)
-        gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
+        ivec_rank = 0
+        if args.ivector_ckpt:
+            from mogasr_torch.am.ivector import load_extractor
+            from mogasr_torch.pipeline import append_ivectors
+
+            extractor = load_extractor(args.ivector_ckpt, device)
+            if (extractor.ubm.n_components, extractor.rank) != (args.ivector_components, args.ivector_dim):
+                raise SystemExit(f"--ivector-ckpt holds {extractor.ubm.n_components} components of rank "
+                                 f"{extractor.rank}: pass --ivector-components and --ivector-dim as trained")
+            batches = append_ivectors(batches, extractor)
+            ivec_rank = extractor.rank
+        if args.am == "gmm":
+            gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
+            params, scorer = kernel_params(gmm, "float32"), None
+        else:
+            scorer = load_nn_scorer(args, topo.n_pdfs, fcfg.feat_dim + ivec_rank, device)
 
         pron_logp = None
         if args.mode == "word" and args.multi_pron:
@@ -190,13 +213,12 @@ def main(argv=None) -> None:
 
                 write_arpa(args.write_arpa, trigram if trigram is not None else lm)
 
-        params = kernel_params(gmm, "float32")
         refs, hyps, ids, nbest_lists = [], [], [], []
         wrote_lattices = False
         audio_sec = sum(len(w) for _, w, _ in corpus) / fcfg.sample_rate
         with Timer() as t:
-            for fb in batches:
-                scores = score_batch(fb.feats, gmm, params=params)
+            for fb in map(live_rows, batches):
+                scores = scorer(fb) if scorer is not None else score_batch(fb.feats, gmm, params=params)
                 if needs_lattice:
                     from mogasr_torch.decoder.lattice import lattice_nbest, rescore_lattice
                     from mogasr_torch.pipeline import decode_batch_lattices

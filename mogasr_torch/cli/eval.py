@@ -33,11 +33,16 @@ on all of its speaker's utterances), so a started-again sweep skips the
 two-pass decode once every utterance is in eval_hyps.jsonl. With
 ``--bundle`` the two passes decode the bundle's CD word loop and align with
 its CD align graphs, as the 1-best sweep decodes (the reference's two-pass
-functions take no graph and use the monophone loop there). Not ported yet,
-and raising NotImplementedError naming the ROADMAP item that ports them:
-``--am`` other than gmm and ``--nn-ckpt`` (item 12), ``--ctc``, ``--rnnt``,
-``--aed`` and ``--bpe`` (item 13). The options that only those paths read
-are left out.
+functions take no graph and use the monophone loop there).
+
+``--am mlp|lstm|blstm|tdnn|conformer|moe --nn-ckpt DIR`` sweeps with a
+trained hybrid model (``cli.train_nn``'s checkpoint; ``--nn-hidden/
+--nn-layers/--nn-experts`` as trained, ``--nn-precision`` float32,
+bfloat16 or int8; LstmAm and BlstmAm on K4) in place of the GMM, over the
+word loop of the corpus lexicon, as the reference does. Each batch's dummy
+rows are left out before scoring. Not ported yet, and raising
+NotImplementedError naming ROADMAP item 13: ``--ctc``, ``--rnnt``, ``--aed``
+and ``--bpe``. The options that only those paths read are left out.
 """
 
 from __future__ import annotations
@@ -48,12 +53,15 @@ import os
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_run_args, device_of, load_corpus, load_or_random_gmm, make_logger, refuse_unported,
+    add_corpus_args, add_nn_args, add_run_args, device_of, load_corpus, load_nn_scorer, load_or_random_gmm,
+    make_logger, refuse_unported,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
 from mogasr_torch.hmm.topology import build_topology
-from mogasr_torch.pipeline import decode_batch, featurize, featurize_streaming, score_batch, word_decode_graph
+from mogasr_torch.pipeline import (
+    decode_batch, featurize, featurize_streaming, live_rows, score_batch, word_decode_graph,
+)
 from mogasr_torch.utils.metrics import Timer, trace
 
 N_CHIPS = 1  # one card; the reference's batch is 16 a chip
@@ -90,9 +98,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--rnnt", action="store_true", help="BPE-RNNT checkpoint (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="BPE-AED checkpoint (not ported yet: raises)")
     p.add_argument("--bpe", metavar="FILE", help="bpe.json (not ported yet: raises)")
-    p.add_argument("--am", default="gmm", choices=["gmm", "mlp", "lstm", "blstm", "tdnn", "conformer", "moe"],
-                   help="acoustic model (only gmm is ported: the others raise)")
-    p.add_argument("--nn-ckpt", help="neural checkpoint dir (not ported yet: raises)")
+    add_nn_args(p)
     p.add_argument("--streaming", action="store_true",
                    help="extract features through the chunked streaming front end instead of the offline batch path")
     p.add_argument("--chunk-ms", type=float, default=500.0, help="streaming chunk size in milliseconds")
@@ -148,15 +154,20 @@ def main(argv=None) -> None:
     if lexicon_free and (adapt or args.consensus or args.bundle):
         raise SystemExit(f"{lexicon_free[0]} is lexicon-free decoding: incompatible with GMM "
                          "adaptation/consensus/bundle")
-    if args.am != "gmm" and adapt:
-        raise SystemExit("--fmllr/--mllr/--vtln are GMM adaptation: incompatible with a hybrid --am")
+    if args.am != "gmm":
+        if adapt:
+            raise SystemExit("--fmllr/--mllr/--vtln are GMM adaptation: incompatible with a hybrid --am")
+        if not args.nn_ckpt:
+            raise SystemExit("--am mlp/lstm/... requires --nn-ckpt")
+        if args.bundle:
+            raise SystemExit("--bundle carries a GMM system: incompatible with a hybrid --am")
+        if lexicon_free:
+            raise SystemExit("--ctc/--rnnt/--aed are lexicon-free sweeps: use them without --am")
     refuse_unported((
         ("--ctc", args.ctc, "13: am/ctc.py"),
         ("--rnnt", args.rnnt, "13: am/rnnt.py"),
         ("--aed", args.aed, "13: am/aed.py"),
         ("--bpe", args.bpe, "13: data/bpe.py"),
-        (f"--am {args.am}", args.am != "gmm", "12: neural checkpoints"),
-        ("--nn-ckpt", args.nn_ckpt, "12: neural checkpoints"),
     ))
     device = device_of(args.device)
     bundle = None
@@ -181,14 +192,18 @@ def main(argv=None) -> None:
         batches = featurize_streaming(corpus, fcfg, bcfg, device, chunk_samples=chunk)
     else:
         batches = featurize(corpus, fcfg, bcfg, device)
-    gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
+    if args.am == "gmm":
+        gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
+        params, hybrid = kernel_params(gmm, "float32"), None
+    else:
+        gmm = params = None
+        hybrid = load_nn_scorer(args, topo.n_pdfs, fcfg.feat_dim, device)
     if bundle is not None and bundle[3] is not None:
         from mogasr_torch.hmm.triphone import word_loop_graph_cd
 
         graph = word_loop_graph_cd(bundle[3], insertion_penalty=dcfg.word_insertion_penalty)
     else:
         graph = word_decode_graph(lex, topo, dcfg)
-    params = kernel_params(gmm, "float32")
 
     resume_path = os.path.join(args.run_dir, "eval_hyps.jsonl")
     done = set()
@@ -211,10 +226,10 @@ def main(argv=None) -> None:
                 transcripts = [fb.words[b] for fb in batches for b in range(fb.size)]
                 cn_lm = estimate_bigram(transcripts, sorted(set(graph.labels)))
             with open(resume_path, "a") as out_f:
-                for fb in batches:
+                for fb in map(live_rows, batches):
                     if all(u in done for u in fb.utt_ids):
                         continue
-                    scores = score_batch(fb.feats, gmm, params=params)
+                    scores = hybrid(fb) if hybrid is not None else score_batch(fb.feats, gmm, params=params)
                     if args.consensus:
                         lats, _ = decode_batch_lattices(fb, scores, graph, cn_lm, dcfg)
                         out = [consensus_decode(confusion_network(lat, cn_lm))[0] for lat in lats]

@@ -21,6 +21,11 @@ narrow chain arm, ``ARM_BLOCK`` for one too wide for it, ``ARM_GENERAL`` for
 a row with a loop arc (forward_backward.cu says why the first two are
 exact).
 
+The kernels have no autograd backward: on the card a call with grad mode on
+and an ``emit_ll`` that requires grad raises (``_cuda.refuse_grad``);
+``am.nn_seq.FbLoglik`` and ``SmbrAcc`` carry the gradients of the sequence
+criteria through them by the posterior identities.
+
 The graph arrays go to the kernels as ``graphs_to_torch`` makes them
 (``emit_id`` int32, the log-probs and any ``skip_logp`` float32, contiguous,
 on the device of ``emit_ll``); they are checked, never converted. An
@@ -63,6 +68,8 @@ def forward_backward(
         return plain.forward_backward(emit_ll, graphs, n_frames, acoustic_scale=acoustic_scale)
     if emit_ll.device.type != "cuda":
         raise ValueError(f"forward_backward: unsupported device {emit_ll.device}")
+    _cuda.refuse_grad("K3 (fb_cuda.forward_backward)", "use am.nn_seq.FbLoglik or SmbrAcc, whose backward "
+                      "is the posterior identity, or run the kernels under torch.no_grad()", emit_ll)
     if emit_ll.dim() != 3 or emit_ll.dtype != torch.float32:
         raise ValueError(f"emit_ll must be float32 [B, T, P], got {emit_ll.dtype} {tuple(emit_ll.shape)}")
     B, T, P = emit_ll.shape

@@ -115,6 +115,16 @@ class FeatBatch:
         return len(self.utt_ids)
 
 
+def live_rows(fb: FeatBatch) -> FeatBatch:
+    """The batch without its dummy rows (the zero-length rows past
+    ``fb.size`` that fill a batch to its size): every decode is per row, so
+    the live rows decode as they do in the full batch."""
+    if fb.feats.shape[0] == fb.size:
+        return fb
+    return dataclasses.replace(fb, feats=fb.feats[: fb.size], n_frames=fb.n_frames[: fb.size],
+                               words=fb.words[: fb.size])
+
+
 def frontend_for(fcfg: FrontendConfig, max_samples: int, device: torch.device) -> Frontend:
     """The front end of one bucket width (samples). ``fcfg.add_pitch``
     appends the (POV, centered log-f0, delta log-f0) pitch triple

@@ -134,3 +134,29 @@ def restore_checkpoint(path: str, template: Any = None, step: Optional[int] = No
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+def average_checkpoints(path: str, template: Any = None, last_k: Optional[int] = None) -> Dict[str, Any]:
+    """Uniform parameter averaging over the saved steps (checkpoint averaging,
+    the late-training smoother): every float leaf averaged over the last
+    ``last_k`` steps (every step when None), each other leaf (a step counter,
+    integer ids) taken from the newest. ``template`` is accepted for the
+    reference's signature and unused. The steps must hold the same keys and
+    shapes."""
+    del template
+    steps = all_steps(path)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint under {os.path.abspath(path)}")
+    if last_k is not None:
+        steps = steps[-last_k:]
+    trees = [restore_checkpoint(path, step=s) for s in steps]
+
+    def avg(nodes):
+        newest = nodes[-1]
+        if isinstance(newest, dict):
+            return {k: avg([n[k] for n in nodes]) for k in newest}
+        if newest.dtype.kind == "f":
+            return (sum(n.astype(newest.dtype) for n in nodes) / len(nodes)).astype(newest.dtype)
+        return newest
+
+    return avg(trees)

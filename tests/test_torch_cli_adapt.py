@@ -288,7 +288,7 @@ def test_train_gmm_lda_cli(tmp_path):
 
 
 def test_refused_and_stopped_flags(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(SystemExit, match="--ivector-ckpt augments hybrid/CTC neural features"):
         cli_decode.main(["--synthetic", "1", "--ivector-ckpt", "iv", "--device", "cpu", "--run-dir",
                          str(tmp_path / "d")])
     with pytest.raises(SystemExit, match="GMM adaptation: incompatible with a hybrid --am"):

@@ -256,7 +256,6 @@ def test_eval_cli_resumes(tmp_path):
 
 
 REFUSED = [
-    (cli_eval, ["--am", "lstm"], "12"), (cli_eval, ["--nn-ckpt", "nn"], "12"),
     (cli_eval, ["--ctc"], "13"), (cli_eval, ["--rnnt"], "13"), (cli_eval, ["--aed"], "13"),
     (cli_eval, ["--bpe", "bpe.json"], "13"),
 ]

@@ -1214,3 +1214,85 @@ def test_adaptation_state_sums_match_one_hot_einsum(dev, chunk_bytes, monkeypatc
         assert torch.equal(again.occ, got_m.occ) and torch.equal(again.xsum, got_m.xsum)
         again_s = stc.accumulate_stc_stats(g, x, labels)
         assert torch.equal(again_s.scatter, got_s.scatter)
+
+
+def test_kernel_wrappers_refuse_a_forward_that_needs_a_gradient(dev):
+    """K4, K3 and K1's wrappers raise on the card when grad mode is on and an
+    input requires grad (their outputs, written through ctypes, would carry
+    no gradient); under no_grad, or with inputs that need none, they run."""
+    rng = np.random.default_rng(0)
+    xg = torch.as_tensor(rng.standard_normal((2, 5, 16)).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.standard_normal((4, 16)).astype(np.float32), device=dev).requires_grad_()
+    nf = torch.tensor([5, 3], device=dev)
+    with pytest.raises(RuntimeError, match=r"K4.*use_kernels=False"):
+        lstm_cuda.lstm_layer(xg, w, nf)
+    with torch.no_grad():
+        lstm_cuda.lstm_layer(xg, w, nf)
+    lstm_cuda.lstm_layer(xg, w.detach(), nf)
+
+    lex = make_lexicon({"cat": ["k", "ae", "t"]})
+    topo = build_topology(lex, TopologyConfig())
+    graphs = vit.graphs_to_torch(pipe.build_align_graphs([["cat"], ["cat"]], lex, topo), dev)
+    ll = torch.as_tensor(rng.standard_normal((2, 30, topo.n_pdfs)).astype(np.float32), device=dev)
+    with pytest.raises(RuntimeError, match=r"K3.*FbLoglik"):
+        fb_cuda.forward_backward(ll.requires_grad_(), graphs, torch.tensor([30, 20], device=dev))
+    with torch.no_grad():
+        fb_cuda.forward_backward(ll, graphs, torch.tensor([30, 20], device=dev))
+
+    g, x = _random_gmm(dev, 7, 2, 13, 50)
+    for leaf in (x, g.means):
+        leaf.requires_grad_()
+        with pytest.raises(RuntimeError, match=r"K1.*gmm_loglik"):
+            gmm_cuda.gmm_loglik_fused(x, g)
+        with torch.no_grad():
+            gmm_cuda.gmm_loglik_fused(x, g)
+        leaf.requires_grad_(False)
+
+
+@pytest.mark.parametrize("arch", ["lstm", "blstm"])
+def test_recurrent_training_forward_on_the_card(dev, arch):
+    """A training forward through K4 raises; the trainer's forward (the plain
+    recurrence) gives every parameter a nonzero gradient."""
+    from mogasr_torch.am.train_nn import train_logits
+
+    model = init_(tn.build_model(arch, 7, TrainConfig(nn_hidden=24, nn_layers=3), 5),
+                  torch.Generator().manual_seed(0)).to(dev)
+    feats = torch.randn((3, 20, 5), generator=torch.Generator().manual_seed(1)).to(dev)
+    nf = torch.tensor([20, 11, 4], device=dev)
+    with pytest.raises(RuntimeError, match="K4"):
+        model(feats, nf)
+    logits, _aux = train_logits(model, feats, nf)
+    logits.logsumexp(-1).sum().backward()
+    assert all(p.grad is not None and float(p.grad.abs().sum()) > 0 for p in model.parameters())
+
+
+def test_sequence_functions_on_k3_match_plain_autograd(dev):
+    """FbLoglik (align graphs: K3's chain arm; the word loop: its general arm)
+    and SmbrAcc against autograd through the plain forward-backward on the
+    card: the values, and the gradients within the reference's identity
+    tolerances (rtol 1e-4 / atol 1e-5 and rtol 2e-3 / atol 2e-4)."""
+    from mogasr_torch.am import nn_seq
+
+    lex = make_lexicon({w: p for w, p in (("cat", ["k", "ae", "t"]), ("dog", ["d", "ao", "g"]))})
+    topo = build_topology(lex, TopologyConfig())
+    rng = np.random.default_rng(3)
+    T, kappa = 60, 0.3
+    nf = torch.tensor([60, 47, 33], device=dev)
+    num = vit.graphs_to_torch(pipe.build_align_graphs([["cat"], ["dog", "cat"], ["dog"]], lex, topo), dev)
+    den = vit.graphs_to_torch(gr.batch_graphs([pipe.word_decode_graph(lex, topo, DecodeConfig(acoustic_scale=kappa))]
+                                              * 3), dev)
+    ll = torch.as_tensor(rng.standard_normal((3, T, topo.n_pdfs)).astype(np.float32), device=dev)
+    ref = torch.as_tensor(rng.integers(0, topo.n_pdfs, (3, T)).astype(np.int32), device=dev)
+    ref = torch.where(torch.arange(T, device=dev)[None, :] < nf[:, None], ref, torch.full_like(ref, -1))
+    cases = [("loglik num", lambda x, k: nn_seq.fb_loglik(x, num, nf, kappa, k), dict(rtol=1e-4, atol=1e-5)),
+             ("loglik den", lambda x, k: nn_seq.fb_loglik(x, den, nf, kappa, k), dict(rtol=1e-4, atol=1e-5)),
+             ("E[acc]", lambda x, k: nn_seq.smbr_accuracy(x, den, ref, nf, kappa, k), dict(rtol=2e-3, atol=2e-4))]
+    for name, fn, tol in cases:
+        out = {}
+        for use_kernels in (True, False):
+            x = ll.clone().requires_grad_()
+            y = fn(x, use_kernels)
+            y.sum().backward()
+            out[use_kernels] = (y.detach(), x.grad)
+        torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-4, atol=1e-3, msg=name)
+        torch.testing.assert_close(out[True][1], out[False][1], msg=name, **tol)

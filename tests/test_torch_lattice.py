@@ -287,8 +287,7 @@ def test_search_cli_matches_reference(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--ctc"], ["--rnnt"], ["--aed"], ["--nnlm-rescore", "lm"], ["--bias", "p.txt"],
-                                   ["--fusion-lm", "u.npz"], ["--am", "lstm"], ["--nn-ckpt", "nn"],
-                                   ["--ivector-ckpt", "iv"]])
+                                   ["--fusion-lm", "u.npz"]])
 def test_decode_cli_flags_not_ported_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         cli_decode.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
@@ -303,7 +302,7 @@ def test_decode_cli_add_pitch(tmp_path):
         assert len(f.readlines()) == 1
 
 
-@pytest.mark.parametrize("cli,flags", [(cli_decode, ["--nn-precision", "int8"]), (cli_decode, ["--bpe", "x"]),
+@pytest.mark.parametrize("cli,flags", [(cli_decode, ["--aed-beam", "4"]), (cli_decode, ["--bpe", "x"]),
                                        (cli_search, ["--terms", "cat", "--nn-arch", "lstm"])])
 def test_cli_companion_flags_of_unported_paths_are_rejected(tmp_path, cli, flags, capsys):
     """The unported paths' companion options are not accepted and then

@@ -108,13 +108,13 @@ def test_lstm_plain_and_kernel_routes_agree_on_cpu():
 def test_build_model_archs():
     cfg = TrainConfig(nn_hidden=8, nn_layers=3, nn_context=2, nn_experts=3)
     kinds = {"mlp": (tn.MlpAm, 3), "lstm": (tn.LstmAm, 2), "blstm": (tn.BlstmAm, 2),
-             "tdnn": (tn.TdnnAm, 3), "moe": (tn.MoeAm, 2)}
+             "tdnn": (tn.TdnnAm, 3), "moe": (tn.MoeAm, 2), "conformer": (tn.ConformerAm, 3)}
     for arch, (cls, layers) in kinds.items():
         m = tn.build_model(arch, P, cfg, D)
         assert isinstance(m, cls) and m.layers == layers and m.hidden == 8
     assert tn.build_model("moe", P, cfg, D).ffn == 16
-    with pytest.raises(NotImplementedError):
-        tn.build_model("conformer", P, cfg, D)
+    assert tn.build_model("conformer", P, cfg, D).enc.d_model == 8  # max(heads * (hidden // heads), heads)
+    assert tn.build_model("conformer", P, TrainConfig(nn_hidden=2), D).enc.d_model == 4
     with pytest.raises(ValueError):
         tn.build_model("rnn", P, cfg, D)
     with pytest.raises(TypeError):

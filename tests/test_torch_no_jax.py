@@ -39,7 +39,8 @@ def test_port_imports_without_jax():
                  "mogasr_torch.cli.stream", "mogasr_torch.cli.transcribe", "mogasr_torch.am.aligned",
                  "mogasr_torch.am.fmllr", "mogasr_torch.am.mllr", "mogasr_torch.am.stc", "mogasr_torch.am.lda",
                  "mogasr_torch.am.ivector", "mogasr_torch.diarize", "mogasr_torch.eval.diarization",
-                 "mogasr_torch.cli.diarize"):
+                 "mogasr_torch.cli.diarize", "mogasr_torch.am.aed", "mogasr_torch.am.train_nn",
+                 "mogasr_torch.am.nn_seq", "mogasr_torch.am.pretrain", "mogasr_torch.cli.train_nn"):
         assert name in modules
     code = "\n".join([
         "import sys",
