@@ -5,8 +5,9 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc. It
 takes no arguments and imports nothing of the JAX package ``mogasr`` or of
-jax. Each phase prints one line; any failure raises, so the exit code is
-nonzero and no result line is printed. Without a CUDA device it fails at once.
+jax. Each phase prints one line, with the seconds since the script started;
+any failure raises, so the exit code is nonzero and no result line is
+printed. Without a CUDA device it fails at once.
 
 0. device: the card's name and ``nvidia-smi`` name + power limit;
 1. build: compile every kernel in mogasr_torch/csrc with nvcc, in parallel;
@@ -216,7 +217,37 @@ nonzero and no result line is printed. Without a CUDA device it fails at once.
 35. the neural CLI twins in this process (launches counted): ``train_nn
    --arch lstm`` with i-vectors, MMI, --save-every and --average-last, then
    ``decode --am lstm --nn-ckpt --ivector-ckpt``; ``train_nn`` without
-   i-vectors, then ``eval --am lstm --nn-ckpt``.
+   i-vectors, then ``eval --am lstm --nn-ckpt``;
+36. the CTC loss (``am.ctc.ctc_loss``: K3's chain arm with skips over the
+   label graphs, the gradient through ``am.nn_seq.FbLoglik``) against the
+   plain recursion on the card, loss and gradient, on a training batch of
+   the CTC LstmAm (TrainConfig's defaults: 2 x 512 over the bundle's phones
+   + blank, its encoder warm-started from phase 31's CE model) and on rows
+   without labels, without frames and with labels that cannot fit (K3's
+   gradient there 0); K3's
+   kernels timed on the label graphs beside the plain passes and the bounds;
+37. CTC_STEPS CTC steps (of a CTC_SCHEDULE-step schedule) of that model on
+   phase 31's batches (K3 launches counted, no K4): ms a step, loss first
+   and last;
+38. the 768 held-out utterances: greedy phones on K4 (PER), and the CTC
+   word loop on K4 then K2's word-loop arm with skips (WER, which must be
+   below half the untrained model's); on the widest batch K2 bitwise the plain Viterbi
+   and timed, K4 on the encoder timed, each beside its bound;
+39. stream --ctc's path on 64 held-out streams: LstmAmStream on K4's carry
+   arm, the online decoder on K2's chunk arm with skips; finalize bitwise
+   offline K2 on the streamed posteriors, the chunk arm bitwise the plain
+   chunk step, timed;
+40. BPE CTC (CTC_BPE_MERGES merges, CTC_BPE_STEPS steps on K3); the device,
+   host and native prefix beams with unit-LM fusion and biasing on held-out
+   posteriors and a peaked random block: the same hypotheses; the device
+   beam's ms and launches a frame;
+41. distillation of a smaller student from phase 37's model (the teacher
+   on K4, the loss on K3) and MPC pretraining then CTC from it;
+42. the CTC paths of the CLI twins in this process (launches counted):
+   ``train_nn --objective ctc`` (phones; --bpe-merges), ``train_lm
+   --unit-ngram``, ``decode --ctc`` (the word loop; --bpe --bias
+   --fusion-lm), ``eval --ctc --bpe``, ``stream --ctc`` (the word loop;
+   --bpe --bias --fusion-lm), ``transcribe --ctc``, ``search --ctc``.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -233,6 +264,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -484,12 +516,51 @@ SEQ_ACC_RTOL = 1e-3
 # the CPU on CONF_CPU_UTTS held-out utterances (float32 both: cuBLAS with
 # TF32 off and the CPU's GEMMs sum in other orders).
 CONF_STEPS, CONF_LR, CONF_CPU_UTTS, CONF_CPU_ATOL = 12, 1e-3, 4, 1e-3
+# CTC (phases 36-42). The CTC LstmAm at TrainConfig's defaults (2 x 512)
+# over the bundle lexicon's phones + blank; its encoder starts from phase
+# 31's CE-trained LstmAm (``train_ctc_units``'s warm start: the cells copied,
+# a fresh head) and takes CTC_STEPS steps of a CTC_SCHEDULE-step schedule at
+# peak CTC_LR on phase 31's merged training batches (live rows only; the
+# steps are the plain recurrence's, 0.8-1.2 s each by the machine, so the run
+# stops before the schedule's tail). At 40 steps of a 40-step schedule at
+# 3e-3 the model sat on CTC's blank plateau (held-out WER 0.9992 against
+# the untrained model's 0.9974 on an H100, PERF.md, PR 15), and a 60-step
+# schedule decays the rate before the model leaves it.
+# The loss through K3 against the plain recursion on the card: the loss's
+# float32 sums run in another order (CTC_LOSS_RTOL, relative); the gradient
+# with respect to the logits is the posterior identity, whose alpha + beta -
+# loglik cancels values ~1e3 at T = 400 in float32 (so do autograd's sums
+# through the recursion: the two float32 gradients sat 1.4e-3 apart on the
+# H100), so both are held to the float64 recursion's gradient as phase 7
+# holds K3's posteriors: within CTC_GRAD_RATIO times plain float32's distance
+# from it (the first reading: 1.70e-3 against plain's 8.96e-4, 1.9x; the
+# identity sums a unit's states after the exp, autograd in the log domain),
+# at most FB_POST64_ATOL; on the edge rows (T = 7) the tolerance of the CPU
+# tests, CTC_GRAD_ATOL.
+# The online decode of the CTC word loop streams CTC_STREAM_ROWS held-out
+# rows in ONLINE_TC-frame chunks through LstmAmStream. BPE: CTC_BPE_MERGES
+# merges of the training transcripts, CTC_BPE_STEPS steps; the prefix beams
+# (width CTC_BEAM) on CTC_BEAM_UTTS held-out utterances and on a peaked
+# random block of CTC_BEAM_FRAMES frames, scores within CTC_BEAM_RTOL (the
+# device beam sums in float32, the host in float64: on long utterances
+# float32 may reorder the ranked tail, so there the best hypotheses are held
+# equal, as the reference's tests hold them).
+# Distillation: CTC_DISTILL_STEPS steps of a 2 x CTC_DISTILL_HIDDEN student.
+CTC_STEPS, CTC_SCHEDULE, CTC_LR = 60, 80, 1e-2
+CTC_LOSS_RTOL, CTC_GRAD_ATOL, CTC_GRAD_RATIO = 1e-4, 1e-5, 4.0
+CTC_STREAM_ROWS = 64
+CTC_BPE_MERGES, CTC_BPE_STEPS, CTC_BEAM, CTC_BEAM_UTTS, CTC_BEAM_FRAMES = 200, 6, 8, 8, 60
+CTC_BEAM_RTOL = 2e-4  # the reference's device-beam tolerance, tests/test_ctc_device_beam.py
+CTC_DISTILL_STEPS, CTC_DISTILL_HIDDEN, CTC_INIT_STEPS = 4, 256, 2
 KERNEL_COUNTERS = ("gmm_score", "gmm_score_wide", "gmm_score_int8", "viterbi", "fb_forward", "fb_backward",
                    "fb_combine", "lstm_scan")
 
 
+START = time.perf_counter()
+
+
 def phase(n: int, msg: str) -> None:
-    print(f"phase {n}: {msg}", flush=True)
+    print(f"phase {n} ({time.perf_counter() - START:.0f} s): {msg}", flush=True)
 
 
 def timed(fn, reps: int):
@@ -529,8 +600,9 @@ def kernel_device_ms(fn, names, reps: int):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     # a profiling window late in a long run has come back without the
-    # kernels' device activity (phase 20 on an H100): one more, then fail
-    for _attempt in range(2):
+    # kernels' device activity (phase 20, and once phase 17's second window,
+    # on an H100): three more, then fail
+    for _attempt in range(4):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
@@ -2981,7 +3053,7 @@ def neural_phases(dev, gmm, topo, tied, fcfg, dcfg, graph, corpus, bcfg, train_f
               f"(atol {CONF_CPU_ATOL}); launches {conf_launches}")
     return {"paths": {"nn_align": align_launches, "nn_ce": ce_launches, "nn_seq": seq_launches,
                       "nn_decode": decode_launches, "conformer": conf_launches},
-            "ce": ce, "seq": seq, "hybrid": hybrid, "conformer": conformer}
+            "ce": ce, "seq": seq, "hybrid": hybrid, "conformer": conformer, "model": model}
 
 
 def nn_cli_phase(dev: torch.device) -> dict:
@@ -3032,6 +3104,542 @@ def nn_cli_phase(dev: torch.device) -> dict:
               f"--seq-mmi-steps 2, --save-every 2, --average-last 2: steps {steps}), decode --am lstm --nn-ckpt "
               f"--ivector-ckpt WER {recs['decode']['wer']:.4f}, train_nn without i-vectors, eval --am lstm "
               f"--nn-ckpt WER {recs['eval']['wer']:.4f} (4 and 2 steps: no limit); launches {launches}")
+    return launches
+
+
+def ctc_batches(train_fbs):
+    """Phase 31's merged training batches for CTC: the live rows of NN_MERGE
+    training batches of one width (at most NN_TRAIN_T frames) at once, in a
+    seeded order."""
+    from mogasr_torch import pipeline as pipe
+
+    by_width = {}
+    for fb in train_fbs:
+        if fb.feats.shape[1] <= NN_TRAIN_T:
+            by_width.setdefault(fb.feats.shape[1], []).append(pipe.live_rows(fb))
+    merged = []
+    for group in by_width.values():
+        for k in range(0, len(group), NN_MERGE):
+            part = group[k:k + NN_MERGE]
+            merged.append(pipe.FeatBatch([u for fb in part for u in fb.utt_ids], torch.cat([fb.feats for fb in part]),
+                                         torch.cat([fb.n_frames for fb in part]), [w for fb in part for w in fb.words]))
+    return [merged[i] for i in np.random.default_rng(0).permutation(len(merged))]
+
+
+def ctc_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model) -> dict:
+    """Phases 36-41: the CTC loss on K3 against the plain recursion, CTC
+    training of the full-width LstmAm, the held-out decodes (greedy on K4; the
+    CTC word loop on K4 then K2's word-loop skip arm), the online decode on
+    K4's carry arm and K2's chunk skip arm, BPE CTC and the three prefix
+    beams, distillation and the MPC warm start. Returns each path's launch
+    counts and the kernels line's CTC sub-entries."""
+    import copy
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import ctc, fast_lstm, lstm_cuda
+    from mogasr_torch.am import neural as tn
+    from mogasr_torch.am.pretrain import pretrain_mpc, transfer_pretrained
+    from mogasr_torch.config import DecodeConfig, TrainConfig
+    from mogasr_torch.data.bpe import train_bpe
+    from mogasr_torch.decoder import biasing, online, viterbi_cuda
+    from mogasr_torch.decoder import fb_cuda
+    from mogasr_torch.decoder import forward_backward as fbd
+    from mogasr_torch.decoder import viterbi as vit
+    from mogasr_torch.eval.wer import corpus_wer
+    from mogasr_torch.lm import unit_ngram
+
+    lex = topo.lexicon
+    V, D = lex.n_phones + 1, fcfg.feat_dim
+    blank = V - 1
+    fb_names = ("fb_forward_kernel", "fb_backward_kernel", "fb_combine_kernel")
+    arm_k3 = {fb_cuda.ARM_CHAIN: "chain", fb_cuda.ARM_BLOCK: "block", fb_cuda.ARM_GENERAL: "general"}
+    arm_k2 = {viterbi_cuda.ARM_CHAIN: "chain", viterbi_cuda.ARM_LOOP: "word loop", viterbi_cuda.ARM_BLOCK: "block"}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    def zero():
+        zero_launches()
+        viterbi_cuda.CHUNK_LAUNCHES = viterbi_cuda.BACKTRACE_LAUNCHES = lstm_cuda.CARRY_LAUNCHES = 0
+
+    def counts():
+        c = launch_counts()
+        c.update(viterbi_chunk=viterbi_cuda.CHUNK_LAUNCHES, viterbi_backtrace=viterbi_cuda.BACKTRACE_LAUNCHES,
+                 lstm_scan_carry=lstm_cuda.CARRY_LAUNCHES)
+        return c
+
+    def only(name, c, allowed):
+        if any(v for k, v in c.items() if k not in allowed) or min(c[k] for k in allowed) == 0:
+            raise RuntimeError(f"{name}: launches {c} (only and every one of {allowed})")
+
+    merged = ctc_batches(train_fbs)
+
+    def encode(words):
+        return ctc.ctc_labels_from_words(lex, words)
+
+    labeled = pipe._pack_ctc_targets(merged, encode)
+    cfg = TrainConfig(nn_arch="lstm", nn_hidden=NN_HIDDEN, nn_layers=NN_LAYERS, lr=CTC_LR,
+                      num_nn_steps=CTC_SCHEDULE)
+    untrained = pipe._ctc_model("lstm", lex.n_phones, cfg, merged)
+    model = copy.deepcopy(untrained)
+    warm_sd, copied, total = transfer_pretrained(ce_model.state_dict(), model.state_dict())
+    model.load_state_dict(warm_sd)
+    warm0 = copy.deepcopy(model)
+
+    # ---- phase 36: the loss through K3 against the plain recursion
+    fb, labels, nl = labeled[0]
+    with torch.no_grad():
+        logits = model(fb.feats, fb.n_frames)
+    out, loss_ms = {}, {}
+    for use_kernels in (True, False):
+        x = logits.clone().requires_grad_()
+
+        def run():
+            with torch.enable_grad():
+                nll = ctc.ctc_loss(x, fb.n_frames, labels, nl, use_kernels=use_kernels)
+                nll.sum().backward()
+            return nll.detach()
+
+        loss_ms[use_kernels], nll = wall(run)
+        out[use_kernels] = (nll, x.grad)
+        if use_kernels:
+            k3_arms = sorted({arm_k3[a] for a in fb_cuda.LAST_ARMS.flatten().tolist()})
+    # the float64 recursion under autograd: the gradient both float32 routes are held to
+    x64 = logits.double().requires_grad_()
+    with torch.enable_grad():
+        ctc.ctc_loss_plain(torch.log_softmax(x64, -1), fb.n_frames, labels, nl, blank).sum().backward()
+    loss_err = float(((out[True][0] - out[False][0]).abs() / out[False][0].abs()).max())
+    grad_err = float((out[True][1] - out[False][1]).abs().max())
+    grad64 = {k: float((out[k][1].double() - x64.grad).abs().max()) for k in (True, False)}
+    grad_limit = max(CTC_GRAD_RATIO * grad64[False], FB_ERR_FLOOR)
+    if loss_err > CTC_LOSS_RTOL or grad64[True] > min(grad_limit, FB_POST64_ATOL) or k3_arms != ["chain"]:
+        raise RuntimeError(f"the CTC loss on K3 against the plain recursion: loss {loss_err:.3g} relative (limit "
+                           f"{CTC_LOSS_RTOL}), gradient {grad64[True]:.3g} from float64 (plain float32 "
+                           f"{grad64[False]:.3g}; limit {min(grad_limit, FB_POST64_ATOL):.3g}), arms {k3_arms}")
+    # rows without labels, without frames and with labels that cannot fit, on the card
+    rng = np.random.default_rng(36)
+    e_logits = torch.as_tensor(rng.standard_normal((6, 7, V)).astype(np.float32), device=dev)
+    e_nf = torch.as_tensor([7, 0, 3, 7, 2, 5], device=dev)
+    e_lab = torch.as_tensor([[0, 1, -1, -1], [2, -1, -1, -1], [1, 1, 2, 3], [-1] * 4, [0, 1, 2, -1], [3, 3, -1, -1]],
+                            device=dev)
+    e_nl = torch.as_tensor([2, 1, 4, 0, 3, 2], device=dev)
+    edge = {}
+    e_fit, e_short = [0, 1, 3, 5], [2, 4]  # rows 2 and 4 cannot fit: K3's gradient there is 0
+    for use_kernels in (True, False):
+        x = e_logits.clone().requires_grad_()
+        with torch.enable_grad():
+            obj, _mean = ctc.masked_mean_objective(ctc.ctc_loss(x, e_nf, e_lab, e_nl, use_kernels=use_kernels),
+                                                   e_nf, e_nl)
+            obj.backward()
+        edge[use_kernels] = (obj.detach(), x.grad)
+    edge_err = (float((edge[True][0] - edge[False][0]).abs() / edge[False][0].abs()),
+                float((edge[True][1][e_fit] - edge[False][1][e_fit]).abs().max()))
+    short_grad = float(edge[True][1][e_short].abs().max())
+    if edge_err[0] > CTC_LOSS_RTOL or edge_err[1] > CTC_GRAD_ATOL or not torch.isfinite(edge[True][1]).all() or \
+            short_grad != 0.0:
+        raise RuntimeError(f"the CTC objective on the edge rows: K3 route against plain {edge_err}, gradient "
+                           f"{short_grad} on the rows that cannot fit (must be 0)")
+    logp = torch.log_softmax(logits, -1)
+    graphs = ctc.ctc_label_graphs(labels, nl, blank)
+    nf1 = fb.n_frames.clamp(min=1)
+    k3_dev = kernel_device_ms(lambda: fb_cuda.forward_backward(logp, graphs, nf1), fb_names, 5)
+    k3_plain_ms, _ = timed(lambda: fbd.forward_backward(logp, graphs, nf1), 1)
+    k3_bounds = fb_bounds({**graphs, "n_states": 2 * nl + 1}, fb.n_frames, fb.feats.shape[1])
+    k3_ll_err = float((fb_cuda.forward_backward(logp, graphs, nf1).loglik
+                       - fbd.forward_backward(logp, graphs, nf1).loglik).abs().max())
+    Bl, Tl, Jl = fb.feats.shape[0], fb.feats.shape[1], graphs["emit_id"].shape[1]
+    max_labels = max(int(n.max()) for _f, _l, n in labeled)
+    phase(36, f"the CTC loss on a training batch of B={Bl} T={Tl} (label graphs J={Jl}, K3's {k3_arms} arm with "
+              f"skips): through K3 against the plain recursion on the card, loss {loss_err:.3g} relative (limit "
+              f"{CTC_LOSS_RTOL}), gradient max |err| {grad_err:.3g}; from the float64 recursion's gradient K3's "
+              f"{grad64[True]:.3g}, plain float32's {grad64[False]:.3g} (limit {min(grad_limit, FB_POST64_ATOL):.3g}: "
+              f"{CTC_GRAD_RATIO:g} x plain's, at most {FB_POST64_ATOL}); the edge rows' limits {CTC_LOSS_RTOL} and "
+              f"{CTC_GRAD_ATOL}; loss and backward "
+              f"{loss_ms[True]:.1f} ms (plain {loss_ms[False]:.1f} ms); the kernels K3f "
+              f"{k3_dev['fb_forward_kernel']:.3f}"
+              f" ms, K3b {k3_dev['fb_backward_kernel']:.3f} ms, combine {k3_dev['fb_combine_kernel']:.3f} ms (plain "
+              f"passes {k3_plain_ms:.1f} ms; bounds {k3_bounds['fwd'][0]:.4f}, {k3_bounds['bwd'][0]:.4f}, "
+              f"{k3_bounds['combine'][0]:.4f} ms); the edge rows (no labels, no frames, two that cannot fit) "
+              f"objective {edge_err[0]:.3g} relative, gradient {edge_err[1]:.3g} on the rows that fit and "
+              f"{short_grad:g} on the two that cannot; the longest label sequence "
+              f"{max_labels} phones (K3's chain arm takes 511)")
+
+    # ---- phase 37: CTC training of the full-width LstmAm
+    state, step = ctc.init_ctc_train_state(model, cfg), ctc.make_ctc_train_step(cfg)
+    zero()
+    metrics, step_ms = [], []
+    for i in range(CTC_STEPS):
+        fb_i, lab_i, nl_i = labeled[i % len(labeled)]
+        ms, (state, m) = wall(lambda: step(state, fb_i.feats, fb_i.n_frames, lab_i, nl_i))
+        step_ms.append(ms)
+        metrics.append(m)
+    train_launches = counts()
+    only("CTC training", train_launches, ("fb_forward", "fb_backward", "fb_combine"))
+    losses = [m["loss"] for m in metrics]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError(f"CTC training: losses {losses}")
+    frames = float(np.mean([int(f.n_frames.sum()) for f, _l, _n in labeled]))
+    train = {"steps": CTC_STEPS, "ms_per_step": float(np.median(step_ms[1:])), "first_step_ms": step_ms[0],
+             "loss_first": losses[0], "loss_last": losses[-1], "frames_per_step": frames,
+             "warm_start_copied": [copied, total]}
+    phase(37, f"CTC training of LstmAm {V} x {NN_HIDDEN} x {model.layers} on the card, its encoder warm-started from "
+              f"phase 31's CE model ({copied} of {total} tensors copied, the head fresh): {CTC_STEPS} steps of a "
+              f"{CTC_SCHEDULE}-step schedule (peak lr {CTC_LR:g}) over {len(labeled)} batches ({frames:.0f} frames a "
+              f"step on average): "
+              f"{train['ms_per_step']:.1f} ms a step (median; first {step_ms[0]:.0f} ms), loss {losses[0]:.3f} -> "
+              f"{losses[-1]:.3f}; launches {train_launches}")
+
+    # ---- phase 38: the held-out decodes
+    held = pipe.featurize(corpus, fcfg, bcfg, dev)
+    dcfg = DecodeConfig(acoustic_scale=1.0, word_insertion_penalty=2.0)
+    graph = ctc.ctc_decode_graph(lex, dcfg)
+
+    def phones_of(words):
+        return [lex.phones[p] for p in lex.words_to_phone_ids(words, interword_sil=False, edge_sil=False,
+                                                              oov="skip")]
+
+    def greedy_per(m):
+        frames_fn = ctc.make_ctc_frames_fn(m)
+        refs, hyps = [], []
+        for f in held:
+            fr, n_dec = frames_fn(f.feats, f.n_frames)
+            for b, seq in enumerate(ctc.ctc_collapse_frames(fr, n_dec, blank)[: f.size]):
+                refs.append(phones_of(f.words[b]))
+                hyps.append([lex.phones[u] for u in seq])
+        return corpus_wer(refs, hyps)[0]
+
+    zero()
+    greedy_ms, per = wall(lambda: greedy_per(model))
+    greedy_launches = counts()
+    only("the greedy decode", greedy_launches, ("lstm_scan",))
+    zero()
+    graph_ms, res = wall(lambda: pipe.evaluate(held, None, lex, None, dcfg, scorer=ctc.make_ctc_scorer(model),
+                                               graph=graph))
+    graph_launches = counts()
+    only("the CTC word-loop decode", graph_launches, ("lstm_scan", "viterbi"))
+    base = pipe.evaluate(held, None, lex, None, dcfg, scorer=ctc.make_ctc_scorer(untrained), graph=graph)
+    pre = pipe.evaluate(held, None, lex, None, dcfg, scorer=ctc.make_ctc_scorer(warm0), graph=graph)
+    if not res["wer"] < 0.5 * base["wer"]:
+        raise RuntimeError(f"the trained CTC model's held-out WER {res['wer']:.4f} is not below half the "
+                           f"untrained model's {base['wer']:.4f}")
+    fbw = max(held, key=lambda f: f.feats.shape[1])
+    Bw, Tw = fbw.feats.shape[:2]
+    lpw = ctc.make_ctc_scorer(model)(fbw)
+    graphs_w = pipe.decode_graphs(graph, Bw, dev)[1]
+    got = viterbi_cuda.viterbi(lpw, graphs_w, fbw.n_frames, acoustic_scale=1.0)
+    k2_arms = sorted({arm_k2[a] for a in viterbi_cuda.LAST_ARMS.tolist()})
+    want = vit.viterbi(lpw, graphs_w, fbw.n_frames, acoustic_scale=1.0)
+    lw = fbw.n_frames > 0
+    if not (torch.equal(got.path[lw], want.path[lw]) and torch.equal(got.entered[lw], want.entered[lw])
+            and torch.equal(got.score[lw], want.score[lw])) or k2_arms != ["word loop"]:
+        raise RuntimeError(f"K2's word-loop skip arm on the CTC word loop differs from the plain Viterbi (arms "
+                           f"{k2_arms})")
+    k2_ms, _ = timed(lambda: viterbi_cuda.viterbi(lpw, graphs_w, fbw.n_frames, acoustic_scale=1.0), 5)
+    k2_plain_ms, _ = timed(lambda: vit.viterbi(lpw, graphs_w, fbw.n_frames, acoustic_scale=1.0), 1)
+    k2_b = k2_bound(graphs_w, fbw.n_frames, Tw)
+    H = NN_HIDDEN
+    cell = model.cells[0]
+    with torch.no_grad():
+        xg = cell.input_gates(fbw.feats, "float32")
+        k4_ms, y_k = timed(lambda: lstm_cuda.lstm_layer(xg, cell.w_rec, fbw.n_frames, "float32"), 5)
+        k4_plain_ms, y_p = timed(lambda: fast_lstm.lstm_layer(xg, cell.w_rec, fbw.n_frames, "float32"), 1)
+    vmask = tn.valid_mask(fbw.n_frames, Tw, dev)
+    k4_err = float((y_k - y_p)[vmask].abs().max())
+    if k4_err > K4_ATOL["float32"]:
+        raise RuntimeError(f"K4 on the CTC encoder's layer 0 off the plain recurrence by {k4_err}")
+    valid_frames = int(fbw.n_frames.sum())
+    k4_b = bound(valid_frames * 4 * H * 4 + H * 4 * H * 4 + Bw * 4 + Bw * Tw * H * 4,
+                 valid_frames * H * (2 * 4 * H + K4_GATE_OPS), "float32")
+    decode = {"graph_wer": res["wer"], "untrained_graph_wer": base["wer"], "warm_start_graph_wer": pre["wer"],
+              "greedy_per": per, "greedy_ms": greedy_ms, "graph_ms": graph_ms, "utts": res["n_utts"],
+              "sub_del_ins": [res["sub"], res["del"], res["ins"]]}
+    phase(38, f"the {res['n_utts']} held-out utterances: greedy phones (K4) PER {per:.4f} in {greedy_ms:.0f} ms "
+              f"(launches {greedy_launches}); the CTC word loop (J={graph.n_states}, K4 then K2) WER {res['wer']:.4f} "
+              f"(sub/del/ins {decode['sub_del_ins']}) in {graph_ms:.0f} ms against the untrained model's "
+              f"{base['wer']:.4f} and the warm start's before its CTC steps {pre['wer']:.4f} (launches "
+              f"{graph_launches}); on the widest batch B={Bw} T={Tw} K2's {k2_arms} arm with skips bitwise the plain "
+              f"Viterbi, {k2_ms:.3f} ms (plain {k2_plain_ms:.1f} ms, bound {k2_b[0]:.4f} ms by {k2_b[1]}); K4 on the "
+              f"encoder's layer 0 {k4_ms:.3f} ms (plain {k4_plain_ms:.1f} ms, bound {k4_b[0]:.4f} ms by {k4_b[1]}, "
+              f"max |err| {k4_err:.3g})")
+
+    # ---- phase 39: stream --ctc's path: K4's carry arm, then K2's chunk arm with skips
+    rows = min(CTC_STREAM_ROWS, fbw.size)
+    feats, nfs = fbw.feats[:rows], fbw.n_frames[:rows]
+    smodel = tn.LstmAmStream(V, D, hidden=NN_HIDDEN, layers=model.layers).to(dev)
+    smodel.load_state_dict(model.state_dict())
+    smodel.eval()
+    graphs_s = pipe.decode_graphs(graph, rows, dev)[1]
+    J = graph.n_states
+    nfs_np = nfs.cpu().numpy()
+    zero()
+    carries = tn.lstm_stream_init(smodel, rows, dev)
+    dec = online.OnlineDecoder(graphs_s, acoustic_scale=1.0)
+    chunks = []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for off in range(0, Tw, ONLINE_TC):
+            tc = min(ONLINE_TC, Tw - off)
+            nv = np.clip(nfs_np - off, 0, tc).astype(np.int32)
+            y, carries = smodel(feats[:, off:off + tc], carries, n_valid=torch.as_tensor(nv, device=dev))
+            lp_c = torch.log_softmax(y, -1)
+            chunks.append(lp_c)
+            dec.process(lp_c, nv)
+            dec.partial()
+        path, entered, score = dec.finalize()
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    stream_launches = counts()
+    only("the online CTC decode", stream_launches, ("lstm_scan", "lstm_scan_carry", "viterbi_chunk",
+                                                    "viterbi_backtrace"))
+    lp_s = torch.cat(chunks, 1)
+    off_lp = ctc.make_ctc_scorer(model)(pipe.FeatBatch(fbw.utt_ids[:rows], feats, nfs, fbw.words[:rows]))
+    sm = tn.valid_mask(nfs, Tw, dev)
+    stream_err = float((lp_s - off_lp)[sm].abs().max())
+    want = viterbi_cuda.viterbi(lp_s, graphs_s, nfs, acoustic_scale=1.0)
+    live = nfs > 0
+    if not (torch.equal(path, want.path) and torch.equal(entered, want.entered)
+            and torch.equal(score[live], want.score[live])) or stream_err > STREAM_NN_ATOL:
+        raise RuntimeError(f"the online CTC decode's finalize differs from offline K2 on the same posteriors, or the "
+                           f"streamed posteriors are {stream_err:.3g} off the offline model's")
+    d = torch.full((rows, J), online.NEG_INF, device=dev)
+    s = torch.zeros(rows, dtype=torch.bool, device=dev)
+    pd, ps = d.clone(), s.clone()
+    bp, xa = viterbi_cuda.code_buffers(rows, J, ONLINE_CHECK_CHUNKS * ONLINE_TC, dev)
+    for ci in range(ONLINE_CHECK_CHUNKS):
+        off = ci * ONLINE_TC
+        nv = torch.as_tensor(np.clip(nfs_np - off, 0, ONLINE_TC).astype(np.int32), device=dev)
+        chunk = lp_s[:, off:off + ONLINE_TC]
+        viterbi_cuda.chunk_step(d, s, chunk, nv, graphs_s, 1.0, 0.0, bp, xa, off)
+        pd, ps, pbp, _pxa = online.chunk_step(pd, ps, chunk, nv, graphs_s, 1.0, 0.0)
+        codes = viterbi_cuda.unpack_codes(bp, slice(off, off + ONLINE_TC), J)
+        if not (torch.equal(d, pd) and torch.equal(s, ps) and torch.equal(codes, pbp)):
+            raise RuntimeError(f"K2's chunk arm with skips differs from the plain chunk step at chunk {ci}")
+    nv0 = torch.as_tensor(np.clip(nfs_np, 0, ONLINE_TC).astype(np.int32), device=dev)
+    chunk0 = lp_s[:, :ONLINE_TC].contiguous()
+    d0, s0 = torch.full((rows, J), online.NEG_INF, device=dev), torch.zeros(rows, dtype=torch.bool, device=dev)
+    bpt, xat = viterbi_cuda.code_buffers(rows, J, ONLINE_TC, dev)
+    chunk_b = k2_chunk_bound(graphs_s, nv0, s0, ONLINE_TC)
+    chunk_plain_ms, _ = timed(lambda: online.chunk_step(d0, s0, chunk0, nv0, graphs_s, 1.0, 0.0), 2)
+    chunk_ms, _ = timed(lambda: viterbi_cuda.chunk_step(d0, s0, chunk0, nv0, graphs_s, 1.0, 0.0, bpt, xat, 0), 20)
+    stream = {"rows": rows, "chunks": len(chunks), "seconds": stream_s, "stream_vs_offline_max_abs_err": stream_err,
+              "chunk_ms": chunk_ms, "chunk_plain_ms": chunk_plain_ms, "chunk_bound_ms": chunk_b[0],
+              "chunk_bound_by": chunk_b[1], "shape": [rows, ONLINE_TC, J]}
+    phase(39, f"stream --ctc's path on {rows} held-out streams of the widest batch ({len(chunks)} chunks of "
+              f"{ONLINE_TC} frames, a partial after each): LstmAmStream on K4's carry arm then the online decoder on "
+              f"K2's chunk arm with skips over the CTC word loop in {stream_s:.2f} s; finalize bitwise offline K2 on "
+              f"the streamed posteriors (path, entered, score), those within {stream_err:.3g} of the offline model's "
+              f"(limit {STREAM_NN_ATOL}); the chunk arm bitwise the plain chunk step on {ONLINE_CHECK_CHUNKS} chunks, "
+              f"{chunk_ms:.4f} ms a chunk (plain {chunk_plain_ms:.2f} ms, bound {chunk_b[0]:.4f} ms by {chunk_b[1]}); "
+              f"launches {stream_launches}")
+
+    # ---- phase 40: BPE CTC and the three prefix beams
+    texts = [w for f in merged for w in f.words]
+    bpe = train_bpe(texts, n_merges=CTC_BPE_MERGES)
+    bcfg_ = TrainConfig(nn_arch="lstm", nn_hidden=NN_HIDDEN, nn_layers=NN_LAYERS, lr=CTC_LR,
+                        num_nn_steps=CTC_BPE_STEPS)
+    zero()
+    bpe_ms, (bmodel, _sd) = wall(lambda: pipe.train_ctc_bpe(merged, bpe, bcfg_, arch="lstm", steps=CTC_BPE_STEPS,
+                                                            init_params=ce_model.state_dict()))
+    bpe_launches = counts()
+    only("BPE CTC training", bpe_launches, ("fb_forward", "fb_backward", "fb_combine"))
+    max_units = max(len(bpe.encode(t)) for t in texts)
+    sub = pipe.live_rows(held[0])
+    sub = pipe.FeatBatch(sub.utt_ids[:CTC_BEAM_UTTS], sub.feats[:CTC_BEAM_UTTS], sub.n_frames[:CTC_BEAM_UTTS],
+                         sub.words[:CTC_BEAM_UTTS])
+    ulm = unit_ngram.estimate_unit_bigram([bpe.encode(t) for t in texts], bpe.n_units)
+    biaser = biasing.biaser_from_bpe(bpe, [w[:2] for w in sub.words[:2]], weight=2.0)
+    comp = biasing.CompiledBiaser(biaser, bpe.n_units)
+    fusion = ctc.ctc_fusion_matrix(bpe.n_units, ulm, 0.5)
+    ext = unit_ngram.compose_ext_scores([biaser.score, unit_ngram.fusion_score(ulm, 0.5)])
+    rng = np.random.default_rng(40)
+    peaked = torch.log_softmax(torch.as_tensor(6.0 * rng.standard_normal(
+        (CTC_BEAM_UTTS, CTC_BEAM_FRAMES, bpe.n_units + 1)).astype(np.float32), device=dev), -1)
+    cases = {"model": (ctc.make_ctc_scorer(bmodel)(sub), sub.n_frames),
+             "peaked": (peaked, torch.full((CTC_BEAM_UTTS,), CTC_BEAM_FRAMES, dtype=torch.int32, device=dev))}
+    beam = {}
+    for name, (lp, nf) in cases.items():
+        lp_host, nf_host = lp.cpu().numpy(), nf.cpu().numpy()
+        dev_ms, got = wall(lambda: ctc.ctc_prefix_beam_decode_device(
+            lp, nf, beam_size=CTC_BEAM, u_cap=int(lp.shape[1]), fusion=fusion, bias_next=comp.next_state,
+            bias_delta=comp.delta))
+        host_ms, want = wall(lambda: [ctc.ctc_prefix_beam_decode(lp_host[b, : nf_host[b]], CTC_BEAM, ext_score=ext)
+                                      for b in range(len(nf_host))])
+        plain_dev = ctc.ctc_prefix_beam_decode_device(lp, nf, beam_size=CTC_BEAM, u_cap=int(lp.shape[1]))
+        plain_host = [ctc.ctc_prefix_beam_decode(lp_host[b, : nf_host[b]], CTC_BEAM) for b in range(len(nf_host))]
+        native = [ctc.ctc_prefix_beam_decode_native(lp_host[b, : nf_host[b]], CTC_BEAM) for b in range(len(nf_host))]
+        if any(r is None for r in native):
+            raise RuntimeError("the native CTC beam (native/ctc_beam_native.cpp) did not build or load")
+        same_lists = 0
+        for label, a, b_, rtol in (("device vs host, fused and biased", got, want, CTC_BEAM_RTOL),
+                                   ("device vs host", plain_dev, plain_host, CTC_BEAM_RTOL),
+                                   ("native vs host", native, plain_host, 1e-9)):
+            for ra, rb in zip(a, b_):
+                full = [h for _s, h in ra] == [h for _s, h in rb] and np.allclose(
+                    [s_ for s_, _h in ra], [s_ for s_, _h in rb], rtol=rtol, atol=0)
+                same_lists += full
+                # the whole ranked list on the short block and from the two float64 beams; the best
+                # hypothesis on the model's utterances, where float32 may reorder the tail
+                if not (full or (name == "model" and rtol > 1e-9 and ra[0][1] == rb[0][1])):
+                    raise RuntimeError(f"prefix beams on the {name} posteriors, {label}: {ra[:2]} vs {rb[:2]}")
+        n_frames_beam = int(nf.sum())
+        beam[name] = {"device_ms": dev_ms, "host_ms": host_ms, "frames": n_frames_beam, "same_ranked_lists":
+                      f"{same_lists} of {3 * len(nf_host)}",
+                      "device_ms_per_frame": dev_ms / int(lp.shape[1]),
+                      "hyp_units": sum(len(r[0][1]) for r in got if r)}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    lp_m, nf_m = cases["model"]
+    with torch.profiler.profile(activities=acts) as prof:
+        ctc.ctc_prefix_beam_decode_device(lp_m, nf_m, beam_size=CTC_BEAM, u_cap=int(lp_m.shape[1]), fusion=fusion,
+                                          bias_next=comp.next_state, bias_delta=comp.delta)
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    beam["launches_per_frame"] = sum(e.count for e in on_dev) / int(lp_m.shape[1])
+    beam["device_busy_ms"] = sum(e.device_time_total for e in on_dev) / 1e3
+    phase(40, f"BPE CTC: {CTC_BPE_MERGES} merges ({bpe.n_units} units, the longest training transcript "
+              f"{max_units} units), {CTC_BPE_STEPS} steps in {bpe_ms:.0f} ms (launches {bpe_launches}); the "
+              f"prefix beams (width {CTC_BEAM}) on {CTC_BEAM_UTTS} held-out utterances' posteriors and on peaked "
+              f"random "
+              f"ones ({CTC_BEAM_FRAMES} frames): device and host identical ranked hypotheses with fusion and biasing "
+              f"and without (scores within rtol {CTC_BEAM_RTOL}; on the model's utterances the best hypothesis), "
+              f"native identical to host; the device beam "
+              + "; ".join(f"{k}: identical ranked lists {v['same_ranked_lists']}, {v['device_ms']:.0f} ms "
+                          f"({v['device_ms_per_frame']:.2f} ms a frame; host dict beam {v['host_ms']:.0f} ms)"
+                          for k, v in beam.items() if isinstance(v, dict))
+              + f"; {beam['launches_per_frame']:.0f} device launches a frame, {beam['device_busy_ms']:.1f} ms busy "
+              f"on the device (profiled)")
+
+    # ---- phase 41: distillation and the MPC warm start
+    dcfg_ = TrainConfig(nn_arch="lstm", nn_hidden=CTC_DISTILL_HIDDEN, nn_layers=NN_LAYERS, lr=CTC_LR,
+                        num_nn_steps=CTC_DISTILL_STEPS)
+    zero()
+    dist_ms, (student, _sd) = wall(lambda: pipe.distill_ctc_units(merged, model, encode, lex.n_phones, dcfg_,
+                                                                  student_arch="lstm", steps=CTC_DISTILL_STEPS))
+    distill_launches = counts()
+    only("distillation", distill_launches, ("fb_forward", "fb_backward", "fb_combine", "lstm_scan"))
+    logs = []
+    zero()
+    mpc_ms, (_mpc, mpc_sd) = wall(lambda: pretrain_mpc(merged, dcfg_, arch="lstm", steps=CTC_INIT_STEPS))
+    init_ms, (imodel, _sd) = wall(lambda: pipe.train_ctc(
+        merged, lex, dcfg_, arch="lstm", steps=CTC_INIT_STEPS, init_params=mpc_sd,
+        logger=types.SimpleNamespace(log=logs.append)))
+    init_launches = counts()
+    warm = [r for r in logs if r["stage"] == "ctc_warm_start"]
+    if len(warm) != 1 or not 0 < warm[0]["leaves_copied"] < warm[0]["leaves_total"] or \
+            not all(torch.isfinite(v).all() for v in list(student.state_dict().values())
+                    + list(imodel.state_dict().values())):
+        raise RuntimeError(f"distillation / --init-from: warm start {warm}")
+    phase(41, f"distillation of a {CTC_DISTILL_HIDDEN}-hidden student from phase 37's model: {CTC_DISTILL_STEPS} "
+              f"steps in {dist_ms:.0f} ms (the teacher on K4, the loss on K3; launches {distill_launches}); MPC "
+              f"pretraining {CTC_INIT_STEPS} steps ({mpc_ms:.0f} ms) then CTC from it ({warm[0]['leaves_copied']} of "
+              f"{warm[0]['leaves_total']} tensors copied) {CTC_INIT_STEPS} steps in {init_ms:.0f} ms (launches "
+              f"{init_launches})")
+    return {"paths": {"ctc_train": train_launches, "ctc_decode": {k: greedy_launches[k] + graph_launches[k]
+                                                                  for k in graph_launches},
+                      "ctc_stream": stream_launches, "ctc_bpe": bpe_launches, "ctc_distill": distill_launches,
+                      "ctc_init": init_launches},
+            "train": train, "decode": decode, "stream": stream, "beam": beam,
+            "k3": {"arm": k3_arms[0], "shape": [Bl, Tl, Jl], "max_abs_err": k3_ll_err, "loss_rel_err": loss_err,
+                   "grad_max_abs_err": grad_err, "grad_from_float64": grad64[True],
+                   "plain_grad_from_float64": grad64[False], "ms": k3_dev, "plain_ms": k3_plain_ms,
+                   "bounds": {k: v for k, v in k3_bounds.items()}, "loss_ms": loss_ms[True],
+                   "loss_plain_ms": loss_ms[False]},
+            "k2": {"arm": k2_arms[0], "shape": [Bw, Tw, graph.n_states], "max_abs_err": 0.0, "ms": k2_ms,
+                   "plain_ms": k2_plain_ms, "bound_ms": k2_b[0], "bound_by": k2_b[1]},
+            "k4": {"shape": [Bw, Tw, H], "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+                   "bound_ms": k4_b[0], "bound_by": k4_b[1]}}
+
+
+def ctc_cli_phase(dev: torch.device) -> dict:
+    """Phase 42: the CTC paths of the CLI twins in this process (their
+    output to build/chip_smoke_ctc_cli/out.txt), the launch counts set to 0
+    before and read after: train_nn --objective ctc (phones, then
+    --bpe-merges), train_lm --unit-ngram, decode --ctc (the word loop; --bpe
+    with --bias and --fusion-lm), eval --ctc --bpe, stream --ctc (the word
+    loop; --bpe with --bias and --fusion-lm), transcribe --ctc and search
+    --ctc."""
+    import contextlib
+    import io
+    import shutil
+
+    from mogasr_torch.cli import decode as cli_decode
+    from mogasr_torch.cli import eval as cli_eval
+    from mogasr_torch.cli import search as cli_search
+    from mogasr_torch.cli import stream as cli_stream
+    from mogasr_torch.cli import train_lm as cli_train_lm
+    from mogasr_torch.cli import train_nn as cli_train_nn
+    from mogasr_torch.cli import transcribe as cli_transcribe
+    from mogasr_torch.decoder import viterbi_cuda
+    from mogasr_torch.am import lstm_cuda
+
+    work = os.path.join(ROOT, "build", "chip_smoke_ctc_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    corpus = ["--synthetic", "16", "--synthetic-seed", "7"]
+    on = ["--device", str(dev)]
+    size = ["--nn-hidden", "128", "--nn-layers", "3"]
+    ph, bp = os.path.join(work, "phones"), os.path.join(work, "bpe")
+    phrases = os.path.join(work, "phrases.txt")
+    with open(phrases, "w") as f:
+        f.write("cat dog\nfish\n")
+    beam = ["--bias", phrases, "--fusion-lm", os.path.join(work, "lm", "unit_lm.npz"), "--bias-beam", "4"]
+    runs = [
+        (cli_train_nn, corpus + ["--objective", "ctc", "--arch", "lstm", "--hidden", "128", "--layers", "3",
+                                 "--steps", "4", "--run-dir", ph]),
+        (cli_train_nn, corpus + ["--objective", "ctc", "--arch", "lstm", "--hidden", "128", "--layers", "3",
+                                 "--steps", "4", "--bpe-merges", "30", "--run-dir", bp]),
+        (cli_train_lm, corpus + ["--unit-ngram", "--bpe", os.path.join(bp, "bpe.json"), "--run-dir",
+                                 os.path.join(work, "lm")]),
+        (cli_decode, corpus + size + ["--ctc", "--am", "lstm", "--nn-ckpt", os.path.join(ph, "nn_ctc_lstm"),
+                                      "--run-dir", os.path.join(work, "decode")]),
+        (cli_decode, corpus + size + ["--ctc", "--am", "lstm", "--nn-ckpt", os.path.join(bp, "nn_ctc_lstm"), "--bpe",
+                                      os.path.join(bp, "bpe.json"), "--run-dir", os.path.join(work, "decode_bpe")]
+         + beam),
+        (cli_eval, corpus + size + ["--ctc", "--nn-arch", "lstm", "--nn-ckpt", os.path.join(bp, "nn_ctc_lstm"),
+                                    "--bpe", os.path.join(bp, "bpe.json"), "--run-dir", os.path.join(work, "eval")]),
+        (cli_stream, ["--synthetic-demo", "--ctc", "--nn-ckpt", os.path.join(ph, "nn_ctc_lstm"), "--run-dir",
+                      os.path.join(work, "stream")] + size),
+        (cli_stream, ["--synthetic-demo", "--ctc", "--nn-ckpt", os.path.join(bp, "nn_ctc_lstm"), "--bpe",
+                      os.path.join(bp, "bpe.json"), "--run-dir", os.path.join(work, "stream_bpe")] + size + beam),
+        (cli_transcribe, ["--synthetic-demo", "--ctc", "--nn-arch", "lstm", "--nn-ckpt",
+                          os.path.join(ph, "nn_ctc_lstm"), "--run-dir", os.path.join(work, "transcribe")] + size),
+        (cli_search, corpus + size + ["--ctc", "--nn-arch", "lstm", "--nn-ckpt", os.path.join(ph, "nn_ctc_lstm"),
+                                      "--terms", "cat,dog fish", "--run-dir", os.path.join(work, "search")]),
+    ]
+    zero_launches()
+    viterbi_cuda.CHUNK_LAUNCHES = viterbi_cuda.BACKTRACE_LAUNCHES = lstm_cuda.CARRY_LAUNCHES = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        for cli, argv in runs:
+            cli.main(argv + on)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    launches.update(viterbi_chunk=viterbi_cuda.CHUNK_LAUNCHES, viterbi_backtrace=viterbi_cuda.BACKTRACE_LAUNCHES,
+                    lstm_scan_carry=lstm_cuda.CARRY_LAUNCHES)
+    with open(os.path.join(work, "out.txt"), "w") as f:
+        f.write(buf.getvalue())
+    needed = ("viterbi", "fb_forward", "fb_backward", "fb_combine", "lstm_scan", "viterbi_chunk", "viterbi_backtrace",
+              "lstm_scan_carry")
+    if min(launches[k] for k in needed) == 0 or launches["gmm_score"]:
+        raise RuntimeError(f"the CTC CLI twins did not go through every kernel of their path: {launches}")
+    recs = {}
+    for name in ("decode", "decode_bpe", "eval"):
+        with open(os.path.join(work, name, "metrics.jsonl")) as f:
+            recs[name] = json.loads(f.read().splitlines()[-1])
+        if recs[name]["utts"] != 16 or not np.isfinite(recs[name]["wer"]):
+            raise RuntimeError(f"{name}: {recs[name]}")
+    finals = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith('{"final"')]
+    if len(finals) != 2:
+        raise RuntimeError(f"stream --ctc printed {len(finals)} final lines")
+    phase(42, f"the CTC CLI twins in this process, {seconds:.1f} s: train_nn --objective ctc (phones; --bpe-merges "
+              f"30), train_lm --unit-ngram --bpe, decode --ctc WER {recs['decode']['wer']:.4f}, decode --ctc --bpe "
+              f"--bias --fusion-lm WER {recs['decode_bpe']['wer']:.4f}, eval --ctc --bpe WER "
+              f"{recs['eval']['wer']:.4f} (4 steps: no limit), stream --ctc (the word loop; --bpe --bias "
+              f"--fusion-lm), transcribe --ctc, search --ctc; launches {launches}")
     return launches
 
 
@@ -3439,6 +4047,8 @@ def main() -> None:
     adapt_cli = adaptation_cli_phase(dev, corpus, topo.lexicon)
     neural = neural_phases(dev, gmm, topo, tied, fcfg, dcfg, graph, corpus, bcfg, train_fbs)
     nn_cli = nn_cli_phase(dev)
+    ctc_res = ctc_phases(dev, topo, fcfg, corpus, bcfg, train_fbs, neural.pop("model"))
+    ctc_cli = ctc_cli_phase(dev)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -3447,7 +4057,7 @@ def main() -> None:
              "lm_decode": lm_entry["lm_decode"], "lm_check_decodes": lm_entry["lm_check_decodes"],
              "confidence": lm_entry["confidence"], "cli": cli_launches, "streaming": stream["streaming"],
              "online": stream["online"], "stream_cli": stream["stream_cli"], **adapt_paths,
-             "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli}
+             "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli, **ctc_res["paths"], "ctc_cli": ctc_cli}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]
@@ -3466,6 +4076,21 @@ def main() -> None:
         k4_entry["launches_by_path"][name] = paths[name]["lstm_scan"]
         k4_entry["launches"] += paths[name]["lstm_scan"]
     k4_entry["trained_decode"] = {**neural["hybrid"], "ce_training": neural["ce"]}
+    # the CTC slice: K4 on the CTC encoder (decode, the distillation teacher, the CLI twins) and its carry
+    # arm on stream --ctc's path; K2's chunk arm with skips; the sub-entries of phases 36-39
+    ctc_names = ("ctc_train", "ctc_decode", "ctc_stream", "ctc_bpe", "ctc_distill", "ctc_init", "ctc_cli")
+    for name in ctc_names:
+        k4_entry["launches_by_path"][name] = paths[name]["lstm_scan"]
+        k4_entry["launches"] += paths[name]["lstm_scan"]
+    for name in ("ctc_stream", "ctc_cli"):
+        k4_entry["carry"]["launches_by_path"][name] = paths[name]["lstm_scan_carry"]
+        k4_entry["carry"]["launches"] += paths[name]["lstm_scan_carry"]
+        k2_chunk["launches_by_path"][name] = {"chunk": paths[name]["viterbi_chunk"],
+                                              "backtrace": paths[name]["viterbi_backtrace"]}
+        k2_chunk["launches"] += paths[name]["viterbi_chunk"] + paths[name]["viterbi_backtrace"]
+    k4_entry["ctc_encoder"] = {**ctc_res["k4"], "training": ctc_res["train"], "decode": ctc_res["decode"]}
+    k2_chunk["ctc_skip"] = ctc_res["stream"]
+    k3c = ctc_res["k3"]
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     k3d = lm_entry["k3_decode_batch"]
     k1_main = ("bfloat16", "max")
@@ -3491,7 +4116,7 @@ def main() -> None:
          "bound_ms": k2_main_bound[0], "bound_by": k2_main_bound[1], "library_ms": None,
          "align": k2_align, "viterbi_em_align_stage_ms": 1e3 * vt.stage_seconds[0]["align"],
          "collect_cd_stats": entry["collect_cd_stats"], "chunk": k2_chunk,
-         "conformer_hybrid": neural["conformer"]},
+         "conformer_hybrid": neural["conformer"], "ctc_word_loop": ctc_res["k2"]},
         {"name": "fb_forward", "route": "cuda", "source": "mogasr_torch/csrc/forward_backward.cu",
          "replaces": "mogasr/decoder/fb_pallas.py:46", "launches": launches["fb_forward"],
          "launches_by_path": by_path["fb_forward"], "arm": fb_train["arm"],
@@ -3504,6 +4129,12 @@ def main() -> None:
                        "bound_by": fb_loop["bounds"]["fwd"][1]},
          "mmi_denominator": entry["mmi_denominator"],
          "sequence_training": neural["seq"],
+         "ctc_loss": {"arm": k3c["arm"], "shape": k3c["shape"], "max_abs_err": k3c["max_abs_err"],
+                      "loss_rel_err": k3c["loss_rel_err"], "grad_max_abs_err": k3c["grad_max_abs_err"],
+                      "ms": k3c["ms"]["fb_forward_kernel"], "plain_ms": k3c["plain_ms"],
+                      "bound_ms": k3c["bounds"]["fwd"][0], "bound_by": k3c["bounds"]["fwd"][1],
+                      "loss_and_backward_ms": k3c["loss_ms"], "plain_loss_and_backward_ms": k3c["loss_plain_ms"],
+                      "device_prefix_beam": ctc_res["beam"]},
          "decode_batch": {"arm": k3d["arm"], "shape": [k3d["B"], k3d["T"], k3d["J"]], "ms": k3d["fb_forward_kernel"],
                           "plain_ms": k3d["plain_fwd_ms"], "max_abs_err": k3d["loglik_max_abs_err"],
                           "bound_ms": k3d["bounds"]["fwd"][0], "bound_by": k3d["bounds"]["fwd"][1],
@@ -3520,6 +4151,10 @@ def main() -> None:
          "word_loop": {"arm": fb_loop["arm"], "max_abs_err": fb_loop["post_err"], "ms": fb_loop["fb_backward_kernel"],
                        "plain_ms": fb_loop["plain_bwd_ms"], "bound_ms": fb_loop["bounds"]["bwd"][0],
                        "bound_by": fb_loop["bounds"]["bwd"][1]},
+         "ctc_loss": {"arm": k3c["arm"], "shape": k3c["shape"], "grad_max_abs_err": k3c["grad_max_abs_err"],
+                      "ms": k3c["ms"]["fb_backward_kernel"], "bound_ms": k3c["bounds"]["bwd"][0],
+                      "bound_by": k3c["bounds"]["bwd"][1], "combine_ms": k3c["ms"]["fb_combine_kernel"],
+                      "combine_bound_ms": k3c["bounds"]["combine"][0]},
          "decode_batch": {"arm": k3d["arm"], "shape": [k3d["B"], k3d["T"], k3d["J"]], "ms": k3d["fb_backward_kernel"],
                           "plain_ms": k3d["plain_bwd_ms"], "bound_ms": k3d["bounds"]["bwd"][0],
                           "bound_by": k3d["bounds"]["bwd"][1], "launches_per_batch": k3d["launches_per_batch"]},

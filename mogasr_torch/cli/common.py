@@ -1,7 +1,7 @@
 """Shared CLI plumbing for the port's entry points: corpus loading (the
 synthetic corpora, a JSONL manifest, a LibriSpeech-layout directory),
-waveform augmentation, run directories, the device, the GMM and the hybrid NN of the decode
-CLIs. The twin of the reference's cli/common.py (and of
+waveform augmentation, run directories, the device, the GMM, the hybrid NN and the CTC model of
+the decode CLIs, and the CTC prefix beam's biasing and fusion. The twin of the reference's cli/common.py (and of
 ``load_or_random_gmm`` in cli/score.py).
 """
 
@@ -157,6 +157,74 @@ def load_nn_scorer(args, n_pdfs: int, feat_dim: int, device: torch.device):
     model.load_state_dict({k: torch.as_tensor(v) for k, v in ck["params"].items()})
     model.to(device).eval()
     return make_nn_scorer(model, ck["log_priors"], precision=args.nn_precision)
+
+
+def load_ctc_model(arch: str, n_units: int, hidden: int, layers: int, feat_dim: int, ckpt_dir: str,
+                   device: torch.device) -> torch.nn.Module:
+    """The ``arch`` CTC model over n_units + blank in ``ckpt_dir`` (its latest
+    step, ``{"params": state_dict}`` as ``cli.train_nn --objective ctc``
+    writes it), in eval mode on ``device``; a checkpoint of other sizes
+    raises."""
+    from mogasr_torch.am.neural import build_model
+    from mogasr_torch.config import TrainConfig
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    model = build_model(arch, n_units + 1, TrainConfig(nn_arch=arch, nn_hidden=hidden, nn_layers=layers), feat_dim)
+    ck = restore_checkpoint(ckpt_dir)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in ck["params"].items()})
+    return model.to(device).eval()
+
+
+def add_ctc_beam_args(p: argparse.ArgumentParser, with_fusion: bool = True) -> None:
+    """Contextual biasing and unit-LM shallow fusion of the CTC prefix beam
+    (with ``--ctc --bpe``)."""
+    p.add_argument("--bias", metavar="FILE",
+                   help="with --ctc --bpe: contextual biasing, one phrase a line, boosted inside the prefix beam "
+                        "(decoder/biasing.py)")
+    p.add_argument("--bias-weight", type=float, default=2.0, help="per-unit boost of --bias")
+    p.add_argument("--bias-beam", type=int, default=8, help="prefix beam width used with --bias/--fusion-lm")
+    if with_fusion:
+        p.add_argument("--fusion-lm", metavar="FILE",
+                       help="with --ctc --bpe: unit-bigram shallow fusion in the prefix beam (train_lm "
+                            "--unit-ngram writes unit_lm.npz); composes with --bias")
+        p.add_argument("--fusion-weight", type=float, default=0.5, help="LM weight of --fusion-lm")
+
+
+def ctc_beam_tables(args, bpe) -> Tuple:
+    """(fusion, bias_next, bias_delta) of the device prefix beam from
+    ``--fusion-lm`` and ``--bias`` (None where not given)."""
+    from mogasr_torch.am.ctc import ctc_fusion_matrix
+
+    fusion = bias_next = bias_delta = None
+    if args.bias:
+        from mogasr_torch.decoder.biasing import CompiledBiaser, biaser_from_bpe, load_phrases
+
+        comp = CompiledBiaser(biaser_from_bpe(bpe, load_phrases(args.bias), weight=args.bias_weight), bpe.n_units)
+        bias_next, bias_delta = comp.next_state, comp.delta
+    if args.fusion_lm:
+        from mogasr_torch.lm.unit_ngram import load_unit_lm
+
+        fusion = ctc_fusion_matrix(bpe.n_units, load_unit_lm(args.fusion_lm), args.fusion_weight)
+    return fusion, bias_next, bias_delta
+
+
+def ctc_ext_score(args, bpe):
+    """The host beam's ``ext_score`` from ``--bias`` and ``--fusion-lm``
+    (``lm.unit_ngram.compose_ext_scores``), None when neither is given."""
+    if not (args.bias or args.fusion_lm):
+        return None
+    from mogasr_torch.lm.unit_ngram import compose_ext_scores
+
+    exts = []
+    if args.bias:
+        from mogasr_torch.decoder.biasing import biaser_from_bpe, load_phrases
+
+        exts.append(biaser_from_bpe(bpe, load_phrases(args.bias), weight=args.bias_weight).score)
+    if args.fusion_lm:
+        from mogasr_torch.lm.unit_ngram import fusion_score, load_unit_lm
+
+        exts.append(fusion_score(load_unit_lm(args.fusion_lm), args.fusion_weight))
+    return compose_ext_scores(exts)
 
 
 def make_logger(args) -> RunLogger:

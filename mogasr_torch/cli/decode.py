@@ -19,10 +19,18 @@ scores with a trained hybrid model instead (``cli.train_nn``'s checkpoint;
 ``--nn-hidden/--nn-layers/--nn-experts`` as trained, ``--nn-precision``
 float32, bfloat16 or int8; LstmAm and BlstmAm on K4), and
 ``--ivector-ckpt`` appends the extractor's i-vectors to its features. Each
-batch's dummy rows are left out before scoring. Not ported yet, and raising
-NotImplementedError: the end-to-end acoustic models (``--ctc``, ``--rnnt``,
-``--aed``), ``--bias``, ``--fusion-lm`` and ``--nnlm-rescore``;
-each message names the ROADMAP item that ports it. ``--add-pitch`` appends
+batch's dummy rows are left out before scoring.
+
+``--ctc`` with ``--am <arch> --nn-ckpt <run-dir>/nn_ctc_<arch>`` (``cli.train_nn
+--objective ctc``): log posteriors over phones + blank (LstmAm and BlstmAm on
+K4), decoded in word mode over the CTC word loop (``am.ctc.ctc_decode_graph``:
+K2's word-loop arm with its skip arm, or the LM decoder with ``--bigram-lm``),
+in phone mode greedily; with ``--bpe FILE`` (the run's bpe.json) lexicon-free
+words, greedily, or with ``--bias``/``--fusion-lm`` through the prefix beam on
+the device (``am.ctc.ctc_prefix_beam_decode_device``, width ``--bias-beam``).
+
+Not ported yet, and raising NotImplementedError naming the ROADMAP item that
+ports it: ``--rnnt``, ``--aed`` and ``--nnlm-rescore``. ``--add-pitch`` appends
 the pitch triple (``frontend/pitch.py``) to the features.
 """
 
@@ -34,8 +42,8 @@ import os
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_nn_args, add_run_args, device_of, load_corpus, load_nn_scorer, load_or_random_gmm,
-    make_logger, refuse_unported,
+    add_corpus_args, add_ctc_beam_args, add_nn_args, add_run_args, device_of, load_corpus, load_nn_scorer,
+    load_or_random_gmm, make_logger, refuse_unported,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
@@ -59,8 +67,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num-states", type=int, default=0)
     p.add_argument("--num-components", type=int, default=8)
     add_nn_args(p)
-    # the end-to-end families' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--ctc", action="store_true", help="CTC model (not ported yet: raises)")
+    p.add_argument("--ctc", action="store_true",
+                   help="the NN checkpoint is a CTC model (train_nn --objective ctc): posterior scoring over "
+                        "phones+blank, CTC-topology decode graph (word mode) or greedy best-path phone decode "
+                        "(phone mode)")
+    p.add_argument("--bpe", metavar="FILE",
+                   help="with --ctc: the checkpoint was trained on BPE subword units (train_nn --bpe-merges; FILE "
+                        "is its bpe.json): lexicon-free word decoding")
+    # the other end-to-end families' primary flags, accepted as the reference's are; they raise
     p.add_argument("--rnnt", action="store_true", help="RNN-transducer (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
     p.add_argument("--ivector-ckpt", metavar="DIR",
@@ -68,8 +82,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "hybrid model's features")
     p.add_argument("--ivector-dim", type=int, default=16)
     p.add_argument("--ivector-components", type=int, default=64)
-    p.add_argument("--bias", metavar="FILE", help="contextual biasing (not ported yet: raises)")
-    p.add_argument("--fusion-lm", metavar="FILE", help="unit-bigram shallow fusion (not ported yet: raises)")
+    add_ctc_beam_args(p)
     p.add_argument("--mode", default="word", choices=["word", "phone"])
     p.add_argument("--bigram-lm", action="store_true",
                    help="decode with a bigram word LM estimated from the corpus transcripts (word mode only)")
@@ -107,12 +120,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     args = parse_args(argv)
     refuse_unported((
-        ("--ctc", args.ctc, "13: am/ctc.py"),
         ("--rnnt", args.rnnt, "13: am/rnnt.py"),
         ("--aed", args.aed, "13: am/aed.py"),
         ("--nnlm-rescore", args.nnlm_rescore, "13: lm/neural.py"),
-        ("--bias", args.bias, "13: decoder/biasing.py"),
-        ("--fusion-lm", args.fusion_lm, "13: lm/unit_ngram.py"),
     ))
     if args.am != "gmm" and not args.nn_ckpt:
         raise SystemExit("--nn-ckpt is required with --am mlp/lstm")
@@ -145,6 +155,12 @@ def main(argv=None) -> None:
     needs_lattice = args.trigram_rescore or args.nbest > 0 or args.consensus != "off" or bool(args.lattice_out)
     if (needs_lattice or args.multi_pron) and args.mode != "word":
         raise SystemExit("--multi-pron/--trigram-rescore/--nbest/--consensus require --mode word")
+    if args.ctc and (args.am == "gmm" or args.multi_pron):
+        raise SystemExit("--ctc/--rnnt require a neural --am and no --multi-pron")
+    if args.ctc and args.bpe and (args.mode == "phone" or args.consensus != "off" or args.nbest > 0
+                                  or args.bigram_lm or args.trigram_rescore or args.lattice_out):
+        raise SystemExit("--ctc --bpe decodes words via the prefix beam: incompatible with --mode phone, "
+                         "--consensus, --nbest, --bigram-lm, --trigram-rescore, --lattice-out")
 
     run_dir = os.path.abspath(args.run_dir)
     with trace(os.path.join(run_dir, "profile") if args.profile else None):
@@ -160,14 +176,31 @@ def main(argv=None) -> None:
                                  f"{extractor.rank}: pass --ivector-components and --ivector-dim as trained")
             batches = append_ivectors(batches, extractor)
             ivec_rank = extractor.rank
+        bpe = None
         if args.am == "gmm":
             gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
             params, scorer = kernel_params(gmm, "float32"), None
+        elif args.ctc:
+            from mogasr_torch.am.ctc import make_ctc_scorer
+            from mogasr_torch.cli.common import load_ctc_model
+
+            if args.bpe:
+                from mogasr_torch.data.bpe import load_bpe
+
+                bpe = load_bpe(args.bpe)
+            n_units = bpe.n_units if bpe is not None else lex.n_phones
+            scorer = make_ctc_scorer(load_ctc_model(args.am, n_units, args.nn_hidden, args.nn_layers,
+                                                    fcfg.feat_dim + ivec_rank, args.nn_ckpt, device))
         else:
             scorer = load_nn_scorer(args, topo.n_pdfs, fcfg.feat_dim + ivec_rank, device)
 
         pron_logp = None
-        if args.mode == "word" and args.multi_pron:
+        if args.ctc:
+            from mogasr_torch.am.ctc import ctc_decode_graph
+
+            # word mode: the CTC word loop; phone mode and --bpe decode without a graph
+            graph = ctc_decode_graph(lex, dcfg) if args.mode == "word" and bpe is None else None
+        elif args.mode == "word" and args.multi_pron:
             from mogasr_torch.pipeline import word_decode_graph_multi
 
             graph, pron_logp = word_decode_graph_multi(lex, topo, dcfg)
@@ -189,7 +222,7 @@ def main(argv=None) -> None:
             with open(args.grammar) as f:
                 sentences = [line.split() for line in f if line.split()]
             lm = grammar_bigram([[w.lower() for w in s] for s in sentences], tokens=sorted(set(graph.labels)))
-        elif args.bigram_lm or needs_lattice:
+        elif args.bigram_lm or (needs_lattice and bpe is None):
             if args.mode != "word":
                 raise SystemExit("--bigram-lm requires --mode word")
             from mogasr_torch.lm.ngram import (
@@ -219,7 +252,9 @@ def main(argv=None) -> None:
         with Timer() as t:
             for fb in map(live_rows, batches):
                 scores = scorer(fb) if scorer is not None else score_batch(fb.feats, gmm, params=params)
-                if needs_lattice:
+                if bpe is not None:
+                    out = [bpe.decode(seq) for seq in _ctc_bpe_units(args, bpe, scores, fb.n_frames)]
+                elif needs_lattice:
                     from mogasr_torch.decoder.lattice import lattice_nbest, rescore_lattice
                     from mogasr_torch.pipeline import decode_batch_lattices
 
@@ -254,6 +289,10 @@ def main(argv=None) -> None:
                                      insertion_penalty=args.insertion_penalty, chain_entry_logp=pron_logp)
                     toks = path_to_tokens_lm(res, graph)
                     out = [[w for w in h if w not in ("<sil>", "sil")] for h in toks]
+                elif args.ctc and args.mode == "phone":
+                    from mogasr_torch.am.ctc import ctc_greedy_decode
+
+                    out = [[lex.phones[u] for u in seq] for seq in ctc_greedy_decode(scores, fb.n_frames)]
                 else:
                     out = decode_batch(fb, scores, graph, dcfg)
                 for b in range(fb.size):
@@ -294,6 +333,21 @@ def main(argv=None) -> None:
                 if nbest_lists:
                     rec_out["nbest"] = nbest_lists[i]
                 f.write(json.dumps(rec_out) + "\n")
+
+
+def _ctc_bpe_units(args, bpe, logp, n_frames):
+    """``--ctc --bpe``: each row's units, greedily, or with ``--bias`` /
+    ``--fusion-lm`` the best of the device prefix beam."""
+    from mogasr_torch.am.ctc import ctc_greedy_decode, ctc_prefix_beam_decode_device
+
+    if not (args.bias or args.fusion_lm):
+        return ctc_greedy_decode(logp, n_frames)
+    from mogasr_torch.cli.common import ctc_beam_tables
+
+    fusion, bias_next, bias_delta = ctc_beam_tables(args, bpe)
+    ranked = ctc_prefix_beam_decode_device(logp, n_frames, beam_size=args.bias_beam, u_cap=int(logp.shape[1]),
+                                           fusion=fusion, bias_next=bias_next, bias_delta=bias_delta)
+    return [r[0][1] for r in ranked]
 
 
 if __name__ == "__main__":

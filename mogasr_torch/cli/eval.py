@@ -40,9 +40,17 @@ trained hybrid model (``cli.train_nn``'s checkpoint; ``--nn-hidden/
 --nn-layers/--nn-experts`` as trained, ``--nn-precision`` float32,
 bfloat16 or int8; LstmAm and BlstmAm on K4) in place of the GMM, over the
 word loop of the corpus lexicon, as the reference does. Each batch's dummy
-rows are left out before scoring. Not ported yet, and raising
-NotImplementedError naming ROADMAP item 13: ``--ctc``, ``--rnnt``, ``--aed``
-and ``--bpe``. The options that only those paths read are left out.
+rows are left out before scoring.
+
+``--ctc --bpe FILE --nn-ckpt DIR`` sweeps a BPE-CTC model (``cli.train_nn
+--objective ctc --bpe-merges``; ``--nn-arch/--nn-hidden/--nn-layers`` as
+trained) with lexicon-free greedy word decoding: the argmax on the card
+(``am.ctc.make_ctc_frames_fn``; LstmAm and BlstmAm on K4, ConformerAm at its
+subsampled rate), one [B, T] int copy to the host, the collapse and
+``bpe.decode`` there. As in the reference, ``--ctc`` needs ``--bpe`` and
+``--nn-ckpt``. Not ported yet, and raising NotImplementedError naming ROADMAP
+item 13: ``--rnnt`` and ``--aed``. The options that only those paths read are
+left out.
 """
 
 from __future__ import annotations
@@ -93,11 +101,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--vtln", action="store_true",
                    help="unsupervised two-pass per-speaker VTLN warp estimation (grid search over warped mel "
                         "front ends)")
+    p.add_argument("--ctc", action="store_true",
+                   help="evaluate a BPE-CTC neural AM (lexicon-free greedy word decoding) instead of the GMM "
+                        "system: requires --bpe and --nn-ckpt")
     # the unported paths' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--ctc", action="store_true", help="BPE-CTC neural AM (not ported yet: raises)")
     p.add_argument("--rnnt", action="store_true", help="BPE-RNNT checkpoint (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="BPE-AED checkpoint (not ported yet: raises)")
-    p.add_argument("--bpe", metavar="FILE", help="bpe.json (not ported yet: raises)")
+    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc)")
+    p.add_argument("--nn-arch", default="lstm", choices=["mlp", "lstm", "blstm", "tdnn", "conformer"],
+                   help="with --ctc: the CTC model's architecture")
     add_nn_args(p)
     p.add_argument("--streaming", action="store_true",
                    help="extract features through the chunked streaming front end instead of the offline batch path")
@@ -164,11 +176,13 @@ def main(argv=None) -> None:
         if lexicon_free:
             raise SystemExit("--ctc/--rnnt/--aed are lexicon-free sweeps: use them without --am")
     refuse_unported((
-        ("--ctc", args.ctc, "13: am/ctc.py"),
         ("--rnnt", args.rnnt, "13: am/rnnt.py"),
         ("--aed", args.aed, "13: am/aed.py"),
-        ("--bpe", args.bpe, "13: data/bpe.py"),
     ))
+    if len(lexicon_free) > 1:
+        raise SystemExit(f"pick one of {'/'.join(lexicon_free)}")
+    if lexicon_free and not (args.bpe and args.nn_ckpt):
+        raise SystemExit(f"{lexicon_free[0]} requires --bpe and --nn-ckpt")
     device = device_of(args.device)
     bundle = None
     if args.bundle:
@@ -192,7 +206,22 @@ def main(argv=None) -> None:
         batches = featurize_streaming(corpus, fcfg, bcfg, device, chunk_samples=chunk)
     else:
         batches = featurize(corpus, fcfg, bcfg, device)
-    if args.am == "gmm":
+    neural = None
+    if args.ctc:
+        from mogasr_torch.am.ctc import ctc_collapse_frames, make_ctc_frames_fn
+        from mogasr_torch.cli.common import load_ctc_model
+        from mogasr_torch.data.bpe import load_bpe
+
+        bpe = load_bpe(args.bpe)
+        frames_fn = make_ctc_frames_fn(load_ctc_model(args.nn_arch, bpe.n_units, args.nn_hidden, args.nn_layers,
+                                                      fcfg.feat_dim, args.nn_ckpt, device))
+
+        def neural(fb):
+            frames, n_dec = frames_fn(fb.feats, fb.n_frames)
+            return [bpe.decode(seq) for seq in ctc_collapse_frames(frames, n_dec, bpe.n_units)]
+
+        gmm = params = hybrid = None
+    elif args.am == "gmm":
         gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
         params, hybrid = kernel_params(gmm, "float32"), None
     else:
@@ -229,12 +258,15 @@ def main(argv=None) -> None:
                 for fb in map(live_rows, batches):
                     if all(u in done for u in fb.utt_ids):
                         continue
-                    scores = hybrid(fb) if hybrid is not None else score_batch(fb.feats, gmm, params=params)
-                    if args.consensus:
-                        lats, _ = decode_batch_lattices(fb, scores, graph, cn_lm, dcfg)
-                        out = [consensus_decode(confusion_network(lat, cn_lm))[0] for lat in lats]
+                    if neural is not None:
+                        out = neural(fb)
                     else:
-                        out = decode_batch(fb, scores, graph, dcfg)
+                        scores = hybrid(fb) if hybrid is not None else score_batch(fb.feats, gmm, params=params)
+                        if args.consensus:
+                            lats, _ = decode_batch_lattices(fb, scores, graph, cn_lm, dcfg)
+                            out = [consensus_decode(confusion_network(lat, cn_lm))[0] for lat in lats]
+                        else:
+                            out = decode_batch(fb, scores, graph, dcfg)
                     for b in range(fb.size):
                         out_f.write(json.dumps({"utt_id": fb.utt_ids[b], "ref": fb.words[b], "hyp": out[b]}) + "\n")
                     out_f.flush()

@@ -15,10 +15,17 @@ stops), then {"final", "rtf"}. ``--gmm-ckpt`` reads the port's checkpoint
 format; without it a random GMM is drawn as the reference draws it. Records
 go to <run-dir>/metrics.jsonl. Runs on ``--device`` (default cuda).
 
+``--ctc --nn-ckpt <run-dir>/nn_ctc_lstm`` (``cli.train_nn --objective ctc
+--arch lstm``; ``--nn-hidden/--nn-layers`` as trained) scores each chunk with
+the stateful LstmAm (``am.neural.LstmAmStream``: K4's carry arm) and decodes
+its log posteriors with the OnlineDecoder over the CTC word loop
+(``am.ctc.ctc_decode_graph``: K2's chunk arm with its skip arm); with ``--bpe
+FILE`` lexicon-free words through ``am.ctc.CtcStreamDecoder``, greedy, or the
+host prefix beam (width ``--bias-beam``) with ``--bias`` and ``--fusion-lm``.
+
 Not ported yet, and raising NotImplementedError naming ROADMAP item 13: the
-neural families ``--ctc``, ``--rnnt`` and ``--aed``, and ``--bpe``,
-``--bias`` and ``--fusion-lm``. The options that only those paths read are
-left out.
+neural families ``--rnnt`` and ``--aed``. The options that only those paths
+read are left out.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ import numpy as np
 import torch
 
 from mogasr_torch.am.gmm_cuda import kernel_params
-from mogasr_torch.cli.common import add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported
+from mogasr_torch.cli.common import (
+    add_ctc_beam_args, add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported,
+)
 from mogasr_torch.config import DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.decoder import viterbi as vit
 from mogasr_torch.decoder.online import OnlineDecoder
@@ -59,25 +68,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="causal endpointing (frontend/endpoint.py): stop decoding and finalize when a rule fires "
                         "(trailing silence / no speech / max length)")
     p.add_argument("--endpoint-trailing-sil", type=float, default=0.5, help="rule-1 trailing-silence seconds")
-    # the neural families' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--ctc", action="store_true", help="neural online CTC (not ported yet: raises)")
+    p.add_argument("--ctc", action="store_true",
+                   help="neural online CTC: the stateful LSTM (train_nn --objective ctc --arch lstm checkpoint via "
+                        "--nn-ckpt) scores chunks; words decode online over the CTC word loop, or lexicon-free "
+                        "with --bpe")
+    # the other neural families' primary flags, accepted as the reference's are; they raise
     p.add_argument("--rnnt", action="store_true", help="online RNN-transducer (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="streaming AED (not ported yet: raises)")
-    p.add_argument("--bpe", metavar="FILE", help="BPE subword units (not ported yet: raises)")
-    p.add_argument("--bias", metavar="FILE", help="contextual phrase biasing (not ported yet: raises)")
-    p.add_argument("--fusion-lm", metavar="FILE", help="unit-bigram shallow fusion (not ported yet: raises)")
+    p.add_argument("--nn-ckpt", help="CTC checkpoint dir (with --ctc)")
+    p.add_argument("--bpe", metavar="FILE",
+                   help="with --ctc: the checkpoint uses BPE subword units (FILE is its bpe.json): open-vocabulary "
+                        "streaming words")
+    add_ctc_beam_args(p)
+    p.add_argument("--nn-hidden", type=int, default=512)
+    p.add_argument("--nn-layers", type=int, default=3)
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     refuse_unported((
-        ("--ctc", args.ctc, "13: am/ctc.py"),
-        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
         ("--aed", args.aed, "13: am/aed.py"),
-        ("--bpe", args.bpe, "13: data/bpe.py"),
-        ("--bias", args.bias, "13: decoder/biasing.py"),
-        ("--fusion-lm", args.fusion_lm, "13: lm/unit_ngram.py"),
+        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
     ))
     device = device_of(args.device)
     fcfg = FrontendConfig(cmvn="sliding", cmvn_window=args.cmvn_window)
@@ -100,18 +112,37 @@ def main(argv=None) -> None:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
     logger = make_logger(args)
-    gmm = load_or_random_gmm(args, fcfg.feat_dim, device)
-    params = kernel_params(gmm, "float32")
-    graph = word_decode_graph(lex, topo, dcfg)
+    if args.ctc:
+        if not args.nn_ckpt:
+            raise SystemExit("--ctc requires --nn-ckpt (train_nn --objective ctc --arch lstm)")
+        from mogasr_torch.am.ctc import ctc_decode_graph
+
+        bpe = None
+        if args.bpe:
+            from mogasr_torch.data.bpe import load_bpe
+
+            bpe = load_bpe(args.bpe)
+        score_chunk = _ctc_chunk_scorer(args, (bpe.n_units if bpe is not None else lex.n_phones) + 1,
+                                        fcfg.feat_dim, device)
+        if bpe is not None:
+            _stream_ctc_bpe(args, wave, fcfg, bpe, score_chunk, logger, device)
+            return
+        graph = ctc_decode_graph(lex, dcfg)
+        score_feats = score_chunk
+    else:
+        gmm = load_or_random_gmm(args, fcfg.feat_dim, device)
+        params = kernel_params(gmm, "float32")
+        graph = word_decode_graph(lex, topo, dcfg)
+
+        def score_feats(feats):
+            return score_batch(torch.as_tensor(feats[None], device=device), gmm, params=params)
+
     graphs_np = gr.batch_graphs([graph])
     graphs = vit.graphs_to_torch(graphs_np, device)
 
     def words_of(path, entered):
         toks = vit.path_to_tokens(vit.ViterbiResult(path, entered, None), graph.labels, graphs_np["chain_id"])[0]
         return [w for w in toks if w not in DROP_TOKENS]
-
-    def score_feats(feats):
-        return score_batch(torch.as_tensor(feats[None], device=device), gmm, params=params)
 
     sf = StreamingFrontend(fcfg, device=device)
     dec = OnlineDecoder(graphs, acoustic_scale=dcfg.acoustic_scale)
@@ -151,6 +182,58 @@ def main(argv=None) -> None:
         "rtf": t.seconds / max(audio_s, 1e-9), "final_words": final,
         **({"endpoint": ep.rule} if ep is not None and ep.endpointed else {}),
     })
+
+
+def _ctc_chunk_scorer(args, V: int, feat_dim: int, device: torch.device):
+    """feats chunk [Tc, D] -> [1, Tc, V] log posteriors of the stateful
+    LstmAm in ``--nn-ckpt`` (K4's carry arm on the card), its carries kept
+    across calls."""
+    from mogasr_torch.am.neural import LstmAmStream, lstm_stream_init
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    model = LstmAmStream(V, feat_dim, hidden=args.nn_hidden, layers=max(args.nn_layers - 1, 1))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in restore_checkpoint(args.nn_ckpt)["params"].items()})
+    model.to(device).eval()
+    carries = lstm_stream_init(model, 1, device)
+
+    @torch.no_grad()
+    def score(feats):
+        nonlocal carries
+        logits, carries = model(torch.as_tensor(feats[None], device=device), carries)
+        return torch.log_softmax(logits, dim=-1)
+
+    return score
+
+
+def _stream_ctc_bpe(args, wave, fcfg, bpe, score_chunk, logger, device) -> None:
+    """``--ctc --bpe``: open-vocabulary streaming through CtcStreamDecoder
+    (greedy, or the prefix beam with ``--bias``/``--fusion-lm``)."""
+    from mogasr_torch.am.ctc import CtcStreamDecoder
+    from mogasr_torch.cli.common import ctc_ext_score
+
+    ext = ctc_ext_score(args, bpe)
+    if ext is not None:
+        ctc_dec = CtcStreamDecoder(blank_id=bpe.n_units, mode="beam", beam_size=args.bias_beam, ext_score=ext)
+    else:
+        ctc_dec = CtcStreamDecoder(blank_id=bpe.n_units, mode="greedy")
+    sf = StreamingFrontend(fcfg, device=device)
+    chunk = int(fcfg.sample_rate * args.chunk_ms / 1000.0)
+    with Timer() as t:
+        for i in range(0, len(wave), chunk):
+            consumed = min(i + chunk, len(wave))
+            feats = sf.process(wave[i : i + chunk])
+            if feats.size:
+                ctc_dec.step(score_chunk(feats)[0])
+            print(json.dumps({"t_audio_s": round(consumed / fcfg.sample_rate, 2),
+                              "partial": bpe.decode(ctc_dec.partial())}), flush=True)
+        feats = sf.finalize()
+        if feats.size:
+            ctc_dec.step(score_chunk(feats)[0])
+        words = bpe.decode(ctc_dec.finalize())
+    audio_s = len(wave) / fcfg.sample_rate
+    print(json.dumps({"final": words, "rtf": round(t.seconds / audio_s, 4)}))
+    logger.log({"stage": "stream_ctc_bpe", "audio_s": round(audio_s, 2), "wall_sec": t.seconds,
+                "rtf": t.seconds / max(audio_s, 1e-9), "final_words": words})
 
 
 if __name__ == "__main__":

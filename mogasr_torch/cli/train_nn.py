@@ -25,16 +25,27 @@ encoder (``am.pretrain``, no transcripts read), saved to
 with ``decode``/``eval --am <arch> --nn-ckpt <run-dir>/nn_<arch>`` (and the
 same ``--nn-hidden/--nn-layers/--nn-experts``).
 
+``--objective ctc``: alignment-free CTC over the transcripts' phones (or
+``--bpe-merges N`` BPE units learned from them, ``bpe.json`` written to the
+run dir), no GMM bootstrap (``pipeline.train_ctc``/``train_ctc_bpe``: the
+loss on kernel K3); ``--init-from <run-dir>/nn_mpc_<arch>`` warm-starts the
+encoder from an MPC checkpoint of the same sizes; ``--distill-from DIR``
+trains the ``--arch`` student on a CTC teacher's frame posteriors
+(``pipeline.distill_ctc_units``; the teacher's ``--distill-teacher-*`` sizes
+as it was trained, its ``bpe.json`` reused when one is next to it). The
+checkpoint is <run-dir>/nn_ctc_<arch>, ``{"params": state_dict}``; decode it
+with ``decode``/``search``/``transcribe --ctc``, ``eval``/``decode
+--ctc --bpe``, ``stream --ctc`` (LstmAm).
+
 LstmAm and BlstmAm train on their plain recurrence under autograd (kernel
 K4 has no backward, as the reference's Pallas kernel trains nothing) and
 decode on K4. Records go to <run-dir>/metrics.jsonl. Runs on ``--device``
 (default cuda).
 
 Not ported yet, and raising NotImplementedError naming ROADMAP item 13:
-``--objective ctc/rnnt/aed`` and the options of those paths that the
-reference reads (``--init-from``, ``--distill-from``, ``--bpe-merges``,
-``--aed-chunk``, ``--aed-left-chunks``, ``--rnnt-pruned-band``,
-``--mwer-steps``); the distillation teacher's options are left out.
+``--objective rnnt/aed`` and the options of those paths
+(``--aed-chunk``, ``--aed-left-chunks``, ``--rnnt-pruned-band``,
+``--mwer-steps``).
 """
 
 from __future__ import annotations
@@ -75,17 +86,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--spec-augment", action="store_true", help="SpecAugment time/feature masking during training")
     p.add_argument("--objective", default="ce", choices=["ce", "ctc", "rnnt", "aed", "mpc"],
-                   help="ce: frame CE on GMM forced alignments; mpc: unsupervised masked-predictive-coding "
-                        "pretraining of the --arch encoder (no transcripts read); ctc, rnnt, aed: not ported yet "
-                        "(raise)")
+                   help="ce: frame CE on GMM forced alignments; ctc: alignment-free CTC on transcript phone (or "
+                        "--bpe-merges) targets; mpc: unsupervised masked-predictive-coding pretraining of the "
+                        "--arch encoder (no transcripts read); rnnt, aed: not ported yet (raise)")
+    p.add_argument("--bpe-merges", type=int, default=0, metavar="N",
+                   help="with --objective ctc: train on BPE subword units (N merges learned from the transcripts) "
+                        "instead of phones; writes bpe.json into the run dir")
+    p.add_argument("--init-from", metavar="CKPT_DIR",
+                   help="with --objective ctc: warm-start the encoder from an MPC checkpoint (train_nn --objective "
+                        "mpc with the same --arch/--hidden/--layers); the CTC head keeps its fresh weights")
+    p.add_argument("--distill-from", metavar="CKPT_DIR",
+                   help="with --objective ctc: distil a trained CTC teacher checkpoint's frame posteriors into this "
+                        "(student) model; the teacher's units are reused (bpe.json next to it, else phones)")
+    p.add_argument("--distill-teacher-arch", default="conformer", choices=["mlp", "lstm", "blstm", "tdnn", "conformer"],
+                   help="teacher architecture: must match the checkpoint")
+    p.add_argument("--distill-teacher-hidden", type=int, default=512)
+    p.add_argument("--distill-teacher-layers", type=int, default=3)
+    p.add_argument("--distill-alpha", type=float, default=0.5, help="soft-target weight: alpha*KL + (1-alpha)*CTC")
+    p.add_argument("--distill-temp", type=float, default=2.0, help="distillation softmax temperature")
     # the unported paths' options, accepted as the reference's are; they raise
     p.add_argument("--aed-chunk", type=int, default=0, metavar="C", help="streaming AED encoder (not ported yet)")
     p.add_argument("--aed-left-chunks", type=int, default=1, help="streaming AED context (not ported yet)")
     p.add_argument("--rnnt-pruned-band", type=int, default=0, metavar="S", help="pruned RNN-T loss (not ported yet)")
     p.add_argument("--mwer-steps", type=int, default=0, metavar="N", help="MWER fine-tuning (not ported yet)")
-    p.add_argument("--bpe-merges", type=int, default=0, metavar="N", help="BPE subword units (not ported yet)")
-    p.add_argument("--init-from", metavar="CKPT_DIR", help="MPC warm start of a CTC run (not ported yet)")
-    p.add_argument("--distill-from", metavar="CKPT_DIR", help="CTC knowledge distillation (not ported yet)")
     p.add_argument("--ivector-dim", type=int, default=0, metavar="R",
                    help="CE path: train an i-vector extractor (UBM + total variability) on the training features "
                         "and append per-utterance i-vectors to every frame (decode with --ivector-ckpt "
@@ -115,16 +138,18 @@ def main(argv=None) -> None:
         raise SystemExit("--arch moe supports --objective ce (the hybrid CE path collects the MoE load-balance "
                          "aux loss; the other objectives would drop it)")
     refuse_unported((
-        (f"--objective {args.objective}", args.objective in ("ctc", "rnnt", "aed"), "13: am/ctc.py, am/rnnt.py, "
-                                                                                    "am/aed.py"),
-        ("--init-from", args.init_from, "13: an MPC warm start of CTC"),
-        ("--distill-from", args.distill_from, "13: am/distill.py"),
-        ("--bpe-merges", args.bpe_merges > 0, "13: data/bpe.py"),
+        (f"--objective {args.objective}", args.objective in ("rnnt", "aed"), "13: am/rnnt.py, am/aed.py"),
         ("--aed-chunk", args.aed_chunk > 0, "13: am/aed.py"),
         ("--aed-left-chunks", args.aed_left_chunks != 1, "13: am/aed.py"),
         ("--rnnt-pruned-band", args.rnnt_pruned_band > 0, "13: am/rnnt_pruned.py"),
         ("--mwer-steps", args.mwer_steps > 0, "13: MWER fine-tuning"),
     ))
+    if args.init_from and args.objective != "ctc":
+        raise SystemExit("--init-from (MPC warm start) supports --objective ctc")
+    if args.distill_from and args.objective != "ctc":
+        raise SystemExit("--distill-from supports --objective ctc")
+    if args.distill_from and args.bpe_merges > 0:
+        raise SystemExit("--distill-from reuses the TEACHER's unit inventory (its bpe.json): drop --bpe-merges")
     device = device_of(args.device)
     corpus, lex = load_corpus(args)
     corpus = apply_augmentation(corpus, args)
@@ -136,6 +161,8 @@ def main(argv=None) -> None:
         batches = featurize(corpus, fcfg, BatchConfig(), device)
         if args.objective == "mpc":
             _pretrain(args, batches, logger, run_dir)
+        elif args.objective == "ctc":
+            _train_ctc(args, batches, lex, fcfg, logger, run_dir, device)
         else:
             _train_ce(args, batches, lex, topo, fcfg, logger, run_dir, device)
 
@@ -151,6 +178,57 @@ def _pretrain(args, batches, logger, run_dir: str) -> None:
     ckpt = os.path.join(run_dir, f"nn_mpc_{args.arch}")
     save_checkpoint(ckpt, {"params": model.state_dict()}, step=args.steps)
     print(f"saved MPC {args.arch} AM to {ckpt}")
+
+
+def _train_ctc(args, batches, lex, fcfg, logger, run_dir: str, device: torch.device) -> None:
+    from mogasr_torch.pipeline import distill_ctc_units, train_ctc, train_ctc_bpe
+
+    tcfg = TrainConfig(nn_arch=args.arch, nn_hidden=args.hidden, nn_layers=args.layers, lr=args.lr,
+                       num_nn_steps=args.steps)
+    init_params = None
+    if args.init_from:
+        from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+        init_params = {k: torch.as_tensor(v) for k, v in
+                       restore_checkpoint(os.path.abspath(args.init_from))["params"].items()}
+    with Timer() as t:
+        if args.distill_from:
+            from mogasr_torch.am.ctc import ctc_labels_from_words
+            from mogasr_torch.cli.common import load_ctc_model
+
+            teacher_dir = os.path.abspath(args.distill_from)
+            bpe_path = os.path.join(os.path.dirname(teacher_dir), "bpe.json")
+            if os.path.exists(bpe_path):
+                from mogasr_torch.data.bpe import load_bpe, save_bpe
+
+                bpe = load_bpe(bpe_path)
+                encode_fn, n_units = bpe.encode, bpe.n_units
+                save_bpe(bpe, os.path.join(run_dir, "bpe.json"))  # the student decodes with the same units
+            else:
+                def encode_fn(words):
+                    return ctc_labels_from_words(lex, words, include_sil=False)
+
+                n_units = lex.n_phones
+            teacher = load_ctc_model(args.distill_teacher_arch, n_units, args.distill_teacher_hidden,
+                                     args.distill_teacher_layers, int(batches[0].feats.shape[-1]), teacher_dir,
+                                     device)
+            model, _sd = distill_ctc_units(batches, teacher, encode_fn, n_units, tcfg, student_arch=args.arch,
+                                           alpha=args.distill_alpha, temperature=args.distill_temp,
+                                           spec_augment=args.spec_augment, logger=logger)
+        elif args.bpe_merges > 0:
+            from mogasr_torch.data.bpe import save_bpe, train_bpe
+
+            bpe = train_bpe([fb.words[b] for fb in batches for b in range(fb.size)], n_merges=args.bpe_merges)
+            save_bpe(bpe, os.path.join(run_dir, "bpe.json"))
+            model, _sd = train_ctc_bpe(batches, bpe, tcfg, arch=args.arch, spec_augment=args.spec_augment,
+                                       logger=logger)
+        else:
+            model, _sd = train_ctc(batches, lex, tcfg, arch=args.arch, spec_augment=args.spec_augment,
+                                   init_params=init_params, logger=logger)
+    logger.log({"stage": "train_ctc_done", "steps": args.steps, "wall_sec": t.seconds})
+    ckpt = os.path.join(run_dir, f"nn_ctc_{args.arch}")
+    save_checkpoint(ckpt, {"params": model.state_dict()}, step=args.steps)
+    print(f"saved CTC {args.arch} AM to {ckpt}")
 
 
 def _train_ce(args, batches, lex, topo, fcfg, logger, run_dir: str, device: torch.device) -> None:

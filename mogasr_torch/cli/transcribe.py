@@ -23,10 +23,17 @@ its own VAD segments, then ``diarize.diarize_wave``: i-vectors on the card,
 clustering on the host) and tags every segment with the speaker that
 overlaps it most, ``--num-speakers`` (0: found by the clustering's distance
 threshold), ``--diarize-components`` and ``--diarize-rank`` as in the
-reference. Not ported yet, and raising NotImplementedError naming the
-ROADMAP item that ports them: the neural families ``--ctc``, ``--rnnt``,
-``--aed`` with ``--bpe`` (item 13). The options that only those paths read
-are left out.
+reference.
+
+``--ctc --nn-ckpt DIR`` (``cli.train_nn --objective ctc``; ``--nn-arch/
+--nn-hidden/--nn-layers`` as trained) scores each segment with the CTC
+model's log posteriors (LstmAm and BlstmAm on K4) and decodes them over the
+CTC word loop (``am.ctc.ctc_decode_graph``) the same way, K2's and K3's skip
+arms included; with ``--bpe FILE`` lexicon-free words from the greedy best
+path, their times from the units' first frames and their confidences the mean
+best-path posterior (``am.ctc.ctc_greedy_decode_with_frames``). Not ported
+yet, and raising NotImplementedError naming ROADMAP item 13: ``--rnnt`` and
+``--aed``. The options that only those paths read are left out.
 """
 
 from __future__ import annotations
@@ -71,22 +78,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="with --diarize: known speaker count (0 = find it by the AHC distance threshold)")
     p.add_argument("--diarize-components", type=int, default=16)
     p.add_argument("--diarize-rank", type=int, default=8)
+    p.add_argument("--ctc", action="store_true",
+                   help="use a CTC acoustic model (train_nn --objective ctc checkpoint via --nn-ckpt) through the "
+                        "CTC-topology word graph, or lexicon-free with --bpe")
     # the unported paths' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--ctc", action="store_true", help="CTC acoustic model (not ported yet: raises)")
     p.add_argument("--rnnt", action="store_true", help="RNN-transducer (not ported yet: raises)")
     p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
-    p.add_argument("--bpe", metavar="FILE", help="BPE inventory (not ported yet: raises)")
+    p.add_argument("--bpe", metavar="FILE",
+                   help="with --ctc: lexicon-free open-vocabulary transcription (train_nn --objective ctc "
+                        "--bpe-merges checkpoint): word times from the greedy best path")
+    p.add_argument("--nn-ckpt", help="CTC checkpoint dir (with --ctc)")
+    p.add_argument("--nn-arch", default="mlp", choices=["mlp", "lstm", "blstm", "tdnn", "conformer"])
+    p.add_argument("--nn-hidden", type=int, default=512)
+    p.add_argument("--nn-layers", type=int, default=3)
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    if sum((args.aed, args.ctc, args.rnnt)) > 1:
+        raise SystemExit("--aed/--ctc/--rnnt are different acoustic models")
     refuse_unported((
-        ("--ctc", args.ctc, "13: am/ctc.py"),
         ("--rnnt", args.rnnt, "13: am/rnnt.py"),
         ("--aed", args.aed, "13: am/aed.py"),
-        ("--bpe", args.bpe, "13: data/bpe.py"),
     ))
+    if args.ctc and args.bpe and args.nbest:
+        raise SystemExit("--ctc --bpe is lexicon-free greedy decoding (no lattice): incompatible with --nbest")
     device = device_of(args.device)
     fcfg = FrontendConfig()
     if args.synthetic_demo:
@@ -107,8 +124,23 @@ def main(argv=None) -> None:
     if args.num_states == 0:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
-    gmm = load_or_random_gmm(args, fcfg.feat_dim, device)
-    params = kernel_params(gmm, "float32")
+    bpe = ctc_model = None
+    if args.ctc:
+        if not args.nn_ckpt:
+            raise SystemExit("--ctc requires --nn-ckpt")
+        from mogasr_torch.am.ctc import make_ctc_scorer
+        from mogasr_torch.cli.common import load_ctc_model
+
+        if args.bpe:
+            from mogasr_torch.data.bpe import load_bpe
+
+            bpe = load_bpe(args.bpe)
+        ctc_model = load_ctc_model(args.nn_arch, bpe.n_units if bpe is not None else lex.n_phones, args.nn_hidden,
+                                   args.nn_layers, fcfg.feat_dim, args.nn_ckpt, device)
+        ctc_scorer = make_ctc_scorer(ctc_model)
+    else:
+        gmm = load_or_random_gmm(args, fcfg.feat_dim, device)
+        params = kernel_params(gmm, "float32")
     logger = make_logger(args)
 
     with Timer() as t:
@@ -116,7 +148,14 @@ def main(argv=None) -> None:
         corpus = [(f"seg-{i:04d}", wave[a:b], []) for i, (a, b) in enumerate(segments)]
         results = []
         if corpus:
-            graph = word_decode_graph(lex, topo, dcfg)
+            if bpe is not None:
+                graph = None
+            elif args.ctc:
+                from mogasr_torch.am.ctc import ctc_decode_graph
+
+                graph = ctc_decode_graph(lex, dcfg)
+            else:
+                graph = word_decode_graph(lex, topo, dcfg)
             # bucket ceilings cover max_segment_s, or make_batches would drop
             # segments between the default 20 s ceiling and the VAD cap
             max_frames = int(args.max_segment_s * 1000 / fcfg.frame_shift_ms) + 10
@@ -129,7 +168,10 @@ def main(argv=None) -> None:
                 nbest_lm = uniform_bigram(sorted(set(graph.labels)))
             shift_s = fcfg.frame_shift_ms / 1000.0
             for fb in featurize(corpus, fcfg, bcfg, device):
-                scores = score_batch(fb.feats, gmm, params=params)
+                if bpe is not None:
+                    results.extend(_ctc_bpe_segments(ctc_model, bpe, fb, segments, fcfg))
+                    continue
+                scores = ctc_scorer(fb) if args.ctc else score_batch(fb.feats, gmm, params=params)
                 out = decode_batch_with_confidence(fb, scores, graph, dcfg, with_times=True)
                 nbests = None
                 if args.nbest > 0:
@@ -182,6 +224,36 @@ def main(argv=None) -> None:
             f.write("\n".join(lines) + "\n")
     else:
         print("\n".join(lines))
+
+
+def _ctc_bpe_segments(model, bpe, fb, segments, fcfg):
+    """``--ctc --bpe``: each segment's words from the greedy best path, with
+    times from the units' first frames and the mean best-path posterior over
+    each word's emission frames as its confidence."""
+    import torch
+
+    from mogasr_torch.am.ctc import ctc_greedy_decode_with_frames, ctc_logits
+
+    logits = ctc_logits(model, fb.feats, fb.n_frames)
+    maxp = torch.softmax(logits, dim=-1).max(dim=-1).values.cpu().numpy()
+    pairs_all = ctc_greedy_decode_with_frames(logits, fb.n_frames)
+    shift_s = fcfg.frame_shift_ms / 1000.0
+    out = []
+    for b in range(fb.size):
+        a, e = segments[int(fb.utt_ids[b].split("-")[1])]
+        seg_start = a / fcfg.sample_rate
+        pairs = pairs_all[b]
+        spans = bpe.decode_with_spans([u for u, _ in pairs])
+        out.append({
+            "start_s": round(seg_start, 2),
+            "end_s": round(e / fcfg.sample_rate, 2),
+            "words": [w for w, _i0, _i1 in spans],
+            "confidences": [round(float(np.mean([maxp[b, pairs[i][1]] for i in range(i0, i1 + 1)])), 3)
+                            for _w, i0, i1 in spans],
+            "word_times": [[round(seg_start + pairs[i0][1] * shift_s, 2),
+                            round(seg_start + (pairs[i1][1] + 1) * shift_s, 2)] for _w, i0, i1 in spans],
+        })
+    return out
 
 
 if __name__ == "__main__":

@@ -99,7 +99,8 @@ def forward_backward(
             nf.data_ptr(), J, log_gamma.data_ptr(), betas.data_ptr(), loglik.data_ptr(), arms.data_ptr(),
             torch.cuda.current_stream().cuda_stream, side.cuda_stream,
         )
-        _cuda.check(lib, "forward_backward", err, "fb_forward_backward launch")
+        _cuda.check(lib, "forward_backward", err, f"fb_forward_backward launch (B={B}, T={T}, J={J}; a J above "
+                    f"MAX_J in csrc/forward_backward.cu is rejected)")
     FWD_LAUNCHES += launches
     BWD_LAUNCHES += launches
     COMBINE_LAUNCHES += launches

@@ -1,14 +1,16 @@
-"""The port's native (C++) host code, loaded through ctypes: the FLAC decoder.
+"""The port's native (C++) host code, loaded through ctypes: the FLAC decoder
+and the CTC prefix beam.
 
-``flac_native.cpp`` is a byte-identical copy of the reference's
-mogasr/native/flac_native.cpp (host C++, not a GPU kernel). At first use it
-is compiled with the system g++ into ``build/mogasr_torch/`` at the
+``flac_native.cpp`` and ``ctc_beam_native.cpp`` are byte-identical copies of
+the reference's mogasr/native sources (host C++, not GPU kernels). At first
+use each is compiled with the system g++ into ``build/mogasr_torch/`` at the
 repository root (the directory the CUDA kernels build into, git-ignored),
 never next to the source; the file name carries a hash of the source and
 the flags, so a changed source never loads a stale library. Processes that
 build it at once each write their own temporary file and rename it into
-place. ``load_flac_lib`` returns None when g++ or the load fails, as the
-reference's does; ``data/audio.py`` then falls back to ``soundfile``.
+place. ``load_flac_lib`` and ``load_ctc_beam_lib`` return None when g++ or
+the load fails, as the reference's do; ``data/audio.py`` then falls back to
+``soundfile``, ``am.ctc.ctc_prefix_beam_decode_native`` returns None.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _LOCK = threading.Lock()
 _FLAC_LIB: Optional[ctypes.CDLL] = None
 _FLAC_TRIED = False
+_CTC_LIB: Optional[ctypes.CDLL] = None
+_CTC_TRIED = False
 
 
 def library_path(name: str) -> str:
@@ -87,3 +91,35 @@ def load_flac_lib() -> Optional[ctypes.CDLL]:
         lib.flac_decode.restype = ctypes.c_longlong
         _FLAC_LIB = lib
         return _FLAC_LIB
+
+
+def load_ctc_beam_lib() -> Optional[ctypes.CDLL]:
+    """The CTC prefix-beam shared library, built on first call; None if g++
+    or dlopen is unavailable. Its ctypes signature is the reference's."""
+    global _CTC_LIB, _CTC_TRIED
+    with _LOCK:
+        if _CTC_LIB is not None or _CTC_TRIED:
+            return _CTC_LIB
+        _CTC_TRIED = True
+        so_path = library_path("ctc_beam_native")
+        if not os.path.exists(so_path) and not _build(os.path.join(_HERE, "ctc_beam_native.cpp"), so_path):
+            return None
+        try:
+            lib = ctypes.CDLL(so_path)
+        except OSError:
+            return None
+        lib.ctc_prefix_beam.argtypes = [
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int32,
+        ]
+        lib.ctc_prefix_beam.restype = ctypes.c_int32
+        _CTC_LIB = lib
+        return _CTC_LIB

@@ -5,8 +5,10 @@ Decoding: featurize -> score_batch -> Viterbi -> path_to_tokens -> WER, on
 padded length-bucketed batches (``data.batching``). ``decode_corpus`` runs
 the whole path over a corpus, as ``bench.py`` does for the reference. The
 hybrid NN-HMM path scores with a neural frame classifier instead
-(``make_nn_scorer``: prior-scaled log-posteriors) and decodes the same way.
-Beyond the 1-best loop decode: ``decode_batch_lattices`` (the bigram LM
+(``make_nn_scorer``: prior-scaled log-posteriors) and decodes the same way;
+the CTC path (``train_ctc``, ``train_ctc_bpe``, ``train_ctc_units``,
+``distill_ctc_units``, ``make_ctc_scorer``; ``am.ctc``) trains on K3 and
+decodes the CTC word loop on K2's skip arm. Beyond the 1-best loop decode: ``decode_batch_lattices`` (the bigram LM
 decode of ``decoder.lm_viterbi`` with its one-pass word lattices, for the
 host's rescoring, N-best and confusion networks), and
 ``decode_batch_with_confidence`` / ``decode_batch_nbest`` (Viterbi and
@@ -381,6 +383,173 @@ def make_nn_scorer(
             return posteriors_to_loglik(logits_fn(fb.feats, fb.n_frames), lp)
 
     return scorer
+
+
+def make_ctc_scorer(model: torch.nn.Module, use_kernels: bool = True) -> Scorer:
+    """``am.ctc.make_ctc_scorer``: ``fb -> [B, T, V]`` CTC log posteriors for
+    graph decoding (``am.ctc.ctc_decode_graph``, acoustic scale 1)."""
+    from mogasr_torch.am.ctc import make_ctc_scorer as _m
+
+    return _m(model, use_kernels)
+
+
+def train_ctc(
+    batches: Sequence[FeatBatch],
+    lexicon: Lexicon,
+    tcfg: TrainConfig,
+    arch: str = "mlp",
+    steps: Optional[int] = None,
+    spec_augment: bool = False,
+    include_sil: bool = False,
+    init_params: Optional[Dict[str, torch.Tensor]] = None,
+    logger=None,
+    *,
+    use_kernels: bool = True,
+):
+    """Alignment-free CTC training on (features, phone sequence) pairs: the
+    vocabulary is the lexicon's phones + blank (last) -> (model, state_dict).
+    Decode with ``am.ctc.ctc_decode_graph`` + ``decode_batch`` or greedily."""
+    from mogasr_torch.am.ctc import ctc_labels_from_words
+
+    return train_ctc_units(
+        batches, lambda words: ctc_labels_from_words(lexicon, words, include_sil), lexicon.n_phones, tcfg,
+        arch=arch, steps=steps, spec_augment=spec_augment, init_params=init_params, logger=logger,
+        use_kernels=use_kernels,
+    )
+
+
+def train_ctc_bpe(
+    batches: Sequence[FeatBatch],
+    bpe,
+    tcfg: TrainConfig,
+    arch: str = "mlp",
+    steps: Optional[int] = None,
+    spec_augment: bool = False,
+    init_params: Optional[Dict[str, torch.Tensor]] = None,
+    logger=None,
+    *,
+    use_kernels: bool = True,
+):
+    """Lexicon-free CTC on BPE units (``data.bpe``) -> (model, state_dict);
+    decode greedily or with a prefix beam and join with ``bpe.decode``."""
+    return train_ctc_units(batches, bpe.encode, bpe.n_units, tcfg, arch=arch, steps=steps,
+                           spec_augment=spec_augment, init_params=init_params, logger=logger,
+                           use_kernels=use_kernels)
+
+
+def _ctc_model(arch: str, n_units: int, tcfg: TrainConfig, batches: Sequence[FeatBatch]) -> torch.nn.Module:
+    """A fresh ``arch`` model over n_units + blank, its weights drawn from
+    ``tcfg.seed``, on the batches' device."""
+    from mogasr_torch.am.neural import build_model
+    from mogasr_torch.am.params import init_
+
+    fb0 = batches[0]
+    model = build_model(arch, n_units + 1, tcfg, int(fb0.feats.shape[-1]))
+    return init_(model, torch.Generator().manual_seed(tcfg.seed)).to(fb0.feats.device)
+
+
+def train_ctc_units(
+    batches: Sequence[FeatBatch],
+    encode_fn: Callable[[List[str]], List[int]],  # words -> unit ids
+    n_units: int,                                  # vocabulary without blank (blank = n_units)
+    tcfg: TrainConfig,
+    arch: str = "mlp",
+    steps: Optional[int] = None,
+    spec_augment: bool = False,
+    init_params: Optional[Dict[str, torch.Tensor]] = None,
+    logger=None,
+    *,
+    use_kernels: bool = True,
+):
+    """Alignment-free CTC over any unit inventory -> (model, state_dict).
+
+    init_params: a warm-start state_dict, e.g. an MPC-pretrained encoder
+    (``am.pretrain``): every entry whose name and shape this model shares is
+    copied in (``transfer_pretrained``), the head keeps its fresh weights.
+    The loss runs on K3 on the card (``am.ctc.ctc_loss``)."""
+    from mogasr_torch.am.ctc import init_ctc_train_state, make_ctc_train_step
+
+    model = _ctc_model(arch, n_units, tcfg, batches)
+    if init_params is not None:
+        from mogasr_torch.am.pretrain import transfer_pretrained
+
+        merged, copied, total = transfer_pretrained(init_params, model.state_dict())
+        if copied == 0:
+            raise ValueError(f"init_params shares no (name, shape)-compatible entries with the {arch} CTC model "
+                             "-- arch/hidden/layers mismatch?")
+        model.load_state_dict(merged)
+        if logger is not None:
+            logger.log({"stage": "ctc_warm_start", "leaves_copied": copied, "leaves_total": total})
+    state = init_ctc_train_state(model, tcfg)
+    step_fn = make_ctc_train_step(tcfg, spec_aug=spec_augment, use_kernels=use_kernels)
+    labeled = _pack_ctc_targets(batches, encode_fn)
+    total_steps = steps if steps is not None else tcfg.num_nn_steps
+    i = 0
+    while i < total_steps:
+        for fb, labels, n_labels in labeled:
+            state, m = step_fn(state, fb.feats, fb.n_frames, labels, n_labels)
+            i += 1
+            if logger is not None and i % 50 == 0:
+                logger.log({"stage": "train_ctc", "step": i, "loss": m["loss"]})
+            if i >= total_steps:
+                break
+    return model, model.state_dict()
+
+
+def _pack_ctc_targets(batches: Sequence[FeatBatch], encode_fn
+                      ) -> List[Tuple[FeatBatch, torch.Tensor, torch.Tensor]]:
+    """[(fb, labels [rows, L], n_labels [rows])] on the batches' device, one
+    shared pad length, zero-length rows for the batch padding."""
+    from mogasr_torch.am.ctc import pack_label_batch
+
+    seqs_all = [[encode_fn(fb.words[b]) for b in range(fb.size)] for fb in batches]
+    l_max = max((len(s) for seqs in seqs_all for s in seqs), default=1)
+    labeled = []
+    for fb, seqs in zip(batches, seqs_all):
+        rows = int(fb.feats.shape[0])
+        labels, n_labels = pack_label_batch(seqs + [[] for _ in range(rows - fb.size)], pad_to=l_max)
+        dev = fb.feats.device
+        labeled.append((fb, torch.as_tensor(labels, device=dev), torch.as_tensor(n_labels, device=dev)))
+    return labeled
+
+
+def distill_ctc_units(
+    batches: Sequence[FeatBatch],
+    teacher_model: torch.nn.Module,
+    encode_fn: Callable[[List[str]], List[int]],  # words -> unit ids (the teacher's inventory)
+    n_units: int,                                  # vocabulary without blank (blank = n_units)
+    tcfg: TrainConfig,
+    student_arch: str = "lstm",
+    alpha: float = 0.5,
+    temperature: float = 2.0,
+    steps: Optional[int] = None,
+    spec_augment: bool = False,
+    logger=None,
+    *,
+    use_kernels: bool = True,
+):
+    """Distill a trained CTC teacher (the module with its weights) into a
+    ``student_arch`` student over the same units (``am.distill``) ->
+    (model, state_dict): a drop-in CTC model of that architecture."""
+    from mogasr_torch.am.ctc import init_ctc_train_state
+    from mogasr_torch.am.distill import make_distill_train_step
+
+    model = _ctc_model(student_arch, n_units, tcfg, batches)
+    state = init_ctc_train_state(model, tcfg)
+    step_fn = make_distill_train_step(teacher_model, tcfg, alpha=alpha, temperature=temperature,
+                                      spec_aug=spec_augment, use_kernels=use_kernels)
+    labeled = _pack_ctc_targets(batches, encode_fn)
+    total_steps = steps if steps is not None else tcfg.num_nn_steps
+    i = 0
+    while i < total_steps:
+        for fb, labels, n_labels in labeled:
+            state, m = step_fn(state, fb.feats, fb.n_frames, labels, n_labels)
+            i += 1
+            if logger is not None and i % 50 == 0:
+                logger.log({"stage": "distill_ctc", "step": i, "loss": m["loss"], "kl": m["kl"], "ctc": m["ctc"]})
+            if i >= total_steps:
+                break
+    return model, model.state_dict()
 
 
 def decode_batch(

@@ -255,9 +255,11 @@ def test_eval_cli_resumes(tmp_path):
     assert os.path.isfile(cut / "profile" / "trace.json")
 
 
+# eval --ctc --bpe runs since the CTC port (tests/test_torch_cli_ctc.py); the
+# lexicon-free families still refused keep its cases
 REFUSED = [
-    (cli_eval, ["--ctc"], "13"), (cli_eval, ["--rnnt"], "13"), (cli_eval, ["--aed"], "13"),
-    (cli_eval, ["--bpe", "bpe.json"], "13"),
+    (cli_eval, ["--rnnt", "--bpe", "bpe.json"], "13"), (cli_eval, ["--rnnt"], "13"), (cli_eval, ["--aed"], "13"),
+    (cli_eval, ["--aed", "--bpe", "bpe.json"], "13"),
 ]
 
 
@@ -302,7 +304,8 @@ def test_cli_item10_flags_run(tmp_path, cli, flags):
         assert rec["stage"] == "eval" and rec["utts"] == 1 and len(_jsonl(os.path.join(run_dir, "eval_hyps.jsonl"))) == 1
 
 
-@pytest.mark.parametrize("flags", [["--rnnt-beam", "4"], ["--nn-arch", "lstm"], ["--aed-beam", "2"]])
+# --nn-arch is read by eval --ctc since the CTC port
+@pytest.mark.parametrize("flags", [["--rnnt-beam", "4"], ["--rnnt-pred", "lstm"], ["--aed-beam", "2"]])
 def test_eval_companion_flags_of_unported_paths_are_rejected(tmp_path, flags, capsys):
     with pytest.raises(SystemExit):
         cli_eval.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])

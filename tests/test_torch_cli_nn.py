@@ -161,8 +161,11 @@ def test_train_nn_mpc_cli(tmp_path):
     assert _records(run)[-1]["stage"] == "train_mpc_done"
 
 
-REFUSED = [["--objective", "ctc"], ["--objective", "rnnt"], ["--objective", "aed"], ["--init-from", "ck"],
-           ["--distill-from", "ck"], ["--bpe-merges", "20"], ["--aed-chunk", "4"], ["--aed-left-chunks", "2"],
+# --objective ctc, --init-from, --distill-from and --bpe-merges run since the
+# CTC port (tests/test_torch_cli_ctc.py; their option checks in STOPS)
+REFUSED = [["--objective", "rnnt", "--bpe-merges", "20"], ["--objective", "rnnt"], ["--objective", "aed"],
+           ["--objective", "aed", "--bpe-merges", "20"], ["--objective", "rnnt", "--init-from", "ck"],
+           ["--objective", "aed", "--distill-from", "ck"], ["--aed-chunk", "4"], ["--aed-left-chunks", "2"],
            ["--rnnt-pruned-band", "4"], ["--mwer-steps", "2"]]
 
 
@@ -175,6 +178,9 @@ def test_train_nn_unported_flags_raise(tmp_path, flags):
 STOPS = [
     (cli_train_nn, ["--steps", "0"], "--steps must be >= 1"),
     (cli_train_nn, ["--arch", "moe", "--objective", "mpc"], "--arch moe supports --objective ce"),
+    (cli_train_nn, ["--init-from", "ck"], "--init-from \\(MPC warm start\\) supports --objective ctc"),
+    (cli_train_nn, ["--distill-from", "ck"], "--distill-from supports --objective ctc"),
+    (cli_train_nn, ["--objective", "ctc", "--distill-from", "ck", "--bpe-merges", "4"], "drop --bpe-merges"),
     (cli_decode, ["--am", "lstm"], "--nn-ckpt is required"),
     (cli_decode, ["--am", "lstm", "--nn-ckpt", "nn", "--bundle", "b"], "--bundle carries a GMM system"),
     (cli_decode, ["--ivector-ckpt", "iv"], "--ivector-ckpt augments hybrid/CTC neural features"),

@@ -157,14 +157,18 @@ def test_features_add_pitch_matches_reference(small, tmp_path, monkeypatch, caps
     assert _records(str(tmp_path / "port"))[-1]["pass"]
 
 
+# --ctc and its --bpe, --bias and --fusion-lm run since the CTC port
+# (tests/test_torch_cli_ctc.py); with the families still refused they raise
 STREAM_REFUSED = [
-    (cli_stream, ["--synthetic-demo", "--ctc"], "13"), (cli_stream, ["--synthetic-demo", "--rnnt"], "13"),
-    (cli_stream, ["--synthetic-demo", "--aed"], "13"), (cli_stream, ["--synthetic-demo", "--bpe", "b.json"], "13"),
-    (cli_stream, ["--synthetic-demo", "--bias", "p.txt"], "13"),
-    (cli_stream, ["--synthetic-demo", "--fusion-lm", "u.npz"], "13"),
-    (cli_transcribe, ["--synthetic-demo", "--ctc"], "13"),
+    (cli_stream, ["--synthetic-demo", "--rnnt", "--nn-ckpt", "nn"], "13"),
+    (cli_stream, ["--synthetic-demo", "--rnnt"], "13"),
+    (cli_stream, ["--synthetic-demo", "--aed"], "13"),
+    (cli_stream, ["--synthetic-demo", "--aed", "--bpe", "b.json"], "13"),
+    (cli_stream, ["--synthetic-demo", "--rnnt", "--bias", "p.txt"], "13"),
+    (cli_stream, ["--synthetic-demo", "--aed", "--fusion-lm", "u.npz"], "13"),
+    (cli_transcribe, ["--synthetic-demo", "--rnnt", "--nn-ckpt", "nn"], "13"),
     (cli_transcribe, ["--synthetic-demo", "--rnnt"], "13"), (cli_transcribe, ["--synthetic-demo", "--aed"], "13"),
-    (cli_transcribe, ["--synthetic-demo", "--bpe", "b.json"], "13"),
+    (cli_transcribe, ["--synthetic-demo", "--aed", "--bpe", "b.json"], "13"),
 ]
 
 
@@ -176,8 +180,8 @@ def test_stream_cli_flags_not_ported_raise(tmp_path, cli, flags, item):
         cli.main(flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 
-@pytest.mark.parametrize("cli,flags", [(cli_stream, ["--nn-ckpt", "nn"]), (cli_stream, ["--rnnt-pred", "lstm"]),
-                                       (cli_transcribe, ["--nn-arch", "lstm"]), (cli_transcribe, ["--aed-beam", "2"])])
+@pytest.mark.parametrize("cli,flags", [(cli_stream, ["--aed-ctc-weight", "0.3"]), (cli_stream, ["--rnnt-pred", "lstm"]),
+                                       (cli_transcribe, ["--rnnt-pred", "lstm"]), (cli_transcribe, ["--aed-beam", "2"])])
 def test_stream_cli_companion_flags_are_rejected(tmp_path, cli, flags, capsys):
     with pytest.raises(SystemExit):
         cli.main(["--synthetic-demo"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])

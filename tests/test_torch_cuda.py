@@ -1296,3 +1296,60 @@ def test_sequence_functions_on_k3_match_plain_autograd(dev):
             out[use_kernels] = (y.detach(), x.grad)
         torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-4, atol=1e-3, msg=name)
         torch.testing.assert_close(out[True][1], out[False][1], msg=name, **tol)
+
+
+def test_ctc_loss_on_k3_matches_the_plain_recursion(dev):
+    """``am.ctc.ctc_loss`` on the card (K3's chain arm with skips through
+    FbLoglik) against the plain recursion on the card: the loss on short
+    ragged rows, those without labels or frames and those whose labels
+    cannot fit (about 1e30) included; the gradient on the rows that fit, and
+    exactly 0 on the two that cannot. One K3 launch, nothing else."""
+    from mogasr_torch.am import ctc
+
+    rng = np.random.default_rng(15)
+    logits = torch.as_tensor(rng.standard_normal((6, 9, 7)).astype(np.float32), device=dev)
+    nf = torch.as_tensor([9, 0, 3, 9, 2, 6], device=dev)
+    labels = torch.as_tensor([[0, 1, 2, -1], [2, -1, -1, -1], [1, 1, 2, 3], [-1] * 4, [0, 1, 2, -1], [3, 3, 4, 5]],
+                             device=dev)
+    nl = torch.as_tensor([3, 1, 4, 0, 3, 4], device=dev)
+    fit, short = [0, 1, 3, 5], [2, 4]
+    out = {}
+    launches = fb_cuda.FWD_LAUNCHES
+    for use_kernels in (True, False):
+        x = logits.clone().requires_grad_()
+        loss = ctc.ctc_loss(x, nf, labels, nl, use_kernels=use_kernels)
+        loss.sum().backward()
+        out[use_kernels] = (loss.detach(), x.grad)
+    torch.cuda.synchronize()
+    assert fb_cuda.FWD_LAUNCHES == launches + 1
+    assert float(out[False][0][short].min()) > 1e29
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(out[True][1][fit], out[False][1][fit], rtol=0, atol=1e-5)
+    assert bool((out[True][1][short] == 0).all())
+
+
+def test_k3_refuses_label_graphs_wider_than_it_takes(dev):
+    """4096 labels make 8193 states, past K3's MAX_J: the launch is refused
+    with the graph's width and the limit's place, and nothing else runs."""
+    from mogasr_torch.am import ctc
+
+    labels = torch.zeros((1, 4096), dtype=torch.int32, device=dev)
+    logp = torch.zeros((1, 3, 5), device=dev)
+    with pytest.raises(RuntimeError, match="J=8193.*MAX_J"):
+        ctc.ctc_nll_fb(logp, torch.as_tensor([3], device=dev), labels, torch.as_tensor([4096], device=dev), 4)
+
+
+def test_device_prefix_beam_on_the_card_matches_the_cpu(dev):
+    """The device prefix beam on the card and on the CPU: the same ranked
+    hypotheses (ties to the lower index, the merge sums in a fixed order),
+    scores within float32 rounding."""
+    from mogasr_torch.am import ctc
+
+    rng = np.random.default_rng(16)
+    logp = torch.log_softmax(torch.as_tensor(4.0 * rng.standard_normal((3, 30, 9)).astype(np.float32)), -1)
+    nf = torch.as_tensor([30, 17, 0])
+    fusion = (0.3 * rng.standard_normal((9, 8))).astype(np.float32)
+    got = ctc.ctc_prefix_beam_decode_device(logp.to(dev), nf.to(dev), beam_size=5, u_cap=30, fusion=fusion)
+    want = ctc.ctc_prefix_beam_decode_device(logp, nf, beam_size=5, u_cap=30, fusion=fusion)
+    assert [[h for _s, h in r] for r in got] == [[h for _s, h in r] for r in want]
+    np.testing.assert_allclose([s for r in got for s, _h in r], [s for r in want for s, _h in r], rtol=1e-5)

@@ -286,8 +286,10 @@ def test_search_cli_matches_reference(tmp_path, monkeypatch):
                                [h["posterior"] for r in jhits for h in r["hits"]], atol=1e-3)
 
 
-@pytest.mark.parametrize("flags", [["--ctc"], ["--rnnt"], ["--aed"], ["--nnlm-rescore", "lm"], ["--bias", "p.txt"],
-                                   ["--fusion-lm", "u.npz"]])
+# --ctc, --bias and --fusion-lm run since the CTC port
+# (tests/test_torch_cli_ctc.py); with the families still refused they raise
+@pytest.mark.parametrize("flags", [["--rnnt", "--ctc"], ["--rnnt"], ["--aed"], ["--nnlm-rescore", "lm"],
+                                   ["--rnnt", "--bias", "p.txt"], ["--aed", "--fusion-lm", "u.npz"]])
 def test_decode_cli_flags_not_ported_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         cli_decode.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
@@ -302,8 +304,8 @@ def test_decode_cli_add_pitch(tmp_path):
         assert len(f.readlines()) == 1
 
 
-@pytest.mark.parametrize("cli,flags", [(cli_decode, ["--aed-beam", "4"]), (cli_decode, ["--bpe", "x"]),
-                                       (cli_search, ["--terms", "cat", "--nn-arch", "lstm"])])
+@pytest.mark.parametrize("cli,flags", [(cli_decode, ["--aed-beam", "4"]), (cli_decode, ["--rnnt-beam", "4"]),
+                                       (cli_search, ["--terms", "cat", "--rnnt-beam", "4"])])
 def test_cli_companion_flags_of_unported_paths_are_rejected(tmp_path, cli, flags, capsys):
     """The unported paths' companion options are not accepted and then
     ignored: argparse refuses them."""
@@ -313,7 +315,10 @@ def test_cli_companion_flags_of_unported_paths_are_rejected(tmp_path, cli, flags
 
 
 def test_search_cli_ctc_not_ported_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    """``search --ctc`` runs since the CTC port (tests/test_torch_cli_ctc.py
+    holds it to the reference); without its checkpoint it stops as the
+    reference stops."""
+    with pytest.raises(SystemExit, match="--ctc requires --nn-ckpt"):
         cli_search.main(["--synthetic", "1", "--ctc", "--terms", "cat", "--device", "cpu", "--run-dir",
                          str(tmp_path / "run")])
 

@@ -1,6 +1,6 @@
 """The port's copies of the reference's numpy-only modules (config, hmm/,
 data/{batching,synthetic}, eval/{wer,diarization}, frontend/numpy_ref,
-lm/{ngram,arpa}, decoder/{lattice,confusion,kws}) against the originals:
+lm/{ngram,arpa,unit_ngram}, decoder/{lattice,confusion,kws,biasing}, data/bpe) against the originals:
 the same configs, graph arrays, batches, waves, WER counts, DER dicts,
 features, LM tables, ARPA files, lattices, N-best lists, confusion networks
 and keyword hits, bit for bit; the sources in COPIED are the originals but
@@ -144,7 +144,8 @@ def test_numpy_ref_features_match(held_out):
 COPIED = ["lm/ngram.py", "lm/arpa.py", "decoder/lattice.py", "decoder/confusion.py", "decoder/kws.py",
           "data/kaldi_io.py", "data/audio.py", "data/flac_write.py", "data/manifest.py", "data/librispeech.py",
           "data/augment.py", "native/flac_native.cpp", "frontend/vad.py", "frontend/endpoint.py",
-          "frontend/pitch_stream.py", "eval/diarization.py"]
+          "frontend/pitch_stream.py", "eval/diarization.py", "data/bpe.py", "lm/unit_ngram.py",
+          "decoder/biasing.py", "native/ctc_beam_native.cpp"]
 TOKENS = ["a", "b", "c", "<sil>"]
 TEXTS = [["a", "b"], ["a", "b", "c"], ["c"], ["b", "a", "a"], ["a", "<sil>", "b"]]
 
@@ -280,3 +281,33 @@ def test_der_copy_matches():
         for collar in (0.0, 0.25):
             assert diarization.der(ref, hyp, collar_s=collar) == jax_diarization.der(ref, hyp, collar_s=collar)
     assert diarization.der([], [(0.0, 1.0, 0)]) == jax_diarization.der([], [(0.0, 1.0, 0)])
+
+
+def test_bpe_unit_lm_biasing_copies_match():
+    """data/bpe, lm/unit_ngram and decoder/biasing: the same merges and
+    encodings, the same unit-bigram tables and perplexity, the same biasing
+    scores and compiled tables."""
+    from mogasr.data import bpe as jax_bpe
+    from mogasr.decoder import biasing as jax_biasing
+    from mogasr.lm import unit_ngram as jax_unit_ngram
+    from mogasr_torch.data import bpe
+    from mogasr_torch.decoder import biasing
+    from mogasr_torch.lm import unit_ngram
+
+    texts = [u.words for u in syn.make_corpus(12, seed=3)]
+    ours, theirs = bpe.train_bpe(texts, n_merges=15), jax_bpe.train_bpe(texts, n_merges=15)
+    assert (ours.units, ours.merges) == (theirs.units, theirs.merges)
+    seqs = [ours.encode(t) for t in texts]
+    assert seqs == [theirs.encode(t) for t in texts] and [ours.decode(s) for s in seqs] == texts
+    lm, jlm = unit_ngram.estimate_unit_bigram(seqs, ours.n_units), jax_unit_ngram.estimate_unit_bigram(
+        seqs, ours.n_units)
+    np.testing.assert_array_equal(lm.pair_logp, jlm.pair_logp)
+    np.testing.assert_array_equal(lm.init_logp, jlm.init_logp)
+    assert unit_ngram.unit_perplexity(lm, seqs[:3]) == jax_unit_ngram.unit_perplexity(jlm, seqs[:3])
+    phrases = [texts[0][:2], [texts[1][0]]]
+    b, jb = biasing.biaser_from_bpe(ours, phrases), jax_biasing.biaser_from_bpe(theirs, phrases)
+    assert [b.score(tuple(s[:k]), u) for s in seqs[:4] for k in range(len(s)) for u in range(5)] == \
+        [jb.score(tuple(s[:k]), u) for s in seqs[:4] for k in range(len(s)) for u in range(5)]
+    c, jc = biasing.CompiledBiaser(b, ours.n_units), jax_biasing.CompiledBiaser(jb, ours.n_units)
+    np.testing.assert_array_equal(c.delta, jc.delta)
+    np.testing.assert_array_equal(c.next_state, jc.next_state)
