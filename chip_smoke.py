@@ -247,7 +247,34 @@ printed. Without a CUDA device it fails at once.
    ``train_nn --objective ctc`` (phones; --bpe-merges), ``train_lm
    --unit-ngram``, ``decode --ctc`` (the word loop; --bpe --bias
    --fusion-lm), ``eval --ctc --bpe``, ``stream --ctc`` (the word loop;
-   --bpe --bias --fusion-lm), ``transcribe --ctc``, ``search --ctc``.
+   --bpe --bias --fusion-lm), ``transcribe --ctc``, ``search --ctc``;
+43. K2's chunk arm with a frame offset per row (``viterbi_cuda.chunk_step``
+   with a [B] frame0, the serving engine's launch) at the serving shape, 64
+   x 24 x 3048: ragged offsets, reused rows at 0, idle rows and a row filling
+   its buffer to the end, from buffers of random bits, bitwise the plain
+   chunk step scattered at the offsets; timed beside it and the bound;
+44. the GMM session engine (``serving.engine.BatchedSessionEngine``) at the
+   serving configuration of benchmarks/bench_serve.py (capacity 64, 24-frame
+   ticks, sliding CMVN over 600 frames, the bundle's word loop, K1
+   float32/sum) over the 768 held-out utterances in ragged 0.24 s events with
+   slot reuse, with the launch counts set to 0 before each run and read
+   after: device history with host features, then with device features, and
+   host history with host features; finals against the dedicated
+   per-session pipeline (StreamingFrontend + K1 + OnlineDecoder) on the
+   first 64 sessions, host history against device history on all; WER;
+   realtime streams a card, ms a tick on the device timeline, partial
+   latency, launches a tick by counter and by kernel name and the card's
+   busy share (a profiled window), synchronizing calls in ticks counted with
+   ``torch.cuda.set_sync_debug_mode`` (printed with their sites);
+   K1 at a tick's 1536 frames timed;
+45. the CTC session engine (``BatchedCtcEngine``: K4's carry arm, host
+   CtcStreamDecoders) on phase 37's LstmAm: units against the dedicated
+   per-session stream on 64 sessions (host features), 256 sessions on the
+   device features (streams a card, ms a tick, syncs); K4's carry arm at
+   64 x 24 x 512 with idle rows timed beside plain, the bound and cuDNN;
+46. the serve twin in this process over one stdin event file: the GMM
+   per-session mode against --engine, --ctc --bpe (phase 42's model)
+   per-session against --engine, and a --tcp round trip.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -552,6 +579,23 @@ CTC_STREAM_ROWS = 64
 CTC_BPE_MERGES, CTC_BPE_STEPS, CTC_BEAM, CTC_BEAM_UTTS, CTC_BEAM_FRAMES = 200, 6, 8, 8, 60
 CTC_BEAM_RTOL = 2e-4  # the reference's device-beam tolerance, tests/test_ctc_device_beam.py
 CTC_DISTILL_STEPS, CTC_DISTILL_HIDDEN, CTC_INIT_STEPS = 4, 256, 2
+# The serving configuration of benchmarks/bench_serve.py (:42-43, 93-111,
+# 199-216): capacity 64 slots, 24-frame ticks, sliding CMVN over 600
+# frames, the headline bundle's word loop (J = 3048), K1 float32/sum, the
+# device history bounded at 3000 frames a session (30 s). Each live session
+# sends its next 0.24 s audio event with probability SERVE_FEED_P a tick
+# (ragged arrival); partials of every live session every SERVE_PARTIAL_EVERY
+# ticks. The dedicated per-session pipeline decodes the first SERVE_GATE
+# sessions; a profiled and a sync-counting window of SERVE_PROFILE_TICKS
+# ticks each start at tick SERVE_WINDOW_AT. The CTC engine serves the first
+# SERVE_CTC_UTTS held-out utterances; the serve twin SERVE_CLI_SESSIONS
+# interleaved sessions.
+SERVE_CAPACITY, SERVE_TICK, SERVE_CMVN_WINDOW, SERVE_MAX_FRAMES = 64, 24, 600, 3000
+SERVE_FEED_P, SERVE_PARTIAL_EVERY, SERVE_GATE, SERVE_SEED = 0.75, 8, 64, 44
+SERVE_PROFILE_TICKS, SERVE_WINDOW_AT, SERVE_CTC_UTTS, SERVE_CLI_SESSIONS = 24, 40, 256, 8
+# queued_ms's sleep: ~50 ms at the H100's 1980 MHz, far longer than the
+# host takes to queue a timed run of calls
+QUEUE_SLEEP_CYCLES = 100_000_000
 KERNEL_COUNTERS = ("gmm_score", "gmm_score_wide", "gmm_score_int8", "viterbi", "fb_forward", "fb_backward",
                    "fb_combine", "lstm_scan")
 
@@ -585,6 +629,24 @@ def per_call_ms(fn, calls: int):
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def queued_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` with the host's part hidden: a
+    sleep kernel holds the stream while the host queues ``calls`` calls,
+    which then run back to back between two CUDA events (the calls' own
+    copies to the card included). No profiler: a profiling window late in
+    a long run has come back without device activity."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(calls):
         fn()
@@ -3351,6 +3413,30 @@ def ctc_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
     k4_err = float((y_k - y_p)[vmask].abs().max())
     if k4_err > K4_ATOL["float32"]:
         raise RuntimeError(f"K4 on the CTC encoder's layer 0 off the plain recurrence by {k4_err}")
+    # the library yardstick at this shape: cuDNN's LSTM for the whole layer 0
+    # on the packed batch (rows with frames), beside the input GEMM + K4
+    cudnn = torch.nn.LSTM(D, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(cell.w_in.T)   # torch's gate order i, f, g, o is flax's
+        cudnn.weight_hh_l0.copy_(cell.w_rec.T)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.copy_(cell.bias)
+    live_w = (fbw.n_frames > 0).nonzero()[:, 0]
+    x_live, lens_live = fbw.feats[live_w], fbw.n_frames[live_w].to(device="cpu", dtype=torch.int64)
+
+    def cudnn_layer():
+        with torch.no_grad():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(x_live, lens_live, batch_first=True,
+                                                             enforce_sorted=False)
+            return torch.nn.utils.rnn.pad_packed_sequence(cudnn(packed)[0], batch_first=True, total_length=Tw)[0]
+
+    def gemm_k4_layer():
+        with torch.no_grad():
+            return cell(fbw.feats, fbw.n_frames)
+
+    k4_lib_ms, lib_out = timed(cudnn_layer, 5)
+    k4_layer_ms, layer_out = timed(gemm_k4_layer, 5)
+    k4_lib_err = float((lib_out - layer_out[live_w])[tn.valid_mask(fbw.n_frames[live_w], Tw, dev)].abs().max())
     valid_frames = int(fbw.n_frames.sum())
     k4_b = bound(valid_frames * 4 * H * 4 + H * 4 * H * 4 + Bw * 4 + Bw * Tw * H * 4,
                  valid_frames * H * (2 * 4 * H + K4_GATE_OPS), "float32")
@@ -3364,7 +3450,8 @@ def ctc_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
               f"{graph_launches}); on the widest batch B={Bw} T={Tw} K2's {k2_arms} arm with skips bitwise the plain "
               f"Viterbi, {k2_ms:.3f} ms (plain {k2_plain_ms:.1f} ms, bound {k2_b[0]:.4f} ms by {k2_b[1]}); K4 on the "
               f"encoder's layer 0 {k4_ms:.3f} ms (plain {k4_plain_ms:.1f} ms, bound {k4_b[0]:.4f} ms by {k4_b[1]}, "
-              f"max |err| {k4_err:.3g})")
+              f"max |err| {k4_err:.3g}); the whole layer, input GEMM + K4 {k4_layer_ms:.3f} ms vs cuDNN nn.LSTM "
+              f"{k4_lib_ms:.3f} ms on the packed batch (valid frames max |diff| {k4_lib_err:.3g})")
 
     # ---- phase 39: stream --ctc's path: K4's carry arm, then K2's chunk arm with skips
     rows = min(CTC_STREAM_ROWS, fbw.size)
@@ -3550,7 +3637,9 @@ def ctc_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
             "k2": {"arm": k2_arms[0], "shape": [Bw, Tw, graph.n_states], "max_abs_err": 0.0, "ms": k2_ms,
                    "plain_ms": k2_plain_ms, "bound_ms": k2_b[0], "bound_by": k2_b[1]},
             "k4": {"shape": [Bw, Tw, H], "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
-                   "bound_ms": k4_b[0], "bound_by": k4_b[1]}}
+                   "bound_ms": k4_b[0], "bound_by": k4_b[1], "library_ms": k4_lib_ms,
+                   "layer_ms": k4_layer_ms, "library_max_abs_diff": k4_lib_err},
+            "model": model}
 
 
 def ctc_cli_phase(dev: torch.device) -> dict:
@@ -3640,6 +3729,541 @@ def ctc_cli_phase(dev: torch.device) -> dict:
               f"--bias --fusion-lm WER {recs['decode_bpe']['wer']:.4f}, eval --ctc --bpe WER "
               f"{recs['eval']['wer']:.4f} (4 steps: no limit), stream --ctc (the word loop; --bpe --bias "
               f"--fusion-lm), transcribe --ctc, search --ctc; launches {launches}")
+    return launches
+
+
+
+class ServeLoop:
+    """Feeds (sid, wave) sessions through an engine as a server would: a
+    session starts when a slot is free, each live session sends its next
+    audio event of ``event`` samples with probability SERVE_FEED_P a tick
+    (ragged arrival), ends when its audio is out and is finalized when
+    drained; partials of every live session every ``partial_every`` ticks.
+    Records a CUDA event after each tick (the device timeline's tick
+    periods), the host ms of each partials() call, and, while
+    ``count_syncs`` is set, the synchronizing CUDA calls inside tick()
+    (``torch.cuda.set_sync_debug_mode``)."""
+
+    def __init__(self, eng, sessions, event: int, seed: int, partial_every: int):
+        self.eng, self.pending, self.waves = eng, list(sessions), dict(sessions)
+        self.rng = np.random.default_rng(seed)
+        self.event, self.partial_every = event, partial_every
+        self.cursors, self.ended, self.finals = {}, set(), {}
+        self.tick_events, self.partial_ms = [], []
+        self.count_syncs, self.syncs, self.sync_ticks, self.sync_sites = False, 0, 0, {}
+
+    def done(self) -> bool:
+        return not self.pending and not self.cursors
+
+    def step(self) -> None:
+        import warnings
+
+        eng = self.eng
+        while self.pending and eng.n_live < eng.capacity:
+            sid, _w = self.pending.pop(0)
+            if not eng.start(sid):
+                raise RuntimeError(f"the engine refused session {sid} with {eng.n_live} live")
+            self.cursors[sid] = 0
+        for sid, off in list(self.cursors.items()):
+            if sid in self.ended:
+                continue
+            wave = self.waves[sid]
+            if off >= len(wave):
+                eng.end(sid)
+                self.ended.add(sid)
+            elif self.rng.random() < SERVE_FEED_P:
+                eng.feed(sid, wave[off:off + self.event])
+                self.cursors[sid] = off + self.event
+        if self.count_syncs:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    eng.tick()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            for w in caught:
+                if "synchroniz" in str(w.message):
+                    self.syncs += 1
+                    site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                    self.sync_sites[site] = self.sync_sites.get(site, 0) + 1
+            self.sync_ticks += 1
+        else:
+            eng.tick()
+        done_ev = torch.cuda.Event(enable_timing=True)
+        done_ev.record()
+        self.tick_events.append(done_ev)
+        if eng.ticks % self.partial_every == 0:
+            live = [sid for sid in self.cursors if eng.has(sid)]
+            t0 = time.perf_counter()
+            eng.partials(live)
+            self.partial_ms.append(1e3 * (time.perf_counter() - t0))
+        drained = [sid for sid in sorted(self.ended) if eng.drained(sid)]
+        if drained:
+            many = getattr(eng, "finalize_many", None)
+            self.finals.update(many(drained) if many else {sid: eng.finalize(sid) for sid in drained})
+            for sid in drained:
+                self.ended.discard(sid)
+                del self.cursors[sid]
+
+    def tick_periods_ms(self) -> np.ndarray:
+        """Device-timeline milliseconds between the ends of consecutive ticks."""
+        torch.cuda.synchronize()
+        return np.asarray([a.elapsed_time(b) for a, b in zip(self.tick_events, self.tick_events[1:])])
+
+
+def serving_phases(dev, gmm, fcfg, dcfg, graph, held_out, ctc_model, sfu_exps_per_s) -> dict:
+    """Phases 43-45: K2's ragged chunk arm at the serving shape; the GMM
+    session engine at the serving configuration over the 768 held-out
+    utterances, against the dedicated per-session pipeline; the CTC engine
+    on phase 37's LstmAm. Returns each path's launch counts and the kernels
+    line's serving entries."""
+    import dataclasses
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import fast_lstm, gmm_cuda, lstm_cuda
+    from mogasr_torch.am import neural as tn
+    from mogasr_torch.am.ctc import CtcStreamDecoder
+    from mogasr_torch.am.gmm import gmm_loglik
+    from mogasr_torch.decoder import online, viterbi_cuda
+    from mogasr_torch.decoder import viterbi as vit
+    from mogasr_torch.eval.wer import corpus_wer
+    from mogasr_torch.frontend.streaming import StreamingFrontend
+    from mogasr_torch.hmm import graph as gr
+    from mogasr_torch.serving.engine import BatchedCtcEngine, BatchedSessionEngine
+
+    torch.set_grad_enabled(False)
+    # the earlier phases' cached blocks go back to the card, so that the
+    # engines' allocations are served without reclaiming (which waits for
+    # the card)
+    reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
+    torch.cuda.empty_cache()
+    B, Tc, J = SERVE_CAPACITY, SERVE_TICK, graph.n_states
+    S, K, D = gmm.means.shape
+    scale = dcfg.acoustic_scale
+    sfcfg = dataclasses.replace(fcfg, cmvn="sliding", cmvn_window=SERVE_CMVN_WINDOW)
+    event = Tc * sfcfg.frame_shift    # 0.24 s: one tick's frames
+
+    def zero():
+        zero_launches()
+        viterbi_cuda.CHUNK_LAUNCHES = viterbi_cuda.BACKTRACE_LAUNCHES = lstm_cuda.CARRY_LAUNCHES = 0
+
+    def counts():
+        c = launch_counts()
+        c.update(viterbi_chunk=viterbi_cuda.CHUNK_LAUNCHES, viterbi_backtrace=viterbi_cuda.BACKTRACE_LAUNCHES,
+                 lstm_scan_carry=lstm_cuda.CARRY_LAUNCHES)
+        return c
+
+    def only(name, c, allowed):
+        if any(v for k, v in c.items() if k not in allowed) or min(c[k] for k in allowed) == 0:
+            raise RuntimeError(f"{name}: launches {c} (only and every one of {allowed})")
+
+    # ---- phase 43: K2's chunk arm with a frame offset per row, at the serving shape
+    graphs = pipe.decode_graphs(graph, B, dev)[1]
+    rng = np.random.default_rng(SERVE_SEED)
+    nv = rng.integers(1, Tc + 1, size=B).astype(np.int32)
+    frame0 = rng.integers(0, SERVE_MAX_FRAMES - Tc, size=B)
+    reused = rng.choice(np.arange(1, B), B // 8, replace=False)
+    frame0[reused] = 0                                     # reused rows, back at frame 0
+    nv[rng.choice(np.setdiff1d(np.arange(1, B), reused), B // 8, replace=False)] = 0   # idle rows
+    frame0[0] = SERVE_MAX_FRAMES - nv[0]                   # a row filling its buffer to the end
+    started_np = (rng.random(B) < 0.8) & (frame0 > 0)
+    started0 = torch.as_tensor(started_np, device=dev)
+    delta0 = torch.where(started0[:, None],
+                         torch.as_tensor((rng.standard_normal((B, J)) * 10 - 300).astype(np.float32), device=dev),
+                         torch.full((B, J), online.NEG_INF, device=dev))
+    ll = torch.as_tensor((rng.standard_normal((B, Tc, S)) * 4 - 20).astype(np.float32), device=dev)
+    bp0 = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, SERVE_MAX_FRAMES, -(-J // 32), 2), dtype=torch.int32, device=dev)
+    xa0 = torch.randint(0, J, (B, SERVE_MAX_FRAMES), dtype=torch.int32, device=dev)
+    nv_t = torch.as_tensor(nv)
+    card = [t.clone() for t in (delta0, started0, bp0, xa0)]
+    plain = [t.clone() for t in (delta0, started0, bp0, xa0)]
+    viterbi_cuda.chunk_step(card[0], card[1], ll, nv_t, graphs, scale, 0.0, card[2], card[3], frame0)
+    arms = sorted(set(viterbi_cuda.LAST_ARMS.tolist()))
+    viterbi_cuda._plain_chunk_step(plain[0], plain[1], ll, nv_t.to(dev), graphs, scale, 0.0, plain[2], plain[3],
+                                   frame0)
+    same = [bool(torch.equal(a, b)) for a, b in zip(card, plain)]
+    if not all(same) or arms != [viterbi_cuda.ARM_LOOP]:
+        raise RuntimeError(f"K2's ragged chunk arm differs from the plain step scattered at the offsets (delta, "
+                           f"started, codes, exit argmax equal: {same}; arms {arms})")
+    written = int(sum(max(int(n) - (0 if s else 1), 0) for n, s in zip(nv, started_np)))
+    del bp0, xa0, plain
+    dt_, st_ = delta0.clone(), started0.clone()
+
+    def ragged_call():
+        viterbi_cuda.chunk_step(dt_, st_, ll, nv_t, graphs, scale, 0.0, card[2], card[3], frame0)
+
+    ragged_call_ms, _ = timed(ragged_call, 20)   # the offsets' pinned copies and the host's part included
+    ragged_ms = queued_ms(ragged_call)
+    nv_dev = nv_t.to(dev)
+    ragged_plain_ms, _ = timed(lambda: online.chunk_step(delta0.clone(), started0.clone(), ll, nv_dev, graphs,
+                                                         scale, 0.0), 2)
+    ragged_bound = k2_chunk_bound(graphs, nv_dev, started0, Tc)
+    del card
+    phase(43, f"({reserved_gib:.1f} GiB reserved by the caching allocator before, released) "
+              f"K2's chunk arm with a frame offset per row at the serving shape (B={B}, Tc={Tc}, J={J}, buffers "
+              f"of {SERVE_MAX_FRAMES} frames from random bits; offsets {int(frame0.min())}..{int(frame0.max())}, "
+              f"{len(reused)} reused rows at 0, {int((nv == 0).sum())} idle rows, one filling its buffer to the end, "
+              f"{int(started_np.sum())} rows started before; {int(nv.sum())} valid frames): delta, started, the "
+              f"{written} frames' codes and exit argmax and every other frame's bits bitwise the plain chunk step "
+              f"scattered at the offsets; word-loop arm; {ragged_ms:.4f} ms a call on the device with the host's "
+              f"part hidden, {ragged_call_ms:.4f} ms a call alone (plain {ragged_plain_ms:.3f} ms, bound "
+              f"{ragged_bound[0]:.4f} ms by {ragged_bound[1]})")
+    ragged = {"shape": [B, Tc, J], "valid_frames": int(nv.sum()), "ms": ragged_ms, "call_ms": ragged_call_ms,
+              "plain_ms": ragged_plain_ms, "bound_ms": ragged_bound[0], "bound_by": ragged_bound[1],
+              "max_abs_err": 0.0}
+
+    # ---- phase 44: the GMM session engine at the serving configuration
+    p32 = gmm_cuda.kernel_params(gmm, "float32")
+
+    def score_fn(feats):
+        return pipe.score_batch(feats, gmm, params=p32)
+
+    sessions = [(u.utt_id, u.wave) for u in held_out]
+    gate = [sid for sid, _w in sessions[:SERVE_GATE]]
+    refs = {u.utt_id: [w.lower() for w in u.words] for u in held_out}
+    audio_s = sum(len(w) for _sid, w in sessions) / sfcfg.sample_rate
+
+    def wer_of(finals):
+        return corpus_wer([refs[sid] for sid, _w in sessions],
+                          [[w.lower() for w in finals[sid][0]] for sid, _w in sessions])[0]
+
+    def gmm_engine(history, feature_path):
+        return BatchedSessionEngine(graph, score_fn, sfcfg, dcfg, capacity=B, tick_frames=Tc, history=history,
+                                    max_frames=SERVE_MAX_FRAMES, feature_path=feature_path, device=dev)
+
+    def run(eng, windows=False):
+        """Every session through eng; with windows, a sync-counting window
+        and then a profiled window of SERVE_PROFILE_TICKS ticks each."""
+        import gc
+
+        drv = ServeLoop(eng, sessions, event, SERVE_SEED, SERVE_PARTIAL_EVERY)
+        prof = None
+        zero()
+        t0 = time.perf_counter()
+        while not drv.done():
+            if windows and not drv.sync_ticks and eng.ticks == SERVE_WINDOW_AT:
+                gc.collect()
+                drv.count_syncs = True
+                for _ in range(SERVE_PROFILE_TICKS):
+                    drv.step()
+                drv.count_syncs = False
+                try:
+                    prof = device_profile(lambda: [drv.step() for _ in range(SERVE_PROFILE_TICKS)], top=1000)[:3]
+                except RuntimeError:   # a window without device activity: reported as not measured
+                    prof = None
+            else:
+                drv.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return drv, wall, counts(), prof
+
+    graphs1 = vit.graphs_to_torch(gr.batch_graphs([graph]), dev)
+
+    def dedicated(wave):
+        fe = StreamingFrontend(sfcfg, device=dev)
+        dec = online.OnlineDecoder(graphs1, acoustic_scale=scale)
+        for f in [fe.process(wave[i:i + event]) for i in range(0, len(wave), event)] + [fe.finalize()]:
+            if f.size:
+                dec.process(score_fn(torch.as_tensor(f[None], device=dev)), np.asarray([f.shape[0]]))
+        path, entered, _score = dec.finalize()
+        return gr.path_words(graph, path[0].cpu().numpy(), entered[0].cpu().numpy())
+
+    t0 = time.perf_counter()
+    want = {sid: dedicated(w) for sid, w in sessions[:SERVE_GATE]}
+    ded_s = time.perf_counter() - t0
+    exact, _w, exact_launches, _ = run(gmm_engine("device", "host"))
+    only("the GMM engine (device history, host features)", exact_launches,
+         ("gmm_score", "viterbi_chunk", "viterbi_backtrace"))
+    fast, fast_wall, fast_launches, _ = run(gmm_engine("device", "device"))
+    only("the GMM engine (device history, device features)", fast_launches,
+         ("gmm_score", "viterbi_chunk", "viterbi_backtrace"))
+    hostb, host_wall, host_launches, _ = run(gmm_engine("host", "host"))
+    only("the GMM engine (host history, host features)", host_launches, ("gmm_score", "viterbi_chunk"))
+    windowed, _w, _c, prof = run(gmm_engine("device", "device"), windows=True)
+    bad = {name: [sid for sid in gate if d.finals[sid][0] != want[sid]] for name, d in
+           (("device history, host features", exact), ("device history, device features", fast))}
+    if any(bad.values()):
+        raise RuntimeError(f"engine finals differ from the dedicated per-session pipeline's: {bad}")
+    host_diff = [sid for sid, _w in sessions if hostb.finals[sid][0] != exact.finals[sid][0]]
+    if host_diff:
+        raise RuntimeError(f"the host-history engine's finals differ from the device history's on {host_diff[:8]}")
+    n_fast_diff = sum(fast.finals[sid][0] != exact.finals[sid][0] for sid, _w in sessions)
+    periods = fast.tick_periods_ms()
+    ticks = fast.eng.ticks
+    per_tick = {k: v / ticks for k, v in fast_launches.items() if v}
+    wer = {"exact": wer_of(exact.finals), "device": wer_of(fast.finals), "host": wer_of(hostb.finals)}
+    frames = fast.eng.frames_decoded
+    if prof is not None:
+        wall_ms, dev_ms, events = prof
+        by_name = [(name[:48], n / SERVE_PROFILE_TICKS, ms / SERVE_PROFILE_TICKS) for name, ms, n in events]
+        n_launch = sum(r[1] for r in by_name)
+        prof_text = (f"a profiled window of {SERVE_PROFILE_TICKS} ticks: {wall_ms:.1f} ms wall, {dev_ms:.1f} ms on the "
+                     f"device ({100 * dev_ms / wall_ms:.1f}% busy), {n_launch:.1f} device launches a tick, by kernel "
+                     f"a tick: " + "; ".join(f"{n} x{c:.2f} {m:.3f} ms" for n, c, m in by_name[:14]))
+    else:
+        n_launch = dev_ms = wall_ms = None
+        prof_text = "the profiled window recorded no device activity: busy share and launches by kernel not measured"
+    # K1 float32/sum at the tick's 1536 frames, on real features
+    fe = StreamingFrontend(sfcfg, device=dev)
+    rows = np.concatenate([fe.process(np.concatenate([w for _s, w in sessions[:16]])), fe.finalize()])[:B * Tc]
+    x = torch.as_tensor(rows, device=dev)
+    k1_ms = queued_ms(lambda: gmm_cuda.gmm_loglik_fused(x, gmm, "float32", "sum", params=p32))
+    k1_call_ms, k1_out = timed(lambda: gmm_cuda.gmm_loglik_fused(x, gmm, "float32", "sum", params=p32), 20)
+    k1_plain_ms, k1_want = timed(lambda: gmm_loglik(x, gmm, mode="sum", compute_dtype="float32"), 3)
+    k1_err = float((k1_out - k1_want).abs().max())
+    if not torch.allclose(k1_out, k1_want, atol=K1_ATOL, rtol=K1_RTOL):
+        raise RuntimeError(f"K1 f32/sum at the tick's {x.shape[0]} frames off plain by {k1_err}")
+    k1_b = k1_bound(x.shape[0], S, K, D, "float32", "sum", sfu_exps_per_s)
+    serve = {"capacity": B, "tick_frames": Tc, "sessions": len(sessions), "audio_s": audio_s, "ticks": ticks,
+             "frames": frames, "wall_s": fast_wall, "streams_per_card": audio_s / fast_wall,
+             "tick_ms_median": float(np.median(periods)), "tick_ms_p90": float(np.percentile(periods, 90)),
+             "partial_ms_median": float(np.median(fast.partial_ms)), "partial_ms_p90":
+             float(np.percentile(fast.partial_ms, 90)), "launches_per_tick": per_tick,
+             "device_launches_per_tick": n_launch, "syncs_per_tick": windowed.syncs / windowed.sync_ticks,
+             "sync_sites": windowed.sync_sites,
+             "busy_share": dev_ms / wall_ms if prof is not None else None, "wer": wer, "host_history_wall_s": host_wall,
+             "host_history_streams_per_card": audio_s / host_wall, "dedicated_s": ded_s,
+             "device_path_finals_differing": n_fast_diff}
+    phase(44, f"the GMM session engine at the serving configuration (capacity {B}, {Tc}-frame ticks, sliding CMVN "
+              f"over {SERVE_CMVN_WINDOW} frames, J={J}, K1 float32/sum; the {len(sessions)} held-out utterances in "
+              f"0.24 s events, each sent with probability {SERVE_FEED_P:g} a tick, slots reused; partials every "
+              f"{SERVE_PARTIAL_EVERY} ticks): finals equal to the dedicated per-session pipeline's on the first "
+              f"{len(gate)} sessions ({ded_s:.1f} s) with device history and host features, and with device history "
+              f"and device features; host history equal to device history on all {len(sessions)}; the device feature "
+              f"path differs from the host path on {n_fast_diff} of {len(sessions)}; WER {wer['device']:.4f} (device "
+              f"features), {wer['exact']:.4f} (host features). Device history, device features: {ticks} ticks, "
+              f"{frames} frames, {audio_s:.1f} s of audio in {fast_wall:.2f} s: {audio_s / fast_wall:.1f} realtime "
+              f"streams a card; a tick {np.median(periods):.2f} ms median on the device timeline (p90 "
+              f"{np.percentile(periods, 90):.2f}); partials of {B} sessions {np.median(fast.partial_ms):.2f} ms "
+              f"median (p90 {np.percentile(fast.partial_ms, 90):.2f}); launches a tick "
+              + ", ".join(f"{k} {v:.2f}" for k, v in per_tick.items())
+              + f"; {windowed.syncs} synchronizing calls in {windowed.sync_ticks} ticks {windowed.sync_sites}; "
+              + prof_text + f". Host history, host features: {audio_s / host_wall:.1f} streams a card ({host_wall:.2f} s). "
+              f"K1 f32/sum at a tick's {x.shape[0]} frames {k1_ms:.4f} ms a call with the host's part hidden, "
+              f"{k1_call_ms:.4f} ms alone "
+              f"(plain {k1_plain_ms:.3f} ms, bound "
+              f"{k1_b[0]:.4f} ms by {k1_b[1]}, max |err| {k1_err:.3g})")
+    k1_tick = {"n": int(x.shape[0]), "ms": k1_ms, "call_ms": k1_call_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_b[0], "bound_by": k1_b[1],
+               "max_abs_err": k1_err}
+    del fast, exact, hostb, windowed
+
+    # ---- phase 45: the CTC session engine on phase 37's LstmAm
+    V, H = ctc_model.n_pdfs, ctc_model.hidden
+    smodel = tn.LstmAmStream(V, D, hidden=H, layers=ctc_model.layers).to(dev)
+    smodel.load_state_dict(ctc_model.state_dict())
+    smodel.eval()
+    ctc_sessions = sessions[:SERVE_CTC_UTTS]
+
+    def ctc_engine(feature_path):
+        return BatchedCtcEngine(smodel, lambda: CtcStreamDecoder(blank_id=V - 1), sfcfg, capacity=B, tick_frames=Tc,
+                                feature_path=feature_path, device=dev)
+
+    def ctc_dedicated(wave):
+        fe = StreamingFrontend(sfcfg, device=dev)
+        dec = CtcStreamDecoder(blank_id=V - 1)
+        carries = tn.lstm_stream_init(smodel, 1, dev)
+        for f in [fe.process(wave[i:i + event]) for i in range(0, len(wave), event)] + [fe.finalize()]:
+            if f.size:
+                logits, carries = smodel(torch.as_tensor(f[None], device=dev), carries)
+                dec.step(torch.log_softmax(logits, dim=-1)[0])
+        return list(dec.finalize())
+
+    def ctc_run(feature_path, subset, windows=False):
+        drv = ServeLoop(ctc_engine(feature_path), subset, event, SERVE_SEED, SERVE_PARTIAL_EVERY)
+        zero()
+        t0 = time.perf_counter()
+        while not drv.done():
+            if windows and not drv.sync_ticks and drv.eng.ticks == SERVE_WINDOW_AT:
+                drv.count_syncs = True
+                for _ in range(SERVE_PROFILE_TICKS):
+                    drv.step()
+                drv.count_syncs = False
+            else:
+                drv.step()
+        torch.cuda.synchronize()
+        return drv, time.perf_counter() - t0, counts()
+
+    ctc_want = {sid: ctc_dedicated(w) for sid, w in ctc_sessions[:SERVE_GATE]}
+    ctc_exact, _w, c_exact = ctc_run("host", ctc_sessions[:SERVE_GATE])
+    ctc_fast, ctc_wall, c_fast = ctc_run("device", ctc_sessions, windows=True)
+    for name, c in (("the CTC engine (host features)", c_exact), ("the CTC engine (device features)", c_fast)):
+        only(name, c, ("lstm_scan", "lstm_scan_carry"))
+    bad = [sid for sid in ctc_want if ctc_exact.finals[sid][0] != ctc_want[sid]]
+    if bad:
+        raise RuntimeError(f"the CTC engine's units differ from the dedicated stream's on {bad[:8]}")
+    n_units = sum(len(u) for u in ctc_want.values())
+    ctc_agree = sum(ctc_fast.finals[sid][0] == ctc_want[sid] for sid in ctc_want)
+    ctc_periods = ctc_fast.tick_periods_ms()
+    ctc_audio = sum(len(w) for _s, w in ctc_sessions) / sfcfg.sample_rate
+    ctc_per_tick = {k: v / ctc_fast.eng.ticks for k, v in c_fast.items() if v}
+    # K4's carry arm at the tick's shape: layer 0 of the engine's model, idle rows at 0
+    cell = smodel.cells[0]
+    feats = torch.as_tensor(np.pad(rows, ((0, B * Tc - rows.shape[0]), (0, 0))).reshape(B, Tc, D), device=dev)
+    nv4 = torch.as_tensor(nv, device=dev)
+    live4 = nv4 > 0
+    h0, c0 = (torch.as_tensor(rng.standard_normal((B, H)).astype(np.float32), device=dev) for _ in range(2))
+    xg = cell.input_gates(feats, "float32")
+    k4_ms, (y_k, (h_k, c_k)) = timed(lambda: lstm_cuda.lstm_layer(xg, cell.w_rec, nv4, "float32", h0=h0, c0=c0,
+                                                                  return_carry=True), 20)
+    k4_kernel_ms = queued_ms(lambda: lstm_cuda.lstm_layer(xg, cell.w_rec, nv4, "float32", h0=h0, c0=c0,
+                                                          return_carry=True))
+    k4_plain_ms, (y_p, (h_p, c_p)) = timed(lambda: fast_lstm.lstm_layer(xg, cell.w_rec, nv4, "float32", h0=h0,
+                                                                        c0=c0, return_carry=True), 3)
+    vmask = tn.valid_mask(nv4, Tc, dev)
+    k4_err = max(float((y_k - y_p)[vmask].abs().max()), float((h_k - h_p).abs().max()),
+                 float((c_k - c_p).abs().max()))
+    if k4_err > K4_ATOL["float32"] or not (torch.equal(h_k[~live4], h0[~live4])
+                                           and torch.equal(c_k[~live4], c0[~live4])):
+        raise RuntimeError(f"K4's carry arm at the tick's shape: {k4_err} off plain, or an idle row's carries moved")
+    cudnn = torch.nn.LSTM(D, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(cell.w_in.T)
+        cudnn.weight_hh_l0.copy_(cell.w_rec.T)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.copy_(cell.bias)
+    lens = nv4[live4].to(device="cpu", dtype=torch.int64)
+    fl, hl, cl = feats[live4], h0[live4][None], c0[live4][None]
+
+    def cudnn_layer():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(fl, lens, batch_first=True, enforce_sorted=False)
+        return cudnn(packed, (hl, cl))
+
+    k4_lib_ms, _ = timed(cudnn_layer, 20)
+    k4_layer_ms, _ = timed(lambda: cell(feats, nv4), 20)
+    valid4 = int(nv.sum())
+    k4_b = bound(valid4 * 4 * H * 4 + H * 4 * H * 4 + B * 4 + B * Tc * H * 4 + 4 * B * H * 4,
+                 valid4 * H * (2 * 4 * H + K4_GATE_OPS), "float32")
+    phase(45, f"the CTC session engine (capacity {B}, {Tc}-frame ticks) on phase 37's LstmAm ({ctc_model.layers} x "
+              f"{H}, {V} outputs), K4's carry arm: units equal to the dedicated per-session CTC stream's on the first "
+              f"{len(ctc_want)} sessions ({n_units} units) with host features; device features on "
+              f"{len(ctc_sessions)} sessions: {ctc_agree} of {len(ctc_want)} equal to the dedicated stream's, "
+              f"{ctc_audio:.1f} s of audio in {ctc_wall:.2f} s: {ctc_audio / ctc_wall:.1f} realtime streams a card, a "
+              f"tick {np.median(ctc_periods):.2f} ms median on the device timeline, partials "
+              f"{np.median(ctc_fast.partial_ms):.2f} ms median, launches a tick "
+              + ", ".join(f"{k} {v:.2f}" for k, v in ctc_per_tick.items())
+              + f", {ctc_fast.syncs} synchronizing calls in {ctc_fast.sync_ticks} ticks {ctc_fast.sync_sites}; K4's "
+              f"carry arm at B={B}, "
+              f"Tc={Tc}, H={H} with {int((nv == 0).sum())} idle rows (their carries bitwise) {k4_ms:.4f} ms a call, "
+              f"{k4_kernel_ms:.4f} ms with the host's part hidden (plain "
+              f"{k4_plain_ms:.3f} ms, bound {k4_b[0]:.4f} ms by {k4_b[1]}, max |err| {k4_err:.3g}); the whole layer, "
+              f"input GEMM + K4 {k4_layer_ms:.4f} ms vs cuDNN nn.LSTM with (h0, c0) {k4_lib_ms:.4f} ms")
+    ctc = {"sessions": len(ctc_sessions), "audio_s": ctc_audio, "wall_s": ctc_wall,
+           "streams_per_card": ctc_audio / ctc_wall, "tick_ms_median": float(np.median(ctc_periods)),
+           "partial_ms_median": float(np.median(ctc_fast.partial_ms)), "launches_per_tick": ctc_per_tick,
+           "syncs_per_tick": ctc_fast.syncs / max(ctc_fast.sync_ticks, 1), "device_feature_agreement": ctc_agree}
+    k4_tick = {"shape": [B, Tc, H], "idle_rows": int((nv == 0).sum()), "ms": k4_ms, "device_ms": k4_kernel_ms,
+               "plain_ms": k4_plain_ms,
+               "bound_ms": k4_b[0], "bound_by": k4_b[1], "max_abs_err": k4_err, "library_ms": k4_lib_ms,
+               "layer_ms": k4_layer_ms}
+    return {"paths": {"serve_gmm": fast_launches, "serve_gmm_exact": exact_launches, "serve_gmm_host": host_launches,
+                      "serve_ctc": c_fast, "serve_ctc_exact": c_exact},
+            "ragged": ragged, "gmm": serve, "ctc": ctc, "k1_tick": k1_tick, "k4_tick": k4_tick}
+
+
+def serve_cli_phase(dev: torch.device) -> dict:
+    """Phase 46: the serve twin in this process over one stdin event file (its
+    output to build/chip_smoke_serve_cli/out.txt), the launch counts set to 0
+    before and read after: the GMM per-session mode against --engine (host
+    and device features), --ctc (phase 42's BPE model) per-session against
+    --engine, and one --tcp round trip of two sessions."""
+    import contextlib
+    import io
+    import shutil
+    import socket
+    import threading
+
+    from mogasr_torch.am import lstm_cuda
+    from mogasr_torch.cli import serve as cli_serve
+    from mogasr_torch.data.synthetic import make_corpus
+    from mogasr_torch.decoder import viterbi_cuda
+
+    work = os.path.join(ROOT, "build", "chip_smoke_serve_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    utts = make_corpus(SERVE_CLI_SESSIONS, words_per_utt=(2, 4), seed=46)
+    event = SERVE_TICK * 160
+    lines = [{"type": "start", "session": u.utt_id} for u in utts]
+    chunks = {u.utt_id: [u.wave[i:i + event] for i in range(0, len(u.wave), event)] for u in utts}
+    for i in range(max(len(c) for c in chunks.values())):
+        lines += [{"type": "audio", "session": sid, "pcm": c[i].tolist()} for sid, c in chunks.items() if i < len(c)]
+    lines += [{"type": "end", "session": u.utt_id} for u in utts]
+    text = "\n".join(json.dumps(line) for line in lines + [{"type": "shutdown"}]) + "\n"
+    bp = os.path.join(ROOT, "build", "chip_smoke_ctc_cli", "bpe")
+    ctc = ["--ctc", "--nn-ckpt", os.path.join(bp, "nn_ctc_lstm"), "--bpe", os.path.join(bp, "bpe.json"),
+           "--nn-hidden", "128", "--nn-layers", "3"]
+    engine = ["--engine", "--engine-capacity", str(SERVE_CLI_SESSIONS)]
+    runs = {"gmm": [], "gmm_engine_host": engine + ["--feature-path", "host"], "gmm_engine": engine,
+            "ctc": ctc, "ctc_engine_host": ctc + engine + ["--feature-path", "host"], "ctc_engine": ctc + engine}
+    finals, out = {}, io.StringIO()
+    real_stdin = sys.stdin
+    zero_launches()
+    viterbi_cuda.CHUNK_LAUNCHES = viterbi_cuda.BACKTRACE_LAUNCHES = lstm_cuda.CARRY_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        for name, argv in runs.items():
+            buf = io.StringIO()
+            sys.stdin = io.StringIO(text)
+            with contextlib.redirect_stdout(buf):
+                cli_serve.main(argv + ["--device", str(dev), "--run-dir", os.path.join(work, name)])
+            evs = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+            finals[name] = {e["session"]: e["final"] for e in evs if "final" in e}
+            out.write(f"# {name}\n{buf.getvalue()}")
+    finally:
+        sys.stdin = real_stdin
+    seconds = time.perf_counter() - t0
+    # one --tcp round trip: two sessions from one connection, then shutdown
+    port_file = os.path.join(work, "port.txt")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        server = threading.Thread(target=cli_serve.main, args=(
+            ["--tcp", "0", "--port-file", port_file, "--device", str(dev), "--run-dir", os.path.join(work, "tcp")],),
+            daemon=True)
+        server.start()
+        for _ in range(1200):
+            if os.path.exists(port_file) and open(port_file).read():
+                break
+            time.sleep(0.05)
+        two = [u.utt_id for u in utts[:2]]
+        with socket.create_connection(("127.0.0.1", int(open(port_file).read())), timeout=120) as conn:
+            conn.sendall("".join(json.dumps(e) + "\n" for e in lines if e.get("session") in two).encode())
+            got, rest = {}, b""
+            while len(got) < 2:
+                data = conn.recv(1 << 16)
+                if not data:
+                    break
+                rest += data
+                while b"\n" in rest:
+                    line, rest = rest.split(b"\n", 1)
+                    e = json.loads(line)
+                    if "final" in e:
+                        got[e["session"]] = e["final"]
+            conn.sendall(b'{"type": "shutdown"}\n')
+        server.join(timeout=120)
+    out.write(f"# tcp\n{buf.getvalue()}")
+    launches = launch_counts()
+    launches.update(viterbi_chunk=viterbi_cuda.CHUNK_LAUNCHES, viterbi_backtrace=viterbi_cuda.BACKTRACE_LAUNCHES,
+                    lstm_scan_carry=lstm_cuda.CARRY_LAUNCHES)
+    with open(os.path.join(work, "out.txt"), "w") as f:
+        f.write(out.getvalue())
+    needed = ("gmm_score", "viterbi_chunk", "viterbi_backtrace", "lstm_scan", "lstm_scan_carry")
+    if min(launches[k] for k in needed) == 0 or launches["viterbi"]:
+        raise RuntimeError(f"the serve twin did not go through every kernel of its paths: {launches}")
+    sids = {u.utt_id for u in utts}
+    for name, f in finals.items():
+        if set(f) != sids:
+            raise RuntimeError(f"serve {name}: finals for {sorted(f)}, not the {len(sids)} sessions")
+    for mode in ("gmm", "ctc"):
+        if finals[f"{mode}_engine_host"] != finals[mode]:
+            raise RuntimeError(f"serve --engine ({mode}, host features) finals differ from the per-session mode's")
+    if server.is_alive() or got != {sid: finals["gmm"][sid] for sid in two}:
+        raise RuntimeError(f"the --tcp round trip: finals {got}, server alive {server.is_alive()}")
+    agree = {mode: sum(finals[f"{mode}_engine"][s] == finals[mode][s] for s in sids) for mode in ("gmm", "ctc")}
+    phase(46, f"the serve twin in this process, {seconds:.1f} s for six runs over one stdin file of "
+              f"{SERVE_CLI_SESSIONS} interleaved sessions ({len(lines)} events): --engine finals equal to the "
+              f"per-session mode's with host features (GMM and --ctc --bpe); with device features "
+              f"{agree['gmm']} and {agree['ctc']} of {len(sids)} equal; --tcp: two sessions from one connection, "
+              f"the per-session finals, shutdown; launches {launches}")
     return launches
 
 
@@ -4049,6 +4673,8 @@ def main() -> None:
     nn_cli = nn_cli_phase(dev)
     ctc_res = ctc_phases(dev, topo, fcfg, corpus, bcfg, train_fbs, neural.pop("model"))
     ctc_cli = ctc_cli_phase(dev)
+    serving = serving_phases(dev, gmm, fcfg, dcfg, graph, held_out, ctc_res.pop("model"), sfu_exps_per_s)
+    serve_cli = serve_cli_phase(dev)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -4057,7 +4683,8 @@ def main() -> None:
              "lm_decode": lm_entry["lm_decode"], "lm_check_decodes": lm_entry["lm_check_decodes"],
              "confidence": lm_entry["confidence"], "cli": cli_launches, "streaming": stream["streaming"],
              "online": stream["online"], "stream_cli": stream["stream_cli"], **adapt_paths,
-             "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli, **ctc_res["paths"], "ctc_cli": ctc_cli}
+             "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli, **ctc_res["paths"], "ctc_cli": ctc_cli,
+             **serving["paths"], "serve_cli": serve_cli}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]
@@ -4089,6 +4716,20 @@ def main() -> None:
                                               "backtrace": paths[name]["viterbi_backtrace"]}
         k2_chunk["launches"] += paths[name]["viterbi_chunk"] + paths[name]["viterbi_backtrace"]
     k4_entry["ctc_encoder"] = {**ctc_res["k4"], "training": ctc_res["train"], "decode": ctc_res["decode"]}
+    # the serving slice: K4's carry arm in the CTC engine and the serve twin; K2's ragged chunk arm and its
+    # backtrace alone in the GMM engine and the serve twin
+    for name in ("serve_ctc", "serve_ctc_exact", "serve_cli"):
+        k4_entry["launches_by_path"][name] = paths[name]["lstm_scan"]
+        k4_entry["launches"] += paths[name]["lstm_scan"]
+        k4_entry["carry"]["launches_by_path"][name] = paths[name]["lstm_scan_carry"]
+        k4_entry["carry"]["launches"] += paths[name]["lstm_scan_carry"]
+    k4_entry["carry_tick"] = serving["k4_tick"]
+    serve_k2 = ("serve_gmm", "serve_gmm_exact", "serve_gmm_host", "serve_cli")
+    for name in serve_k2:
+        k2_chunk["launches_by_path"][name] = {"chunk": paths[name]["viterbi_chunk"],
+                                              "backtrace": paths[name]["viterbi_backtrace"]}
+        k2_chunk["launches"] += paths[name]["viterbi_chunk"] + paths[name]["viterbi_backtrace"]
+    ragged = serving["ragged"]
     k2_chunk["ctc_skip"] = ctc_res["stream"]
     k3c = ctc_res["k3"]
     launches = {k: sum(v.values()) for k, v in by_path.items()}
@@ -4170,6 +4811,13 @@ def main() -> None:
                   "word_loop_bound_ms": fb_loop["bounds"]["pair"][0]}},
         k4_entry,
         *arm_entries,
+        {"name": "viterbi_chunk_ragged", "route": "cuda", "source": "mogasr_torch/csrc/viterbi.cu",
+         "replaces": "mogasr/decoder/viterbi_pallas.py:54", "launches": paths["serve_gmm"]["viterbi_chunk"],
+         "launches_by_path": {name: paths[name]["viterbi_chunk"] for name in serve_k2},
+         "max_abs_err": ragged["max_abs_err"], "ms": ragged["ms"], "plain_ms": ragged["plain_ms"],
+         "bound_ms": ragged["bound_ms"], "bound_by": ragged["bound_by"], "library_ms": None,
+         "shape": ragged["shape"], "valid_frames": ragged["valid_frames"], "gmm_engine": serving["gmm"],
+         "ctc_engine": serving["ctc"], "k1_float32_sum_tick": serving["k1_tick"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -21,6 +21,14 @@ Exports are lazy so that ``import mogasr_torch`` stays light:
     mogasr_torch.decode_corpus(utts, gmm, graph, fcfg, dcfg, bcfg, device, compute_dtype, mode=..., layout=...)
     mogasr_torch.forward_backward(emit_ll, graphs, n_frames, acoustic_scale)
     mogasr_torch.train_gmm(batches, lexicon, topo, gcfg, tcfg, gmm=..., mode=...)
+    mogasr_torch.init_gmm(cfg, generator, data_mean, data_var, device=...)
+    mogasr_torch.corpus_wer(refs, hyps), ctc_loss(...), train_bpe(texts, n_merges)
+    mogasr_torch.pipeline                       (the module)
+    mogasr_torch.{Batch,Decode,Frontend,Gmm,Mesh,Pipeline,Topology,Train}Config
+
+Every name the reference's ``mogasr/__init__.py`` exports resolves here but
+the RNN-T and AED ones (ROADMAP item 13); ``gmm_loglik_pallas``, its fused
+scorer's name, is the K1 wrapper ``gmm_cuda.gmm_loglik_fused``.
 """
 
 import torch
@@ -31,7 +39,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+_CONFIGS = ("BatchConfig", "DecodeConfig", "FrontendConfig", "GmmConfig", "MeshConfig", "PipelineConfig",
+            "TopologyConfig", "TrainConfig")
+# name -> module, or (module, attribute) where the names differ; a name that
+# is its module's last component is the module
 _EXPORTS = {
+    **{name: "mogasr_torch.config" for name in _CONFIGS},
     "load_system": "mogasr_torch.utils.bundle",
     "make_frontend": "mogasr_torch.frontend.torch_frontend",
     "extract_features": "mogasr_torch.frontend.torch_frontend",
@@ -44,6 +57,12 @@ _EXPORTS = {
     "decode_corpus": "mogasr_torch.pipeline",
     "forward_backward": "mogasr_torch.decoder.fb_cuda",
     "train_gmm": "mogasr_torch.pipeline",
+    "init_gmm": "mogasr_torch.am.gmm",
+    "gmm_loglik_pallas": ("mogasr_torch.am.gmm_cuda", "gmm_loglik_fused"),
+    "corpus_wer": "mogasr_torch.eval.wer",
+    "ctc_loss": "mogasr_torch.am.ctc",
+    "train_bpe": "mogasr_torch.data.bpe",
+    "pipeline": "mogasr_torch.pipeline",
 }
 
 
@@ -52,4 +71,6 @@ def __getattr__(name):
         raise AttributeError(f"module 'mogasr_torch' has no attribute {name!r}")
     import importlib
 
-    return getattr(importlib.import_module(_EXPORTS[name]), name)
+    module, attr = _EXPORTS[name] if isinstance(_EXPORTS[name], tuple) else (_EXPORTS[name], name)
+    mod = importlib.import_module(module)
+    return mod if module.rsplit(".", 1)[-1] == name else getattr(mod, attr)

@@ -19,10 +19,12 @@ sum mode only.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from mogasr_torch.config import GmmConfig
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -64,6 +66,29 @@ def gmm_from_numpy(weights, means, vars, device: torch.device) -> GmmSet:
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     return GmmSet(f32(weights), f32(means), f32(vars))
+
+
+def init_gmm(
+    cfg: GmmConfig,
+    generator: Optional[torch.Generator] = None,
+    data_mean: Optional[np.ndarray] = None,
+    data_var: Optional[np.ndarray] = None,
+    n_states: Optional[int] = None,
+    n_components: Optional[int] = None,
+    device: torch.device = torch.device("cuda"),
+) -> GmmSet:
+    """Random init around the data statistics (or a standard normal): equal
+    weights, the data variance, means at mean + 0.5 * std * N(0, 1) drawn
+    from ``generator`` on the CPU. The reference draws from a JAX key, so the
+    two agree in distribution, not in values."""
+    S = n_states if n_states is not None else cfg.n_states
+    K = n_components if n_components is not None else cfg.n_components
+    D = cfg.feat_dim
+    mu0 = torch.zeros(D) if data_mean is None else torch.as_tensor(np.asarray(data_mean, np.float32))
+    var0 = torch.ones(D) if data_var is None else torch.as_tensor(np.asarray(data_var, np.float32))
+    means = mu0 + torch.randn((S, K, D), generator=generator) * torch.sqrt(var0) * 0.5
+    return GmmSet(torch.full((S, K), 1.0 / K, device=device), means.to(device),
+                  var0.expand(S, K, D).contiguous().to(device))
 
 
 class NaturalParams(NamedTuple):

@@ -76,7 +76,8 @@
 // does here), and back into it; started [B] switches on at a row's first
 // valid frame; a row past its n_valid (n_valid == 0 included) keeps its delta
 // bit for bit. Its codes and exit argmax go into a per-stream buffer on the
-// card at the chunk's frame offset (frame0; rows t_cap frames apart), which
+// card at each row's own frame offset (frame0[b]; rows t_cap frames apart:
+// a batch of sessions at ragged lengths, a reused row restarting at 0), which
 // stays there: 2-bit planes are a quarter of the reference's uint8
 // backpointers, which went to the host every chunk. viterbi_backtrace is the
 // backtrace alone, on that buffer, from the argmax of delta (a partial) or of
@@ -247,7 +248,8 @@ struct Args {
   float* score;      // [B]
   int* arm;          // [B]: the arm each row took
   int t_cap;         // frames between rows of bp and exit_arg: T, or a stream buffer's capacity
-  int frame0;        // the frame of bp and exit_arg that frame 0 of ll is stored at (0 offline)
+  const int* frame0;  // the chunk arm: [B], the frame of row b's bp and exit_arg that its frame 0 of ll is
+                     // stored at; NULL offline (0)
   float* delta_io;   // the chunk arm: [B, J] carried delta, read and written; NULL offline
   uint8_t* started_io;  // the chunk arm: [B] (torch.bool storage), read and written
 };
@@ -561,7 +563,7 @@ __device__ __forceinline__ void loop_arm(const Args& a, int b, int nf, int t_fir
     if (loops) post(t & 1);
     fetch(t + 2);  // into the slot frame t - 1 used
     if (bpb != nullptr && loops && tid == 0)
-      a.exit_arg[(CHUNK ? (size_t)b * a.t_cap + a.frame0 : (size_t)b * T) + t] = ex.i;
+      a.exit_arg[(CHUNK ? (size_t)b * a.t_cap + a.frame0[b] : (size_t)b * T) + t] = ex.i;
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
@@ -665,7 +667,7 @@ __global__ void __launch_bounds__(C > 0 ? 512 : 1024, 1) viterbi_kernel(const Ar
   const bool from_delta = CHUNK && (a.started_io[b] != 0 || nf == 0);
   const int t_first = from_delta ? 0 : 1;
   const bool loops = row_has_loop(a.enter_logp, a.exit_logp, (size_t)b * a.J, a.J);  // a barrier: started is read
-  const size_t bp_row = CHUNK ? (size_t)b * a.t_cap + a.frame0 : (size_t)b * a.T;  // the row's frame 0 in bp
+  const size_t bp_row = CHUNK ? (size_t)b * a.t_cap + a.frame0[b] : (size_t)b * a.T;  // the row's frame 0 in bp
   uint2* bpb = a.bp != nullptr ? a.bp + bp_row * ((a.J + 31) >> 5) : nullptr;
   const float* din = from_delta ? a.delta_io + (size_t)b * a.J : nullptr;
   const bool chain = C > 0 && !loops;
@@ -843,22 +845,26 @@ int viterbi_decode(const void* ll, int B, int T, int P, float scale, float beam,
 // (valid frames of the chunk, a prefix), delta [B, J] float32 and started
 // [B] uint8/bool carried in and out (in place). Each frame's code planes go
 // to bp [B, t_cap, ceil(J / 32)] uint2 and the exit argmax of a word-loop
-// row to exit_arg [B, t_cap] int32, at frames frame0 .. frame0 + n_valid - 1
-// of the row; frames past n_valid are not written (the caller's buffer is
-// zero there: code 0). arm [B] as viterbi_decode's.
+// row to exit_arg [B, t_cap] int32, at frames frame0[b] .. frame0[b] +
+// n_valid[b] - 1 of row b (frame0 [B] int32 on the device: each stream's
+// own offset); frames past n_valid are not written, nor is the frame a row
+// starts at (the backtrace never reads its code). The caller keeps every
+// frame0[b] + n_valid[b] within [0, t_cap]: it holds both on the host, and
+// reading them back here would cost a synchronisation. arm [B] as
+// viterbi_decode's.
 int viterbi_chunk(const void* ll, int B, int Tc, int P, float scale, float beam, const void* emit_id,
                   const void* self_logp, const void* adv_logp, const void* enter_logp, const void* exit_logp,
                   const void* init_logp, const void* final_logp, const void* skip_logp, const void* n_valid, int J,
-                  void* delta, void* started, void* bp, void* exit_arg, int frame0, int t_cap, void* arm,
+                  void* delta, void* started, void* bp, void* exit_arg, const void* frame0, int t_cap, void* arm,
                   void* stream) {
   if (B <= 0 || Tc <= 0) return cudaSuccess;
-  if (frame0 < 0 || frame0 + Tc > t_cap) return cudaErrorInvalidValue;
+  if (frame0 == nullptr || t_cap <= 0) return cudaErrorInvalidValue;
   Args a = graph_args(ll, Tc, P, scale, beam, emit_id, self_logp, adv_logp, enter_logp, exit_logp, init_logp,
                       final_logp, skip_logp, n_valid, J);
   a.bp = static_cast<uint2*>(bp);
   a.exit_arg = static_cast<int*>(exit_arg);
   a.t_cap = t_cap;
-  a.frame0 = frame0;
+  a.frame0 = static_cast<const int*>(frame0);
   a.delta_io = static_cast<float*>(delta);
   a.started_io = static_cast<uint8_t*>(started);
   a.arm = static_cast<int*>(arm);

@@ -8,12 +8,12 @@ are available while audio still arrives:
 - :func:`chunk_step` is the reference's ``_chunk_step``, the plain version:
   a frame loop of PyTorch ops with its arithmetic and tie rules, carrying
   the [B, J] Viterbi state and the started flags between chunks;
-- :class:`OnlineDecoder` runs it on the CPU, with uint8 backpointers kept per
-  chunk and a host backtrace, as the reference does; on the card it runs
-  kernel K2's chunk arm (``decoder.viterbi_cuda.chunk_step``), whose 2-bit
-  codes stay in a per-stream buffer on the card, and K2's backtrace alone for
-  ``partial()`` and ``finalize()``: one launch a chunk and one a result, and
-  only the path comes back;
+- :class:`OnlineDecoder` runs kernel K2's chunk arm
+  (``decoder.viterbi_cuda.chunk_step``), whose 2-bit codes stay in a
+  per-stream buffer on the card, and K2's backtrace alone for ``partial()``
+  and ``finalize()``: one launch a chunk and one a result, and only the path
+  comes back; on the CPU the same wrappers run the plain step (its codes
+  packed into the buffer) and the reference's host backtrace;
 - ``finalize()`` is bitwise the offline decoder on the same frames: the
   recursion is the same, chunking only cuts it.
 
@@ -23,7 +23,7 @@ than Tc valid frames is taken to end there, as in the reference.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -109,28 +109,23 @@ class OnlineDecoder:
         B, J = graphs["emit_id"].shape
         self.B, self.J = B, J
         self.device = graphs["emit_id"].device
-        self.on_card = self.device.type == "cuda"
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"OnlineDecoder: unsupported device {self.device}")
         self.delta = torch.full((B, J), NEG_INF, dtype=torch.float32, device=self.device)
         self.started = torch.zeros((B,), dtype=torch.bool, device=self.device)
         self.n_frames = np.zeros(B, np.int64)
         self.frames = 0                            # chunk positions stored so far
-        self._bps: List[np.ndarray] = []           # the CPU: per chunk [Tc, B, J] uint8
-        self._exit_args: List[np.ndarray] = []     # the CPU: per chunk [Tc, B]
-        # the card: code planes and exit argmax of every frame so far
+        # code planes and exit argmax of every frame so far
         self._bp, self._xa = viterbi_cuda.code_buffers(B, J, 0, self.device)
 
     @property
     def buffer_bytes(self) -> int:
-        """Bytes the stored codes and exit argmax take (on the card, the
-        preallocated buffer; on the CPU, the per-chunk arrays)."""
-        if self.on_card:
-            return self._bp.numel() * 4 + self._xa.numel() * 4
-        return sum(a.nbytes for a in self._bps) + sum(a.nbytes for a in self._exit_args)
+        """Bytes the stored codes and exit argmax take (the preallocated
+        buffers)."""
+        return self._bp.numel() * 4 + self._xa.numel() * 4
 
     def _reserve(self, frames: int) -> None:
-        """Grow the card's buffers to hold ``frames`` frames, doubling."""
+        """Grow the buffers to hold ``frames`` frames, doubling."""
         cap = self._bp.shape[1]
         if frames <= cap:
             return
@@ -141,56 +136,19 @@ class OnlineDecoder:
         """Consume a scored chunk [B, Tc, P]; n_valid: [B] frames valid."""
         n_valid = np.asarray(n_valid)
         Tc = emit_ll.shape[1]
-        nv = torch.as_tensor(n_valid, dtype=torch.int32, device=self.device)
-        if self.on_card:
-            self._reserve(self.frames + Tc)
-            viterbi_cuda.chunk_step(self.delta, self.started, emit_ll, nv, self.graphs, self.acoustic_scale,
-                                    self.beam, self._bp, self._xa, self.frames)
-        else:
-            self.delta, self.started, bps, exit_args = chunk_step(
-                self.delta, self.started, emit_ll, nv, self.graphs, self.acoustic_scale, self.beam)
-            self._bps.append(bps.numpy())
-            self._exit_args.append(exit_args.numpy())
+        self._reserve(self.frames + Tc)
+        # every stream's chunk at the same offset: the chunk position
+        viterbi_cuda.chunk_step(self.delta, self.started, emit_ll, torch.as_tensor(n_valid, dtype=torch.int32),
+                                self.graphs, self.acoustic_scale, self.beam, self._bp, self._xa,
+                                np.full(self.B, self.frames))
         self.frames += Tc
         self.n_frames += n_valid
 
-    def _host_backtrace(self, j_last: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """The reference's host backtrace from state j_last at each stream's
-        last frame."""
-        bps = np.concatenate(self._bps) if self._bps else np.zeros((0, self.B, self.J), np.uint8)
-        exits = np.concatenate(self._exit_args) if self._exit_args else np.zeros((0, self.B), np.int32)
-        path = np.full((self.B, bps.shape[0]), -1, np.int64)
-        entered = np.zeros_like(path, bool)
-        for b in range(self.B):
-            n = int(self.n_frames[b])
-            if n == 0:
-                continue
-            j = int(j_last[b])
-            for t in range(n - 1, 0, -1):
-                path[b, t] = j
-                code = bps[t, b, j]
-                entered[b, t] = code == 2
-                if code == 1:
-                    j -= 1
-                elif code == 3:
-                    j -= 2
-                elif code == 2:
-                    j = int(exits[t, b])
-            path[b, 0] = j
-            entered[b, 0] = True
-        return path, entered
-
     def _result(self, final: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if self.on_card:
-            res = viterbi_cuda.backtrace(self.delta, self.graphs["final_logp"] if final else None,
-                                         torch.as_tensor(self.n_frames, dtype=torch.int32), self._bp, self._xa,
-                                         self.frames)
-            return res.path, res.entered, res.score
-        scores = (self.delta + self.graphs["final_logp"]) if final else self.delta
-        scores = scores.numpy()
-        path, entered = self._host_backtrace(scores.argmax(axis=1))
-        return (torch.from_numpy(path.astype(np.int32)), torch.from_numpy(entered),
-                torch.from_numpy(scores.max(axis=1)))
+        res = viterbi_cuda.backtrace(self.delta, self.graphs["final_logp"] if final else None,
+                                     torch.as_tensor(self.n_frames, dtype=torch.int32), self._bp, self._xa,
+                                     self.frames)
+        return res.path, res.entered, res.score
 
     def partial(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Best-so-far (path, entered, score) from the running best state.

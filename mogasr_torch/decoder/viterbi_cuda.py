@@ -16,11 +16,13 @@ wide for the chain arm. :func:`align` is forced alignment: the same call
 that also returns each frame's pdf (``decoder.viterbi.path_to_pdfs``), which
 the kernel writes in its backtrace.
 
-The online decoder (``decoder/online.py``) runs the kernel's chunk arm,
-:func:`chunk_step` (``CHUNK_LAUNCHES``, one per chunk), which carries delta
-and started across chunks and stores the codes in a per-stream buffer on the
-card, and :func:`backtrace` (``BACKTRACE_LAUNCHES``, one per partial or final
-result), the kernel's backtrace alone over that buffer.
+The online decoder (``decoder/online.py``) and the serving engine
+(``serving/engine.py``) run the kernel's chunk arm, :func:`chunk_step`
+(``CHUNK_LAUNCHES``, one per chunk), which carries delta and started across
+chunks and stores the codes in a per-stream buffer on the card, each row at
+its own frame offset, and :func:`backtrace` (``BACKTRACE_LAUNCHES``, one per
+partial or final result), the kernel's backtrace alone over that buffer.
+Both run their plain versions on CPU tensors.
 
 The graph arrays go to the kernel as ``graphs_to_torch`` makes them from
 ``batch_graphs``: ``emit_id`` int32, the log-probs (``skip_logp`` too, where
@@ -36,6 +38,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mogasr_torch import _cuda
@@ -51,7 +54,7 @@ LAST_ARMS: Optional[torch.Tensor] = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "viterbi_decode": [_P, _I, _I, _I, _F, _F] + [_P] * 9 + [_I] + [_P] * 8,
-    "viterbi_chunk": [_P, _I, _I, _I, _F, _F] + [_P] * 9 + [_I] + [_P] * 4 + [_I, _I, _P, _P],
+    "viterbi_chunk": [_P, _I, _I, _I, _F, _F] + [_P] * 9 + [_I] + [_P] * 5 + [_I, _P, _P],
     "viterbi_backtrace": [_I, _I] + [_P] * 5 + [_I, _I] + [_P] * 4,
 }
 _GRAPH_KEYS = ("emit_id", "self_logp", "adv_logp", "enter_logp", "exit_logp",
@@ -179,24 +182,53 @@ def unpack_codes(bp: torch.Tensor, frames: slice, J: int) -> torch.Tensor:
     return (lo | (hi << 1)).to(torch.uint8).permute(1, 0, 2)
 
 
+def to_device(a, device: torch.device, dtype=torch.int32) -> torch.Tensor:
+    """A host array as a tensor on ``device``; to the card from pinned memory
+    without blocking, so that the host does not wait for the card."""
+    t = torch.from_numpy(np.array(a)).to(dtype)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 codes [frames, B, J] as the code planes [B, frames, ceil(J / 32),
+    2] int32: :func:`unpack_codes`'s inverse."""
+    F, B, J = codes.shape
+    G = -(-J // 32)
+    c = torch.zeros((F, B, G * 32), dtype=torch.int64, device=codes.device)
+    c[..., :J] = codes.to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=codes.device)
+    planes = [(((c >> k) & 1).reshape(F, B, G, 32) << shift).sum(-1) for k in (0, 1)]
+    p = torch.stack(planes, dim=-1)
+    return torch.where(p >= 2 ** 31, p - 2 ** 32, p).to(torch.int32).permute(1, 0, 2, 3)
+
+
 def chunk_step(
     delta: torch.Tensor,              # [B, J] float32, carried in and out (in place)
     started: torch.Tensor,            # [B] bool, carried in and out (in place)
     emit_ll: torch.Tensor,            # [B, Tc, P] float32: the chunk's scores
-    n_valid: torch.Tensor,            # [B] int32: valid frames of the chunk
+    n_valid: torch.Tensor,            # [B] int32: valid frames of the chunk (on the host: checked per row)
     graphs: Dict[str, torch.Tensor],
     acoustic_scale: float,
     beam: float,
-    bp: torch.Tensor,                 # code_buffers(B, J, t_cap): the code planes, zero past what is stored
+    bp: torch.Tensor,                 # code_buffers(B, J, t_cap): the code planes
     exit_arg: torch.Tensor,           # and the exit argmax
-    frame0: int,                      # the buffers' frame of the chunk's frame 0
+    frame0,                           # [B] on the host (or an int for every row): row b's frame of its chunk frame 0
 ) -> None:
-    """The online decoder's chunk step on the kernel's chunk arm (CUDA
-    tensors only): ``decoder.online.chunk_step``, with the codes and exit
-    argmax written into the stream buffers at frames ``frame0 ..`` instead
-    of returned."""
+    """The online decoder's chunk step: ``decoder.online.chunk_step``, with
+    row b's codes and exit argmax of its valid frames written into the stream
+    buffers at frames ``frame0[b] ..`` instead of returned (the frame a row
+    starts at excepted: the backtrace never reads it). The rows' offsets may
+    all differ: a batch of sessions at ragged lengths, a reused row back at 0.
+
+    On the card the kernel's chunk arm; on the CPU the plain step, its codes
+    packed and scattered at the offsets. ``frame0`` is the host's mirror of
+    the offsets, copied to the card without blocking; every row must fit,
+    frame0[b] + n_valid[b] <= t_cap (with n_valid on the card, frame0[b] + Tc),
+    and is checked here, so the launch reads nothing back."""
     global CHUNK_LAUNCHES, LAST_ARMS
-    if emit_ll.device.type != "cuda":
+    if emit_ll.device.type not in ("cpu", "cuda"):
         raise ValueError(f"chunk_step: unsupported device {emit_ll.device}")
     if emit_ll.dim() != 3 or emit_ll.dtype != torch.float32:
         raise ValueError(f"emit_ll must be float32 [B, Tc, P], got {emit_ll.dtype} {tuple(emit_ll.shape)}")
@@ -211,20 +243,49 @@ def chunk_step(
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype} {list(shape)} on {dev}, "
                              f"got {t.dtype} {list(t.shape)} on {t.device}")
+    f0 = np.broadcast_to(np.asarray(frame0, np.int64), (B,))
+    ends = f0 + (n_valid.numpy().astype(np.int64) if n_valid.device.type == "cpu" else Tc)
+    if B and (f0.min() < 0 or ends.max() > t_cap):
+        raise ValueError(f"chunk_step: a row's frames [frame0, frame0 + n_valid) leave the buffers' {t_cap} frames "
+                         f"(frame0 {f0.min()}..{f0.max()}, ends up to {ends.max()})")
+    if dev.type == "cpu":
+        _plain_chunk_step(delta, started, emit_ll, n_valid, graphs, acoustic_scale, beam, bp, exit_arg, f0)
+        return
+    nv = n_valid.to(torch.int32) if n_valid.device == dev else to_device(n_valid.numpy(), dev)
+    f0_dev = to_device(f0, dev)
     ll = emit_ll.contiguous()
-    nv = n_valid.to(device=dev, dtype=torch.int32).contiguous()
     arms = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _cuda.load("viterbi", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.viterbi_chunk(
             ll.data_ptr(), B, Tc, P, float(acoustic_scale), float(beam),
             *(graphs[k].data_ptr() for k in _GRAPH_KEYS), None if skip is None else skip.data_ptr(),
-            nv.data_ptr(), J, delta.data_ptr(), started.data_ptr(), bp.data_ptr(), exit_arg.data_ptr(),
-            int(frame0), t_cap, arms.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            nv.contiguous().data_ptr(), J, delta.data_ptr(), started.data_ptr(), bp.data_ptr(),
+            exit_arg.data_ptr(), f0_dev.data_ptr(), t_cap, arms.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(lib, "viterbi", err, "viterbi_chunk launch")
     CHUNK_LAUNCHES += int(B * Tc > 0)
     LAST_ARMS = arms
+
+
+def _plain_chunk_step(delta, started, emit_ll, n_valid, graphs, acoustic_scale, beam, bp, exit_arg, f0) -> None:
+    """chunk_step on the CPU: the plain step, its codes scattered at the rows'
+    offsets, as the kernel stores them."""
+    from mogasr_torch.decoder import online
+
+    B, Tc, _P = emit_ll.shape
+    was = started.clone()
+    d, s, bps, xas = online.chunk_step(delta, started, emit_ll, n_valid, graphs, acoustic_scale, beam)
+    delta.copy_(d)
+    started.copy_(s)
+    planes = pack_codes(bps)
+    nv = n_valid.to(torch.int64)
+    for b in range(B):
+        lo = 0 if bool(was[b]) else 1
+        n = int(nv[b])
+        if n > lo:
+            bp[b, f0[b] + lo:f0[b] + n] = planes[b, lo:n]
+            exit_arg[b, f0[b] + lo:f0[b] + n] = xas[lo:n, b]
 
 
 def backtrace(
@@ -240,7 +301,7 @@ def backtrace(
     past n_frames; entered; score [B], that maximum)."""
     global BACKTRACE_LAUNCHES
     dev = delta.device
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"backtrace: unsupported device {dev}")
     B, J = delta.shape
     t_cap = bp.shape[1]
@@ -249,7 +310,9 @@ def backtrace(
     if final_logp is not None and (final_logp.dtype != torch.float32 or tuple(final_logp.shape) != (B, J)
                                    or not final_logp.is_contiguous() or final_logp.device != dev):
         raise ValueError(f"final_logp must be contiguous float32 [{B}, {J}] on {dev}")
-    nf = n_frames.to(device=dev, dtype=torch.int32).contiguous()
+    if dev.type == "cpu":
+        return _plain_backtrace(delta, final_logp, n_frames, bp, exit_arg, t_out)
+    nf = n_frames.to(torch.int32) if n_frames.device == dev else to_device(n_frames.cpu().numpy(), dev)
     path = torch.empty((B, t_out), dtype=torch.int32, device=dev)
     entered = torch.empty((B, t_out), dtype=torch.bool, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -263,3 +326,34 @@ def backtrace(
     _cuda.check(lib, "viterbi", err, "viterbi_backtrace launch")
     BACKTRACE_LAUNCHES += int(B > 0)
     return ViterbiResult(path, entered, score)
+
+
+def _plain_backtrace(delta, final_logp, n_frames, bp, exit_arg, t_out) -> ViterbiResult:
+    """backtrace on the CPU: the host walk of the reference's online decoder
+    over the unpacked codes."""
+    B, J = delta.shape
+    scores = delta + final_logp if final_logp is not None else delta
+    j_last = scores.argmax(dim=1).numpy()
+    codes = unpack_codes(bp, slice(0, t_out), J).numpy()   # [t_out, B, J]
+    xa = exit_arg[:, :t_out].numpy()
+    nf = np.clip(np.asarray(n_frames, np.int64).reshape(B), 0, t_out)
+    path = np.full((B, t_out), -1, np.int32)
+    entered = np.zeros((B, t_out), bool)
+    for b in range(B):
+        n = int(nf[b])
+        if n == 0:
+            continue
+        j = int(j_last[b])
+        for t in range(n - 1, 0, -1):
+            path[b, t] = j
+            code = codes[t, b, j]
+            entered[b, t] = code == 2
+            if code == 1:
+                j -= 1
+            elif code == 3:
+                j -= 2
+            elif code == 2:
+                j = int(xa[b, t])
+        path[b, 0] = j
+        entered[b, 0] = True
+    return ViterbiResult(torch.from_numpy(path), torch.from_numpy(entered), scores.max(dim=1).values)

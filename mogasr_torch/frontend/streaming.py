@@ -79,7 +79,7 @@ class StreamingFrontend:
         self.cfg = cfg
         self.chunk_frames = chunk_frames
         self.device = torch.device(device)
-        self.kernel = make_chunk_kernel(cfg, self.device)
+        self._kernel = None
         self._buf = np.zeros(0, np.float64)   # un-consumed samples
         self._prev_sample = 0.0               # for pre-emphasis continuity
         self._first = True
@@ -99,6 +99,14 @@ class StreamingFrontend:
         # sliding CMVN state: trailing raw (pre-normalization) final frames,
         # at most window-1 of them
         self._cmvn_hist = np.zeros((0, cfg.feat_dim), np.float64)
+
+    @property
+    def kernel(self):
+        """The spectral chunk on ``device``, built at first use (an engine's
+        per-session frontends frame and absorb only, and never build it)."""
+        if self._kernel is None:
+            self._kernel = make_chunk_kernel(self.cfg, self.device)
+        return self._kernel
 
     @property
     def _lag(self) -> int:

@@ -157,8 +157,13 @@ def _frame_signal_reflect(
     return torch.gather(wave, 1, idx.reshape(B, -1)).reshape(B, t_max, L)
 
 
-def _deltas_batched(feats: torch.Tensor, n_frames: torch.Tensor, window: int) -> torch.Tensor:
-    """Regression deltas with per-utterance edge replication on padded [B, T, D]."""
+def _deltas_batched(feats: torch.Tensor, n_frames: torch.Tensor, window: int,
+                    reciprocal: bool = False) -> torch.Tensor:
+    """Regression deltas with per-utterance edge replication on padded [B, T, D].
+
+    ``reciprocal`` scales by 1 / denom instead of dividing by denom: what
+    XLA makes of a division by a constant under jit, and what PyTorch on
+    CUDA makes of a division by a Python scalar either way."""
     B, T, D = feats.shape
     t = torch.arange(T, device=feats.device)[None, :]
     last = torch.clamp(n_frames.to(torch.int64) - 1, min=0)[:, None]
@@ -170,7 +175,7 @@ def _deltas_batched(feats: torch.Tensor, n_frames: torch.Tensor, window: int) ->
         fwd = torch.gather(feats, 1, fwd_idx[:, :, None].expand(B, T, D))
         bwd = torch.gather(feats, 1, bwd_idx[:, :, None].expand(B, T, D))
         out = out + i * (fwd - bwd)
-    return out / denom
+    return out * (1.0 / denom) if reciprocal else out / denom
 
 
 def _masked_cmvn(feats: torch.Tensor, mask: torch.Tensor, norm_var: bool) -> torch.Tensor:

@@ -1070,8 +1070,47 @@ def test_viterbi_chunk_arm_checks_buffers(dev):
         viterbi_cuda.chunk_step(delta[:, :-1], started, ll, nv, graphs, 1.0, 0.0, bp, xa, 0)
     with pytest.raises(ValueError):
         viterbi_cuda.chunk_step(delta, started, ll, nv, graphs, 1.0, 0.0, bp[:, :, :1], xa, 0)
-    with pytest.raises(RuntimeError):  # the chunk does not fit the buffer
+    with pytest.raises(ValueError):  # the chunk does not fit the buffer (checked on the host)
         viterbi_cuda.chunk_step(delta, started, ll, nv, graphs, 1.0, 0.0, bp, xa, 6)
+    with pytest.raises(ValueError):  # one row's does not
+        viterbi_cuda.chunk_step(delta, started, ll, nv.cpu(), graphs, 1.0, 0.0, bp, xa, [0, 5])
+
+
+@pytest.mark.parametrize("beam", [0.0, 3.0])
+@pytest.mark.parametrize("J", [37, 3048])
+def test_viterbi_chunk_arm_ragged_offsets_bitwise_plain(dev, J, beam):
+    """K2's chunk arm with a frame offset per row (the serving engine's
+    launch): rows at ragged offsets, reused rows back at 0, a row at the
+    buffers' end and idle rows, from garbage-filled buffers, against the
+    CPU route (the plain step, its codes scattered at the offsets): delta,
+    started and both buffers bit for bit, over three chunks."""
+    rng = np.random.default_rng(J + 7)
+    B, Tc, P, t_cap = 9, 24, 97, 120
+    g = _random_graphs(rng, B, J, P)
+    graphs, graphs_c = vit.graphs_to_torch(g, dev), vit.graphs_to_torch(g, torch.device("cpu"))
+    started = torch.as_tensor(rng.random(B) < 0.6)
+    delta = torch.where(started[:, None], torch.as_tensor(rng.standard_normal((B, J)).astype(np.float32)),
+                        torch.full((B, J), -1e30))
+    bp = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, size=(B, t_cap, -(-J // 32), 2)), dtype=torch.int32)
+    xa = torch.as_tensor(rng.integers(0, J, size=(B, t_cap)), dtype=torch.int32)
+    frames = np.asarray([0, 0, 17, 40, 96, 120, 3, 0, 55])
+    card = [t.to(dev) for t in (delta, started, bp, xa)]
+    cpu = [t.clone() for t in (delta, started, bp, xa)]
+    for c in range(3):
+        nv = rng.integers(0, Tc + 1, size=B).astype(np.int32)
+        nv[c] = 0                                   # an idle row
+        nv = np.minimum(nv, t_cap - frames)         # the row at the end stays idle
+        ll = (rng.standard_normal((B, Tc, P)) * 3).astype(np.float32)
+        before = viterbi_cuda.CHUNK_LAUNCHES
+        viterbi_cuda.chunk_step(card[0], card[1], torch.as_tensor(ll, device=dev), torch.as_tensor(nv), graphs,
+                                0.7, beam, card[2], card[3], frames)
+        viterbi_cuda.chunk_step(cpu[0], cpu[1], torch.as_tensor(ll), torch.as_tensor(nv), graphs_c, 0.7, beam,
+                                cpu[2], cpu[3], frames)
+        torch.cuda.synchronize()
+        assert viterbi_cuda.CHUNK_LAUNCHES == before + 1
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+        frames = frames + nv
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

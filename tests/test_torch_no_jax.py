@@ -42,7 +42,9 @@ def test_port_imports_without_jax():
                  "mogasr_torch.cli.diarize", "mogasr_torch.am.aed", "mogasr_torch.am.train_nn",
                  "mogasr_torch.am.nn_seq", "mogasr_torch.am.pretrain", "mogasr_torch.cli.train_nn",
                  "mogasr_torch.am.ctc", "mogasr_torch.am.distill", "mogasr_torch.data.bpe",
-                 "mogasr_torch.lm.unit_ngram", "mogasr_torch.decoder.biasing", "mogasr_torch.cli.train_lm"):
+                 "mogasr_torch.lm.unit_ngram", "mogasr_torch.decoder.biasing", "mogasr_torch.cli.train_lm",
+                 "mogasr_torch.serving", "mogasr_torch.serving.engine", "mogasr_torch.frontend.device_tail",
+                 "mogasr_torch.cli.serve"):
         assert name in modules
     code = "\n".join([
         "import sys",
