@@ -596,6 +596,40 @@ SERVE_PROFILE_TICKS, SERVE_WINDOW_AT, SERVE_CTC_UTTS, SERVE_CLI_SESSIONS = 24, 4
 # queued_ms's sleep: ~50 ms at the H100's 1980 MHz, far longer than the
 # host takes to queue a timed run of calls
 QUEUE_SLEEP_CYCLES = 100_000_000
+# RNN-T and the neural LM (phases 47-54). The model of bench_families.py's
+# rnnt row (:39-40, 130-135): build_rnnt_model(n_phones, TrainConfig(
+# nn_hidden=512, nn_layers=3)), an LstmAm encoder 2 x 512 (its cells
+# warm-started from phase 31's CE model, as phase 37 warm-starts CTC), the
+# stateless prediction net (128), the joint (256) and the auxiliary CTC
+# head; RNNT_STEPS steps of an RNNT_SCHEDULE-step schedule at peak RNNT_LR on
+# phase 37's merged batches (the depth is cut, not the width). The loss on
+# the card is held to the float64 NumPy DP (rnnt_loss_np) on RNNT_CHECK rows
+# of the first batch (edge rows among them) to RNNT_LOSS_RTOL, its gradient
+# to the float64 DP's to RNNT_GRAD_ATOL. The greedy decoders are held equal
+# on RNNT_GREEDY_ROWS rows, the device beam (width RNNT_BEAM, u_cap
+# RNNT_U_CAP as the bench row) to rnnt_beam_decode_batch on RNNT_BEAM_UTTS
+# utterances (the device beam sums in float32, the host beam in float64:
+# scores within the reference's relative RNNT_BEAM_RTOL). RNNT_PRUNED_STEPS pruned steps
+# (band RNNT_BAND) and RNNT_MWER_STEPS MWER steps on RNNT_MWER_ROWS rows
+# (the first steps of a schedule: step 0's learning rate is 0).
+# The engine at bench_serve.py's RNN-T configuration (:331-356): capacity
+# SERVE_CAPACITY, SERVE_TICK-frame ticks, V = RNNT_SERVE_UNITS (random
+# prediction and joint weights on phase 48's encoder), frame-scan greedy;
+# its finals against the dedicated per-session stream's on RNNT_SERVE_GATE
+# sessions, at most RNNT_SERVE_FLIPS of them different: the two paths' input
+# GEMMs (the spectral chunk, the LSTM's input gates) sum [B x frames] rows
+# in other orders, and the random joint over 300 units has near-ties that
+# an ulp flips (one session of 64 in one of three full runs; the CPU tests
+# hold the engine to the reference's engine exactly).
+# The neural LMs at train_lm's defaults (LSTM 128 x 1, embed 64; the
+# Transformer 64 wide, 2 blocks, 4 heads) for NNLM_STEPS steps.
+RNNT_STEPS, RNNT_SCHEDULE, RNNT_LR = 24, 60, 3e-3
+RNNT_CHECK, RNNT_LOSS_RTOL, RNNT_GRAD_ATOL = 8, 1e-4, 1e-4
+RNNT_GREEDY_ROWS, RNNT_BEAM, RNNT_U_CAP, RNNT_BEAM_UTTS = 32, 4, 120, 2
+RNNT_BEAM_RTOL = 2e-4  # the reference's device-beam tolerance, tests/test_rnnt_device_beam.py:58
+RNNT_PRUNED_STEPS, RNNT_BAND, RNNT_MWER_STEPS, RNNT_MWER_ROWS = 4, 4, 4, 12
+RNNT_SERVE_UNITS, RNNT_SERVE_GATE, RNNT_SERVE_FLIPS, RNNT_PROFILE_TICKS = 300, 64, 2, 4
+NNLM_STEPS, NNLM_LR = 40, 5e-3
 KERNEL_COUNTERS = ("gmm_score", "gmm_score_wide", "gmm_score_int8", "viterbi", "fb_forward", "fb_backward",
                    "fb_combine", "lstm_scan")
 
@@ -3306,6 +3340,18 @@ def ctc_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
         raise RuntimeError(f"the CTC objective on the edge rows: K3 route against plain {edge_err}, gradient "
                            f"{short_grad} on the rows that cannot fit (must be 0)")
     logp = torch.log_softmax(logits, -1)
+    # the library yardstick: torch's CTC loss forward + backward on the same
+    # log posteriors (time-major, the targets unpadded by their lengths)
+    lp_tbc = logp.detach().transpose(0, 1).contiguous()
+
+    def library_loss():
+        xl = lp_tbc.clone().requires_grad_()
+        with torch.enable_grad():
+            torch.nn.functional.ctc_loss(xl, labels.clamp(min=0).long(), fb.n_frames.long(), nl.long(), blank=blank,
+                                         reduction="sum", zero_infinity=True).backward()
+        return xl.grad
+
+    lib_loss_ms, _ = timed(library_loss, 5)
     graphs = ctc.ctc_label_graphs(labels, nl, blank)
     nf1 = fb.n_frames.clamp(min=1)
     k3_dev = kernel_device_ms(lambda: fb_cuda.forward_backward(logp, graphs, nf1), fb_names, 5)
@@ -3321,7 +3367,8 @@ def ctc_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
               f"{grad64[True]:.3g}, plain float32's {grad64[False]:.3g} (limit {min(grad_limit, FB_POST64_ATOL):.3g}: "
               f"{CTC_GRAD_RATIO:g} x plain's, at most {FB_POST64_ATOL}); the edge rows' limits {CTC_LOSS_RTOL} and "
               f"{CTC_GRAD_ATOL}; loss and backward "
-              f"{loss_ms[True]:.1f} ms (plain {loss_ms[False]:.1f} ms); the kernels K3f "
+              f"{loss_ms[True]:.1f} ms (plain {loss_ms[False]:.1f} ms; torch's ctc_loss forward + backward on the "
+              f"same log posteriors {lib_loss_ms:.3f} ms); the kernels K3f "
               f"{k3_dev['fb_forward_kernel']:.3f}"
               f" ms, K3b {k3_dev['fb_backward_kernel']:.3f} ms, combine {k3_dev['fb_combine_kernel']:.3f} ms (plain "
               f"passes {k3_plain_ms:.1f} ms; bounds {k3_bounds['fwd'][0]:.4f}, {k3_bounds['bwd'][0]:.4f}, "
@@ -3633,7 +3680,7 @@ def ctc_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
                    "grad_max_abs_err": grad_err, "grad_from_float64": grad64[True],
                    "plain_grad_from_float64": grad64[False], "ms": k3_dev, "plain_ms": k3_plain_ms,
                    "bounds": {k: v for k, v in k3_bounds.items()}, "loss_ms": loss_ms[True],
-                   "loss_plain_ms": loss_ms[False]},
+                   "loss_plain_ms": loss_ms[False], "library_loss_ms": lib_loss_ms},
             "k2": {"arm": k2_arms[0], "shape": [Bw, Tw, graph.n_states], "max_abs_err": 0.0, "ms": k2_ms,
                    "plain_ms": k2_plain_ms, "bound_ms": k2_b[0], "bound_by": k2_b[1]},
             "k4": {"shape": [Bw, Tw, H], "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
@@ -4267,6 +4314,690 @@ def serve_cli_phase(dev: torch.device) -> dict:
     return launches
 
 
+def k4_layer_times(cell, x, n_frames, h0=None, c0=None, reps: int = 5) -> dict:
+    """K4 on one LSTM layer (its input gates from ``x``) against the plain
+    recurrence, with its bound, and the whole layer (input GEMM + K4) beside
+    cuDNN's nn.LSTM on the rows with frames; the carry arm with (h0, c0)."""
+    from mogasr_torch.am import fast_lstm, lstm_cuda
+    from mogasr_torch.am import neural as tn
+
+    dev = x.device
+    B, T = x.shape[:2]
+    H = cell.w_rec.shape[0]
+    carry = h0 is not None
+    kw = dict(h0=h0, c0=c0, return_carry=True) if carry else {}
+    with torch.no_grad():
+        xg = cell.input_gates(x, "float32")
+        ms, y_k = timed(lambda: lstm_cuda.lstm_layer(xg, cell.w_rec, n_frames, "float32", **kw), reps)
+        device_ms = queued_ms(lambda: lstm_cuda.lstm_layer(xg, cell.w_rec, n_frames, "float32", **kw))
+        plain_ms, y_p = timed(lambda: fast_lstm.lstm_layer(xg, cell.w_rec, n_frames, "float32", **kw), 1)
+        vmask = tn.valid_mask(n_frames, T, dev)
+        outs = [(y_k[0], y_p[0]), (y_k[1][0], y_p[1][0]), (y_k[1][1], y_p[1][1])] if carry else [(y_k, y_p)]
+        err = max(float((a - b)[vmask].abs().max()) if a.dim() == 3 else float((a - b).abs().max())
+                  for a, b in outs)
+        cudnn = torch.nn.LSTM(x.shape[2], H, batch_first=True).to(dev)
+        cudnn.weight_ih_l0.copy_(cell.w_in.T)   # torch's gate order i, f, g, o is flax's
+        cudnn.weight_hh_l0.copy_(cell.w_rec.T)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.copy_(cell.bias)
+        live = (n_frames > 0).nonzero()[:, 0]
+        lens = n_frames[live].to(device="cpu", dtype=torch.int64)
+        init = (h0[live][None], c0[live][None]) if carry else None
+
+        def cudnn_layer():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(x[live], lens, batch_first=True, enforce_sorted=False)
+            return cudnn(packed, init)
+
+        lib_ms, _ = timed(cudnn_layer, reps)
+        layer_ms, _ = timed(lambda: cell(x, n_frames), reps)
+    if err > K4_ATOL["float32"]:
+        raise RuntimeError(f"K4 at B={B} T={T} H={H} off the plain recurrence by {err}")
+    valid = int(n_frames.sum())
+    b = bound(valid * 4 * H * 4 + H * 4 * H * 4 + B * 4 + B * T * H * 4 + (4 * B * H * 4 if carry else 0),
+              valid * H * (2 * 4 * H + K4_GATE_OPS), "float32")
+    return {"shape": [B, T, H], "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms, "layer_ms": layer_ms}
+
+
+def rnnt_dp_cells(blank, emit, n_frames, n_labels):
+    """The transducer DP a cell at a time (plain ops on the card, one
+    logaddexp a cell): the form the anti-diagonal DP replaces, timed beside
+    it."""
+    B, T, U1 = blank.shape
+    out = []
+    for b in range(B):
+        nf, nl = max(int(n_frames[b]), 1), int(n_labels[b])
+        alpha = [[None] * (nl + 1) for _ in range(nf)]
+        for t in range(nf):
+            for u in range(nl + 1):
+                if t == 0 and u == 0:
+                    a = blank.new_zeros(())
+                elif t == 0:
+                    a = alpha[0][u - 1] + emit[b, 0, u - 1]
+                elif u == 0:
+                    a = alpha[t - 1][0] + blank[b, t - 1, 0]
+                else:
+                    a = torch.logaddexp(alpha[t - 1][u] + blank[b, t - 1, u], alpha[t][u - 1] + emit[b, t, u - 1])
+                alpha[t][u] = a
+        out.append(-(alpha[nf - 1][nl] + blank[b, nf - 1, nl]))
+    return torch.stack(out)
+
+
+def rnnt_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model) -> dict:
+    """Phases 47-53: the transducer loss on the card against the float64
+    DP and the aux CTC term on K3; RNN-T training at full width; the
+    held-out decodes (K4 on the encoder; host greedy, label loop and frame
+    scan equal; the device beam against the batched host beam); pruned and
+    MWER steps; the stream on K4's carry arm; BatchedRnntEngine at the
+    serving configuration; the neural LMs on K4. Returns each path's launch
+    counts and the kernels line's sub-entries."""
+    import copy
+    import dataclasses
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import ctc, lstm_cuda
+    from mogasr_torch.am import rnnt as R
+    from mogasr_torch.am import rnnt_pruned as RP
+    from mogasr_torch.am.params import init_
+    from mogasr_torch.am.pretrain import transfer_pretrained
+    from mogasr_torch.config import TrainConfig
+    from mogasr_torch.eval.wer import corpus_wer, edit_counts
+    from mogasr_torch.frontend.streaming import StreamingFrontend
+    from mogasr_torch.lm import neural as NL
+    from mogasr_torch.serving.engine import BatchedRnntEngine
+
+    torch.cuda.empty_cache()
+    lex = topo.lexicon
+    V, D = lex.n_phones, fcfg.feat_dim
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    def zero():
+        zero_launches()
+        lstm_cuda.CARRY_LAUNCHES = 0
+
+    def counts():
+        c = launch_counts()
+        c.update(lstm_scan_carry=lstm_cuda.CARRY_LAUNCHES)
+        return c
+
+    def only(name, c, allowed):
+        if any(v for k, v in c.items() if k not in allowed) or min(c[k] for k in allowed) == 0:
+            raise RuntimeError(f"{name}: launches {c} (only and every one of {allowed})")
+
+    def encode(words):
+        return ctc.ctc_labels_from_words(lex, words)
+
+    merged = ctc_batches(train_fbs)
+    labeled = pipe._pack_ctc_targets(merged, encode)
+    cfg = TrainConfig(nn_arch="lstm", nn_hidden=NN_HIDDEN, nn_layers=NN_LAYERS, lr=RNNT_LR,
+                      num_nn_steps=RNNT_SCHEDULE)
+    untrained = pipe.rnnt_model_for(V, cfg, merged)
+    model = copy.deepcopy(untrained)
+    ce_enc = {f"encoder.{k}": v for k, v in ce_model.state_dict().items()}
+    warm_sd, copied, total = transfer_pretrained(ce_enc, model.state_dict())
+    model.load_state_dict(warm_sd)
+
+    # ---- phase 47: the loss on the card against the float64 DP; the aux CTC term on K3
+    fb, labels, nl = labeled[0]
+    rows = torch.arange(RNNT_CHECK, device=dev)
+    nf_c, lab_c, nl_c = fb.n_frames[rows].clone(), labels[rows].clone(), nl[rows].clone()
+    nf_c[1] = 1                      # one frame
+    nl_c[2] = 0                      # no labels
+    lab_c[2] = -1
+    nf_c[3] = 0                      # no frames: scored on frame 0
+    with torch.no_grad():
+        logits = model(fb.feats[rows], fb.n_frames[rows], lab_c, use_kernels=True)
+    x = logits.clone().requires_grad_()
+    with torch.enable_grad():
+        nll = R.rnnt_loss(x, nf_c, lab_c, nl_c)
+        nll.sum().backward()
+    x64 = logits.double().cpu().requires_grad_()
+    with torch.enable_grad():
+        R.rnnt_loss(x64, nf_c.cpu(), lab_c.cpu(), nl_c.cpu()).sum().backward()
+    lp64 = torch.log_softmax(logits.double().cpu(), -1).numpy()
+    oracle = np.asarray([R.rnnt_loss_np(lp64[b, : max(int(nf_c[b]), 1)], lab_c[b, : int(nl_c[b])].tolist())
+                         for b in range(RNNT_CHECK)])
+    loss_err = float(np.max(np.abs(nll.detach().cpu().numpy() - oracle) / np.abs(oracle)))
+    grad_err = float((x.grad.double().cpu() - x64.grad).abs().max())
+    if loss_err > RNNT_LOSS_RTOL or grad_err > RNNT_GRAD_ATOL:
+        raise RuntimeError(f"the transducer loss on the card: {loss_err} relative to the float64 DP (limit "
+                           f"{RNNT_LOSS_RTOL}), gradient {grad_err} (limit {RNNT_GRAD_ATOL})")
+    Bc, Tc_, U1c = logits.shape[:3]
+    with torch.no_grad():
+        lpc = torch.log_softmax(logits, -1)
+        blank_c = lpc[..., V]
+        emit_c = torch.gather(lpc[:, :, :-1, :], 3, lab_c.clamp(min=0)[:, None, :, None].expand(
+            Bc, Tc_, U1c - 1, 1))[..., 0]
+        small = (blank_c[:4, :80, :16].contiguous(), emit_c[:4, :80, :15].contiguous(), nf_c[:4].clamp(max=80),
+                 nl_c[:4].clamp(max=15))
+        diag_small_ms, d_small = timed(lambda: R.rnnt_dp_nll(*small), 3)
+        cells_ms, c_small = timed(lambda: rnnt_dp_cells(*small), 1)
+    cells_err = float((d_small - c_small).abs().max())
+    if cells_err > 1e-3:
+        raise RuntimeError(f"the anti-diagonal DP against the cell-at-a-time form: {cells_err}")
+    Bf, Tf = fb.feats.shape[:2]
+    with torch.no_grad():
+        enc = model.encode(fb.feats, fb.n_frames, use_kernels=True)
+        full_logits = model.joint(enc, model.prediction(labels))
+
+    def loss_and_backward():
+        xf = full_logits.clone().requires_grad_()
+        with torch.enable_grad():
+            R.rnnt_loss(xf, fb.n_frames, labels, nl).sum().backward()
+        return xf.grad
+
+    zero()
+    full_ms, _ = wall(loss_and_backward)
+    full_ms, _ = wall(loss_and_backward)
+    dp_launches = counts()
+    # device launches of the DP's loss and backward, a frame and an anti-diagonal
+    Ul = labels.shape[1]
+    try:
+        dp_events = device_profile(loss_and_backward, names=("",))[3][""][1]
+    except RuntimeError:
+        dp_events = None   # a profiled window without device activity: not measured
+    if any(dp_launches.values()):
+        raise RuntimeError(f"the transducer loss launched kernels: {dp_launches}")
+    del full_logits
+    with torch.no_grad():
+        ctc_logits = model.ctc_head(enc)
+    aux = {}
+    for use_kernels in (True, False):
+        xc = ctc_logits.clone().requires_grad_()
+
+        def aux_loss():
+            with torch.enable_grad():
+                out = ctc.ctc_loss(xc, fb.n_frames, labels, nl, use_kernels=use_kernels)
+                out.sum().backward()
+            return out.detach()
+
+        ms, l_ = wall(aux_loss)
+        aux[use_kernels] = (l_, xc.grad, ms)
+    aux_err = float(((aux[True][0] - aux[False][0]).abs() / aux[False][0].abs()).max())
+    aux_grad = float((aux[True][1] - aux[False][1]).abs().max())
+    if aux_err > CTC_LOSS_RTOL or aux_grad > FB_POST64_ATOL:
+        raise RuntimeError(f"the aux CTC term through K3 against the plain recursion: loss {aux_err}, gradient "
+                           f"{aux_grad}")
+    del enc, ctc_logits
+    phase(47, f"the transducer loss on the card (B={Bc} rows of the first batch, T={Tc_}, U+1={U1c}; one frame, no "
+              f"labels, no frames among them) against the float64 DP (rnnt_loss_np): {loss_err:.3g} relative "
+              f"(limit {RNNT_LOSS_RTOL}), gradient {grad_err:.3g} from the float64 autograd (limit "
+              f"{RNNT_GRAD_ATOL}); the anti-diagonal DP {diag_small_ms:.2f} ms against the cell-at-a-time form "
+              f"{cells_ms:.1f} ms on 4 x 80 x 16 ({cells_err:.3g} apart); loss and backward on the whole batch "
+              f"B={Bf} T={Tf} U+1={Ul + 1} {full_ms:.1f} ms, "
+              + ("device launches not measured" if dp_events is None else
+                 f"{dp_events} device launches ({dp_events / Tf:.1f} a frame, {dp_events / (Tf + Ul):.1f} an "
+                 f"anti-diagonal)")
+              + f" (kernel launches {dp_launches}); the aux CTC "
+              f"term through K3 against the plain recursion, loss {aux_err:.3g} relative, gradient {aux_grad:.3g}, "
+              f"loss and backward {aux[True][2]:.1f} ms (plain {aux[False][2]:.1f} ms)")
+
+    # ---- phase 48: RNN-T training at full width
+    state, step = R.init_rnnt_train_state(model, cfg), R.make_rnnt_train_step(model, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    metrics, step_ms = [], []
+    for i in range(RNNT_STEPS):
+        fb_i, lab_i, nl_i = labeled[i % len(labeled)]
+        ms, (state, m) = wall(lambda: step(state, fb_i.feats, fb_i.n_frames, lab_i, nl_i))
+        step_ms.append(ms)
+        metrics.append(m)
+    train_launches = counts()
+    only("RNN-T training", train_launches, ("fb_forward", "fb_backward", "fb_combine"))
+    losses = [m["loss"] for m in metrics]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError(f"RNN-T training: losses {losses}")
+    model.eval()
+    frames = float(np.mean([int(f.n_frames.sum()) for f, _l, _n in labeled]))
+    train = {"steps": RNNT_STEPS, "ms_per_step": float(np.median(step_ms[1:])), "first_step_ms": step_ms[0],
+             "loss_first": losses[0], "loss_last": losses[-1], "frames_per_step": frames,
+             "k3_launches_per_step": {k: v / RNNT_STEPS for k, v in train_launches.items() if v},
+             "peak_gib": peak_gib(), "warm_start_copied": [copied, total]}
+    phase(48, f"RNN-T training at full width (encoder LstmAm 2 x {NN_HIDDEN} warm-started from phase 31's CE model, "
+              f"{copied} of {total} tensors copied; stateless prediction {model.pred_hidden}, joint "
+              f"{model.joint_hidden}, aux CTC head; {V} phones + blank): {RNNT_STEPS} steps of a {RNNT_SCHEDULE}-step "
+              f"schedule (peak lr {RNNT_LR:g}) over {len(labeled)} batches of up to {labels.shape[1]} labels "
+              f"({frames:.0f} frames a step): {train['ms_per_step']:.1f} ms a step (median; first {step_ms[0]:.0f} "
+              f"ms), peak {train['peak_gib']:.1f} GiB, loss {losses[0]:.3f} -> {losses[-1]:.3f}; launches "
+              f"{train_launches} (K3's three a step, no K4 under autograd)")
+
+    # ---- phase 49: the held-out decodes
+    held = pipe.featurize(corpus, fcfg, bcfg, dev)
+
+    def phones_of(words):
+        return [lex.phones[p] for p in lex.words_to_phone_ids(words, interword_sil=False, edge_sil=False,
+                                                              oov="skip")]
+
+    def greedy_per(m, impl="label_loop"):
+        refs, hyps = [], []
+        for f in map(pipe.live_rows, held):
+            for b, seq in enumerate(R.rnnt_greedy_decode_device(m, f.feats, f.n_frames, impl=impl)):
+                refs.append(phones_of(f.words[b]))
+                hyps.append([lex.phones[u] for u in seq])
+        return corpus_wer(refs, hyps)[0]
+
+    zero()
+    greedy_ms, per = wall(lambda: greedy_per(model))
+    greedy_launches = counts()
+    only("the greedy decode", greedy_launches, ("lstm_scan",))
+    per0 = greedy_per(untrained)
+    if not per < 0.5 * per0:
+        raise RuntimeError(f"the trained RNN-T's held-out PER {per:.4f} against the untrained model's {per0:.4f}")
+    fbw = max(held, key=lambda f: f.feats.shape[1])
+    sub = pipe.live_rows(fbw)
+    g_feats, g_nf = sub.feats[:RNNT_GREEDY_ROWS], sub.n_frames[:RNNT_GREEDY_ROWS]
+    host_ms, host = wall(lambda: R.rnnt_greedy_decode(model, g_feats, g_nf))
+    ll_ms, ll_tok = wall(lambda: R.rnnt_greedy_decode_device(model, g_feats, g_nf))
+    fs_ms, fs_tok = wall(lambda: R.rnnt_greedy_decode_device(model, g_feats, g_nf, impl="frame_scan"))
+    if not host == ll_tok == fs_tok:
+        bad = [b for b in range(len(host)) if not host[b] == ll_tok[b] == fs_tok[b]]
+        raise RuntimeError(f"the greedy decoders differ on rows {bad[:8]}")
+    with torch.no_grad():
+        enc_w = R.rnnt_encode(model, g_feats, g_nf)
+    Tg = g_feats.shape[1]
+    u_cap = min(2 * Tg, 400)
+    ll_dec = R.make_rnnt_device_greedy(model, u_cap)
+    fs_dec = R.make_rnnt_device_greedy(model, u_cap, impl="frame_scan")
+    zero()
+    ll_dev_ms = per_call_ms(lambda: ll_dec(enc_w, g_nf), 2)
+    ll_launch_count = counts()
+    fs_dev_ms = per_call_ms(lambda: fs_dec(enc_w, g_nf), 1)
+    # device launches a frame: the label loop's over the whole batch, the
+    # frame scan's (the same every frame) over its first 60 frames, as a
+    # profiled window of all its launches takes the profiler ~a minute
+    greedy_events = {}
+    for name, dec, n in (("label_loop", ll_dec, Tg), ("frame_scan", fs_dec, 60)):
+        try:
+            greedy_events[name] = device_profile(lambda: dec(enc_w[:, :n], g_nf.clamp(max=n)),
+                                                 names=("",))[3][""][1] / n
+        except RuntimeError:
+            greedy_events[name] = None   # not measured
+    b_feats, b_nf = sub.feats[:RNNT_BEAM_UTTS], sub.n_frames[:RNNT_BEAM_UTTS]
+    kw = dict(beam_size=RNNT_BEAM, u_cap=RNNT_U_CAP)
+    beam_host_ms, want = wall(lambda: R.rnnt_beam_decode_batch(model, b_feats, b_nf, **kw))
+    beam_dev_ms, got = wall(lambda: R.rnnt_beam_decode_device(model, b_feats, b_nf, **kw))
+    beam_err = 0.0
+    for g, w in zip(got, want):
+        if [h for _s, h in g] != [h for _s, h in w]:
+            raise RuntimeError(f"the device beam's ranked sequences differ from the batched host beam's: {g} / {w}")
+        beam_err = max([beam_err] + [abs(a - b) / abs(b) for (a, _h), (b, _g) in zip(g, w)])
+    if beam_err > RNNT_BEAM_RTOL:
+        raise RuntimeError(f"the device beam's scores {beam_err} from the host beam's (limit {RNNT_BEAM_RTOL})")
+    Bw, Tw = fbw.feats.shape[:2]
+    k4_enc = k4_layer_times(model.encoder.cells[0], fbw.feats, fbw.n_frames)
+    decode = {"per": per, "untrained_per": per0, "greedy_ms": greedy_ms,
+              "utts": sum(f.size for f in held), "greedy_rows": RNNT_GREEDY_ROWS, "host_greedy_ms": host_ms,
+              "label_loop_ms": ll_ms, "frame_scan_rows_ms": fs_ms, "label_loop_device_ms": ll_dev_ms,
+              "frame_scan_device_ms": fs_dev_ms, "label_loop_launches": ll_launch_count, "T": Tg,
+              "device_launches_per_frame": greedy_events,
+              "beam": {"utts": RNNT_BEAM_UTTS, "width": RNNT_BEAM, "device_ms": beam_dev_ms,
+                       "host_batch_ms": beam_host_ms, "max_rel_err": beam_err}}
+    phase(49, f"the {decode['utts']} held-out utterances: greedy (label loop, K4 on the encoder) PER {per:.4f} in "
+              f"{greedy_ms:.0f} ms against the untrained model's "
+              f"{per0:.4f} (launches {greedy_launches}); on {RNNT_GREEDY_ROWS} rows of the widest batch (T={Tg}) the "
+              f"host greedy ({host_ms:.0f} ms), the label loop ({ll_ms:.0f} ms; {ll_dev_ms:.1f} ms a call from the "
+              f"encoder) and the frame scan ({fs_ms:.0f} ms; {fs_dev_ms:.1f} ms a call) give the same tokens on "
+              f"every row (device launches a frame: {greedy_events}); the device beam (width {RNNT_BEAM}, u_cap {RNNT_U_CAP}) on {RNNT_BEAM_UTTS} utterances "
+              f"the batched host beam's ranked sequences, scores {beam_err:.3g} relative, {beam_dev_ms:.0f} ms "
+              f"(host {beam_host_ms:.0f} ms); K4 on the encoder's layer 0 at B={Bw} T={Tw} {k4_enc['ms']:.3f} ms "
+              f"(plain {k4_enc['plain_ms']:.1f} ms, bound {k4_enc['bound_ms']:.4f} ms by {k4_enc['bound_by']}, max "
+              f"|err| {k4_enc['max_abs_err']:.3g}); the whole layer {k4_enc['layer_ms']:.3f} ms vs cuDNN nn.LSTM "
+              f"{k4_enc['library_ms']:.3f} ms")
+
+    # ---- phase 50: pruned steps and MWER steps
+    pruned = init_(R.build_rnnt_model(V, cfg, D, simple_heads=True), torch.Generator().manual_seed(5)).to(dev)
+    pruned.load_state_dict(model.state_dict(), strict=False)
+    p_state = R.init_rnnt_train_state(pruned, cfg)
+    p_step = RP.make_rnnt_pruned_train_step(pruned, cfg, band=RNNT_BAND)
+    zero()
+    p_ms, p_loss = [], []
+    fb0, lab0, nl0 = labeled[0]
+    for _ in range(RNNT_PRUNED_STEPS):
+        ms, (p_state, m) = wall(lambda: p_step(p_state, fb0.feats, fb0.n_frames, lab0, nl0))
+        p_ms.append(ms)
+        p_loss.append(m["loss"])
+    pruned_launches = counts()
+    if not np.isfinite(p_loss).all() or not p_loss[-1] < p_loss[0]:
+        raise RuntimeError(f"pruned RNN-T steps on one batch: losses {p_loss}")
+    mwer_model = copy.deepcopy(model)
+    mrows = slice(0, RNNT_MWER_ROWS)
+    m_fb = pipe.FeatBatch(fb0.utt_ids[mrows], fb0.feats[mrows], fb0.n_frames[mrows], fb0.words[mrows])
+    seqs = [encode(w) for w in m_fb.words]
+    u_max = max(map(len, seqs)) + 4
+    zero()
+    beam_ms, nbest = wall(lambda: R.rnnt_beam_decode_device(mwer_model, m_fb.feats, m_fb.n_frames, beam_size=4,
+                                                            u_cap=u_max))
+    hyps = np.full((RNNT_MWER_ROWS, 4, u_max), -1, np.int64)
+    n_h, h_mask = np.zeros((RNNT_MWER_ROWS, 4), np.int64), np.zeros((RNNT_MWER_ROWS, 4), bool)
+    risks = np.zeros((RNNT_MWER_ROWS, 4), np.float32)
+    for b, lst in enumerate(nbest):
+        for n, (_s, h) in enumerate(lst[:4]):
+            hyps[b, n, : len(h)], n_h[b, n], h_mask[b, n] = h, len(h), True
+            risks[b, n] = edit_counts(seqs[b], h).errors
+    m_state = R.init_rnnt_train_state(mwer_model, cfg)
+    m_step = R.make_rnnt_mwer_step(mwer_model, cfg)
+    nb = [torch.as_tensor(a, device=dev) for a in (hyps, n_h, h_mask, risks)]
+    m_lab, m_nl = lab0[mrows], nl0[mrows]
+    m_ms, m_loss, m_risk = [], [], []
+    for _ in range(RNNT_MWER_STEPS):
+        ms, (m_state, m) = wall(lambda: m_step(m_state, m_fb.feats, m_fb.n_frames, *nb, m_lab, m_nl))
+        m_ms.append(ms)
+        m_loss.append(m["loss"])
+        m_risk.append(m["expected_risk"])
+    mwer_launches = counts()
+    # the criterion MWER lowers is the expected risk (the anchor term beside it may rise)
+    if not np.isfinite(m_loss + m_risk).all() or not m_risk[-1] < m_risk[0]:
+        raise RuntimeError(f"MWER steps on a fixed N-best: losses {m_loss}, expected risks {m_risk}")
+    del mwer_model, pruned
+    steps50 = {"pruned": {"band": RNNT_BAND, "steps": RNNT_PRUNED_STEPS, "ms_per_step": float(np.median(p_ms[1:])),
+                          "loss": p_loss},
+               "mwer": {"rows": RNNT_MWER_ROWS, "steps": RNNT_MWER_STEPS, "ms_per_step": float(np.median(m_ms[1:])),
+                        "beam_ms": beam_ms, "loss": m_loss, "expected_risk": m_risk}}
+    phase(50, f"pruned RNN-T steps (band {RNNT_BAND}, fresh simple heads on phase 48's model) on one batch: "
+              f"{steps50['pruned']['ms_per_step']:.1f} ms a step, loss {p_loss[0]:.3f} -> {p_loss[-1]:.3f} "
+              f"(launches {pruned_launches}); MWER on {RNNT_MWER_ROWS} rows, the device beam's 4-best "
+              f"({beam_ms:.0f} ms): {RNNT_MWER_STEPS} steps at {steps50['mwer']['ms_per_step']:.1f} ms, loss "
+              f"{m_loss[0]:.4f} -> {m_loss[-1]:.4f}, expected risk {m_risk[0]:.3f} -> {m_risk[-1]:.3f} (launches "
+              f"{mwer_launches}; `finetune_rnnt_mwer` runs in phase 54's train_nn --mwer-steps)")
+
+    # ---- phase 51: streaming on K4's carry arm
+    rows_s = min(64, sub.size)
+    s_feats, s_nf = sub.feats[:rows_s], sub.n_frames[:rows_s]
+    offline = R.rnnt_greedy_decode_device(model, s_feats, s_nf, impl="frame_scan")
+    u_cap_s = min(2 * s_feats.shape[1], 400)
+    zero()
+    stream = R.RnntDeviceStream(model, rows_s, u_cap=u_cap_s)
+    nf_np = s_nf.cpu().numpy()
+    n_chunks = 0
+    t0 = time.perf_counter()
+    for c0 in range(0, s_feats.shape[1], ONLINE_TC):
+        stream.consume(s_feats[:, c0:c0 + ONLINE_TC], np.clip(nf_np - c0, 0, ONLINE_TC))
+        n_chunks += 1
+    streamed = stream.partial()
+    stream_s = time.perf_counter() - t0
+    stream_launches = counts()
+    only("the RNN-T stream", stream_launches, ("lstm_scan", "lstm_scan_carry"))
+    if streamed != offline:
+        bad = [b for b in range(rows_s) if streamed[b] != offline[b]]
+        raise RuntimeError(f"the RNN-T stream differs from the offline greedy on rows {bad[:8]}")
+    phase(51, f"RnntDeviceStream on {rows_s} held-out rows in {n_chunks} chunks of {ONLINE_TC} frames (ragged ends): "
+              f"the offline greedy's tokens on every row, {stream_s:.2f} s; launches {stream_launches} (K4's carry "
+              f"arm {stream_launches['lstm_scan_carry'] / n_chunks:.1f} a chunk)")
+
+    # ---- phase 52: BatchedRnntEngine at the serving configuration
+    B, Tc = SERVE_CAPACITY, SERVE_TICK
+    sfcfg = dataclasses.replace(fcfg, cmvn="sliding", cmvn_window=SERVE_CMVN_WINDOW)
+    event = Tc * sfcfg.frame_shift
+    smodel = init_(R.build_rnnt_model(RNNT_SERVE_UNITS, cfg, D), torch.Generator().manual_seed(52)).to(dev)
+    smodel.encoder.load_state_dict(model.encoder.state_dict())
+    smodel.eval()
+    sessions = [(uid, wave) for uid, wave, _w in corpus[:SERVE_CTC_UTTS]]
+    gate = sessions[:RNNT_SERVE_GATE]
+
+    def dedicated(subset):
+        """The dedicated per-session path, the sessions as the rows of one
+        RnntDeviceStream: each row's features from its own StreamingFrontend
+        in the engine's audio events, fed a tick's frames at a time."""
+        feats = []
+        for _sid, wave in subset:
+            fe = StreamingFrontend(sfcfg, device=dev)
+            feats.append(np.concatenate([fe.process(wave[i:i + event]) for i in range(0, len(wave), event)]
+                                        + [fe.finalize()]))
+        n = np.asarray([f.shape[0] for f in feats])
+        x = np.zeros((len(feats), int(n.max()), D), np.float32)
+        for b, f in enumerate(feats):
+            x[b, : f.shape[0]] = f
+        x = torch.as_tensor(x, device=dev)
+        st = R.RnntDeviceStream(smodel, len(feats), u_cap=int(n.max()) * 4 + 4)
+        for c0 in range(0, x.shape[1], Tc):
+            st.consume(x[:, c0:c0 + Tc], np.clip(n - c0, 0, Tc))
+        return {sid: seq for (sid, _w), seq in zip(subset, st.partial())}
+
+    def run(feature_path, subset, windows=False):
+        eng = BatchedRnntEngine(smodel, sfcfg, capacity=B, tick_frames=Tc, feature_path=feature_path, device=dev)
+        drv = ServeLoop(eng, subset, event, SERVE_SEED, SERVE_PARTIAL_EVERY)
+        zero()
+        t0 = time.perf_counter()
+        while not drv.done():
+            if windows and not drv.sync_ticks and drv.eng.ticks == SERVE_WINDOW_AT:
+                drv.count_syncs = True
+                for _ in range(SERVE_PROFILE_TICKS):
+                    drv.step()
+                drv.count_syncs = False
+            else:
+                drv.step()
+        torch.cuda.synchronize()
+        return drv, time.perf_counter() - t0, counts()
+
+    want_s = dedicated(gate)
+    exact, _w, e_counts = run("host", gate)
+    fast, s_wall, s_counts = run("device", sessions, windows=True)
+    for name, c in (("the RNN-T engine (host features)", e_counts), ("the RNN-T engine (device features)", s_counts)):
+        only(name, c, ("lstm_scan", "lstm_scan_carry"))
+    bad = [sid for sid in want_s if exact.finals[sid][0] != want_s[sid]]
+    if len(bad) > RNNT_SERVE_FLIPS:
+        raise RuntimeError(f"the RNN-T engine's units differ from the dedicated stream's on {bad[:8]}")
+    agree = sum(fast.finals[sid][0] == want_s[sid] for sid in want_s)
+    periods = fast.tick_periods_ms()
+    audio = sum(len(w) for _s, w in sessions) / sfcfg.sample_rate
+    per_tick = {k: v / fast.eng.ticks for k, v in s_counts.items() if v}
+    busy = None
+    # the busy share: device time of a window of ticks over its wall time
+    eng_b = BatchedRnntEngine(smodel, sfcfg, capacity=B, tick_frames=Tc, feature_path="device", device=dev)
+    drv_b = ServeLoop(eng_b, sessions[:B], event, SERVE_SEED, SERVE_PARTIAL_EVERY)
+    for _ in range(8):
+        drv_b.step()
+    try:   # a few ticks: the profiler's cost grows with the frame scan's ~3,000 launches a tick
+        w_ms, d_ms, _top, _named = device_profile(lambda: [drv_b.step() for _ in range(RNNT_PROFILE_TICKS)])
+        busy = d_ms / w_ms
+    except RuntimeError:
+        busy = None   # a profiled window without device activity: not measured
+    del eng_b, drv_b
+    rng = np.random.default_rng(52)
+    nv_t = rng.integers(1, Tc + 1, size=B).astype(np.int32)
+    nv_t[rng.choice(B, B // 8, replace=False)] = 0     # idle slots
+    x_t = torch.as_tensor(rng.standard_normal((B, Tc, D)).astype(np.float32), device=dev)
+    h0, c0 = (torch.as_tensor(rng.standard_normal((B, NN_HIDDEN)).astype(np.float32), device=dev) for _ in range(2))
+    k4_tick = k4_layer_times(smodel.encoder.cells[0], x_t, torch.as_tensor(nv_t, device=dev), h0=h0, c0=c0, reps=20)
+    engine = {"capacity": B, "tick_frames": Tc, "units": RNNT_SERVE_UNITS, "sessions": len(sessions),
+              "audio_s": audio, "wall_s": s_wall, "streams_per_card": audio / s_wall,
+              "tick_ms_median": float(np.median(periods)), "partial_ms_median": float(np.median(fast.partial_ms)),
+              "launches_per_tick": per_tick, "syncs_per_tick": fast.syncs / max(fast.sync_ticks, 1),
+              "sync_sites": fast.sync_sites, "busy_share": busy, "gate_sessions": len(want_s),
+              "host_feature_agreement": len(want_s) - len(bad),
+              "device_feature_agreement": agree}
+    phase(52, f"BatchedRnntEngine at the serving configuration (capacity {B}, {Tc}-frame ticks, V = "
+              f"{RNNT_SERVE_UNITS} units, frame-scan greedy, sliding CMVN): units equal to the dedicated per-session "
+              f"stream's on {len(want_s) - len(bad)} of the first {len(want_s)} sessions with host features (at most "
+              f"{RNNT_SERVE_FLIPS} may differ) {bad}; device features on {len(sessions)} "
+              f"sessions: {agree} of {len(want_s)} equal, {audio:.1f} s of audio in {s_wall:.2f} s: "
+              f"{audio / s_wall:.1f} realtime streams a card, a tick {engine['tick_ms_median']:.2f} ms median on the "
+              f"device timeline, partials {engine['partial_ms_median']:.2f} ms, launches a tick "
+              + ", ".join(f"{k} {v:.2f}" for k, v in per_tick.items())
+              + f", {fast.syncs} synchronizing calls in {fast.sync_ticks} ticks {fast.sync_sites}, busy share "
+              + ("not measured (the profiled window had no device activity)" if busy is None else f"{busy:.3f}")
+              + f"; K4's carry arm at B={B} Tc={Tc} H={NN_HIDDEN} {k4_tick['ms']:.4f} ms a call, "
+              f"{k4_tick['device_ms']:.4f} ms with the host hidden (plain {k4_tick['plain_ms']:.3f} ms, bound "
+              f"{k4_tick['bound_ms']:.4f} ms by {k4_tick['bound_by']}, max |err| {k4_tick['max_abs_err']:.3g}); "
+              f"the layer {k4_tick['layer_ms']:.4f} ms vs cuDNN nn.LSTM with (h0, c0) {k4_tick['library_ms']:.4f} ms")
+    del exact, fast, smodel
+
+    # ---- phase 53: the neural LMs
+    train_texts = [w for fb_ in train_fbs for w in fb_.words[: fb_.size]]
+    held_texts = [w for f in held for w in f.words[: f.size]]
+    vocab = NL.vocab_from_transcripts(train_texts)
+    zero()
+    lms, lm_out = {}, {}
+    for arch, layers in (("lstm", 1), ("transformer", 2)):
+        lcfg = TrainConfig(nn_hidden=128, nn_layers=layers, lr=NNLM_LR, num_nn_steps=NNLM_STEPS)
+        ms, (lm, _sd) = wall(lambda: NL.train_nnlm(train_texts, vocab, lcfg, batch_size=64, arch=arch, device=dev))
+        lms[arch] = lm
+        lm_out[arch] = {"train_ms_per_step": ms / NNLM_STEPS}
+    nnlm_train_launches = counts()
+    if any(nnlm_train_launches.values()):
+        raise RuntimeError(f"NNLM training launched kernels: {nnlm_train_launches}")
+    zero()
+    for arch, lm in lms.items():
+        ppl_k = NL.nnlm_perplexity(lm, vocab, held_texts)
+        ppl_p = NL.nnlm_perplexity(lm, vocab, held_texts, use_kernels=False)
+        if not abs(ppl_k - ppl_p) <= 1e-4 * ppl_p or not np.isfinite(ppl_k):
+            raise RuntimeError(f"{arch} NNLM perplexity on the card {ppl_k} against plain {ppl_p}")
+        lm_out[arch].update(heldout_ppl=ppl_k, plain_ppl=ppl_p)
+    rng = np.random.default_rng(53)
+    nbest = []
+    for words in held_texts[:64]:
+        alts = [list(words), list(words[1:]), list(words) + [words[0]], list(reversed(words))]
+        nbest.append([(a, float(-rng.random())) for a in alts])
+    for arch, lm in lms.items():
+        got = NL.rescore_nbest_nnlm(lm, vocab, nbest)
+        want_r = NL.rescore_nbest_nnlm(lm, vocab, nbest, use_kernels=False)
+        if [[w for w, _s in r] for r in got] != [[w for w, _s in r] for r in want_r]:
+            raise RuntimeError(f"{arch} NNLM rescoring orders differ between K4 and plain")
+    lm_launches = counts()
+    if lm_launches["lstm_scan"] == 0 or any(v for k, v in lm_launches.items() if k != "lstm_scan"):
+        raise RuntimeError(f"the NNLM scorers' launches {lm_launches} (K4 only)")
+    lstm_lm = lms["lstm"]
+    seqs_h = [vocab.encode(s) for s in held_texts]
+    inp, _tgt, n_h = NL.lm_batch(seqs_h, vocab, max(map(len, seqs_h)) + 1)
+    with torch.no_grad():
+        emb = lstm_lm.embedding(torch.as_tensor(inp, device=dev).long())
+    k4_lm = k4_layer_times(lstm_lm.cells[0], emb, torch.as_tensor(n_h, device=dev))
+    phase(53, f"the neural LMs on {len(train_texts)} training transcripts (vocab {vocab.n_tokens}), {NNLM_STEPS} steps "
+              f"each: LSTM 128 x 1 {lm_out['lstm']['train_ms_per_step']:.1f} ms a step, held-out perplexity "
+              f"{lm_out['lstm']['heldout_ppl']:.3f} on K4 (plain {lm_out['lstm']['plain_ppl']:.3f}); Transformer 64 "
+              f"wide x 2 {lm_out['transformer']['train_ms_per_step']:.1f} ms a step, perplexity "
+              f"{lm_out['transformer']['heldout_ppl']:.3f}; N-best rescoring of 64 x 4 the same order on the card as "
+              f"plain (launches {lm_launches}); K4 on the LM's layer at B={k4_lm['shape'][0]} U={k4_lm['shape'][1]} "
+              f"H=128 {k4_lm['ms']:.4f} ms (plain {k4_lm['plain_ms']:.3f} ms, bound {k4_lm['bound_ms']:.5f} ms by "
+              f"{k4_lm['bound_by']}, max |err| {k4_lm['max_abs_err']:.3g}); the layer {k4_lm['layer_ms']:.4f} ms vs "
+              f"cuDNN nn.LSTM {k4_lm['library_ms']:.4f} ms")
+    return {"paths": {"rnnt_loss": dp_launches, "rnnt_train": train_launches, "rnnt_decode": greedy_launches,
+                      "rnnt_label_loop": ll_launch_count, "rnnt_pruned": pruned_launches, "rnnt_mwer": mwer_launches,
+                      "rnnt_stream": stream_launches, "serve_rnnt": s_counts, "serve_rnnt_exact": e_counts,
+                      "nnlm": lm_launches},
+            "train": train, "decode": decode, "steps": steps50, "engine": engine, "nnlm": lm_out,
+            "k4_encoder": k4_enc, "k4_tick": k4_tick, "k4_nnlm": k4_lm,
+            "loss": {"rel_err": loss_err, "grad_err": grad_err, "loss_and_backward_ms": full_ms,
+                     "cells_ms": cells_ms, "diagonal_small_ms": diag_small_ms, "device_launches": dp_events,
+                     "shape": [Bf, Tf, Ul + 1]},
+            "aux_ctc": {"loss_rel_err": aux_err, "grad_max_abs_err": aux_grad, "ms": aux[True][2],
+                        "plain_ms": aux[False][2]}}
+
+
+def rnnt_cli_phase(dev: torch.device) -> dict:
+    """Phase 54: the RNN-T and neural-LM paths of the CLI twins in this
+    process (their output to build/chip_smoke_rnnt_cli/out.txt), the launch
+    counts set to 0 before and read after: train_lm (the neural LM),
+    train_nn --objective rnnt (phones with --mwer-steps; BPE with
+    --rnnt-pruned-band), decode --rnnt (phones greedily, held to the device
+    greedy on the checkpoint; BPE words through the beam with
+    --nnlm-rescore), eval --rnnt, stream --rnnt, transcribe --rnnt and serve
+    --rnnt --engine."""
+    import contextlib
+    import io
+    import shutil
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import lstm_cuda
+    from mogasr_torch.am import rnnt as R
+    from mogasr_torch.cli import decode as cli_decode
+    from mogasr_torch.cli import eval as cli_eval
+    from mogasr_torch.cli import serve as cli_serve
+    from mogasr_torch.cli import stream as cli_stream
+    from mogasr_torch.cli import train_lm as cli_train_lm
+    from mogasr_torch.cli import train_nn as cli_train_nn
+    from mogasr_torch.cli import transcribe as cli_transcribe
+    from mogasr_torch.config import BatchConfig, FrontendConfig, TrainConfig
+    from mogasr_torch.data.synthetic import make_corpus
+    from mogasr_torch.hmm.lexicon import synthetic_lexicon
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    work = os.path.join(ROOT, "build", "chip_smoke_rnnt_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    corpus = ["--synthetic", "8", "--synthetic-seed", "7"]
+    on = ["--device", str(dev)]
+    size = ["--nn-hidden", "128", "--nn-layers", "3"]
+    ph, bp, lm = (os.path.join(work, d) for d in ("phones", "bpe", "lm"))
+    train = ["--objective", "rnnt", "--arch", "lstm", "--hidden", "128", "--layers", "3"]
+    runs = [
+        (cli_train_lm, ["--synthetic", "16", "--synthetic-seed", "7", "--steps", "20", "--run-dir", lm]),
+        (cli_train_nn, corpus + train + ["--steps", "4", "--mwer-steps", "1", "--run-dir", ph]),
+        (cli_train_nn, corpus + train + ["--steps", "3", "--bpe-merges", "30", "--rnnt-pruned-band", "4",
+                                         "--run-dir", bp]),
+        (cli_decode, corpus + size + ["--rnnt", "--am", "lstm", "--nn-ckpt", os.path.join(ph, "nn_rnnt_lstm"),
+                                      "--mode", "phone", "--out", os.path.join(work, "hyps.jsonl"), "--run-dir",
+                                      os.path.join(work, "decode")]),
+        (cli_decode, corpus + size + ["--rnnt", "--am", "lstm", "--nn-ckpt", os.path.join(bp, "nn_rnnt_lstm"),
+                                      "--bpe", os.path.join(bp, "bpe.json"), "--rnnt-pruned", "--rnnt-beam", "2",
+                                      "--nnlm-rescore", os.path.join(lm, "nnlm"), "--run-dir",
+                                      os.path.join(work, "decode_bpe")]),
+        (cli_eval, corpus + size + ["--rnnt", "--nn-arch", "lstm", "--nn-ckpt", os.path.join(bp, "nn_rnnt_lstm"),
+                                    "--bpe", os.path.join(bp, "bpe.json"), "--rnnt-pruned", "--run-dir",
+                                    os.path.join(work, "eval")]),
+        (cli_stream, ["--synthetic-demo", "--rnnt", "--nn-ckpt", os.path.join(ph, "nn_rnnt_lstm"), "--run-dir",
+                      os.path.join(work, "stream")] + size),
+        (cli_transcribe, ["--synthetic-demo", "--rnnt", "--nn-arch", "lstm", "--nn-ckpt",
+                          os.path.join(ph, "nn_rnnt_lstm"), "--run-dir", os.path.join(work, "transcribe")] + size),
+        (cli_serve, ["--synthetic-demo-session", "--engine", "--rnnt", "--nn-ckpt", os.path.join(ph, "nn_rnnt_lstm"),
+                     "--run-dir", os.path.join(work, "serve")] + size),
+    ]
+    zero_launches()
+    lstm_cuda.CARRY_LAUNCHES = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        for cli, argv in runs:
+            cli.main(argv + on)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    launches.update(lstm_scan_carry=lstm_cuda.CARRY_LAUNCHES)
+    with open(os.path.join(work, "out.txt"), "w") as f:
+        f.write(buf.getvalue())
+    needed = ("fb_forward", "fb_backward", "fb_combine", "lstm_scan", "lstm_scan_carry")
+    if min(launches[k] for k in needed) == 0 or launches["gmm_score"] or launches["viterbi"]:
+        raise RuntimeError(f"the RNN-T CLI twins did not go through every kernel of their path: {launches}")
+    # decode --rnnt --mode phone against the device greedy on the checkpoint's model
+    lex = synthetic_lexicon()
+    utts = make_corpus(8, seed=7)
+    batches = pipe.featurize([(u.utt_id, u.wave, u.words) for u in utts], FrontendConfig(), BatchConfig(), dev)
+    model = R.build_rnnt_model(lex.n_phones, TrainConfig(nn_hidden=128, nn_layers=3), FrontendConfig().feat_dim)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                           restore_checkpoint(os.path.join(ph, "nn_rnnt_lstm"))["params"].items()})
+    model.to(dev).eval()
+    want = {}
+    for fb in map(pipe.live_rows, batches):
+        for uid, seq in zip(fb.utt_ids, R.rnnt_greedy_decode_device(model, fb.feats, fb.n_frames)):
+            want[uid] = [lex.phones[u] for u in seq]
+    with open(os.path.join(work, "hyps.jsonl")) as f:
+        got = {r["utt_id"]: r["hyp"] for r in map(json.loads, f)}
+    if got != want:
+        raise RuntimeError(f"decode --rnnt's hypotheses differ from the device greedy's on "
+                           f"{[u for u in want if got.get(u) != want[u]][:8]}")
+    recs = {}
+    for name in ("decode", "decode_bpe", "eval"):
+        with open(os.path.join(work, name, "metrics.jsonl")) as f:
+            recs[name] = json.loads(f.read().splitlines()[-1])
+        if recs[name]["utts"] != 8:
+            raise RuntimeError(f"{name}: {recs[name]}")
+    finals = [json.loads(line) for line in buf.getvalue().splitlines() if '"final"' in line]
+    if len(finals) != 2:
+        raise RuntimeError(f"stream and serve --rnnt printed {len(finals)} final lines")
+    phase(54, f"the RNN-T and neural-LM CLI twins in this process, {seconds:.1f} s: train_lm (LSTM 128), train_nn "
+              f"--objective rnnt (phones, --mwer-steps 1; BPE 30 merges, --rnnt-pruned-band 4), decode --rnnt "
+              f"(phones: the device greedy's hypotheses on all 8; PER {recs['decode']['per']:.4f}), decode --rnnt "
+              f"--bpe --rnnt-beam 2 --nnlm-rescore (WER {recs['decode_bpe']['wer']:.4f}), eval --rnnt (WER "
+              f"{recs['eval']['wer']:.4f}; a few steps: no limit), stream, transcribe and serve --engine --rnnt; "
+              f"launches {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -4671,10 +5402,13 @@ def main() -> None:
     adapt_cli = adaptation_cli_phase(dev, corpus, topo.lexicon)
     neural = neural_phases(dev, gmm, topo, tied, fcfg, dcfg, graph, corpus, bcfg, train_fbs)
     nn_cli = nn_cli_phase(dev)
-    ctc_res = ctc_phases(dev, topo, fcfg, corpus, bcfg, train_fbs, neural.pop("model"))
+    ce_model = neural.pop("model")
+    ctc_res = ctc_phases(dev, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
     ctc_cli = ctc_cli_phase(dev)
     serving = serving_phases(dev, gmm, fcfg, dcfg, graph, held_out, ctc_res.pop("model"), sfu_exps_per_s)
     serve_cli = serve_cli_phase(dev)
+    rnnt_res = rnnt_phases(dev, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
+    rnnt_cli = rnnt_cli_phase(dev)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -4684,7 +5418,7 @@ def main() -> None:
              "confidence": lm_entry["confidence"], "cli": cli_launches, "streaming": stream["streaming"],
              "online": stream["online"], "stream_cli": stream["stream_cli"], **adapt_paths,
              "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli, **ctc_res["paths"], "ctc_cli": ctc_cli,
-             **serving["paths"], "serve_cli": serve_cli}
+             **serving["paths"], "serve_cli": serve_cli, **rnnt_res["paths"], "rnnt_cli": rnnt_cli}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]
@@ -4724,6 +5458,23 @@ def main() -> None:
         k4_entry["carry"]["launches_by_path"][name] = paths[name]["lstm_scan_carry"]
         k4_entry["carry"]["launches"] += paths[name]["lstm_scan_carry"]
     k4_entry["carry_tick"] = serving["k4_tick"]
+    # the RNN-T and neural-LM slice: K4 on the RNN-T encoder (decodes, the stream's offline reference, the
+    # engine's dedicated streams and the CLI twins) and the NNLM scorers, its carry arm in the stream, the
+    # engine and the twins (never under autograd: RNN-T, pruned, MWER and NNLM training run the plain
+    # recurrence)
+    rnnt_k4 = ("rnnt_decode", "rnnt_mwer", "rnnt_stream", "serve_rnnt", "serve_rnnt_exact", "nnlm", "rnnt_cli")
+    for name in rnnt_k4:
+        k4_entry["launches_by_path"][name] = paths[name]["lstm_scan"]
+        k4_entry["launches"] += paths[name]["lstm_scan"]
+    for name in ("rnnt_stream", "serve_rnnt", "serve_rnnt_exact", "rnnt_cli"):
+        k4_entry["carry"]["launches_by_path"][name] = paths[name]["lstm_scan_carry"]
+        k4_entry["carry"]["launches"] += paths[name]["lstm_scan_carry"]
+    k4_entry["rnnt_encoder"] = {**rnnt_res["k4_encoder"], "launches": paths["rnnt_decode"]["lstm_scan"],
+                                "decode": rnnt_res["decode"], "training": rnnt_res["train"],
+                                "pruned_and_mwer": rnnt_res["steps"], "loss": rnnt_res["loss"]}
+    k4_entry["nnlm"] = {**rnnt_res["k4_nnlm"], "launches": paths["nnlm"]["lstm_scan"], "lms": rnnt_res["nnlm"]}
+    k4_entry["rnnt_engine_tick"] = {**rnnt_res["k4_tick"], "launches": paths["serve_rnnt"]["lstm_scan_carry"],
+                                    "engine": rnnt_res["engine"]}
     serve_k2 = ("serve_gmm", "serve_gmm_exact", "serve_gmm_host", "serve_cli")
     for name in serve_k2:
         k2_chunk["launches_by_path"][name] = {"chunk": paths[name]["viterbi_chunk"],
@@ -4775,7 +5526,10 @@ def main() -> None:
                       "ms": k3c["ms"]["fb_forward_kernel"], "plain_ms": k3c["plain_ms"],
                       "bound_ms": k3c["bounds"]["fwd"][0], "bound_by": k3c["bounds"]["fwd"][1],
                       "loss_and_backward_ms": k3c["loss_ms"], "plain_loss_and_backward_ms": k3c["loss_plain_ms"],
+                      "library_loss_and_backward_ms": k3c["library_loss_ms"],
                       "device_prefix_beam": ctc_res["beam"]},
+         "rnnt_aux_ctc": {"launches_per_step": rnnt_res["train"]["k3_launches_per_step"],
+                          "training_ms_per_step": rnnt_res["train"]["ms_per_step"], **rnnt_res["aux_ctc"]},
          "decode_batch": {"arm": k3d["arm"], "shape": [k3d["B"], k3d["T"], k3d["J"]], "ms": k3d["fb_forward_kernel"],
                           "plain_ms": k3d["plain_fwd_ms"], "max_abs_err": k3d["loglik_max_abs_err"],
                           "bound_ms": k3d["bounds"]["fwd"][0], "bound_by": k3d["bounds"]["fwd"][1],

@@ -22,12 +22,12 @@ Exports are lazy so that ``import mogasr_torch`` stays light:
     mogasr_torch.forward_backward(emit_ll, graphs, n_frames, acoustic_scale)
     mogasr_torch.train_gmm(batches, lexicon, topo, gcfg, tcfg, gmm=..., mode=...)
     mogasr_torch.init_gmm(cfg, generator, data_mean, data_var, device=...)
-    mogasr_torch.corpus_wer(refs, hyps), ctc_loss(...), train_bpe(texts, n_merges)
+    mogasr_torch.corpus_wer(refs, hyps), ctc_loss(...), rnnt_loss(...), train_bpe(texts, n_merges)
     mogasr_torch.pipeline                       (the module)
     mogasr_torch.{Batch,Decode,Frontend,Gmm,Mesh,Pipeline,Topology,Train}Config
 
 Every name the reference's ``mogasr/__init__.py`` exports resolves here but
-the RNN-T and AED ones (ROADMAP item 13); ``gmm_loglik_pallas``, its fused
+the AED ones (ROADMAP item 13); ``gmm_loglik_pallas``, its fused
 scorer's name, is the K1 wrapper ``gmm_cuda.gmm_loglik_fused``.
 """
 
@@ -61,6 +61,7 @@ _EXPORTS = {
     "gmm_loglik_pallas": ("mogasr_torch.am.gmm_cuda", "gmm_loglik_fused"),
     "corpus_wer": "mogasr_torch.eval.wer",
     "ctc_loss": "mogasr_torch.am.ctc",
+    "rnnt_loss": "mogasr_torch.am.rnnt",
     "train_bpe": "mogasr_torch.data.bpe",
     "pipeline": "mogasr_torch.pipeline",
 }

@@ -117,10 +117,11 @@ def ctc_loss_plain(logp: torch.Tensor, n_frames: torch.Tensor, labels: torch.Ten
     alpha = torch.where(init_ok, lp_z[:, 0], NEG_INF)
     neg1 = torch.full((B, 1), NEG_INF, dtype=logp.dtype, device=dev)
     neg2 = torch.full((B, 2), NEG_INF, dtype=logp.dtype, device=dev)
+    lp_t = lp_z.unbind(1)  # one unbind, not a slice a frame (whose backward allocates all of lp_z)
     for t in range(1, T):
         a1 = torch.cat([neg1, alpha[:, :-1]], dim=1)
         a2 = torch.where(skip_ok, torch.cat([neg2, alpha[:, :-2]], dim=1), NEG_INF)
-        new = _lae(_lae(alpha, a1), a2) + lp_z[:, t]
+        new = _lae(_lae(alpha, a1), a2) + lp_t[t]
         new = torch.where(valid_s, new, NEG_INF)
         alpha = torch.where((t < nf)[:, None], new, alpha)
     last = 2 * nl

@@ -61,9 +61,11 @@ def lstm_layer(
     nf = n_frames.to(xg.device)
     h = torch.zeros((B, H), dtype=torch.float32, device=xg.device) if h0 is None else h0.to(xg.device, torch.float32)
     c = torch.zeros_like(h) if c0 is None else c0.to(xg.device, torch.float32)
-    out = torch.empty((B, T, H), dtype=torch.float32, device=xg.device)
+    # one unbind and one stack (under autograd, a slice a frame would
+    # allocate a zero gradient of all of xg a frame)
+    xs, hs = xg.unbind(1), []
     for t in range(T):
-        gates = xg[:, t] + round_(h) @ w
+        gates = xs[t] + round_(h) @ w
         i = torch.sigmoid(gates[:, :H])
         f = torch.sigmoid(gates[:, H:2 * H])
         g = torch.tanh(gates[:, 2 * H:3 * H])
@@ -73,5 +75,6 @@ def lstm_layer(
         keep = (t < nf)[:, None]
         c = torch.where(keep, c_new, c)
         h = torch.where(keep, h_new, h)
-        out[:, t] = h
+        hs.append(h)
+    out = torch.stack(hs, dim=1) if T else torch.empty((B, 0, H), dtype=torch.float32, device=xg.device)
     return (out, (h, c)) if return_carry else out

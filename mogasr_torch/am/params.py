@@ -16,6 +16,13 @@ ConformerAm (``am.aed``): a 2-D ``Conv`` kernel is [kh, kw, in, out] (torch
 k]); an FFN's Dense that flax numbers 0 is its second layer (``fc2``: the
 outer ``Dense(D)`` is built before the inner one), and ``rel_bias`` [heads,
 2 max_rel + 1] is taken as it is.
+
+The neural LMs (``lm.neural``) and the RNN-T (``am.rnnt``): an ``Embed``'s
+table is taken as it is; flax numbers the TransformerLm's Dense layers in
+construction order, six a block (q, k, v, the attention output, then the
+FFN's outer Dense(D) before its inner Dense(hidden)) and the output head
+last; the RNN-T's encoder is an LstmAm subtree and its prediction LSTM an
+``OptimizedLSTMCell_0``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from torch import nn
 
 from mogasr_torch.am.aed import RelSelfAttention
 from mogasr_torch.am.neural import BlstmAm, ConformerAm, LstmAm, LstmLayer, MlpAm, MoeAm, MoeBlock, TdnnAm
+from mogasr_torch.am.rnnt import RnntModel, RnntPrediction
+from mogasr_torch.lm.neural import NeuralLm, TransformerLm
 
 _IN_GATES = ("ii", "if", "ig", "io")
 _REC_GATES = ("hi", "hf", "hg", "ho")
@@ -73,6 +82,42 @@ def _conformer_block(prefix: str, p: Mapping[str, Any]) -> Dict[str, torch.Tenso
     sd.update(_dense(f"{prefix}.conv_out", p["conv_out"]))
     sd[f"{prefix}.dconv.weight"] = _t(p["dconv"]["kernel"]).permute(2, 1, 0).contiguous()
     sd[f"{prefix}.dconv.bias"] = _t(p["dconv"]["bias"])
+    return sd
+
+
+def _prefixed(prefix: str, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def _rnnt(model: RnntModel, p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    sd = _prefixed("encoder", from_flax(model.encoder, p["encoder"]))
+    pp = p["prediction"]
+    sd["prediction.embedding.weight"] = _t(pp["Embed_0"]["embedding"])
+    if isinstance(model.prediction, RnntPrediction):
+        sd.update(_lstm("prediction.cell", pp["OptimizedLSTMCell_0"]))
+    else:
+        sd.update(_dense("prediction.dense", pp["Dense_0"]))
+    for name in ("enc_proj", "pred_proj", "out"):
+        sd.update(_dense(f"joint.{name}", p["joint"][name]))
+    for name in ("ctc_head", "simple_am", "simple_lm"):
+        if name in p:
+            sd.update(_dense(name, p[name]))
+    return sd
+
+
+def _transformer_lm(model: TransformerLm, p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    sd = {"embedding.weight": _t(p["Embed_0"]["embedding"]), "pos.weight": _t(p["Embed_1"]["embedding"])}
+    for i in range(model.layers):
+        pre = f"blocks.{i}"
+        for j, name in enumerate(("q", "k", "v")):
+            sd[f"{pre}.{name}.weight"] = _t(p[f"Dense_{6 * i + j}"]["kernel"]).T.contiguous()
+        sd.update(_dense(f"{pre}.o", p[f"Dense_{6 * i + 3}"]))
+        sd.update(_dense(f"{pre}.fc2", p[f"Dense_{6 * i + 4}"]))
+        sd.update(_dense(f"{pre}.fc1", p[f"Dense_{6 * i + 5}"]))
+        sd.update(_norm(f"{pre}.ln_attn", p[f"LayerNorm_{2 * i}"]))
+        sd.update(_norm(f"{pre}.ln_ffn", p[f"LayerNorm_{2 * i + 1}"]))
+    sd.update(_norm("ln_out", p[f"LayerNorm_{2 * model.layers}"]))
+    sd.update(_dense("head", p[f"Dense_{6 * model.layers}"]))
     return sd
 
 
@@ -121,6 +166,15 @@ def from_flax(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, torch.Te
         for i in range(model.layers):
             sd.update(_conformer_block(f"enc.blks.{i}", enc[f"blks_{i}"]))
         sd.update(_dense("head", p["head"]))
+    elif isinstance(model, RnntModel):
+        sd.update(_rnnt(model, p))
+    elif isinstance(model, NeuralLm):
+        sd["embedding.weight"] = _t(p["Embed_0"]["embedding"])
+        for i in range(model.layers):
+            sd.update(_lstm(f"cells.{i}", p[f"OptimizedLSTMCell_{i}"]))
+        sd.update(_dense("head", p["Dense_0"]))
+    elif isinstance(model, TransformerLm):
+        sd.update(_transformer_lm(model, p))
     else:
         raise TypeError(f"from_flax: unsupported model {type(model).__name__}")
     return sd
@@ -136,7 +190,8 @@ def init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw ``model``'s weights in place from ``generator`` with flax's
     initializers and return it: ``lecun_normal`` (truncated normal over the
     fan-in) for Dense and Conv kernels and the LSTM input kernels, an
-    orthogonal matrix per gate for the recurrent kernels, zero biases,
+    orthogonal matrix per gate for the recurrent kernels, an embedding
+    table truncated normal over its width, zero biases,
     LayerNorm scale 1 and bias 0; MoeAm's router and expert kernels normal
     with std 1/sqrt(fan-in), as MoeAm declares them; a Conformer's
     relative-position bias zero."""
@@ -148,6 +203,8 @@ def init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)  # fan-in: (in / groups) x kernel
             nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            _lecun_normal_(m.weight, m.embedding_dim, generator)  # flax's Embed: variance over the features
         elif isinstance(m, RelSelfAttention):
             nn.init.zeros_(m.rel_bias)
         elif isinstance(m, nn.LayerNorm):

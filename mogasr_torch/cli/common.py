@@ -1,7 +1,7 @@
 """Shared CLI plumbing for the port's entry points: corpus loading (the
 synthetic corpora, a JSONL manifest, a LibriSpeech-layout directory),
-waveform augmentation, run directories, the device, the GMM, the hybrid NN and the CTC model of
-the decode CLIs, and the CTC prefix beam's biasing and fusion. The twin of the reference's cli/common.py (and of
+waveform augmentation, run directories, the device, the GMM, the hybrid NN, the CTC model and the
+RNN-T of the decode CLIs, and the prefix beams' biasing and fusion. The twin of the reference's cli/common.py (and of
 ``load_or_random_gmm`` in cli/score.py).
 """
 
@@ -175,17 +175,52 @@ def load_ctc_model(arch: str, n_units: int, hidden: int, layers: int, feat_dim: 
     return model.to(device).eval()
 
 
+def add_rnnt_args(p: argparse.ArgumentParser, beam: bool = True) -> None:
+    """The RNN-T checkpoint's configuration (must match training) and, with
+    ``beam``, the beam width."""
+    p.add_argument("--rnnt-pred", default="stateless", choices=["stateless", "lstm"],
+                   help="prediction-network architecture of the RNN-T checkpoint (must match training)")
+    p.add_argument("--rnnt-plain", action="store_true",
+                   help="the RNN-T checkpoint was trained without the auxiliary CTC head")
+    p.add_argument("--rnnt-pruned", action="store_true",
+                   help="the RNN-T checkpoint was trained with the pruned loss (train_nn --rnnt-pruned-band): "
+                        "it has the factored simple heads")
+    if beam:
+        p.add_argument("--rnnt-beam", type=int, default=0, metavar="N",
+                       help="with --rnnt: the device beam of width N (0: the device greedy)")
+
+
+def load_rnnt_model(args, arch: str, n_units: int, feat_dim: int, device: torch.device) -> torch.nn.Module:
+    """The RNN-T over n_units + blank in ``--nn-ckpt`` (its latest step,
+    ``{"params": state_dict}`` as ``cli.train_nn --objective rnnt`` writes
+    it), the ``arch`` encoder at ``--nn-hidden/--nn-layers`` and
+    ``--rnnt-pred/--rnnt-plain/--rnnt-pruned``, in eval mode on
+    ``device``; a checkpoint of another configuration raises."""
+    from mogasr_torch.am.rnnt import build_rnnt_model
+    from mogasr_torch.config import TrainConfig
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    if arch not in ("lstm", "blstm"):
+        raise SystemExit("--rnnt needs an lstm/blstm encoder")
+    model = build_rnnt_model(n_units, TrainConfig(nn_hidden=args.nn_hidden, nn_layers=args.nn_layers), feat_dim,
+                             encoder_arch=arch, pred_arch=args.rnnt_pred, aux_ctc=not args.rnnt_plain,
+                             simple_heads=args.rnnt_pruned)
+    ck = restore_checkpoint(args.nn_ckpt)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in ck["params"].items()})
+    return model.to(device).eval()
+
+
 def add_ctc_beam_args(p: argparse.ArgumentParser, with_fusion: bool = True) -> None:
     """Contextual biasing and unit-LM shallow fusion of the CTC prefix beam
     (with ``--ctc --bpe``)."""
     p.add_argument("--bias", metavar="FILE",
-                   help="with --ctc --bpe: contextual biasing, one phrase a line, boosted inside the prefix beam "
-                        "(decoder/biasing.py)")
+                   help="with --ctc --bpe, or --rnnt --rnnt-beam N: contextual biasing, one phrase a line, boosted "
+                        "inside the beam (decoder/biasing.py)")
     p.add_argument("--bias-weight", type=float, default=2.0, help="per-unit boost of --bias")
     p.add_argument("--bias-beam", type=int, default=8, help="prefix beam width used with --bias/--fusion-lm")
     if with_fusion:
         p.add_argument("--fusion-lm", metavar="FILE",
-                       help="with --ctc --bpe: unit-bigram shallow fusion in the prefix beam (train_lm "
+                       help="with --ctc --bpe or --rnnt --rnnt-beam N: unit-bigram shallow fusion in the beam (train_lm "
                             "--unit-ngram writes unit_lm.npz); composes with --bias")
         p.add_argument("--fusion-weight", type=float, default=0.5, help="LM weight of --fusion-lm")
 

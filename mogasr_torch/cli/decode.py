@@ -29,9 +29,22 @@ in phone mode greedily; with ``--bpe FILE`` (the run's bpe.json) lexicon-free
 words, greedily, or with ``--bias``/``--fusion-lm`` through the prefix beam on
 the device (``am.ctc.ctc_prefix_beam_decode_device``, width ``--bias-beam``).
 
-Not ported yet, and raising NotImplementedError naming the ROADMAP item that
-ports it: ``--rnnt``, ``--aed`` and ``--nnlm-rescore``. ``--add-pitch`` appends
-the pitch triple (``frontend/pitch.py``) to the features.
+``--rnnt`` with ``--am lstm|blstm --nn-ckpt <run-dir>/nn_rnnt_<arch>``
+(``cli.train_nn --objective rnnt``; ``--rnnt-pred/--rnnt-plain/
+--rnnt-pruned`` as trained): phones in phone mode, BPE words with ``--bpe``
+in word mode, from the device greedy (the encoder on K4), or with
+``--rnnt-beam N`` the device beam (``am.rnnt.rnnt_beam_decode_device``),
+with ``--fusion-lm`` (a unit bigram over the model's units) and ``--bias``.
+
+``--nnlm-rescore DIR`` (``cli.train_lm``'s <run-dir>/nnlm) re-ranks N-best
+lists with the neural word LM (``lm.neural.rescore_nbest_nnlm``, weight
+``--nnlm-weight``, depth ``--nnlm-nbest``): those of the word lattice (a
+lattice pass), of the CTC prefix beam with ``--ctc --bpe``, and of the RNN-T
+beam with ``--rnnt --bpe --rnnt-beam N`` (its N-best, at most N deep).
+
+Not ported yet, and raising NotImplementedError naming ROADMAP item 13:
+``--aed``. ``--add-pitch`` appends the pitch triple (``frontend/pitch.py``)
+to the features.
 """
 
 from __future__ import annotations
@@ -42,8 +55,8 @@ import os
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_ctc_beam_args, add_nn_args, add_run_args, device_of, load_corpus, load_nn_scorer,
-    load_or_random_gmm, make_logger, refuse_unported,
+    add_corpus_args, add_ctc_beam_args, add_nn_args, add_rnnt_args, add_run_args, device_of, load_corpus,
+    load_nn_scorer, load_or_random_gmm, make_logger, refuse_unported,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
@@ -72,10 +85,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "phones+blank, CTC-topology decode graph (word mode) or greedy best-path phone decode "
                         "(phone mode)")
     p.add_argument("--bpe", metavar="FILE",
-                   help="with --ctc: the checkpoint was trained on BPE subword units (train_nn --bpe-merges; FILE "
-                        "is its bpe.json): lexicon-free word decoding")
-    # the other end-to-end families' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--rnnt", action="store_true", help="RNN-transducer (not ported yet: raises)")
+                   help="with --ctc/--rnnt: the checkpoint was trained on BPE subword units (train_nn --bpe-merges; "
+                        "FILE is its bpe.json): lexicon-free word decoding")
+    p.add_argument("--rnnt", action="store_true",
+                   help="the NN checkpoint is an RNN-transducer (train_nn --objective rnnt): device greedy (or "
+                        "--rnnt-beam) decoding over phones (--mode phone) or BPE words (--bpe); --am lstm/blstm "
+                        "picks the encoder")
+    add_rnnt_args(p)
+    # the AED family's primary flag, accepted as the reference's is; it raises
     p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
     p.add_argument("--ivector-ckpt", metavar="DIR",
                    help="i-vector extractor (cli.train_nn --ivector-dim): append per-utterance i-vectors to the "
@@ -107,7 +124,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--consensus", default="off", choices=["off", "cn", "mbr"],
                    help="minimum-Bayes-risk decoding over the word lattice: cn = confusion-network consensus, "
                         "mbr = N-best MBR; implies a lattice pass")
-    p.add_argument("--nnlm-rescore", metavar="DIR", help="neural-LM rescoring (not ported yet: raises)")
+    p.add_argument("--nnlm-rescore", metavar="DIR",
+                   help="second-pass neural-LM rescoring of N-best lists with the LM of cli.train_lm (DIR is its "
+                        "nnlm/ checkpoint): the word lattice's (implies a lattice pass), or the --ctc --bpe / --rnnt "
+                        "--bpe --rnnt-beam beam's")
+    p.add_argument("--nnlm-weight", type=float, default=0.5,
+                   help="log-linear weight of the neural-LM score against the first-pass score")
+    p.add_argument("--nnlm-nbest", type=int, default=16, help="N-best depth fed to the neural rescorer")
     p.add_argument("--lm-smoothing", default="addalpha", choices=["addalpha", "kn"],
                    help="n-gram estimation: add-alpha or interpolated Kneser-Ney")
     p.add_argument("--acoustic-scale", type=float, default=1.0)
@@ -119,16 +142,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported((
-        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
-        ("--aed", args.aed, "13: am/aed.py"),
-        ("--nnlm-rescore", args.nnlm_rescore, "13: lm/neural.py"),
-    ))
+    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
     if args.am != "gmm" and not args.nn_ckpt:
         raise SystemExit("--nn-ckpt is required with --am mlp/lstm")
     if args.am != "gmm" and args.bundle:
         raise SystemExit("--bundle carries a GMM system: incompatible with a hybrid --am")
-    if args.ivector_ckpt and args.am == "gmm":
+    if args.ivector_ckpt and (args.am == "gmm" or args.rnnt):
         raise SystemExit("--ivector-ckpt augments hybrid/CTC neural features: use --am mlp/lstm/blstm/tdnn")
     device = device_of(args.device)
     bundle = None
@@ -152,11 +171,23 @@ def main(argv=None) -> None:
                         word_insertion_penalty=args.insertion_penalty)
     logger = make_logger(args)
 
-    needs_lattice = args.trigram_rescore or args.nbest > 0 or args.consensus != "off" or bool(args.lattice_out)
+    beam_rescore = bool(args.nnlm_rescore) and args.bpe is not None and (args.ctc or args.rnnt)
+    needs_lattice = (args.trigram_rescore or args.nbest > 0 or args.consensus != "off" or bool(args.lattice_out)
+                     or (bool(args.nnlm_rescore) and not beam_rescore))
+    if args.nnlm_rescore and args.consensus != "off":
+        raise SystemExit("--nnlm-rescore re-ranks N-best lists: incompatible with --consensus")
     if (needs_lattice or args.multi_pron) and args.mode != "word":
         raise SystemExit("--multi-pron/--trigram-rescore/--nbest/--consensus require --mode word")
-    if args.ctc and (args.am == "gmm" or args.multi_pron):
+    if args.ctc and args.rnnt:
+        raise SystemExit("--ctc/--rnnt are different acoustic models")
+    if (args.ctc or args.rnnt) and (args.am == "gmm" or args.multi_pron):
         raise SystemExit("--ctc/--rnnt require a neural --am and no --multi-pron")
+    if args.rnnt and (needs_lattice or args.bigram_lm or args.grammar):
+        raise SystemExit("--rnnt decodes without a graph: incompatible with --bigram-lm/--grammar/lattice passes")
+    if args.rnnt and args.mode != ("word" if args.bpe else "phone"):
+        raise SystemExit("--rnnt --bpe decodes words (--mode word); without --bpe phones (--mode phone)")
+    if args.rnnt and (args.bias or args.nnlm_rescore) and args.rnnt_beam <= 0:
+        raise SystemExit("--rnnt --bias/--nnlm-rescore work inside the beam search: add --rnnt-beam N")
     if args.ctc and args.bpe and (args.mode == "phone" or args.consensus != "off" or args.nbest > 0
                                   or args.bigram_lm or args.trigram_rescore or args.lattice_out):
         raise SystemExit("--ctc --bpe decodes words via the prefix beam: incompatible with --mode phone, "
@@ -177,7 +208,17 @@ def main(argv=None) -> None:
             batches = append_ivectors(batches, extractor)
             ivec_rank = extractor.rank
         bpe = None
-        if args.am == "gmm":
+        if args.rnnt:
+            from mogasr_torch.cli.common import load_rnnt_model
+
+            if args.bpe:
+                from mogasr_torch.data.bpe import load_bpe
+
+                bpe = load_bpe(args.bpe)
+            rnnt_model = load_rnnt_model(args, args.am, bpe.n_units if bpe is not None else lex.n_phones,
+                                         fcfg.feat_dim, device)
+            scorer = None
+        elif args.am == "gmm":
             gmm = bundle[0] if bundle is not None else load_or_random_gmm(args, fcfg.feat_dim, device)
             params, scorer = kernel_params(gmm, "float32"), None
         elif args.ctc:
@@ -195,7 +236,9 @@ def main(argv=None) -> None:
             scorer = load_nn_scorer(args, topo.n_pdfs, fcfg.feat_dim + ivec_rank, device)
 
         pron_logp = None
-        if args.ctc:
+        if args.rnnt:
+            graph = None  # frame-synchronous transducer decoding needs no graph
+        elif args.ctc:
             from mogasr_torch.am.ctc import ctc_decode_graph
 
             # word mode: the CTC word loop; phone mode and --bpe decode without a graph
@@ -245,15 +288,28 @@ def main(argv=None) -> None:
                 from mogasr_torch.lm.arpa import write_arpa
 
                 write_arpa(args.write_arpa, trigram if trigram is not None else lm)
+        nnlm = None
+        if args.nnlm_rescore:
+            from mogasr_torch.lm.neural import load_nnlm
+
+            nnlm = load_nnlm(args.nnlm_rescore, device)  # (model, vocab)
+        rnnt_units = _rnnt_decoder(args, rnnt_model, bpe, lex, nnlm) if args.rnnt else None
 
         refs, hyps, ids, nbest_lists = [], [], [], []
         wrote_lattices = False
         audio_sec = sum(len(w) for _, w, _ in corpus) / fcfg.sample_rate
         with Timer() as t:
             for fb in map(live_rows, batches):
+                if args.rnnt:
+                    out = rnnt_units(fb)
+                    for b in range(fb.size):
+                        ids.append(fb.utt_ids[b])
+                        refs.append([w.lower() for w in fb.words[b]])
+                        hyps.append([w.lower() for w in out[b]])
+                    continue
                 scores = scorer(fb) if scorer is not None else score_batch(fb.feats, gmm, params=params)
                 if bpe is not None:
-                    out = [bpe.decode(seq) for seq in _ctc_bpe_units(args, bpe, scores, fb.n_frames)]
+                    out = _ctc_bpe_words(args, bpe, scores, fb.n_frames, nnlm)
                 elif needs_lattice:
                     from mogasr_torch.decoder.lattice import lattice_nbest, rescore_lattice
                     from mogasr_torch.pipeline import decode_batch_lattices
@@ -274,9 +330,19 @@ def main(argv=None) -> None:
                         from mogasr_torch.decoder.confusion import mbr_nbest_decode
 
                         out = [mbr_nbest_decode(lat, second, n=max(args.nbest, 16))[0] for lat in lats]
+                    elif nnlm is not None:
+                        from mogasr_torch.lm.neural import rescore_nbest_nnlm
+
+                        depth = max(args.nnlm_nbest, args.nbest)
+                        rescored = rescore_nbest_nnlm(nnlm[0], nnlm[1], [lattice_nbest(lat, second, depth)
+                                                                         for lat in lats], weight=args.nnlm_weight)
+                        out = [lst[0][0] if lst else [] for lst in rescored]
+                        if args.nbest > 0:
+                            nbest_lists.extend([{"hyp": h, "logp": s} for h, s in lst[: args.nbest]]
+                                               for lst in rescored)
                     else:
                         out = [rescore_lattice(lat, second)[0] for lat in lats]
-                    if args.nbest > 0:
+                    if args.nbest > 0 and nnlm is None:
                         nbest_lists.extend(
                             [{"hyp": [w.lower() for w in h], "logp": s}
                              for h, s in lattice_nbest(lat, second, args.nbest)]
@@ -335,19 +401,74 @@ def main(argv=None) -> None:
                 f.write(json.dumps(rec_out) + "\n")
 
 
-def _ctc_bpe_units(args, bpe, logp, n_frames):
-    """``--ctc --bpe``: each row's units, greedily, or with ``--bias`` /
-    ``--fusion-lm`` the best of the device prefix beam."""
+def _nnlm_best(args, nnlm, ranked, bpe):
+    """The best words of each row's beam N-best [(score, units)] re-ranked
+    by the neural LM (first-pass score = the beam's)."""
+    from mogasr_torch.lm.neural import rescore_nbest_nnlm
+
+    nbest = [[(bpe.decode(seq), s) for s, seq in r[: args.nnlm_nbest]] for r in ranked]
+    rescored = rescore_nbest_nnlm(nnlm[0], nnlm[1], nbest, weight=args.nnlm_weight)
+    return [r[0][0] if r else [] for r in rescored]
+
+
+def _ctc_bpe_words(args, bpe, logp, n_frames, nnlm):
+    """``--ctc --bpe``: each row's words, greedily, or with ``--bias`` /
+    ``--fusion-lm`` / ``--nnlm-rescore`` from the device prefix beam (the
+    neural LM re-ranking its N-best)."""
     from mogasr_torch.am.ctc import ctc_greedy_decode, ctc_prefix_beam_decode_device
 
-    if not (args.bias or args.fusion_lm):
-        return ctc_greedy_decode(logp, n_frames)
+    if not (args.bias or args.fusion_lm or nnlm is not None):
+        return [bpe.decode(seq) for seq in ctc_greedy_decode(logp, n_frames)]
     from mogasr_torch.cli.common import ctc_beam_tables
 
     fusion, bias_next, bias_delta = ctc_beam_tables(args, bpe)
-    ranked = ctc_prefix_beam_decode_device(logp, n_frames, beam_size=args.bias_beam, u_cap=int(logp.shape[1]),
+    beam = max(args.bias_beam, args.nnlm_nbest if nnlm is not None else 0)
+    ranked = ctc_prefix_beam_decode_device(logp, n_frames, beam_size=beam, u_cap=int(logp.shape[1]),
                                            fusion=fusion, bias_next=bias_next, bias_delta=bias_delta)
-    return [r[0][1] for r in ranked]
+    if nnlm is not None:
+        return _nnlm_best(args, nnlm, ranked, bpe)
+    return [bpe.decode(r[0][1]) for r in ranked]
+
+
+def _rnnt_decoder(args, model, bpe, lex, nnlm):
+    """``--rnnt``: fb -> each row's words (BPE) or phones, from the device
+    greedy, or with ``--rnnt-beam`` the device beam (fusion and biasing
+    tables over the model's units; the neural LM re-ranking its N-best)."""
+    from mogasr_torch.am.rnnt import rnnt_beam_decode_device, rnnt_fusion_matrix, rnnt_greedy_decode_device
+
+    n_units = model.n_labels
+
+    def text(seq):
+        return bpe.decode(seq) if bpe is not None else [lex.phones[u] for u in seq]
+
+    if args.rnnt_beam <= 0:
+        return lambda fb: [text(seq) for seq in rnnt_greedy_decode_device(model, fb.feats, fb.n_frames)]
+    fusion = bias_next = bias_delta = None
+    if args.fusion_lm:
+        from mogasr_torch.lm.unit_ngram import load_unit_lm
+
+        ulm = load_unit_lm(args.fusion_lm)
+        if ulm.n_units != n_units:
+            raise SystemExit(f"--rnnt --fusion-lm unit mismatch: LM has {ulm.n_units} units, model decodes "
+                             f"{n_units} (train_lm --unit-ngram with the matching --bpe, or without it for phones)")
+        fusion = rnnt_fusion_matrix(model, ulm, args.fusion_weight)
+    if args.bias:
+        from mogasr_torch.decoder.biasing import CompiledBiaser, biaser_from_bpe, biaser_from_words, load_phrases
+
+        phrases = load_phrases(args.bias)
+        biaser = (biaser_from_bpe(bpe, phrases, weight=args.bias_weight) if bpe is not None
+                  else biaser_from_words(lex, phrases, weight=args.bias_weight))
+        comp = CompiledBiaser(biaser, n_units)
+        bias_next, bias_delta = comp.next_state, comp.delta
+
+    def decode(fb):
+        ranked = rnnt_beam_decode_device(model, fb.feats, fb.n_frames, beam_size=args.rnnt_beam, fusion=fusion,
+                                         bias_next=bias_next, bias_delta=bias_delta)
+        if nnlm is not None:
+            return _nnlm_best(args, nnlm, ranked, bpe)
+        return [text(r[0][1]) for r in ranked]
+
+    return decode
 
 
 if __name__ == "__main__":

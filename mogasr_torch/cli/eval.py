@@ -48,9 +48,12 @@ trained) with lexicon-free greedy word decoding: the argmax on the card
 (``am.ctc.make_ctc_frames_fn``; LstmAm and BlstmAm on K4, ConformerAm at its
 subsampled rate), one [B, T] int copy to the host, the collapse and
 ``bpe.decode`` there. As in the reference, ``--ctc`` needs ``--bpe`` and
-``--nn-ckpt``. Not ported yet, and raising NotImplementedError naming ROADMAP
-item 13: ``--rnnt`` and ``--aed``. The options that only those paths read are
-left out.
+``--nn-ckpt``. ``--rnnt --bpe FILE --nn-ckpt DIR`` sweeps a BPE-RNN-T
+(``cli.train_nn --objective rnnt --bpe-merges``; ``--nn-arch lstm|blstm``,
+``--rnnt-pred/--rnnt-plain/--rnnt-pruned`` as trained): the encoder on K4,
+the device greedy (the label loop), or with ``--rnnt-beam N`` the device
+beam. Not ported yet, and raising NotImplementedError naming ROADMAP item
+13: ``--aed``. The options that only that path reads are left out.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ import os
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
     add_corpus_args, add_nn_args, add_run_args, device_of, load_corpus, load_nn_scorer, load_or_random_gmm,
-    make_logger, refuse_unported,
+    add_rnnt_args, make_logger, refuse_unported,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
@@ -104,12 +107,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ctc", action="store_true",
                    help="evaluate a BPE-CTC neural AM (lexicon-free greedy word decoding) instead of the GMM "
                         "system: requires --bpe and --nn-ckpt")
-    # the unported paths' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--rnnt", action="store_true", help="BPE-RNNT checkpoint (not ported yet: raises)")
+    p.add_argument("--rnnt", action="store_true",
+                   help="evaluate a BPE-RNNT checkpoint (train_nn --objective rnnt --bpe-merges): the device greedy, "
+                        "or the device beam with --rnnt-beam; requires --bpe and --nn-ckpt")
+    add_rnnt_args(p)
+    # the AED path's primary flag, accepted as the reference's is; it raises
     p.add_argument("--aed", action="store_true", help="BPE-AED checkpoint (not ported yet: raises)")
-    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc)")
+    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc/--rnnt)")
     p.add_argument("--nn-arch", default="lstm", choices=["mlp", "lstm", "blstm", "tdnn", "conformer"],
-                   help="with --ctc: the CTC model's architecture")
+                   help="with --ctc: the CTC model's architecture; with --rnnt: the encoder (lstm/blstm)")
     add_nn_args(p)
     p.add_argument("--streaming", action="store_true",
                    help="extract features through the chunked streaming front end instead of the offline batch path")
@@ -175,10 +181,7 @@ def main(argv=None) -> None:
             raise SystemExit("--bundle carries a GMM system: incompatible with a hybrid --am")
         if lexicon_free:
             raise SystemExit("--ctc/--rnnt/--aed are lexicon-free sweeps: use them without --am")
-    refuse_unported((
-        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
-        ("--aed", args.aed, "13: am/aed.py"),
-    ))
+    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
     if len(lexicon_free) > 1:
         raise SystemExit(f"pick one of {'/'.join(lexicon_free)}")
     if lexicon_free and not (args.bpe and args.nn_ckpt):
@@ -219,6 +222,23 @@ def main(argv=None) -> None:
         def neural(fb):
             frames, n_dec = frames_fn(fb.feats, fb.n_frames)
             return [bpe.decode(seq) for seq in ctc_collapse_frames(frames, n_dec, bpe.n_units)]
+
+        gmm = params = hybrid = None
+    elif args.rnnt:
+        from mogasr_torch.am.rnnt import rnnt_beam_decode_device, rnnt_greedy_decode_device
+        from mogasr_torch.cli.common import load_rnnt_model
+        from mogasr_torch.data.bpe import load_bpe
+
+        bpe = load_bpe(args.bpe)
+        rnnt_model = load_rnnt_model(args, args.nn_arch, bpe.n_units, fcfg.feat_dim, device)
+
+        def neural(fb):
+            if args.rnnt_beam > 0:
+                ranked = rnnt_beam_decode_device(rnnt_model, fb.feats, fb.n_frames, beam_size=args.rnnt_beam)
+                seqs = [r[0][1] if r else [] for r in ranked]
+            else:
+                seqs = rnnt_greedy_decode_device(rnnt_model, fb.feats, fb.n_frames)
+            return [bpe.decode(seq) for seq in seqs]
 
         gmm = params = hybrid = None
     elif args.am == "gmm":

@@ -1,6 +1,6 @@
 """Streaming recognition server on the card: many concurrent sessions over a
 line-delimited JSON protocol. The twin of the reference's cli/serve.py on
-its GMM and CTC paths.
+its GMM, CTC and RNN-T paths.
 
     python -m mogasr_torch.cli.serve --synthetic-demo-session    # one session, a self-test
     cat events.jsonl | python -m mogasr_torch.cli.serve [--engine] [--device cpu]
@@ -26,14 +26,19 @@ and ``--fusion-lm``). ``--tcp PORT`` serves the same protocol on
 127.0.0.1:PORT to many connections at once, each owning the sessions it
 started. ``--engine``: the batched session engines of ``serving/engine.py``,
 one chain of launches a tick for every live session (GMM: K1 and K2's chunk
-arm with a frame offset per slot; ``--ctc``: K4's carry arm), over stdin
-batches of events. ``--gmm-ckpt`` and ``--nn-ckpt`` read the port's
-checkpoint format; without ``--gmm-ckpt`` a random GMM is drawn as the
-reference draws it. Runs on ``--device`` (default cuda).
+arm with a frame offset per slot; ``--ctc``: K4's carry arm; ``--rnnt``:
+K4's carry arm and the device greedy), over stdin batches of events.
+``--rnnt --nn-ckpt <run-dir>/nn_rnnt_lstm`` (``cli.train_nn --objective
+rnnt --arch lstm``; ``--rnnt-pred/--rnnt-plain/--rnnt-pruned`` as trained)
+serves phones, or words with ``--bpe``: per session an
+``am.rnnt.RnntDeviceStream`` (its buffer ``--max-symbols`` long), or with
+``--engine`` the ``BatchedRnntEngine``. ``--gmm-ckpt`` and ``--nn-ckpt``
+read the port's checkpoint format; without ``--gmm-ckpt`` a random GMM is
+drawn as the reference draws it. Runs on ``--device`` (default cuda).
 
 Not ported yet, and raising NotImplementedError naming ROADMAP item 13: the
-neural families ``--rnnt`` and ``--aed``. The options that only those paths
-read are left out.
+chunked streaming AED, ``--aed``. The options that only that path reads are
+left out.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ import numpy as np
 import torch
 
 from mogasr_torch.cli.common import (
-    add_ctc_beam_args, add_run_args, ctc_ext_score, device_of, load_or_random_gmm, make_logger, refuse_unported,
+    add_ctc_beam_args, add_rnnt_args, add_run_args, ctc_ext_score, device_of, load_or_random_gmm, make_logger,
+    refuse_unported,
 )
 from mogasr_torch.config import DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.hmm.lexicon import load_lexicon, synthetic_lexicon
@@ -260,14 +266,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ctc", action="store_true",
                    help="serve a BPE-CTC LstmAm instead of the GMM: stateful LSTM chunks, then streaming greedy or "
                         "prefix-beam decoding to words (needs --nn-ckpt and --bpe)")
-    p.add_argument("--nn-ckpt", help="CTC checkpoint dir (with --ctc; the port's format, cli.train_nn --objective "
-                                     "ctc --arch lstm)")
-    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc)")
+    p.add_argument("--nn-ckpt", help="CTC/RNN-T checkpoint dir (with --ctc/--rnnt; the port's format, cli.train_nn "
+                                     "--objective ctc/rnnt --arch lstm)")
+    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc, or --rnnt for words)")
     p.add_argument("--nn-hidden", type=int, default=512)
     p.add_argument("--nn-layers", type=int, default=3)
     add_ctc_beam_args(p)
-    # the other neural families' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--rnnt", action="store_true", help="serve a streaming RNN-T (not ported yet: raises)")
+    p.add_argument("--rnnt", action="store_true",
+                   help="serve a streaming RNN-T (train_nn --objective rnnt): stateful LSTM encoder chunks -> the "
+                        "device greedy (needs --nn-ckpt; phones, or words with --bpe)")
+    add_rnnt_args(p, beam=False)
+    p.add_argument("--max-symbols", type=int, default=400,
+                   help="with --rnnt (per-session mode): the hypothesis buffer's cap a session; the engine harvests "
+                        "every tick and has no cap")
+    # the streaming AED's primary flag, accepted as the reference's is; it raises
     p.add_argument("--aed", action="store_true", help="serve a chunked streaming AED (not ported yet: raises)")
     p.add_argument("--endpoint", action="store_true",
                    help="server-side endpointing (frontend/endpoint.py): a causal detector a session ends it, with "
@@ -281,10 +293,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported((
-        ("--aed", args.aed, "13: am/aed.py"),
-        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
-    ))
+    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
+    if args.ctc and args.rnnt:
+        raise SystemExit("--ctc/--rnnt are different serving models")
     if args.tcp is not None and args.engine:
         # the engine runs its own tick loop over stdin batches
         raise SystemExit("--tcp serves the per-session mode only (--engine has its own stdin tick loop)")
@@ -298,6 +309,8 @@ def main(argv=None) -> None:
     logger = make_logger(args)
     if args.ctc:
         session = _ctc_sessions(args, fcfg, logger, device)
+    elif args.rnnt:
+        session = _rnnt_sessions(args, fcfg, lex, logger, device)
     else:
         session = _gmm_sessions(args, fcfg, lex, topo, dcfg, logger, device)
     if session is not None:
@@ -348,6 +361,52 @@ def _ctc_sessions(args, fcfg, logger, device):
 
     return (make_session, feed, lambda s: bpe.decode(s.decoder.partial()),
             lambda s: bpe.decode(s.decoder.finalize()))
+
+
+def _rnnt_sessions(args, fcfg, lex, logger, device):
+    """--rnnt: the engine runs here and None comes back; else the
+    per-session (make_session, feed, partial_words, final_words), every
+    session's RnntDeviceStream on one shared encoder step and greedy."""
+    from mogasr_torch.am.rnnt import RnntDeviceStream, make_rnnt_stream_shared
+    from mogasr_torch.cli.common import load_rnnt_model
+
+    if not args.nn_ckpt:
+        raise SystemExit("--rnnt requires --nn-ckpt (train_nn --objective rnnt)")
+    bpe = None
+    if args.bpe:
+        from mogasr_torch.data.bpe import load_bpe
+
+        bpe = load_bpe(args.bpe)
+    model = load_rnnt_model(args, "lstm", bpe.n_units if bpe is not None else lex.n_phones, fcfg.feat_dim, device)
+
+    def to_text(units):
+        return bpe.decode(units) if bpe is not None else [lex.phones[u] for u in units]
+
+    if args.engine:
+        from mogasr_torch.serving.engine import BatchedRnntEngine
+
+        eng = BatchedRnntEngine(model, fcfg, capacity=args.engine_capacity, tick_frames=args.tick_frames,
+                                feature_path=args.feature_path, device=device)
+        _run_engine_loop(args, eng, fcfg, logger, to_text=to_text)
+        return None
+
+    from mogasr_torch.frontend.streaming import StreamingFrontend
+
+    shared = make_rnnt_stream_shared(model, u_cap=args.max_symbols)
+
+    def make_session():
+        s = _Session(StreamingFrontend(fcfg, device=device), None)
+        s.stream = RnntDeviceStream(model, 1, u_cap=args.max_symbols, shared=shared)
+        s.part = []
+        return s
+
+    def feed(s, feats):
+        s.part = s.stream.consume(torch.as_tensor(feats[None], device=device), np.asarray([feats.shape[0]]))
+
+    def words(s):
+        return to_text(s.part[0]) if s.part else []
+
+    return make_session, feed, words, words
 
 
 def _gmm_sessions(args, fcfg, lex, topo, dcfg, logger, device):

@@ -23,9 +23,15 @@ its log posteriors with the OnlineDecoder over the CTC word loop
 FILE`` lexicon-free words through ``am.ctc.CtcStreamDecoder``, greedy, or the
 host prefix beam (width ``--bias-beam``) with ``--bias`` and ``--fusion-lm``.
 
+``--rnnt --nn-ckpt <run-dir>/nn_rnnt_lstm`` (``cli.train_nn --objective rnnt
+--arch lstm``; ``--rnnt-pred/--rnnt-plain/--rnnt-pruned`` as trained):
+``am.rnnt.RnntDeviceStream``, the stateful encoder on K4's carry arm and the
+chunk-resumable device greedy, its hypothesis buffer ``--max-symbols`` long
+(0: twice the audio's frames); phone partials, or words with ``--bpe``.
+
 Not ported yet, and raising NotImplementedError naming ROADMAP item 13: the
-neural families ``--rnnt`` and ``--aed``. The options that only those paths
-read are left out.
+streaming AED, ``--aed``. The options that only that path reads are left
+out.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_ctc_beam_args, add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported,
+    add_ctc_beam_args, add_rnnt_args, add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported,
 )
 from mogasr_torch.config import DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.decoder import viterbi as vit
@@ -72,13 +78,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="neural online CTC: the stateful LSTM (train_nn --objective ctc --arch lstm checkpoint via "
                         "--nn-ckpt) scores chunks; words decode online over the CTC word loop, or lexicon-free "
                         "with --bpe")
-    # the other neural families' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--rnnt", action="store_true", help="online RNN-transducer (not ported yet: raises)")
+    p.add_argument("--rnnt", action="store_true",
+                   help="online RNN-transducer: stateful LSTM encoder chunks + the chunk-resumable device greedy "
+                        "(phone partials, or words with --bpe; train_nn --objective rnnt checkpoint via --nn-ckpt)")
+    add_rnnt_args(p, beam=False)
+    p.add_argument("--max-symbols", type=int, default=0,
+                   help="with --rnnt: hypothesis-buffer cap (0: twice the audio's frames)")
+    # the streaming AED's primary flag, accepted as the reference's is; it raises
     p.add_argument("--aed", action="store_true", help="streaming AED (not ported yet: raises)")
-    p.add_argument("--nn-ckpt", help="CTC checkpoint dir (with --ctc)")
+    p.add_argument("--nn-ckpt", help="CTC/RNN-T checkpoint dir (with --ctc/--rnnt)")
     p.add_argument("--bpe", metavar="FILE",
-                   help="with --ctc: the checkpoint uses BPE subword units (FILE is its bpe.json): open-vocabulary "
-                        "streaming words")
+                   help="with --ctc/--rnnt: the checkpoint uses BPE subword units (FILE is its bpe.json): "
+                        "open-vocabulary streaming words")
     add_ctc_beam_args(p)
     p.add_argument("--nn-hidden", type=int, default=512)
     p.add_argument("--nn-layers", type=int, default=3)
@@ -87,10 +98,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported((
-        ("--aed", args.aed, "13: am/aed.py"),
-        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
-    ))
+    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
     device = device_of(args.device)
     fcfg = FrontendConfig(cmvn="sliding", cmvn_window=args.cmvn_window)
     if args.synthetic_demo:
@@ -112,6 +120,9 @@ def main(argv=None) -> None:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
     logger = make_logger(args)
+    if args.rnnt:
+        _stream_rnnt(args, wave, fcfg, lex, logger, device)
+        return
     if args.ctc:
         if not args.nn_ckpt:
             raise SystemExit("--ctc requires --nn-ckpt (train_nn --objective ctc --arch lstm)")
@@ -234,6 +245,54 @@ def _stream_ctc_bpe(args, wave, fcfg, bpe, score_chunk, logger, device) -> None:
     print(json.dumps({"final": words, "rtf": round(t.seconds / audio_s, 4)}))
     logger.log({"stage": "stream_ctc_bpe", "audio_s": round(audio_s, 2), "wall_sec": t.seconds,
                 "rtf": t.seconds / max(audio_s, 1e-9), "final_words": words})
+
+
+def _stream_rnnt(args, wave, fcfg, lex, logger, device) -> None:
+    """``--rnnt``: RnntDeviceStream over the chunks, phone or BPE-word
+    partials."""
+    from mogasr_torch.am.rnnt import RnntDeviceStream
+    from mogasr_torch.cli.common import load_rnnt_model
+
+    if not args.nn_ckpt:
+        raise SystemExit("--rnnt requires --nn-ckpt (train_nn --objective rnnt)")
+    if args.bpe:
+        from mogasr_torch.data.bpe import load_bpe
+
+        bpe = load_bpe(args.bpe)
+        n_units, to_text = bpe.n_units, bpe.decode
+    else:
+        n_units = lex.n_phones
+
+        def to_text(units):
+            return [lex.phones[u] for u in units]
+
+    model = load_rnnt_model(args, "lstm", n_units, fcfg.feat_dim, device)
+    # the cap scales with the audio's length (about 2 symbols a frame) unless set
+    u_cap = args.max_symbols if args.max_symbols > 0 else 2 * (fcfg.num_frames(len(wave)) + 8)
+    stream = RnntDeviceStream(model, 1, u_cap=u_cap)
+    sf = StreamingFrontend(fcfg, device=device)
+    chunk = int(fcfg.sample_rate * args.chunk_ms / 1000.0)
+    part: list = []
+
+    def feed(feats):
+        return stream.consume(torch.as_tensor(feats[None], device=device), np.asarray([feats.shape[0]]))
+
+    with Timer() as t:
+        for i in range(0, len(wave), chunk):
+            consumed = min(i + chunk, len(wave))
+            feats = sf.process(wave[i : i + chunk])
+            if feats.size:
+                part = feed(feats)
+            print(json.dumps({"t_audio_s": round(consumed / fcfg.sample_rate, 2),
+                              "partial": to_text(part[0]) if part else []}), flush=True)
+        feats = sf.finalize()
+        if feats.size:
+            part = feed(feats)
+    audio_s = len(wave) / fcfg.sample_rate
+    final = to_text(part[0]) if part else []
+    print(json.dumps({"final": final, "rtf": round(t.seconds / audio_s, 4)}))
+    logger.log({"stage": "stream_rnnt", "audio_s": round(audio_s, 2), "wall_sec": t.seconds,
+                "rtf": t.seconds / max(audio_s, 1e-9), "final_phones": final})
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Neural acoustic-model training on the card: the twin of the reference's
-cli/train_nn.py on its ``--objective ce`` and ``mpc`` paths.
+cli/train_nn.py on its ``--objective ce``, ``mpc``, ``ctc`` and ``rnnt``
+paths.
 
     python -m mogasr_torch.cli.train_nn --synthetic-v2 200 --arch lstm --hidden 512 --layers 3 --steps 500 \\
         --run-dir runs/nn [--spec-augment] [--ivector-dim R] [--seq-mmi-steps N] [--seq-smbr-steps N] \\
@@ -37,15 +38,23 @@ checkpoint is <run-dir>/nn_ctc_<arch>, ``{"params": state_dict}``; decode it
 with ``decode``/``search``/``transcribe --ctc``, ``eval``/``decode
 --ctc --bpe``, ``stream --ctc`` (LstmAm).
 
+``--objective rnnt`` (``--arch lstm|blstm``, the encoder): the RNN-T over the
+transcripts' phones or ``--bpe-merges`` BPE units (``pipeline.train_rnnt`` /
+``train_rnnt_bpe``: a stateless prediction net and the auxiliary CTC head,
+its loss on K3), ``--rnnt-pruned-band S`` with the pruned loss
+(``am.rnnt_pruned``; decode with ``--rnnt-pruned``), ``--mwer-steps N``
+then N steps of on-policy MWER (``pipeline.finetune_rnnt_mwer``, the device
+beam's 4-best). The checkpoint is <run-dir>/nn_rnnt_<arch>, ``{"params":
+state_dict}``; decode it with ``decode``/``eval``/``transcribe``/``stream``
+/``serve --rnnt``.
+
 LstmAm and BlstmAm train on their plain recurrence under autograd (kernel
 K4 has no backward, as the reference's Pallas kernel trains nothing) and
 decode on K4. Records go to <run-dir>/metrics.jsonl. Runs on ``--device``
 (default cuda).
 
 Not ported yet, and raising NotImplementedError naming ROADMAP item 13:
-``--objective rnnt/aed`` and the options of those paths
-(``--aed-chunk``, ``--aed-left-chunks``, ``--rnnt-pruned-band``,
-``--mwer-steps``).
+``--objective aed`` and its options (``--aed-chunk``, ``--aed-left-chunks``).
 """
 
 from __future__ import annotations
@@ -88,9 +97,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--objective", default="ce", choices=["ce", "ctc", "rnnt", "aed", "mpc"],
                    help="ce: frame CE on GMM forced alignments; ctc: alignment-free CTC on transcript phone (or "
                         "--bpe-merges) targets; mpc: unsupervised masked-predictive-coding pretraining of the "
-                        "--arch encoder (no transcripts read); rnnt, aed: not ported yet (raise)")
+                        "--arch encoder (no transcripts read); rnnt: RNN-transducer (--arch lstm/blstm encoder, "
+                        "stateless prediction net, auxiliary CTC); aed: not ported yet (raises)")
     p.add_argument("--bpe-merges", type=int, default=0, metavar="N",
-                   help="with --objective ctc: train on BPE subword units (N merges learned from the transcripts) "
+                   help="with --objective ctc/rnnt: train on BPE subword units (N merges learned from the transcripts) "
                         "instead of phones; writes bpe.json into the run dir")
     p.add_argument("--init-from", metavar="CKPT_DIR",
                    help="with --objective ctc: warm-start the encoder from an MPC checkpoint (train_nn --objective "
@@ -104,11 +114,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--distill-teacher-layers", type=int, default=3)
     p.add_argument("--distill-alpha", type=float, default=0.5, help="soft-target weight: alpha*KL + (1-alpha)*CTC")
     p.add_argument("--distill-temp", type=float, default=2.0, help="distillation softmax temperature")
-    # the unported paths' options, accepted as the reference's are; they raise
+    # the AED path's options, accepted as the reference's are; they raise
     p.add_argument("--aed-chunk", type=int, default=0, metavar="C", help="streaming AED encoder (not ported yet)")
     p.add_argument("--aed-left-chunks", type=int, default=1, help="streaming AED context (not ported yet)")
-    p.add_argument("--rnnt-pruned-band", type=int, default=0, metavar="S", help="pruned RNN-T loss (not ported yet)")
-    p.add_argument("--mwer-steps", type=int, default=0, metavar="N", help="MWER fine-tuning (not ported yet)")
+    p.add_argument("--rnnt-pruned-band", type=int, default=0, metavar="S",
+                   help="with --objective rnnt: the pruned transducer loss (am.rnnt_pruned), the joint evaluated "
+                        "on a band of S label positions a frame; the checkpoint gains the simple heads (decode "
+                        "with --rnnt-pruned)")
+    p.add_argument("--mwer-steps", type=int, default=0, metavar="N",
+                   help="with --objective rnnt: N steps of on-policy MWER fine-tuning after training")
     p.add_argument("--ivector-dim", type=int, default=0, metavar="R",
                    help="CE path: train an i-vector extractor (UBM + total variability) on the training features "
                         "and append per-utterance i-vectors to every frame (decode with --ivector-ckpt "
@@ -138,11 +152,9 @@ def main(argv=None) -> None:
         raise SystemExit("--arch moe supports --objective ce (the hybrid CE path collects the MoE load-balance "
                          "aux loss; the other objectives would drop it)")
     refuse_unported((
-        (f"--objective {args.objective}", args.objective in ("rnnt", "aed"), "13: am/rnnt.py, am/aed.py"),
+        ("--objective aed", args.objective == "aed", "13: am/aed.py"),
         ("--aed-chunk", args.aed_chunk > 0, "13: am/aed.py"),
         ("--aed-left-chunks", args.aed_left_chunks != 1, "13: am/aed.py"),
-        ("--rnnt-pruned-band", args.rnnt_pruned_band > 0, "13: am/rnnt_pruned.py"),
-        ("--mwer-steps", args.mwer_steps > 0, "13: MWER fine-tuning"),
     ))
     if args.init_from and args.objective != "ctc":
         raise SystemExit("--init-from (MPC warm start) supports --objective ctc")
@@ -150,6 +162,8 @@ def main(argv=None) -> None:
         raise SystemExit("--distill-from supports --objective ctc")
     if args.distill_from and args.bpe_merges > 0:
         raise SystemExit("--distill-from reuses the TEACHER's unit inventory (its bpe.json): drop --bpe-merges")
+    if args.objective == "rnnt" and args.arch not in ("lstm", "blstm"):
+        raise SystemExit("--objective rnnt needs --arch lstm/blstm")
     device = device_of(args.device)
     corpus, lex = load_corpus(args)
     corpus = apply_augmentation(corpus, args)
@@ -163,6 +177,8 @@ def main(argv=None) -> None:
             _pretrain(args, batches, logger, run_dir)
         elif args.objective == "ctc":
             _train_ctc(args, batches, lex, fcfg, logger, run_dir, device)
+        elif args.objective == "rnnt":
+            _train_rnnt(args, batches, lex, logger, run_dir)
         else:
             _train_ce(args, batches, lex, topo, fcfg, logger, run_dir, device)
 
@@ -229,6 +245,37 @@ def _train_ctc(args, batches, lex, fcfg, logger, run_dir: str, device: torch.dev
     ckpt = os.path.join(run_dir, f"nn_ctc_{args.arch}")
     save_checkpoint(ckpt, {"params": model.state_dict()}, step=args.steps)
     print(f"saved CTC {args.arch} AM to {ckpt}")
+
+
+def _train_rnnt(args, batches, lex, logger, run_dir: str) -> None:
+    from mogasr_torch.am.ctc import ctc_labels_from_words
+    from mogasr_torch.pipeline import finetune_rnnt_mwer, train_rnnt, train_rnnt_bpe
+
+    tcfg = TrainConfig(nn_arch=args.arch, nn_hidden=args.hidden, nn_layers=args.layers, lr=args.lr,
+                       num_nn_steps=args.steps)
+    with Timer() as t:
+        if args.bpe_merges > 0:
+            from mogasr_torch.data.bpe import save_bpe, train_bpe
+
+            bpe = train_bpe([fb.words[b] for fb in batches for b in range(fb.size)], n_merges=args.bpe_merges)
+            save_bpe(bpe, os.path.join(run_dir, "bpe.json"))
+            encode_fn = bpe.encode
+            model, _sd = train_rnnt_bpe(batches, bpe, tcfg, encoder_arch=args.arch,
+                                        pruned_band=args.rnnt_pruned_band, logger=logger)
+        else:
+            def encode_fn(words):
+                return ctc_labels_from_words(lex, words, include_sil=False)
+
+            model, _sd = train_rnnt(batches, lex, tcfg, encoder_arch=args.arch, pruned_band=args.rnnt_pruned_band,
+                                    logger=logger)
+    if args.mwer_steps > 0:
+        _sd, mwer_hist = finetune_rnnt_mwer(model, batches, encode_fn, tcfg, steps=args.mwer_steps, logger=logger)
+        logger.log({"stage": "mwer_done", "steps": args.mwer_steps, "expected_risk_first": mwer_hist[0],
+                    "expected_risk_last": mwer_hist[-1]})
+    logger.log({"stage": "train_rnnt_done", "steps": args.steps, "wall_sec": t.seconds})
+    ckpt = os.path.join(run_dir, f"nn_rnnt_{args.arch}")
+    save_checkpoint(ckpt, {"params": model.state_dict()}, step=args.steps)
+    print(f"saved RNNT {args.arch} AM to {ckpt}")
 
 
 def _train_ce(args, batches, lex, topo, fcfg, logger, run_dir: str, device: torch.device) -> None:

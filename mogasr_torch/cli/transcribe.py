@@ -31,9 +31,13 @@ model's log posteriors (LstmAm and BlstmAm on K4) and decodes them over the
 CTC word loop (``am.ctc.ctc_decode_graph``) the same way, K2's and K3's skip
 arms included; with ``--bpe FILE`` lexicon-free words from the greedy best
 path, their times from the units' first frames and their confidences the mean
-best-path posterior (``am.ctc.ctc_greedy_decode_with_frames``). Not ported
-yet, and raising NotImplementedError naming ROADMAP item 13: ``--rnnt`` and
-``--aed``. The options that only those paths read are left out.
+best-path posterior (``am.ctc.ctc_greedy_decode_with_frames``). ``--rnnt
+--nn-ckpt DIR`` (``cli.train_nn --objective rnnt``; ``--nn-arch lstm|blstm``,
+``--rnnt-pred/--rnnt-plain/--rnnt-pruned`` as trained): each segment's
+phones, or words with ``--bpe``, from the device greedy (the encoder on K4),
+without confidences or times, as the reference. Not ported yet, and raising
+NotImplementedError naming ROADMAP item 13: ``--aed``. The options that only
+that path reads are left out.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ import json
 import numpy as np
 
 from mogasr_torch.am.gmm_cuda import kernel_params
-from mogasr_torch.cli.common import add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported
+from mogasr_torch.cli.common import (
+    add_rnnt_args, add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported,
+)
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.frontend.vad import VadConfig, segment_utterances
 from mogasr_torch.hmm.lexicon import load_lexicon, synthetic_lexicon
@@ -81,13 +87,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ctc", action="store_true",
                    help="use a CTC acoustic model (train_nn --objective ctc checkpoint via --nn-ckpt) through the "
                         "CTC-topology word graph, or lexicon-free with --bpe")
-    # the unported paths' primary flags, accepted as the reference's are; they raise
-    p.add_argument("--rnnt", action="store_true", help="RNN-transducer (not ported yet: raises)")
+    p.add_argument("--rnnt", action="store_true",
+                   help="use an RNN-transducer (train_nn --objective rnnt checkpoint via --nn-ckpt): device greedy "
+                        "phones, or words with --bpe")
+    add_rnnt_args(p, beam=False)
+    # the AED path's primary flag, accepted as the reference's is; it raises
     p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
     p.add_argument("--bpe", metavar="FILE",
-                   help="with --ctc: lexicon-free open-vocabulary transcription (train_nn --objective ctc "
-                        "--bpe-merges checkpoint): word times from the greedy best path")
-    p.add_argument("--nn-ckpt", help="CTC checkpoint dir (with --ctc)")
+                   help="with --ctc/--rnnt: lexicon-free open-vocabulary transcription (a --bpe-merges "
+                        "checkpoint); with --ctc word times from the greedy best path")
+    p.add_argument("--nn-ckpt", help="CTC/RNN-T checkpoint dir (with --ctc/--rnnt)")
     p.add_argument("--nn-arch", default="mlp", choices=["mlp", "lstm", "blstm", "tdnn", "conformer"])
     p.add_argument("--nn-hidden", type=int, default=512)
     p.add_argument("--nn-layers", type=int, default=3)
@@ -98,10 +107,9 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if sum((args.aed, args.ctc, args.rnnt)) > 1:
         raise SystemExit("--aed/--ctc/--rnnt are different acoustic models")
-    refuse_unported((
-        ("--rnnt", args.rnnt, "13: am/rnnt.py"),
-        ("--aed", args.aed, "13: am/aed.py"),
-    ))
+    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
+    if args.rnnt and (args.nbest or args.ctm):
+        raise SystemExit("--rnnt has no word lattice/alignment: incompatible with --nbest/--ctm")
     if args.ctc and args.bpe and args.nbest:
         raise SystemExit("--ctc --bpe is lexicon-free greedy decoding (no lattice): incompatible with --nbest")
     device = device_of(args.device)
@@ -124,8 +132,19 @@ def main(argv=None) -> None:
     if args.num_states == 0:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
-    bpe = ctc_model = None
-    if args.ctc:
+    bpe = ctc_model = rnnt_model = None
+    if args.rnnt:
+        if not args.nn_ckpt:
+            raise SystemExit("--rnnt requires --nn-ckpt")
+        from mogasr_torch.cli.common import load_rnnt_model
+
+        if args.bpe:
+            from mogasr_torch.data.bpe import load_bpe
+
+            bpe = load_bpe(args.bpe)
+        rnnt_model = load_rnnt_model(args, args.nn_arch, bpe.n_units if bpe is not None else lex.n_phones,
+                                     fcfg.feat_dim, device)
+    elif args.ctc:
         if not args.nn_ckpt:
             raise SystemExit("--ctc requires --nn-ckpt")
         from mogasr_torch.am.ctc import make_ctc_scorer
@@ -148,7 +167,7 @@ def main(argv=None) -> None:
         corpus = [(f"seg-{i:04d}", wave[a:b], []) for i, (a, b) in enumerate(segments)]
         results = []
         if corpus:
-            if bpe is not None:
+            if bpe is not None or args.rnnt:
                 graph = None
             elif args.ctc:
                 from mogasr_torch.am.ctc import ctc_decode_graph
@@ -168,6 +187,16 @@ def main(argv=None) -> None:
                 nbest_lm = uniform_bigram(sorted(set(graph.labels)))
             shift_s = fcfg.frame_shift_ms / 1000.0
             for fb in featurize(corpus, fcfg, bcfg, device):
+                if args.rnnt:
+                    from mogasr_torch.am.rnnt import rnnt_greedy_decode_device
+
+                    seqs = rnnt_greedy_decode_device(rnnt_model, fb.feats, fb.n_frames)
+                    for b in range(fb.size):
+                        a, e = segments[int(fb.utt_ids[b].split("-")[1])]
+                        results.append({"start_s": round(a / fcfg.sample_rate, 2),
+                                        "end_s": round(e / fcfg.sample_rate, 2),
+                                        "words": bpe.decode(seqs[b]) if bpe else [lex.phones[u] for u in seqs[b]]})
+                    continue
                 if bpe is not None:
                     results.extend(_ctc_bpe_segments(ctc_model, bpe, fb, segments, fcfg))
                     continue

@@ -552,6 +552,165 @@ def distill_ctc_units(
     return model, model.state_dict()
 
 
+def train_rnnt(
+    batches: Sequence[FeatBatch],
+    lexicon: Lexicon,
+    tcfg: TrainConfig,
+    encoder_arch: str = "lstm",
+    pred_arch: str = "stateless",
+    aux_ctc: bool = True,
+    ctc_weight: float = 1.0,
+    steps: Optional[int] = None,
+    include_sil: bool = False,
+    pruned_band: int = 0,
+    logger=None,
+    *,
+    use_kernels: bool = True,
+):
+    """RNN-Transducer training on (features, phone sequence) pairs ->
+    (model, state_dict). The defaults are the reference's low-data recipe: a
+    stateless prediction net and an auxiliary CTC loss on the encoder."""
+    from mogasr_torch.am.ctc import ctc_labels_from_words
+
+    return train_rnnt_units(
+        batches, lambda words: ctc_labels_from_words(lexicon, words, include_sil), lexicon.n_phones, tcfg,
+        encoder_arch=encoder_arch, pred_arch=pred_arch, aux_ctc=aux_ctc, ctc_weight=ctc_weight, steps=steps,
+        pruned_band=pruned_band, logger=logger, use_kernels=use_kernels,
+    )
+
+
+def train_rnnt_bpe(batches: Sequence[FeatBatch], bpe, tcfg: TrainConfig, logger=None, **kwargs):
+    """Lexicon-free RNN-T on BPE units; greedy decode + ``bpe.decode`` gives
+    words."""
+    return train_rnnt_units(batches, bpe.encode, bpe.n_units, tcfg, logger=logger, **kwargs)
+
+
+def rnnt_model_for(n_units: int, tcfg: TrainConfig, batches: Sequence[FeatBatch], encoder_arch: str = "lstm",
+                   pred_arch: str = "stateless", aux_ctc: bool = True, simple_heads: bool = False):
+    """A fresh ``am.rnnt.build_rnnt_model`` over n_units + blank, its weights
+    drawn from ``tcfg.seed``, on the batches' device."""
+    from mogasr_torch.am.params import init_
+    from mogasr_torch.am.rnnt import build_rnnt_model
+
+    fb0 = batches[0]
+    model = build_rnnt_model(n_units, tcfg, int(fb0.feats.shape[-1]), encoder_arch=encoder_arch,
+                             pred_arch=pred_arch, aux_ctc=aux_ctc, simple_heads=simple_heads)
+    return init_(model, torch.Generator().manual_seed(tcfg.seed)).to(fb0.feats.device)
+
+
+def train_rnnt_units(
+    batches: Sequence[FeatBatch],
+    encode_fn: Callable[[List[str]], List[int]],  # words -> unit ids
+    n_units: int,                                  # vocabulary without blank (blank = n_units)
+    tcfg: TrainConfig,
+    encoder_arch: str = "lstm",
+    pred_arch: str = "stateless",
+    aux_ctc: bool = True,
+    ctc_weight: float = 1.0,
+    steps: Optional[int] = None,
+    pruned_band: int = 0,
+    logger=None,
+    *,
+    model: Optional[torch.nn.Module] = None,
+    use_kernels: bool = True,
+):
+    """Alignment-free RNN-T over any unit inventory -> (model, state_dict).
+    ``pruned_band > 0`` trains with the pruned loss (``am.rnnt_pruned``),
+    and the model gains the factored simple heads (decode with
+    ``--rnnt-pruned``). ``model``: train this initialised RnntModel of the
+    same configuration instead of a fresh one (a warm start). The encoder
+    runs its plain recurrence under autograd; the auxiliary CTC loss runs
+    on K3 on the card."""
+    from mogasr_torch.am import rnnt as R
+
+    if model is None:
+        model = rnnt_model_for(n_units, tcfg, batches, encoder_arch, pred_arch, aux_ctc, pruned_band > 0)
+    state = R.init_rnnt_train_state(model, tcfg)
+    if pruned_band > 0:
+        from mogasr_torch.am.rnnt_pruned import make_rnnt_pruned_train_step
+
+        step_fn = make_rnnt_pruned_train_step(model, tcfg, band=pruned_band, ctc_weight=ctc_weight,
+                                              use_kernels=use_kernels)
+    else:
+        step_fn = R.make_rnnt_train_step(model, tcfg, ctc_weight=ctc_weight, use_kernels=use_kernels)
+    labeled = _pack_ctc_targets(batches, encode_fn)
+    total = steps if steps is not None else tcfg.num_nn_steps
+    i = 0
+    while i < total:
+        for fb, labels, n_labels in labeled:
+            state, m = step_fn(state, fb.feats, fb.n_frames, labels, n_labels)
+            i += 1
+            if logger is not None and i % 50 == 0:
+                logger.log({"stage": "train_rnnt", "step": i, "loss": m["loss"]})
+            if i >= total:
+                break
+    model.eval()
+    return model, model.state_dict()
+
+
+def finetune_rnnt_mwer(
+    model: torch.nn.Module,
+    batches: Sequence[FeatBatch],
+    encode_fn: Callable[[List[str]], List[int]],
+    tcfg: TrainConfig,
+    n_hyps: int = 4,
+    anchor_weight: float = 0.1,
+    steps: Optional[int] = None,
+    logger=None,
+    *,
+    use_kernels: bool = True,
+):
+    """On-policy MWER fine-tuning of a trained RNN-T, in place: each step
+    the device beam's N-best (``am.rnnt.rnnt_beam_decode_device``, width
+    n_hyps) against the current weights, host edit-distance risks, one
+    ``make_rnnt_mwer_step``. Returns (state_dict, history of the expected
+    risk a step)."""
+    from mogasr_torch.am import rnnt as R
+    from mogasr_torch.eval.wer import edit_counts
+
+    seqs_all = [[encode_fn(fb.words[b]) for b in range(fb.size)] for fb in batches]
+    l_max = max((len(s) for seqs in seqs_all for s in seqs), default=1)
+    u_max = l_max + 4
+    labeled = [(fb, seqs, labels, n_labels)
+               for (fb, labels, n_labels), seqs in zip(_pack_ctc_targets(batches, encode_fn), seqs_all)]
+    state = R.init_rnnt_train_state(model, tcfg)
+    step_fn = R.make_rnnt_mwer_step(model, tcfg, anchor_weight=anchor_weight, use_kernels=use_kernels)
+    total = steps if steps is not None else tcfg.num_nn_steps
+    history: List[float] = []
+    i = 0
+    while i < total:
+        for fb, seqs, labels, n_labels in labeled:
+            rows = int(fb.feats.shape[0])
+            hyps = np.full((rows, n_hyps, u_max), -1, np.int64)
+            n_h = np.zeros((rows, n_hyps), np.int64)
+            h_mask = np.zeros((rows, n_hyps), bool)
+            risks = np.zeros((rows, n_hyps), np.float32)
+            model.eval()
+            nbest_all = R.rnnt_beam_decode_device(model, fb.feats, fb.n_frames, beam_size=n_hyps, u_cap=u_max)
+            for b in range(fb.size):
+                seen = set()
+                for n, (_lp, h) in enumerate(nbest_all[b][:n_hyps]):
+                    h = tuple(h)
+                    if h in seen or len(h) > u_max:
+                        continue
+                    seen.add(h)
+                    hyps[b, n, : len(h)] = h
+                    n_h[b, n] = len(h)
+                    h_mask[b, n] = True
+                    risks[b, n] = edit_counts(seqs[b], list(h)).errors
+            dev = fb.feats.device
+            state, m = step_fn(state, fb.feats, fb.n_frames, *(torch.as_tensor(a, device=dev)
+                                                               for a in (hyps, n_h, h_mask, risks)), labels, n_labels)
+            history.append(m["expected_risk"])
+            i += 1
+            if logger is not None and i % 10 == 0:
+                logger.log({"stage": "rnnt_mwer", "step": i, "expected_risk": history[-1]})
+            if i >= total:
+                break
+    model.eval()
+    return model.state_dict(), history
+
+
 def decode_batch(
     fb: FeatBatch,
     scores: torch.Tensor,

@@ -1,5 +1,5 @@
 """Batched streaming session engines, one chain of launches a tick for every
-live session: the port of mogasr/serving/engine.py (its GMM and CTC
+live session: the port of mogasr/serving/engine.py (its GMM, CTC and RNN-T
 families).
 
 Sessions live in the slots of fixed [B, ...] state on the card, and one
@@ -22,7 +22,7 @@ paths (``feature_path``):
   spectral output every tick and each slot's ``StreamingFrontend.absorb``
   computes deltas and CMVN in numpy.
 
-Two families share the slot scaffolding (``_BaseSlotEngine``):
+Three families share the slot scaffolding (``_BaseSlotEngine``):
 
 - :class:`BatchedSessionEngine`: GMM (or hybrid) scores of one shared word
   loop, decoded by kernel K2's chunk arm with a frame offset per row
@@ -33,9 +33,14 @@ Two families share the slot scaffolding (``_BaseSlotEngine``):
   slots at once, idle rows keeping their carries, then a host
   ``am.ctc.CtcStreamDecoder`` per slot.
 
-The reference's ``BatchedRnntEngine``, ``BatchedAedEngine`` and
-``aed_final_max_tokens`` are not ported yet: they wait for the RNN-T and AED
-families (ROADMAP items 13 and 14b).
+- :class:`BatchedRnntEngine`: the RNN-T's stateful LSTM encoder over all
+  slots (K4's carry arm, ragged n_valid), then one chunk-resumable greedy
+  (``am.rnnt``'s frame scan or label loop) advancing every session's
+  prediction state together; each tick's emitted symbols are harvested to
+  per-slot host lists and the device buffer cleared.
+
+The reference's ``BatchedAedEngine`` and ``aed_final_max_tokens`` are not
+ported yet: they wait for the AED family (ROADMAP items 13 and 14b).
 
 A session's features, partials and final result are those of a dedicated
 per-session pipeline (``StreamingFrontend`` + ``decoder.online.
@@ -749,5 +754,133 @@ class BatchedCtcEngine(_BaseSlotEngine):
         audio_s = s.samples / self.fcfg.sample_rate
         units = list(self._decoders[b].finalize())
         self._decoders[b] = None
+        self._release(sid)
+        return units, audio_s
+
+
+# ---------------------------------------------------------------------------
+# The RNN-T family: stateful LSTM encoder + the chunk-resumable device greedy
+# ---------------------------------------------------------------------------
+
+def _reset_rows(state, state0, mask: torch.Tensor):
+    """Freed slots' rows of a nest of [B, ...] tensors back to pristine."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(_reset_rows(s, s0, mask) for s, s0 in zip(state, state0))
+    return torch.where(mask.reshape((-1,) + (1,) * (state.dim() - 1)), state0, state)
+
+
+def _clear_hyp(state):
+    """Empty the per-tick hypothesis buffer (its symbols are harvested)."""
+    carry, pred, hyp, lens = state
+    return carry, pred, torch.full_like(hyp, -1), torch.zeros_like(lens)
+
+
+class BatchedRnntEngine(_BaseSlotEngine):
+    """Slot-batched streaming recognizer, RNN-T family (``serve --rnnt``).
+
+    One tick = the stateful LSTM encoder over all slots (K4's carry arm;
+    a slot at n_valid 0 keeps its carries) + one chunk-resumable greedy
+    (``greedy_impl`` "frame_scan" or "label_loop") advancing every
+    session's prediction state together; frames at or past a slot's valid
+    count are inert, so ragged arrival is exact. The emitted symbols are
+    harvested to per-slot host lists and the device buffer cleared, so the
+    buffer holds one tick's worst case (tick_frames x max_symbols_per_frame)
+    and sessions are unbounded.
+
+    model: ``am.rnnt.RnntModel`` (encoder_arch "lstm"), trained, on the
+           engine's device
+    defer_absorb: keep each tick's hypothesis buffer on the card and read
+                  the backlog at the next partial() or finalize() (at most
+                  64 ticks); False reads it every tick
+    """
+
+    def __init__(
+        self,
+        model,
+        fcfg: FrontendConfig,
+        capacity: int = 16,
+        tick_frames: int = 24,
+        max_symbols_per_frame: int = 4,
+        cmvn_mean: Optional[np.ndarray] = None,
+        cmvn_istd: Optional[np.ndarray] = None,
+        greedy_impl: str = "frame_scan",
+        feature_path: str = "host",
+        defer_absorb: bool = True,
+        device=torch.device("cuda"),
+    ):
+        super().__init__(fcfg, capacity, tick_frames, cmvn_mean, cmvn_istd, feature_path=feature_path,
+                         device=device)
+        from mogasr_torch.am.rnnt import _chunk_greedy_fn, make_rnnt_stream_encoder
+
+        if model.encoder_arch != "lstm":
+            raise ValueError("streaming needs the lstm encoder")
+        B = self.capacity
+        self.model = model
+        self._enc_step, self.enc_carries = make_rnnt_stream_encoder(model, B)
+        u_cap = self.tick_frames * int(max_symbols_per_frame)
+        init_state, self._consume = _chunk_greedy_fn(model, u_cap, int(max_symbols_per_frame), greedy_impl)
+        self.dec_state = init_state(B)
+        # pristine rows (SOS-stepped carry and prediction, an empty buffer) for slot resets
+        self._dec_state0 = self.dec_state
+        self._enc_carries0 = self.enc_carries
+        self._units: List[List[int]] = [[] for _ in range(B)]
+        self.defer_absorb = bool(defer_absorb)
+        self._pending: List[tuple] = []
+
+    # -- hooks --
+
+    def _init_slot(self, b: int) -> None:
+        self._units[b] = []
+
+    def _apply_resets(self, mask: np.ndarray) -> None:
+        m = to_device(mask, self.device, torch.bool)
+        self.enc_carries = _reset_rows(self.enc_carries, self._enc_carries0, m)
+        self.dec_state = _reset_rows(self.dec_state, self._dec_state0, m)
+
+    def _dispatch_decode(self, feats: torch.Tensor, n_valid: np.ndarray):
+        nv = to_device(n_valid, self.device)
+        self.enc_carries, enc = self._enc_step(self.enc_carries, feats, nv)
+        self.dec_state = self._consume(self.dec_state, enc, nv)
+        hyp, lens = self.dec_state[2], self.dec_state[3]
+        # the harvest handle holds the tick's buffer; the next tick starts empty
+        self.dec_state = _clear_hyp(self.dec_state)
+        return hyp, lens
+
+    def _absorb_decode(self, handle, n_valid: np.ndarray) -> None:
+        self._pending.append(handle)
+        if not self.defer_absorb or len(self._pending) >= 64:
+            self._flush_pending()
+
+    def _flush_pending(self) -> None:
+        """Harvest every queued tick's hypothesis buffer (the first read
+        waits for the card). Slots are reassigned only through finalize,
+        which flushes first, so pending buffers belong to the current
+        sessions."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        for hyp, lens in pending:
+            hyp_np, lens_np = hyp.cpu().numpy(), lens.cpu().numpy()
+            for b in range(self.capacity):
+                n = int(lens_np[b])
+                if n:
+                    self._units[b].extend(hyp_np[b, :n].tolist())
+
+    # -- results --
+
+    def partial(self, sid) -> List[int]:
+        """Best-so-far unit ids (harvests the backlog)."""
+        self._flush_pending()
+        return list(self._units[self._sid_to_slot[sid]])
+
+    def finalize(self, sid) -> Tuple[List[int], float]:
+        self._flush_pending()
+        b = self._sid_to_slot[sid]
+        s = self.slots[b]
+        if not self.drained(sid):
+            raise ValueError("finalize() before drained()")
+        audio_s = s.samples / self.fcfg.sample_rate
+        units = list(self._units[b])
+        self._units[b] = []
         self._release(sid)
         return units, audio_s

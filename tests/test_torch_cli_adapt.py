@@ -51,6 +51,17 @@ from mogasr_torch.hmm.lexicon import synthetic_lexicon
 from mogasr_torch.hmm.topology import build_topology
 from mogasr_torch.utils.checkpoint import restore_checkpoint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TRANSFORM_ATOL = 1e-3  # chip_smoke.py phase 27 holds the card's transforms to the plain path's at the same
 HISTORY_RTOL = 1e-4
 CORPUS = ["--synthetic", "8", "--synthetic-seed", "3"]

@@ -235,11 +235,6 @@ def test_train_lm_unit_ngram_matches_reference(models, tmp_path, monkeypatch, un
         np.testing.assert_array_equal(lm[k], jlm[k])
 
 
-def test_train_lm_neural_path_not_ported_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        cli_train_lm.main(["--synthetic", "2", "--device", "cpu", "--run-dir", str(tmp_path / "run")])
-
-
 # ------------------------------------------------------------- train_nn --objective ctc
 
 TRAIN = ["--synthetic", "4", "--synthetic-seed", "5", "--hidden", "12", "--layers", "2", "--steps", "2"]
@@ -314,12 +309,15 @@ def test_train_nn_distill_matches_the_pipeline(tmp_path):
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("cli,argv", [
-    (cli_decode, CORPUS + ["--rnnt", "--am", "lstm"]), (cli_stream, ["--synthetic-demo", "--rnnt", "--ctc"]),
-    (cli_train_nn, CORPUS + ["--objective", "aed", "--bpe-merges", "4"]),
+# the RNN-T paths run since the RNN-T port (tests/test_torch_cli_rnnt.py):
+# without a checkpoint they stop as the reference's stop
+@pytest.mark.parametrize("cli,argv,exc,match", [
+    (cli_decode, CORPUS + ["--rnnt", "--am", "lstm"], SystemExit, "--nn-ckpt is required"),
+    (cli_stream, ["--synthetic-demo", "--rnnt", "--ctc"], SystemExit, "--rnnt requires --nn-ckpt"),
+    (cli_train_nn, CORPUS + ["--objective", "aed", "--bpe-merges", "4"], NotImplementedError, "ROADMAP item 13"),
 ], ids=["decode-rnnt", "stream-rnnt", "train_nn-aed"])
-def test_unported_families_still_raise(tmp_path, cli, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+def test_unported_families_still_raise(tmp_path, cli, argv, exc, match):
+    with pytest.raises(exc, match=match):
         cli.main(argv + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 

@@ -255,18 +255,21 @@ def test_eval_cli_resumes(tmp_path):
     assert os.path.isfile(cut / "profile" / "trace.json")
 
 
-# eval --ctc --bpe runs since the CTC port (tests/test_torch_cli_ctc.py); the
-# lexicon-free families still refused keep its cases
+# eval --ctc --bpe runs since the CTC port (tests/test_torch_cli_ctc.py) and
+# eval --rnnt since the RNN-T port (tests/test_torch_cli_rnnt.py): without
+# --bpe and --nn-ckpt it stops as the reference stops; --aed still raises
 REFUSED = [
-    (cli_eval, ["--rnnt", "--bpe", "bpe.json"], "13"), (cli_eval, ["--rnnt"], "13"), (cli_eval, ["--aed"], "13"),
-    (cli_eval, ["--aed", "--bpe", "bpe.json"], "13"),
+    (cli_eval, ["--rnnt", "--bpe", "bpe.json"], SystemExit, "requires --bpe and --nn-ckpt"),
+    (cli_eval, ["--rnnt"], SystemExit, "requires --bpe and --nn-ckpt"),
+    (cli_eval, ["--aed"], NotImplementedError, "ROADMAP item 13"),
+    (cli_eval, ["--aed", "--bpe", "bpe.json"], NotImplementedError, "ROADMAP item 13"),
 ]
 
 
-@pytest.mark.parametrize("cli,flags,item", REFUSED, ids=[f"{c.__name__.split('.')[-1]}{''.join(f)}"
-                                                          for c, f, _i in REFUSED])
-def test_cli_flags_not_ported_raise(tmp_path, cli, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+@pytest.mark.parametrize("cli,flags,exc,match", REFUSED, ids=[f"{c.__name__.split('.')[-1]}{''.join(f)}"
+                                                               for c, f, _e, _m in REFUSED])
+def test_cli_flags_not_ported_raise(tmp_path, cli, flags, exc, match):
+    with pytest.raises(exc, match=match):
         cli.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 
@@ -304,8 +307,9 @@ def test_cli_item10_flags_run(tmp_path, cli, flags):
         assert rec["stage"] == "eval" and rec["utts"] == 1 and len(_jsonl(os.path.join(run_dir, "eval_hyps.jsonl"))) == 1
 
 
-# --nn-arch is read by eval --ctc since the CTC port
-@pytest.mark.parametrize("flags", [["--rnnt-beam", "4"], ["--rnnt-pred", "lstm"], ["--aed-beam", "2"]])
+# --nn-arch is read by eval --ctc since the CTC port, --rnnt-beam and
+# --rnnt-pred by eval --rnnt since the RNN-T port
+@pytest.mark.parametrize("flags", [["--aed-max-tokens", "8"], ["--aed-max-tokens", "64"], ["--aed-beam", "2"]])
 def test_eval_companion_flags_of_unported_paths_are_rejected(tmp_path, flags, capsys):
     with pytest.raises(SystemExit):
         cli_eval.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])

@@ -9,7 +9,7 @@ pipeline tests): the CE checkpoint of the CLI's first saved step equals the
 pipeline functions' model after as many steps (the same labels, priors,
 i-vectors, initial weights and SpecAugment draws), the decode twins write
 the hypotheses of ``make_nn_scorer`` + ``decode_batch`` on the same corpus.
-The refused objectives and options name ROADMAP item 13; the option checks
+The refused AED objective and options name ROADMAP item 13; the option checks
 the reference makes stop as its CLIs stop."""
 
 import json
@@ -162,16 +162,21 @@ def test_train_nn_mpc_cli(tmp_path):
 
 
 # --objective ctc, --init-from, --distill-from and --bpe-merges run since the
-# CTC port (tests/test_torch_cli_ctc.py; their option checks in STOPS)
-REFUSED = [["--objective", "rnnt", "--bpe-merges", "20"], ["--objective", "rnnt"], ["--objective", "aed"],
-           ["--objective", "aed", "--bpe-merges", "20"], ["--objective", "rnnt", "--init-from", "ck"],
-           ["--objective", "aed", "--distill-from", "ck"], ["--aed-chunk", "4"], ["--aed-left-chunks", "2"],
-           ["--rnnt-pruned-band", "4"], ["--mwer-steps", "2"]]
+# CTC port (tests/test_torch_cli_ctc.py; their option checks in STOPS);
+# --objective rnnt, --rnnt-pruned-band and --mwer-steps since the RNN-T port
+# (tests/test_torch_cli_rnnt.py), --init-from stopping there as the
+# reference stops
+REFUSED = [(["--objective", "aed"], NotImplementedError, "ROADMAP item 13"),
+           (["--objective", "aed", "--bpe-merges", "20"], NotImplementedError, "ROADMAP item 13"),
+           (["--objective", "rnnt", "--init-from", "ck"], SystemExit, "--init-from .MPC warm start. supports --objective ctc"),
+           (["--objective", "aed", "--distill-from", "ck"], NotImplementedError, "ROADMAP item 13"),
+           (["--aed-chunk", "4"], NotImplementedError, "ROADMAP item 13"),
+           (["--aed-left-chunks", "2"], NotImplementedError, "ROADMAP item 13")]
 
 
-@pytest.mark.parametrize("flags", REFUSED, ids=["".join(f) for f in REFUSED])
-def test_train_nn_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+@pytest.mark.parametrize("flags,exc,match", REFUSED, ids=["".join(f) for f, _e, _m in REFUSED])
+def test_train_nn_unported_flags_raise(tmp_path, flags, exc, match):
+    with pytest.raises(exc, match=match):
         cli_train_nn.main(CORPUS + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 

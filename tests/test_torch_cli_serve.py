@@ -5,8 +5,8 @@ errors and a shutdown, ``--engine`` against the per-session mode,
 ``--partial-every``, ``--endpoint``, and ``--ctc --bpe`` with and without
 ``--engine`` from one CTC model saved in both checkpoint formats. Every event
 line is equal. One ``--tcp`` server on localhost with two clients checks
-per-connection session ownership; ``--rnnt`` and ``--aed`` raise naming
-ROADMAP item 13, their companion options are refused, and the twin does not
+per-connection session ownership; ``--aed`` raises naming ROADMAP item 13
+(``--rnnt`` without a checkpoint stops), its companion options are refused, and the twin does not
 fall back to the CPU."""
 
 import importlib
@@ -232,13 +232,17 @@ def test_tcp_two_clients_own_their_sessions(tmp_path):
         b.close()
 
 
+# serve --rnnt runs since the RNN-T port (tests/test_torch_cli_rnnt.py): without
+# a checkpoint it stops as the reference stops
 @pytest.mark.parametrize("argv,match", [(["--rnnt"], "ROADMAP item 13"), (["--aed"], "ROADMAP item 13")])
 def test_unported_families_raise(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+    exc, match = (SystemExit, "--rnnt requires --nn-ckpt") if argv == ["--rnnt"] else (NotImplementedError, match)
+    with pytest.raises(exc, match=match):
         cli_serve.main(argv + ["--synthetic-demo-session", "--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 
-@pytest.mark.parametrize("argv", [["--aed-chunk", "8"], ["--rnnt-pred", "lstm"], ["--max-symbols", "3"],
+# --rnnt-pred and --max-symbols are read by serve --rnnt since the RNN-T port
+@pytest.mark.parametrize("argv", [["--aed-chunk", "8"], ["--aed-beam", "2"], ["--aed-ctc-weight", "0.3"],
                                   ["--aed-stream-precision", "bfloat16"]])
 def test_unported_companion_options_are_refused(tmp_path, argv):
     with pytest.raises(SystemExit) as e:

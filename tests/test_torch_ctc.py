@@ -37,6 +37,17 @@ from mogasr_torch.decoder import biasing
 from mogasr_torch.hmm.lexicon import make_lexicon, synthetic_lexicon
 from mogasr_torch.lm import unit_ngram
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 # the loss: float32 sums in other orders (relative); the gradient with
 # respect to the logits (absolute)

@@ -18,6 +18,17 @@ from mogasr.frontend import device_tail as JDT
 from mogasr_torch.config import FrontendConfig
 from mogasr_torch.frontend import device_tail as DT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 RTOL, ATOL = 1e-5, 1e-6   # the reference's device-vs-host CMVN contract
 B, F = 4, 8

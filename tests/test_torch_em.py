@@ -14,6 +14,17 @@ from mogasr.am.gmm import GmmSet as JaxGmm
 from mogasr_torch.am import em
 from mogasr_torch.am.gmm import gmm_from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 S, K, D, N = 7, 4, 5, 300
 

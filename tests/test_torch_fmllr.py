@@ -41,6 +41,17 @@ from mogasr_torch.am.gmm import gmm_from_numpy
 from mogasr_torch.hmm.lexicon import synthetic_lexicon
 from mogasr_torch.hmm.topology import build_topology
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 
 

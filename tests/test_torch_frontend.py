@@ -13,6 +13,17 @@ from mogasr.frontend.jax_frontend import make_frontend as jax_make_frontend
 from mogasr.frontend.numpy_ref import dither_noise_np, extract_features_np
 from mogasr_torch.frontend.torch_frontend import _dither_noise, extract_features, make_frontend
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden.npz")
 # the reference's own front-end tolerance (tests/test_golden.py)

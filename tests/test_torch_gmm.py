@@ -29,6 +29,17 @@ from mogasr_torch.am.gmm import (
     quantize_int8,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden.npz")
 HEADLINE_GMM = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "headline", "gmm.npz")

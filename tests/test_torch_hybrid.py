@@ -31,6 +31,17 @@ from mogasr_torch.config import TrainConfig
 from mogasr_torch.hmm.lexicon import make_lexicon as t_make_lexicon
 from mogasr_torch.hmm.topology import build_topology as t_build_topology
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 N_UTTS = 4
 # With flax's initializers the LstmAm's logits spread ~0.1 and every

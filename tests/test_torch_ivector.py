@@ -39,6 +39,17 @@ from mogasr_torch.cli import transcribe as cli_transcribe
 from mogasr_torch.cli.diarize import build_session
 from mogasr_torch.eval.diarization import der
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 IVEC_RTOL, IVEC_ATOL = 1e-4, 1e-4
 T_ATOL = 1e-3

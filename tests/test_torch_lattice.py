@@ -287,9 +287,11 @@ def test_search_cli_matches_reference(tmp_path, monkeypatch):
 
 
 # --ctc, --bias and --fusion-lm run since the CTC port
-# (tests/test_torch_cli_ctc.py); with the families still refused they raise
-@pytest.mark.parametrize("flags", [["--rnnt", "--ctc"], ["--rnnt"], ["--aed"], ["--nnlm-rescore", "lm"],
-                                   ["--rnnt", "--bias", "p.txt"], ["--aed", "--fusion-lm", "u.npz"]])
+# (tests/test_torch_cli_ctc.py), --rnnt and --nnlm-rescore since the RNN-T
+# port (tests/test_torch_cli_rnnt.py); with --aed, still refused, they raise
+@pytest.mark.parametrize("flags", [["--aed", "--ctc"], ["--aed", "--bpe", "b.json"], ["--aed"],
+                                   ["--aed", "--nnlm-rescore", "lm"], ["--aed", "--bias", "p.txt"],
+                                   ["--aed", "--fusion-lm", "u.npz"]])
 def test_decode_cli_flags_not_ported_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         cli_decode.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
@@ -304,7 +306,8 @@ def test_decode_cli_add_pitch(tmp_path):
         assert len(f.readlines()) == 1
 
 
-@pytest.mark.parametrize("cli,flags", [(cli_decode, ["--aed-beam", "4"]), (cli_decode, ["--rnnt-beam", "4"]),
+# --rnnt-beam is read by decode --rnnt since the RNN-T port
+@pytest.mark.parametrize("cli,flags", [(cli_decode, ["--aed-beam", "4"]), (cli_decode, ["--aed-max-tokens", "8"]),
                                        (cli_search, ["--terms", "cat", "--rnnt-beam", "4"])])
 def test_cli_companion_flags_of_unported_paths_are_rejected(tmp_path, cli, flags, capsys):
     """The unported paths' companion options are not accepted and then

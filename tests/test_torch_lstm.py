@@ -20,6 +20,16 @@ from mogasr_torch.am.params import from_flax
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _clear_jax_caches():
     yield
     jax.clear_caches()

@@ -16,6 +16,17 @@ from mogasr_torch.am import neural as tn
 from mogasr_torch.am.params import from_flax, init_
 from mogasr_torch.config import TrainConfig
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, T, D, P = 3, 17, 7, 5
 TOL = dict(rtol=2e-5, atol=2e-5)
 

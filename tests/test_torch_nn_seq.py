@@ -30,6 +30,17 @@ from mogasr_torch.hmm import graph as gr
 from mogasr_torch.hmm.lexicon import make_lexicon
 from mogasr_torch.hmm.topology import build_topology
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KAPPA = 0.3
 FB_TOL = dict(rtol=1e-4, atol=1e-5)      # tests/test_nn_seq.py::test_fb_loglik_grad_equals_pdf_occupancies
 SMBR_TOL = dict(rtol=2e-3, atol=2e-4)    # tests/test_nn_seq.py::test_smbr_autodiff_grad_equals_signed_weights

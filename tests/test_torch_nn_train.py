@@ -26,6 +26,17 @@ from mogasr_torch.am.params import from_flax, init_
 from mogasr_torch.config import TrainConfig
 from mogasr_torch.utils import checkpoint as ckpt
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, T, D, P = 3, 13, 6, 7
 # First-step gradients: float32 sums in two orders, rtol 1e-4, atol 1e-6.
 # After three steps (lr 0, lr/3, 2lr/3 at lr 1e-2 under a 60-step schedule,

@@ -44,7 +44,8 @@ def test_port_imports_without_jax():
                  "mogasr_torch.am.ctc", "mogasr_torch.am.distill", "mogasr_torch.data.bpe",
                  "mogasr_torch.lm.unit_ngram", "mogasr_torch.decoder.biasing", "mogasr_torch.cli.train_lm",
                  "mogasr_torch.serving", "mogasr_torch.serving.engine", "mogasr_torch.frontend.device_tail",
-                 "mogasr_torch.cli.serve"):
+                 "mogasr_torch.cli.serve", "mogasr_torch.am.rnnt", "mogasr_torch.am.rnnt_pruned",
+                 "mogasr_torch.lm.neural"):
         assert name in modules
     code = "\n".join([
         "import sys",

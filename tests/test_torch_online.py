@@ -20,6 +20,17 @@ from mogasr.hmm.topology import build_topology
 from mogasr_torch.decoder import online
 from mogasr_torch.decoder import viterbi as vit
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 B, T = 4, 24
 

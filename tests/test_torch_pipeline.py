@@ -33,6 +33,17 @@ from mogasr_torch.hmm.lexicon import make_lexicon_multi
 from mogasr_torch.hmm.topology import build_topology
 from mogasr_torch.utils.bundle import load_system
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 BUNDLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "benchmarks", "headline")

@@ -19,6 +19,17 @@ from mogasr_torch.config import BatchConfig, FrontendConfig
 from mogasr_torch.data.synthetic import make_corpus
 from mogasr_torch.frontend import pitch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SR = 16000
 TOL = 1e-5
 CPU = torch.device("cpu")

@@ -20,6 +20,17 @@ from mogasr_torch.am import fast_lstm, lstm_cuda
 from mogasr_torch.am import neural as tn
 from mogasr_torch.am.params import from_flax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 B, T, D, H, P = 3, 20, 8, 16, 12
 TOL = 1e-5

@@ -26,6 +26,17 @@ from mogasr_torch.data.synthetic import make_corpus, synth_utterance
 from mogasr_torch.frontend import numpy_ref as npref
 from mogasr_torch.frontend.streaming import StreamingFrontend
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one intra-op thread: the suite's workers share the cores,
+    and a pool of them per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 TOL = 2e-4          # tests/test_streaming.py: the streamer against the offline features
 FEATURIZE_TOL = 5e-4
