@@ -611,20 +611,16 @@ def train_rnnt_units(
     pruned_band: int = 0,
     logger=None,
     *,
-    model: Optional[torch.nn.Module] = None,
     use_kernels: bool = True,
 ):
     """Alignment-free RNN-T over any unit inventory -> (model, state_dict).
     ``pruned_band > 0`` trains with the pruned loss (``am.rnnt_pruned``),
     and the model gains the factored simple heads (decode with
-    ``--rnnt-pruned``). ``model``: train this initialised RnntModel of the
-    same configuration instead of a fresh one (a warm start). The encoder
-    runs its plain recurrence under autograd; the auxiliary CTC loss runs
-    on K3 on the card."""
+    ``--rnnt-pruned``). The encoder runs its plain recurrence under
+    autograd; the auxiliary CTC loss runs on K3 on the card."""
     from mogasr_torch.am import rnnt as R
 
-    if model is None:
-        model = rnnt_model_for(n_units, tcfg, batches, encoder_arch, pred_arch, aux_ctc, pruned_band > 0)
+    model = rnnt_model_for(n_units, tcfg, batches, encoder_arch, pred_arch, aux_ctc, pruned_band > 0)
     state = R.init_rnnt_train_state(model, tcfg)
     if pruned_band > 0:
         from mogasr_torch.am.rnnt_pruned import make_rnnt_pruned_train_step

@@ -70,8 +70,9 @@ def test_train_rnnt_units_then_decode_matches_jax(monkeypatch):
     jm, jp = jpipe.train_rnnt_units([jfb], encode, n_units, JTrainConfig(**kw), steps=3)
     tm = R.build_rnnt_model(n_units, TrainConfig(**kw), D)
     tm.load_state_dict(from_flax(tm, initial[0]))
+    monkeypatch.setattr(pipe, "rnnt_model_for", lambda *args, **kwargs: tm)
     fb = pipe.FeatBatch(["a", "b", "c"], torch.as_tensor(feats), torch.as_tensor(nf), words)
-    model, sd = pipe.train_rnnt_units([fb], encode, n_units, TrainConfig(**kw), steps=3, model=tm)
+    model, sd = pipe.train_rnnt_units([fb], encode, n_units, TrainConfig(**kw), steps=3)
     want = from_flax(model, jp)
     for name, value in sd.items():
         np.testing.assert_allclose(value.numpy(), want[name].numpy(), rtol=1e-4, atol=1e-5, err_msg=name)

@@ -180,28 +180,45 @@ def test_beams_match_jax(models):
     _same_ranked([R.rnnt_beam_decode(tm, _t(feats[:1]), _t(nf[:1]), **kw)], [want1])
 
 
-def test_device_beam_fusion_and_bias_tables_match_the_hooks(models):
-    """The device beam's fusion and biasing tables against the per-utterance
-    beam with the same scores as ext_score hooks (the reference's contract:
-    one fusion or biasing term a label extension); that beam is held to the
-    reference's by test_beams_match_jax."""
+@pytest.mark.parametrize("table", ["fusion", "bias"])
+def test_device_beam_fusion_and_bias_tables_match_the_hooks(models, table):
+    """The fusion table equal to the reference's ``rnnt_fusion_matrix``; the
+    device beam with the fusion or biasing tables gives the reference's
+    device beam's ranked lists on the same tables, and the per-utterance
+    beam with the same scores as ext_score hooks (one fusion or biasing term
+    a label extension) the reference's hook beam's, scores to its 1e-4."""
+    from mogasr.decoder.biasing import CompiledBiaser as JCompiledBiaser
+    from mogasr.decoder.biasing import ContextBiaser as JContextBiaser
+    from mogasr.lm.unit_ngram import estimate_unit_bigram as j_estimate_unit_bigram
+    from mogasr.lm.unit_ngram import fusion_score as j_fusion_score
     from mogasr_torch.decoder.biasing import CompiledBiaser, ContextBiaser
     from mogasr_torch.lm.unit_ngram import estimate_unit_bigram, fusion_score
 
-    _jm, _jp, tm, feats, nf = models
+    jm, jp, tm, feats, nf = models
     rng = np.random.default_rng(6)
     seqs = [[int(u) for u in rng.integers(0, V, size=rng.integers(2, 6))] for _ in range(30)]
     kw = dict(beam_size=3, max_symbols_per_frame=2, u_cap=20)
-    lm = estimate_unit_bigram(seqs, V)
-    biaser = ContextBiaser([[0, 1], [1, 2, 3], [0]], weight=1.5, completion_scale=0.5)
-    comp = CompiledBiaser(biaser, n_units=V)
-    cases = ((dict(fusion=R.rnnt_fusion_matrix(tm, lm, 0.7)), fusion_score(lm, 0.7)),
-             (dict(bias_next=comp.next_state, bias_delta=comp.delta), biaser.score))
-    for tables, ext in cases:
-        got = R.rnnt_beam_decode_device(tm, _t(feats[:2]), _t(nf[:2]), **kw, **tables)
-        want = [R.rnnt_beam_decode(tm, _t(feats[b:b + 1]), _t(nf[b:b + 1]), **kw, ext_score=ext, ext_weight=1.0)
-                for b in range(2)]
-        _same_ranked(got, want)
+    if table == "fusion":
+        lm, jlm = estimate_unit_bigram(seqs, V), j_estimate_unit_bigram(seqs, V)
+        fm, jfm = R.rnnt_fusion_matrix(tm, lm, 0.7), JR.rnnt_fusion_matrix(jm, jlm, 0.7)
+        np.testing.assert_array_equal(np.asarray(fm), np.asarray(jfm))
+        tables, jtables = dict(fusion=fm), dict(fusion=jfm)
+        ext, jext = fusion_score(lm, 0.7), j_fusion_score(jlm, 0.7)
+    else:
+        phrases = [[0, 1], [1, 2, 3], [0]]
+        biaser = ContextBiaser(phrases, weight=1.5, completion_scale=0.5)
+        jbiaser = JContextBiaser(phrases, weight=1.5, completion_scale=0.5)
+        comp, jcomp = CompiledBiaser(biaser, n_units=V), JCompiledBiaser(jbiaser, n_units=V)
+        tables = dict(bias_next=comp.next_state, bias_delta=comp.delta)
+        jtables = dict(bias_next=jcomp.next_state, bias_delta=jcomp.delta)
+        ext, jext = biaser.score, jbiaser.score
+    want = JR.rnnt_beam_decode_device(jm, jp, jnp.asarray(feats[:2]), jnp.asarray(nf[:2]), **kw, **jtables)
+    assert any(h for row in want for _s, h in row)
+    _same_ranked(R.rnnt_beam_decode_device(tm, _t(feats[:2]), _t(nf[:2]), **kw, **tables), want)
+    want1 = JR.rnnt_beam_decode(jm, jp, jnp.asarray(feats[:1]), jnp.asarray(nf[:1]), **kw, ext_score=jext,
+                                ext_weight=1.0)
+    got1 = R.rnnt_beam_decode(tm, _t(feats[:1]), _t(nf[:1]), **kw, ext_score=ext, ext_weight=1.0)
+    _same_ranked([got1], [want1])
 
 
 def test_mwer_risk_matches_jax():
