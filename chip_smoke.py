@@ -101,7 +101,7 @@ printed. Without a CUDA device it fails at once.
    both histories, held-out WER on its 120 utterances (limit), stage and
    per-iteration seconds, collect_cd_stats's seconds and launches; its
    bundle written, read back and decoding phase 5's 768 utterances (WER
-   limit); then 3 CD EM iterations run twice, and stopped after the first
+   limit); then 2 CD EM iterations run twice, and stopped after the first
    and resumed from their EM checkpoint: both bitwise equal to the first run
    in history and parameters;
 17. MMI and sMBR from phase 16's monophone model: on the training batch
@@ -413,7 +413,9 @@ K2_BEAM = 60.0  # in acoustic-scale-multiplied log units (headline scale 1.0)
 # The training entry points (phases 16-18). The statistics sum in a fixed
 # order (mogasr_torch/utils/segment.py), so a stop-and-resume of CD EM on the
 # card equals the uninterrupted run bit for bit, as does a second
-# uninterrupted run.
+# uninterrupted run (CD_EM_CHECK_ITERS iterations: 3 before the AED slice,
+# cut for the run's time limit).
+CD_EM_CHECK_ITERS = 2
 # MMI at its acoustic scale on one training batch: each side's statistics
 # (numerator: align graphs, K3's chain arm; denominator: the word loop, its
 # general arm) through K1 + K3 against a float64 run of the plain
@@ -433,8 +435,9 @@ MMI_STATS_TOL, MMI_STATS_FLOOR = 1e-2, 1e-5
 MMI_PARAM_ATOL, MMI_PARAM_FLOOR = 1e-2, 1e-4
 # sMBR's iteration runs over the first SMBR_BATCHES of the recipe's 102
 # training batches: its host frame loops took 86 s over all of them on a
-# slower card's host, the most of any phase (cut for the run's time limit).
-SMBR_BATCHES = 34
+# slower card's host, the most of any phase (cut for the run's time limit:
+# 34 before the AED slice, 8 since).
+SMBR_BATCHES = 8
 # the CLI twin's corpus and schedule (phase 18): small, but every stage runs
 CLI_ARGS = ["--synthetic-v2", "48", "--num-components", "2", "--num-iters", "6", "--triphones", "200",
             "--mmi", "1", "--smbr", "1"]
@@ -620,7 +623,8 @@ QUEUE_SLEEP_CYCLES = 100_000_000
 # FB_ERR_FLOOR, at most FB_POST64_ATOL as phase 36's. The greedy decoders are held equal
 # on RNNT_GREEDY_ROWS rows, the device beam (width RNNT_BEAM, u_cap
 # RNNT_U_CAP as the bench row) to rnnt_beam_decode_batch on RNNT_BEAM_UTTS
-# utterances (the device beam sums in float32, the host beam in float64:
+# utterances (2 before the AED slice, 1 since, for the run's time limit:
+# the device beam took 12.1 s on 2; it sums in float32, the host beam in float64:
 # scores within the reference's relative RNNT_BEAM_RTOL). RNNT_PRUNED_STEPS pruned steps
 # (band RNNT_BAND) and RNNT_MWER_STEPS MWER steps on RNNT_MWER_ROWS rows
 # (the first steps of a schedule: step 0's learning rate is 0).
@@ -641,11 +645,57 @@ QUEUE_SLEEP_CYCLES = 100_000_000
 # Transformer 64 wide, 2 blocks, 4 heads) for NNLM_STEPS steps.
 RNNT_STEPS, RNNT_SCHEDULE, RNNT_LR, RNNT_PER_MAX = 36, 60, 3e-3, 0.9
 RNNT_CHECK, RNNT_LOSS_RTOL, RNNT_GRAD_RATIO = 8, 1e-4, 4.0
-RNNT_GREEDY_ROWS, RNNT_BEAM, RNNT_U_CAP, RNNT_BEAM_UTTS = 32, 4, 120, 2
+RNNT_GREEDY_ROWS, RNNT_BEAM, RNNT_U_CAP, RNNT_BEAM_UTTS = 32, 4, 120, 1
 RNNT_BEAM_RTOL = 2e-4  # the reference's device-beam tolerance, tests/test_rnnt_device_beam.py:58
 RNNT_PRUNED_STEPS, RNNT_BAND, RNNT_MWER_STEPS, RNNT_MWER_ROWS = 4, 4, 4, 12
 RNNT_SERVE_UNITS, RNNT_SERVE_GATE, RNNT_TIE_GAP, RNNT_PROFILE_TICKS = 300, 64, 1e-5, 4
 NNLM_STEPS, NNLM_LR = 40, 5e-3
+# The AED slice (phases 55-61) at the widths of the repo's two AED
+# configurations. bench_serve.py's (:402-431): build_aed_model(n,
+# TrainConfig(nn_hidden=256, nn_layers=4), chunk 8, left 1): d_model 256, 4
+# encoder and 2 decoder blocks, 4 heads, kernel 15; capacity 64, beam 4, CTC
+# weight 0.3, finals padded to 256 frames. bench_families.py's AED row
+# (:219-228): hidden 512 and 3 layers (d_model 512, 1 decoder block) on
+# phones, beam 4, 48 tokens, batches of 64 over its 256 utterances, random
+# weights. Phase 55 holds aed_objective on the card (its aux CTC term on K3)
+# to the same function on the CPU's plain route on AED_CHECK_ROWS rows of
+# the widest merged training batch: the loss within AED_LOSS_RTOL
+# (relative), the gradient of every parameter from a float64 run within
+# AED_GRAD_RATIO times the CPU float32's own distance (at least
+# FB_ERR_FLOOR), as phase 47 holds the RNN-T. Phase 56 trains the chunked
+# bench_serve-width model from its seeded initialisation for AED_STEPS steps
+# of an AED_SCHEDULE-step schedule at peak AED_LR on phase 37's merged
+# batches (the depth is cut, not the width: the joint loss sits on CTC's
+# blank plateau for ~600 steps, PERF.md §4), then beam-decodes the held-out
+# set at decode's defaults (width AED_BEAM, CTC weight AED_CTC_WEIGHT,
+# AED_MAX_TOKENS tokens): the PER must fall below half the untrained
+# model's and below AED_PER_MAX. Phase 58 streams AED_STREAM_ROWS rows of
+# AED_STREAM_CHUNKS chunks, held to the offline chunk-masked encoder within
+# AED_STREAM_ATOL (the reference's tolerance, tests/test_aed_stream.py:49-52);
+# the CTC head's logits within AED_STREAM_ATOL times their largest magnitude
+# (the chunk and the whole sequence run GEMMs of other shapes: after
+# training the logits sat 3.15e-5 apart, the encoder's outputs 1.24e-5).
+# Phase 59: the engine over the first AED_SERVE_UTTS held-out utterances
+# on device features (its finals are host-paced: the 768 took 118 s on one
+# host, so they are cut, as phases 45 and 52 serve 256), its finals against
+# the per-session finals on the first AED_SERVE_GATE sessions, and on
+# host features on the first AED_HOST_GATE, exactly but for a session whose
+# per-session beam has a top-K boundary gap or final gap of at most
+# AED_TIE_GAP (batched calls sum in other orders); finalize_many against
+# finalize on AED_FINALIZE_CHECK drained sessions; its busy share from a
+# window of AED_PROFILE_TICKS ticks of the timed run after its sync-counting
+# window (the card's activity only). Phase 60:
+# AED_MWER_STEPS MWER steps on AED_MWER_ROWS rows at peak AED_MWER_LR of an
+# AED_MWER_SCHEDULE-step schedule (step 0's learning rate is 0).
+AED_HIDDEN, AED_LAYERS, AED_CHUNK, AED_LEFT = 256, 4, 8, 1
+AED_BEAM, AED_CTC_WEIGHT, AED_MAX_TOKENS, AED_FINAL_BUCKET = 4, 0.3, 64, 256
+AED_FAM_HIDDEN, AED_FAM_LAYERS, AED_FAM_TOKENS, AED_FAM_BATCH = 512, 3, 48, 64
+AED_CHECK_ROWS, AED_LOSS_RTOL, AED_GRAD_RATIO = 8, 1e-5, 4.0
+AED_STEPS, AED_SCHEDULE, AED_LR, AED_PER_MAX = 1100, 1200, 2e-3, 0.9
+AED_STREAM_ROWS, AED_STREAM_CHUNKS, AED_STREAM_ATOL = 64, 8, 2e-5
+AED_SERVE_UTTS, AED_SERVE_GATE, AED_HOST_GATE, AED_FINALIZE_CHECK = 256, 32, 16, 8
+AED_TIE_GAP, AED_PROFILE_TICKS = 1e-5, 8
+AED_MWER_STEPS, AED_MWER_ROWS, AED_MWER_LR, AED_MWER_SCHEDULE = 4, 32, 3e-4, 20
 KERNEL_COUNTERS = ("gmm_score", "gmm_score_wide", "gmm_score_int8", "viterbi", "fb_forward", "fb_backward",
                    "fb_combine", "lstm_scan")
 
@@ -1138,7 +1188,7 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
     dec_launches = counts()
     if dec.wer > MAX_WER or dec_launches["gmm_score"] == 0 or dec_launches["viterbi"] == 0:
         raise RuntimeError(f"decode with the recipe's bundle: WER {dec.wer:.4f} (limit {MAX_WER}), {dec_launches}")
-    # stop-and-resume of 3 CD EM iterations from the recipe's CD model
+    # stop-and-resume of CD_EM_CHECK_ITERS CD EM iterations from the recipe's CD model
     gcfg_cd = GmmConfig(n_states=tied.n_pdfs, n_components=args.components, feat_dim=out["fcfg"].feat_dim,
                         var_floor=args.var_floor, min_split_occ=args.min_split_occ)
 
@@ -1147,13 +1197,14 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
                               gmm=gmm_cd, align_fn=lambda p: tri.align_graph_cd(tied, p), n_pdfs=tied.n_pdfs,
                               ckpt_dir=ckpt_dir)
 
-    whole = cd_em(3)
-    again = cd_em(3)
+    whole = cd_em(CD_EM_CHECK_ITERS)
+    again = cd_em(CD_EM_CHECK_ITERS)
     cd_em(1, os.path.join(work, "em_ckpt"))
-    resumed = cd_em(3, os.path.join(work, "em_ckpt"))
-    if len(resumed.seconds) != 2 or "restore" not in resumed.setup_seconds:
+    resumed = cd_em(CD_EM_CHECK_ITERS, os.path.join(work, "em_ckpt"))
+    if len(resumed.seconds) != CD_EM_CHECK_ITERS - 1 or "restore" not in resumed.setup_seconds:
         raise RuntimeError("the CD EM run did not resume from its checkpoint")
-    for name, run in (("a second uninterrupted run", again), ("the run resumed after 1 of 3 iterations", resumed)):
+    for name, run in (("a second uninterrupted run", again),
+                      (f"the run resumed after 1 of {CD_EM_CHECK_ITERS} iterations", resumed)):
         if run.history != whole.history or not all(torch.equal(a, b) for a, b in zip(run.gmm, whole.gmm)):
             param_err = max(float((a - b).abs().max()) for a, b in zip(run.gmm, whole.gmm))
             raise RuntimeError(f"CD EM: {name} is not bitwise the uninterrupted run: history {run.history} vs "
@@ -1179,7 +1230,8 @@ def training_entry_phases(dev: torch.device, corpus, bcfg, bundle_meta: dict) ->
           f"collect_cd_stats again: {len(cd_stats)} triphone states in {cd_stats_s:.3f} s, launches "
           f"{cd_stats_launches}; the "
           f"bundle written and read back decodes the {dec.n_utts} held-out utterances of phase 5 at WER "
-          f"{dec.wer:.4f} ({dec.n_utts / dec.seconds:.1f} utt/s; bundle {BUNDLE_WER}); 3 CD EM iterations (history "
+          f"{dec.wer:.4f} ({dec.n_utts / dec.seconds:.1f} utt/s; bundle {BUNDLE_WER}); {CD_EM_CHECK_ITERS} CD EM "
+          f"iterations (history "
           f"{whole.history}): run again, and stopped after 1 and resumed, both bitwise equal to the first run in "
           f"history and parameters")
 
@@ -4620,7 +4672,8 @@ def rnnt_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs, ce_model
                                                  names=("",))[3][""][1] / n
         except RuntimeError:
             greedy_events[name] = None   # not measured
-    b_feats, b_nf = sub.feats[:RNNT_BEAM_UTTS], sub.n_frames[:RNNT_BEAM_UTTS]
+    b_nf = sub.n_frames[:RNNT_BEAM_UTTS]
+    b_feats = sub.feats[:RNNT_BEAM_UTTS, : int(b_nf.max())]   # the device beam runs every padded frame
     kw = dict(beam_size=RNNT_BEAM, u_cap=RNNT_U_CAP)
     beam_host_ms, want = wall(lambda: R.rnnt_beam_decode_batch(model, b_feats, b_nf, **kw))
     beam_dev_ms, got = wall(lambda: R.rnnt_beam_decode_device(model, b_feats, b_nf, **kw))
@@ -5008,6 +5061,689 @@ def rnnt_cli_phase(dev: torch.device) -> dict:
               f"--bpe --rnnt-beam 2 --nnlm-rescore (WER {recs['decode_bpe']['wer']:.4f}), eval --rnnt (WER "
               f"{recs['eval']['wer']:.4f}; a few steps: no limit), stream, transcribe and serve --engine --rnnt; "
               f"launches {launches}")
+    return launches
+
+
+def aed_margins(model, feats, n_frames: int, beam: int, max_tokens: int) -> float:
+    """The dedicated path's attention beam replayed on one session's padded
+    features ([1, Tb, D], n_frames valid): the least gap between the K-th and
+    (K+1)-th candidate of a step (a top-K boundary an ulp could move) and
+    between the best two final hypotheses before rescoring: where a float
+    order change in a batched call could have changed the result."""
+    from mogasr_torch.am import aed as A
+
+    K, U, V = beam, max_tokens, model.vocab
+    dev = feats.device
+    gaps = []
+    with torch.no_grad():
+        enc, n_out = model.encode(feats, torch.as_tensor([n_frames], device=dev))
+        enc_k, n_out_k = enc.repeat(K, 1, 1), n_out.repeat(K)
+        toks = torch.full((1, K, U), model.eos, dtype=torch.int64, device=dev)
+        scores = torch.full((1, K), A.NEG_INF, device=dev)
+        scores[0, 0] = 0.0
+        fin = torch.zeros((1, K), dtype=torch.bool, device=dev)
+        eos_only = torch.full((V,), A.NEG_INF, device=dev)
+        eos_only[model.eos] = 0.0
+        sos = torch.full((1, K, 1), model.sos, dtype=torch.int64, device=dev)
+        for u in range(U):
+            if bool(fin.all()):
+                break
+            logits = model.decode_logits(enc_k, n_out_k, torch.cat([sos, toks[:, :, :-1]], 2).reshape(K, U))
+            logp = torch.log_softmax(logits[:, u], -1).reshape(1, K, V)
+            logp[:, :, model.sos] = A.NEG_INF
+            logp = torch.where(fin[..., None], eos_only, logp)
+            vals, idx = torch.sort((scores[..., None] + logp).reshape(1, K * V), descending=True, stable=True)
+            if float(vals[0, K]) > A.NEG_INF / 2:
+                gaps.append(float(vals[0, K - 1] - vals[0, K]))
+            src, tok = idx[:, :K] // V, idx[:, :K] % V
+            toks = torch.gather(toks, 1, src[..., None].expand(1, K, U)).clone()
+            toks[:, :, u] = tok
+            fin = torch.gather(fin, 1, src) | (tok == model.eos)
+            scores = vals[:, :K]
+    gaps.append(float(scores[0, 0] - scores[0, 1]))
+    return min(gaps)
+
+
+def aed_phases(dev: torch.device, topo, fcfg, corpus, bcfg, train_fbs) -> dict:
+    """Phases 55-60: the AED's training objective on the card (the aux CTC
+    term on K3) against the CPU; training the chunked bench_serve-width model
+    and its held-out beam decode (joint CTC rescoring on K3); the offline
+    decode at bench_families.py's AED row, early exit against the fixed
+    scan, and the rescoring on K3; the chunked stream against the offline
+    chunk-masked encoder; BatchedAedEngine at bench_serve.py's configuration
+    against the dedicated per-session finals; MWER. Returns each path's
+    launch counts and the kernels line's AED sub-entries."""
+    import copy
+    import dataclasses
+    import warnings
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import aed as A
+    from mogasr_torch.am import ctc
+    from mogasr_torch.am.params import init_
+    from mogasr_torch.config import BatchConfig, FrontendConfig, TrainConfig
+    from mogasr_torch.data import synthetic as syn
+    from mogasr_torch.decoder import fb_cuda
+    from mogasr_torch.decoder import forward_backward as fbd
+    from mogasr_torch.eval.wer import corpus_wer
+    from mogasr_torch.frontend.streaming import StreamingFrontend
+    from mogasr_torch.hmm.lexicon import make_lexicon
+    from mogasr_torch.serving.engine import BatchedAedEngine, _cast_floats, aed_final_max_tokens
+
+    torch.cuda.empty_cache()
+    lex = topo.lexicon
+    V, D = lex.n_phones, fcfg.feat_dim
+    arm_k3 = {fb_cuda.ARM_CHAIN: "chain", fb_cuda.ARM_BLOCK: "block", fb_cuda.ARM_GENERAL: "general"}
+    k3 = ("fb_forward", "fb_backward", "fb_combine")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    def only(name, c, allowed):
+        if any(v for k, v in c.items() if k not in allowed) or min(c[k] for k in allowed) == 0:
+            raise RuntimeError(f"{name}: launches {c} (only and every one of {allowed})")
+
+    def arms():
+        return sorted({arm_k3[a] for a in fb_cuda.LAST_ARMS.flatten().tolist()})
+
+    def encode(words):
+        return ctc.ctc_labels_from_words(lex, words)
+
+    merged = ctc_batches(train_fbs)
+    labeled = pipe._pack_ctc_targets(merged, encode)
+    cfg = TrainConfig(nn_hidden=AED_HIDDEN, nn_layers=AED_LAYERS, lr=AED_LR, num_nn_steps=AED_SCHEDULE)
+    untrained = pipe.aed_model_for(V, cfg, D, dev, chunk_frames=AED_CHUNK, left_chunks=AED_LEFT).eval()
+    model = copy.deepcopy(untrained)
+
+    # ---- phase 55: the objective on the card against the CPU's plain route
+    fbw, labw, nlw = max(labeled, key=lambda x: x[0].feats.shape[1])
+    rows = torch.arange(AED_CHECK_ROWS, device=dev)
+    check = (fbw.feats[rows], fbw.n_frames[rows], labw[rows], nlw[rows])
+
+    def objective(m, dtype, device):
+        m.zero_grad(set_to_none=True)
+        args = [a.to(device) for a in check]
+        args[0] = args[0].to(dtype)
+        with torch.enable_grad():
+            loss, met = A.aed_objective(m, *args, ctc_weight=AED_CTC_WEIGHT)
+            loss.backward()
+        grads = {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+        return loss.item(), {k: v.item() for k, v in met.items()}, grads
+
+    loss_c, met_c, grad_c = objective(model, torch.float32, dev)
+    loss_32, met_32, grad_32 = objective(copy.deepcopy(model).cpu(), torch.float32, torch.device("cpu"))
+    loss_64, _m64, grad_64 = objective(copy.deepcopy(model).cpu().double(), torch.float64, torch.device("cpu"))
+    model.zero_grad(set_to_none=True)
+    loss_err = abs(loss_c - loss_32) / abs(loss_32)
+    grad_err = max(float((grad_c[n] - grad_64[n]).abs().max()) for n in grad_64)
+    cpu32_err = max(float((grad_32[n] - grad_64[n]).abs().max()) for n in grad_64)
+    grad_limit = max(AED_GRAD_RATIO * cpu32_err, FB_ERR_FLOOR)
+    if not loss_err <= AED_LOSS_RTOL or not grad_err <= grad_limit:
+        raise RuntimeError(f"aed_objective on the card against the CPU: loss {loss_err:.3g} relative (limit "
+                           f"{AED_LOSS_RTOL}), gradient {grad_err:.3g} from float64 (the CPU's float32 "
+                           f"{cpu32_err:.3g}; limit {grad_limit:.3g})")
+    # the aux CTC term on the whole widest batch: K3, the plain recursion, torch's ctc_loss
+    with torch.no_grad():
+        _enc, n_out, ctc_logits = model.encode_with_ctc(fbw.feats, fbw.n_frames)
+    blank = V
+    aux = {}
+    for use_kernels in (True, False):
+        xc = ctc_logits.clone().requires_grad_()
+
+        def aux_loss():
+            xc.grad = None
+            with torch.enable_grad():
+                out = ctc.ctc_loss(xc, n_out, labw, nlw, use_kernels=use_kernels)
+                out.sum().backward()
+            return out.detach()
+
+        aux_loss()
+        ms, nll = timed(aux_loss, 3)
+        aux[use_kernels] = (nll, xc.grad.clone(), ms)
+        if use_kernels:
+            aux_arms = arms()
+    fit = n_out >= ctc.frames_needed(labw, nlw)
+    n_short = int((~fit).sum())
+    aux_err = float(((aux[True][0] - aux[False][0]).abs() / aux[False][0].abs())[fit].max())
+    aux_grad = float((aux[True][1] - aux[False][1])[fit].abs().max())
+    if aux_err > CTC_LOSS_RTOL or aux_grad > FB_POST64_ATOL:
+        raise RuntimeError(f"the aux CTC term on K3 against the plain recursion: loss {aux_err}, gradient {aux_grad}")
+    logp = torch.log_softmax(ctc_logits, -1)
+    lp_tbc = logp.transpose(0, 1).contiguous()
+
+    def library_loss():
+        xl = lp_tbc.clone().requires_grad_()
+        with torch.enable_grad():
+            torch.nn.functional.ctc_loss(xl, labw.clamp(min=0).long(), n_out.long(), nlw.long(), blank=blank,
+                                         reduction="sum", zero_infinity=True).backward()
+        return xl.grad
+
+    lib_ms, _ = timed(library_loss, 5)
+    graphs = ctc.ctc_label_graphs(labw, nlw, blank)
+    nf1 = n_out.clamp(min=1)
+    k3_ms = queued_ms(lambda: fb_cuda.forward_backward(logp, graphs, nf1))
+    k3_bound = fb_bounds({**graphs, "n_states": 2 * nlw + 1}, n_out, logp.shape[1])["pair"]
+    Bw, Tw = fbw.feats.shape[:2]
+    aux_entry = {"shape": [Bw, int(logp.shape[1]), int(graphs["emit_id"].shape[1])], "arm": aux_arms,
+                 "loss_rel_err": aux_err, "grad_max_abs_err": aux_grad, "rows_that_cannot_fit": n_short,
+                 "ms": k3_ms, "plain_ms": None, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+                 "loss_and_backward_ms": aux[True][2], "plain_loss_and_backward_ms": aux[False][2],
+                 "library_loss_and_backward_ms": lib_ms}
+    aux_entry["plain_ms"] = timed(lambda: fbd.forward_backward(logp, graphs, nf1), 1)[0]
+    phase(55, f"aed_objective on the card (d_model {model.d_model}, {model.enc_blocks} encoder and "
+              f"{model.dec_blocks} decoder blocks, chunk {AED_CHUNK} left {AED_LEFT}; the aux CTC term on K3) "
+              f"against the CPU's plain route with the same weights on {AED_CHECK_ROWS} rows of the widest merged "
+              f"batch (T={Tw}): loss {loss_c:.6f}, {loss_err:.3g} relative (limit {AED_LOSS_RTOL}); gradient "
+              f"{grad_err:.3g} from a float64 run (the CPU's float32 {cpu32_err:.3g}; limit {grad_limit:.3g}); the "
+              f"aux CTC term on the whole batch B={Bw} T'={aux_entry['shape'][1]} J={aux_entry['shape'][2]} "
+              f"(K3's {aux_arms} arm; {n_short} rows whose labels cannot fit their subsampled frames): loss "
+              f"{aux_err:.3g} relative to plain, gradient {aux_grad:.3g}; loss and backward {aux[True][2]:.2f} ms "
+              f"(plain {aux[False][2]:.1f} ms, torch's ctc_loss {lib_ms:.2f} ms); K3's three launches "
+              f"{k3_ms:.3f} ms (plain forward-backward {aux_entry['plain_ms']:.1f} ms, bound {k3_bound[0]:.3g} ms)")
+
+    # ---- phase 56: training, then the held-out beam decode
+    state, step = A.init_aed_train_state(model, cfg), A.make_aed_train_step(model, cfg, ctc_weight=AED_CTC_WEIGHT)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses = []
+    fb_i, lab_i, nl_i = labeled[0]
+    first_ms, (state, m) = wall(lambda: step(state, fb_i.feats, fb_i.n_frames, lab_i, nl_i))
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, AED_STEPS):   # no read of the card a step: the host queues step i+1 while it runs step i
+        fb_i, lab_i, nl_i = labeled[i % len(labeled)]
+        state, m = step(state, fb_i.feats, fb_i.n_frames, lab_i, nl_i)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0) / max(AED_STEPS - 1, 1)
+    losses = [float(x) for x in losses]
+    train_launches = launch_counts()
+    only("AED training", train_launches, k3)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError(f"AED training: losses {losses[:4]} ... {losses[-4:]}")
+    model.eval()
+    train = {"steps": AED_STEPS, "schedule": AED_SCHEDULE, "lr": AED_LR, "ms_per_step": loop_ms,
+             "first_step_ms": first_ms, "loss_first": losses[0], "loss_last": losses[-1],
+             "k3_launches_per_step": {k: v / AED_STEPS for k, v in train_launches.items() if v},
+             "peak_gib": peak_gib()}
+    held = pipe.featurize(corpus, fcfg, bcfg, dev)
+
+    def phones_of(words):
+        return [lex.phones[p] for p in lex.words_to_phone_ids(words, interword_sil=False, edge_sil=False,
+                                                              oov="skip")]
+
+    def beam_per(m):
+        dec = A.make_aed_decoder(m, beam=AED_BEAM, max_tokens=AED_MAX_TOKENS, ctc_weight=AED_CTC_WEIGHT)
+        refs, hyps, steps = [], [], []
+        for f in map(pipe.live_rows, held):
+            toks, n, _s = dec(f.feats, f.n_frames)
+            steps.append(dec.steps_run)
+            toks, n = toks.cpu().numpy(), n.cpu().numpy()
+            for b in range(f.size):
+                refs.append(phones_of(f.words[b]))
+                hyps.append([lex.phones[u] for u in toks[b, : n[b]]])
+        return corpus_wer(refs, hyps), steps
+
+    zero_launches()
+    dec_ms, ((per, per_counts), dec_steps) = wall(lambda: beam_per(model))
+    decode_launches = launch_counts()
+    only("the AED beam decode", decode_launches, k3)
+    (per0, _c0), _s0 = beam_per(untrained)
+    sdi = [per_counts.substitutions, per_counts.deletions, per_counts.insertions]
+    if not per < min(0.5 * per0, AED_PER_MAX):
+        raise RuntimeError(f"the trained AED's held-out PER {per:.4f} (sub/del/ins {sdi}) against the untrained "
+                           f"model's {per0:.4f} (limit min(half the untrained, {AED_PER_MAX}))")
+    n_held = sum(f.size for f in held)
+    decode = {"per": per, "sub_del_ins": sdi, "untrained_per": per0, "utts": n_held, "ms": dec_ms,
+              "utt_per_s": n_held / (dec_ms / 1e3), "steps_per_batch": dec_steps}
+    phase(56, f"AED training at bench_serve.py's width (chunked: {AED_CHUNK} subsampled frames a chunk, {AED_LEFT} "
+              f"left; {V} phones, {model.vocab} decoder tokens) from its seeded initialisation: {AED_STEPS} steps of a "
+              f"{AED_SCHEDULE}-step schedule "
+              f"(peak lr {AED_LR:g}) over {len(labeled)} merged batches: {train['ms_per_step']:.1f} ms a step "
+              f"(the loop's mean; first {first_ms:.0f} ms), peak {train['peak_gib']:.1f} GiB, loss {losses[0]:.3f} -> "
+              f"{losses[-1]:.3f}, launches {train_launches} (K3's three a step); the {n_held} held-out utterances "
+              f"through the beam (width {AED_BEAM}, {AED_MAX_TOKENS} tokens, CTC weight {AED_CTC_WEIGHT}): PER "
+              f"{per:.4f} (sub/del/ins {sdi}; untrained {per0:.4f}; limit min(half the untrained, {AED_PER_MAX})) in "
+              f"{dec_ms:.0f} ms ({decode['utt_per_s']:.1f} utt/s), loop steps a batch {dec_steps}, launches "
+              f"{decode_launches}")
+
+    # ---- phase 57: the offline decode at bench_families.py's AED row, random weights
+    fam_words = syn.extended_lexicon(HYB_VOCAB)
+    fam_lex = make_lexicon(fam_words)
+    fam_corpus = [(u.utt_id, u.wave, u.words) for u in syn.make_corpus_v2(
+        HYB_UTTS, lexicon=fam_words, n_speakers=HYB_SPEAKERS, seed=HYB_SEED, words_per_utt=(3, 9))]
+    fam_fbs = [pipe.live_rows(f) for f in pipe.featurize(fam_corpus, FrontendConfig(), BatchConfig(
+        batch_size=AED_FAM_BATCH, bucket_boundaries=HYB_BUCKETS), dev)]
+    fcfg_fam = TrainConfig(nn_hidden=AED_FAM_HIDDEN, nn_layers=AED_FAM_LAYERS)
+    fam = init_(A.build_aed_model(fam_lex.n_phones, fcfg_fam, FrontendConfig().feat_dim),
+                torch.Generator().manual_seed(57)).to(dev).eval()
+    early = A.make_aed_decoder(fam, beam=AED_BEAM, max_tokens=AED_FAM_TOKENS)
+    scan = A.make_aed_decoder(fam, beam=AED_BEAM, max_tokens=AED_FAM_TOKENS, early_exit=False)
+
+    def run_all(dec):
+        out, steps = [], []
+        for f in fam_fbs:
+            toks, n, sc = dec(f.feats, f.n_frames)
+            out.append((toks.cpu(), n.cpu(), sc.cpu()))
+            steps.append(dec.steps_run)
+        return out, steps
+
+    run_all(early)
+    zero_launches()
+    fam_ms, (got, fam_steps) = wall(lambda: run_all(early))
+    fam_launches = launch_counts()
+    if any(fam_launches.values()):
+        raise RuntimeError(f"the AED decode without rescoring launched kernels: {fam_launches}")
+    scan_ms, (want, _st) = wall(lambda: run_all(scan))
+    for (gt, gn, gs), (wt, wn, ws) in zip(got, want):
+        if not (torch.equal(gt, wt) and torch.equal(gn, wn) and torch.equal(gs, ws)):
+            raise RuntimeError("the early exit's tokens differ from the fixed scan's")
+    f0 = fam_fbs[0]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            early(f0.feats, f0.n_frames)[0].cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    try:
+        events = device_profile(lambda: early(f0.feats, f0.n_frames), names=("",))[3][""][1]
+        launches_per_step = events / early.steps_run
+    except RuntimeError:
+        launches_per_step = None   # a profiled window without device activity: not measured
+    n_fam = sum(f.size for f in fam_fbs)
+    resc = A.make_aed_decoder(fam, beam=AED_BEAM, max_tokens=AED_FAM_TOKENS, ctc_weight=AED_CTC_WEIGHT)
+    zero_launches()
+    resc_ms, _r = wall(lambda: resc(f0.feats, f0.n_frames))
+    resc_launches = launch_counts()
+    only("the AED decode with the joint CTC rescoring", resc_launches, k3)
+    resc_arms = arms()
+    # the rescoring alone: the K hypotheses of every row against the CTC head, K3 and plain
+    with torch.no_grad():
+        toks, n_toks, _sc = A.make_aed_decoder(fam, beam=AED_BEAM, max_tokens=AED_FAM_TOKENS, return_all=True)(
+            f0.feats, f0.n_frames)
+        _e, n_out0, ctc0 = fam.encode_with_ctc(f0.feats, f0.n_frames)
+    Kb, Lw = AED_BEAM, max(int(n_toks.max()), 1)
+    lab_r = torch.where(torch.arange(Lw, device=dev) < n_toks[..., None], toks[:, :, :Lw], -1).reshape(-1, Lw)
+    nl_r, nout_r = n_toks.reshape(-1), torch.repeat_interleave(n_out0, Kb)
+    ctc_r = torch.repeat_interleave(ctc0, Kb, dim=0)
+    with torch.no_grad():
+        r_k3 = ctc.ctc_loss(ctc_r, nout_r, lab_r, nl_r)
+        r_plain = ctc.ctc_loss(ctc_r, nout_r, lab_r, nl_r, use_kernels=False)
+    fit_r = nout_r >= ctc.frames_needed(lab_r, nl_r)
+    r_err = float(((r_k3 - r_plain).abs() / r_plain.abs())[fit_r].max()) if bool(fit_r.any()) else 0.0
+    if r_err > CTC_LOSS_RTOL or not torch.equal(r_k3[~fit_r] > 1e29, r_plain[~fit_r] > 1e29):
+        raise RuntimeError(f"the rescoring's CTC term on K3 against plain: {r_err}")
+    rk3_ms = queued_ms(lambda: ctc.ctc_loss(ctc_r, nout_r, lab_r, nl_r))
+    rplain_ms, _ = timed(lambda: ctc.ctc_loss(ctc_r, nout_r, lab_r, nl_r, use_kernels=False), 1)
+    lp_r = torch.log_softmax(ctc_r, -1).transpose(0, 1).contiguous()
+    rlib_ms = queued_ms(lambda: torch.nn.functional.ctc_loss(
+        lp_r, lab_r.clamp(min=0), nout_r, nl_r, blank=fam.n_units, reduction="none", zero_infinity=True))
+    g_r = ctc.ctc_label_graphs(lab_r, nl_r, fam.n_units)
+    r_bound = fb_bounds({**g_r, "n_states": 2 * nl_r + 1}, nout_r, ctc_r.shape[1])["pair"]
+    rescore = {"shape": [int(lab_r.shape[0]), int(ctc_r.shape[1]), int(g_r["emit_id"].shape[1])], "arm": resc_arms,
+               "rows_that_cannot_fit": int((~fit_r).sum()), "loss_rel_err": r_err, "ms": rk3_ms,
+               "plain_ms": rplain_ms, "bound_ms": r_bound[0], "bound_by": r_bound[1], "library_ms": rlib_ms,
+               "launches_per_decode": {k: v for k, v in resc_launches.items() if v}, "decode_ms": resc_ms}
+    fam_entry = {"d_model": fam.d_model, "utts": n_fam, "ms": fam_ms, "utt_per_s": n_fam / (fam_ms / 1e3),
+                 "scan_ms": scan_ms, "steps": fam_steps, "device_launches_per_step": launches_per_step,
+                 "host_syncs_per_decode": syncs}
+    phase(57, f"the offline decode at bench_families.py's AED row (d_model {fam.d_model}, {fam.enc_blocks} encoder "
+              f"and {fam.dec_blocks} decoder block, {fam_lex.n_phones} phones, random weights; beam {AED_BEAM}, "
+              f"{AED_FAM_TOKENS} tokens) of its {n_fam} utterances in batches of {AED_FAM_BATCH}: {fam_ms:.0f} ms "
+              f"({fam_entry['utt_per_s']:.1f} utt/s), loop steps {fam_steps}; tokens, lengths and scores of the "
+              f"early exit equal to the fixed scan's ({scan_ms:.0f} ms); "
+              + ("device launches a step not measured" if launches_per_step is None else
+                 f"{launches_per_step:.1f} device launches a step")
+              + f", {syncs} host syncs a decode; with CTC weight {AED_CTC_WEIGHT} on the first batch: launches "
+              f"{rescore['launches_per_decode']} (K3's {resc_arms} arm), the rescoring's CTC term on "
+              f"{rescore['shape']} (B K, T', J; {rescore['rows_that_cannot_fit']} hypotheses that cannot fit keep "
+              f"~1e30) {r_err:.3g} relative to plain: K3 {rk3_ms:.3f} ms, plain {rplain_ms:.1f} ms, torch's ctc_loss "
+              f"{rlib_ms:.3f} ms, bound {r_bound[0]:.3g} ms")
+
+    # ---- phase 58: the chunked stream against the offline chunk-masked encoder
+    T_s = 4 * AED_CHUNK * AED_STREAM_CHUNKS
+    cand = [(f, b) for f in held for b in range(f.size) if int(f.n_frames[b]) >= T_s][:AED_STREAM_ROWS]
+    x_s = torch.stack([f.feats[b, :T_s] for f, b in cand])
+    nf_s = torch.full((len(cand),), T_s, device=dev)
+    step_s = A.make_aed_stream_step(model)
+    with torch.no_grad():
+        enc_off, _n, ctc_off = model.encode_with_ctc(x_s, nf_s)
+    st = A.aed_stream_init(model, len(cand), D)
+    raw = 4 * AED_CHUNK
+    encs, ctcs = [], []
+    for c in range(AED_STREAM_CHUNKS):
+        e, l_, st = step_s(x_s[:, c * raw:(c + 1) * raw], st)
+        encs.append(e)
+        ctcs.append(l_)
+    s_err = float((torch.cat(encs, 1) - enc_off).abs().max())
+    c_err = float((torch.cat(ctcs, 1) - ctc_off).abs().max())
+    c_scale = float(ctc_off.abs().max())
+    if s_err > AED_STREAM_ATOL or c_err > AED_STREAM_ATOL * max(c_scale, 1.0):
+        raise RuntimeError(f"the chunk step against the offline chunk-masked encoder: enc {s_err} (atol "
+                           f"{AED_STREAM_ATOL}), CTC logits {c_err} (atol {AED_STREAM_ATOL} x their largest "
+                           f"magnitude {c_scale:.3g})")
+    st0 = A.aed_stream_init(model, len(cand), D)
+    chunk_ms = queued_ms(lambda: step_s(x_s[:, :raw], st0))
+    m16 = copy.deepcopy(model).to(torch.bfloat16)
+    st16 = A.aed_stream_init(model, len(cand), D)
+    agree = 0
+    with torch.no_grad():
+        for c in range(AED_STREAM_CHUNKS):
+            _e, l16, new = m16.encode_stream_step(x_s[:, c * raw:(c + 1) * raw].to(torch.bfloat16),
+                                                  _cast_floats(st16, torch.bfloat16))
+            st16 = _cast_floats(new, torch.float32)
+            agree += int((l16.float().argmax(-1) == ctcs[c].argmax(-1)).sum())
+    n_dec = len(cand) * AED_STREAM_CHUNKS * AED_CHUNK
+    stream = {"rows": len(cand), "chunks": AED_STREAM_CHUNKS, "enc_max_abs_err": s_err, "ctc_max_abs_err": c_err,
+              "ctc_max_abs": c_scale,
+              "chunk_ms": chunk_ms, "bf16_decisions_agree": agree, "decisions": n_dec}
+    phase(58, f"the chunked stream of phase 56's model on {len(cand)} held-out rows, {AED_STREAM_CHUNKS} chunks of "
+              f"{raw} frames: the encoder within {s_err:.3g} of the offline chunk-masked encoder (atol "
+              f"{AED_STREAM_ATOL}), the CTC head within {c_err:.3g} (logits up to {c_scale:.3g}; atol "
+              f"{AED_STREAM_ATOL} x that); {chunk_ms:.3f} ms a chunk step for all rows; the "
+              f"step in bfloat16 (caches float32) agrees with float32 on {agree} of {n_dec} CTC-greedy frame "
+              f"decisions")
+
+    # ---- phase 59: BatchedAedEngine at bench_serve.py's configuration
+    B = SERVE_CAPACITY
+    sfcfg = dataclasses.replace(fcfg, cmvn="sliding", cmvn_window=SERVE_CMVN_WINDOW)
+    event = SERVE_TICK * sfcfg.frame_shift
+    sessions = [(uid, wave) for uid, wave, _w in corpus[:AED_SERVE_UTTS]]
+    gate = sessions[:AED_SERVE_GATE]
+    opts = dict(capacity=B, beam=AED_BEAM, ctc_weight=AED_CTC_WEIGHT, final_bucket=AED_FINAL_BUCKET, device=dev)
+
+    def dedicated(subset):
+        """The per-session server's finals: each session's features in the
+        engine's audio events, padded to its bucket, the beam at the bucket's
+        budget (the sessions of one bucket in one call: beam rows are
+        independent). -> {sid: (units, padded [1, Tb, D], frames, Tb)}."""
+        feats = {}
+        for sid, wave in subset:
+            fe = StreamingFrontend(sfcfg, device=dev)
+            feats[sid] = np.concatenate([fe.process(wave[i:i + event]) for i in range(0, len(wave), event)]
+                                        + [fe.finalize()])
+        out, by_tb = {}, {}
+        for sid, f in feats.items():
+            by_tb.setdefault(-(-f.shape[0] // AED_FINAL_BUCKET) * AED_FINAL_BUCKET, []).append(sid)
+        for Tb, sids in by_tb.items():
+            padded = torch.zeros((len(sids), Tb, D), device=dev)
+            for i, sid in enumerate(sids):
+                padded[i, : feats[sid].shape[0]] = torch.as_tensor(feats[sid], device=dev)
+            nf = [feats[sid].shape[0] for sid in sids]
+            seqs = A.aed_decode_batch(model, padded, nf, beam=AED_BEAM, max_tokens=aed_final_max_tokens(Tb),
+                                      ctc_weight=AED_CTC_WEIGHT)
+            for i, sid in enumerate(sids):
+                out[sid] = (seqs[i], padded[i:i + 1], nf[i], Tb)
+        return out
+
+    def run(feature_path, subset, windows=False):
+        """Every session through an engine; with windows, a sync-counting
+        window of SERVE_PROFILE_TICKS ticks from tick SERVE_WINDOW_AT (its
+        sessions ending: finals in the ticks), then the busy share of
+        AED_PROFILE_TICKS ticks from the card's activity alone (recording
+        the host's ops too took 43.1 s to read back). -> (the ServeLoop, wall s,
+        launches, busy share or None)."""
+        eng = BatchedAedEngine(model, sfcfg, feature_path=feature_path, **opts)
+        drv = ServeLoop(eng, subset, event, SERVE_SEED, SERVE_PARTIAL_EVERY)
+        busy = None
+        zero_launches()
+        t0 = time.perf_counter()
+        while not drv.done():
+            if windows and not drv.sync_ticks and drv.eng.ticks == SERVE_WINDOW_AT:
+                drv.count_syncs = True
+                for _ in range(SERVE_PROFILE_TICKS):
+                    drv.step()
+                drv.count_syncs = False
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    for _ in range(AED_PROFILE_TICKS):
+                        drv.step()
+                    torch.cuda.synchronize()
+                    w_ms = 1e3 * (time.perf_counter() - t1)
+                d_ms = sum(e.device_time_total for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                busy = d_ms / w_ms if d_ms > 0 else None   # None: no device activity recorded, not measured
+            else:
+                drv.step()
+        torch.cuda.synchronize()
+        return drv, time.perf_counter() - t0, launch_counts(), busy
+
+    parts = {}
+    t0 = time.perf_counter()
+    ded = dedicated(gate)
+    parts["dedicated"] = time.perf_counter() - t0
+    exact, parts["host_run"], e_counts, _b = run("host", gate[:AED_HOST_GATE])
+    fast, s_wall, s_counts, busy = run("device", sessions, windows=True)
+    for name, c in (("the AED engine (host features)", e_counts), ("the AED engine (device features)", s_counts)):
+        only(name, c, k3)
+    final_arms = arms()
+    ties = {}
+    for name, drv in (("host features", exact), ("device features", fast)):
+        ties[name] = {sid: aed_margins(model, p, n, AED_BEAM, aed_final_max_tokens(Tb))
+                      for sid, (seq, p, n, Tb) in ded.items() if sid in drv.finals and drv.finals[sid][0] != seq}
+    if any(g > AED_TIE_GAP for t in ties.values() for g in t.values()):
+        raise RuntimeError(f"the AED engine's finals differ from the per-session finals past a near-tie (least "
+                           f"beam gaps {ties}, limit {AED_TIE_GAP})")
+    # finalize_many against finalize on drained sessions
+    few = sessions[:AED_FINALIZE_CHECK]
+
+    def drained_engine():
+        eng = BatchedAedEngine(model, sfcfg, feature_path="device", **{**opts, "capacity": len(few)})
+        for sid, wave in few:
+            eng.start(sid)
+            eng.feed(sid, wave)
+            eng.end(sid)
+        while not all(eng.drained(sid) for sid, _w in few):
+            eng.tick()
+        return eng
+
+    t0 = time.perf_counter()
+    many = drained_engine().finalize_many([sid for sid, _w in few])
+    one = drained_engine()
+    singles = {sid: one.finalize(sid) for sid, _w in few}
+    if any(many[sid][0] != singles[sid][0] for sid, _w in few):
+        raise RuntimeError("finalize_many differs from finalize")
+    parts["finalize_check"] = time.perf_counter() - t0
+    periods = fast.tick_periods_ms()
+    audio = sum(len(w) for _s, w in sessions) / sfcfg.sample_rate
+    refs = {uid: phones_of(words) for uid, _w, words in corpus}
+    per_e = corpus_wer([refs[s] for s, _w in sessions], [[lex.phones[u] for u in fast.finals[s][0]]
+                                                         for s, _w in sessions])[0]
+    engine = {"capacity": B, "tick_frames": 4 * AED_CHUNK, "sessions": len(sessions), "audio_s": audio,
+              "wall_s": s_wall, "streams_per_card": audio / s_wall, "tick_ms_median": float(np.median(periods)),
+              "partial_ms_median": float(np.median(fast.partial_ms)),
+              "launches_per_tick": {k: v / fast.eng.ticks for k, v in s_counts.items() if v},
+              "syncs_per_tick": fast.syncs / max(fast.sync_ticks, 1), "sync_sites": fast.sync_sites,
+              "busy_share": busy, "gate_sessions": len(ded), "tie_gaps": ties, "final_arms": final_arms,
+              "per": per_e, "finals_k3_launches": {k: v for k, v in s_counts.items() if v}, "parts_s": parts}
+    phase(59, f"BatchedAedEngine at bench_serve.py's configuration on phase 56's model (capacity {B}, "
+              f"{4 * AED_CHUNK}-frame ticks, beam {AED_BEAM}, CTC weight {AED_CTC_WEIGHT}, finals padded to "
+              f"{AED_FINAL_BUCKET} frames, sliding CMVN): finals equal to the per-session finals on "
+              f"{len(exact.finals) - len(ties['host features'])} of the first {len(exact.finals)} sessions with host "
+              f"features "
+              f"and {len(ded) - len(ties['device features'])} of the first {len(ded)} with device features (a final "
+              f"that differs must have a "
+              f"beam gap of at most {AED_TIE_GAP:g}: "
+              + ("none differ" if not any(ties.values()) else f"gaps {ties}")
+              + f"); finalize_many equal to finalize on {len(few)} drained sessions; the first {len(sessions)} "
+              f"held-out "
+              f"utterances ({audio:.0f} s of audio) on device features in {s_wall:.1f} s: "
+              f"{engine['streams_per_card']:.1f} realtime streams a card, {engine['tick_ms_median']:.2f} ms a tick "
+              f"(median), partials {engine['partial_ms_median']:.1f} ms, launches a tick "
+              f"{ {k: round(v, 3) for k, v in engine['launches_per_tick'].items()} } (K3 in the finals only, its "
+              f"{final_arms} arm), {engine['syncs_per_tick']:.2f} synchronizing calls a tick "
+              f"({fast.sync_sites}), busy share "
+              + ("not measured" if busy is None else f"{busy:.3f}") + f"; PER {per_e:.4f}; the phase's other parts s "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+
+    # ---- phase 60: MWER
+    mfb, mlab, mnl = labeled[0]
+    rows_m = torch.arange(AED_MWER_ROWS, device=dev)
+    fb_m = pipe.FeatBatch([mfb.utt_ids[i] for i in range(AED_MWER_ROWS)], mfb.feats[rows_m], mfb.n_frames[rows_m],
+                          [mfb.words[i] for i in range(AED_MWER_ROWS)])
+    mwer_model = copy.deepcopy(model)
+    mcfg = TrainConfig(nn_hidden=AED_HIDDEN, nn_layers=AED_LAYERS, lr=AED_MWER_LR, num_nn_steps=AED_MWER_SCHEDULE)
+    zero_launches()
+    mwer_ms, (_sd, hist) = wall(lambda: pipe.finetune_aed_mwer(mwer_model, [fb_m], encode, mcfg, n_hyps=AED_BEAM,
+                                                               steps=AED_MWER_STEPS))
+    mwer_launches = launch_counts()
+    if any(mwer_launches.values()):
+        raise RuntimeError(f"MWER launched kernels: {mwer_launches}")
+    if not hist[-1] < hist[0]:
+        raise RuntimeError(f"MWER's expected risk did not fall: {hist}")
+    del mwer_model
+    mwer = {"steps": AED_MWER_STEPS, "rows": AED_MWER_ROWS, "ms_per_step": mwer_ms / AED_MWER_STEPS,
+            "expected_risk": hist}
+    phase(60, f"MWER: {AED_MWER_STEPS} finetune_aed_mwer steps (the beam's {AED_BEAM}-best against the current "
+              f"weights, host edit distances, peak lr {AED_MWER_LR:g}) on {AED_MWER_ROWS} rows: expected risk "
+              f"{' -> '.join(f'{h:.3f}' for h in hist)}, {mwer['ms_per_step']:.0f} ms a step")
+    return {"paths": {"aed_train": train_launches, "aed_decode": decode_launches, "aed_engine": s_counts},
+            "aux_ctc": aux_entry, "rescore": rescore, "train": train, "decode": decode, "families": fam_entry,
+            "stream": stream, "engine": engine, "mwer": mwer,
+            "objective": {"loss_rel_err": loss_err, "grad_err": grad_err, "cpu32_grad_err": cpu32_err}}
+
+
+def aed_cli_phase(dev: torch.device) -> dict:
+    """Phase 61: the AED paths of the CLI twins in this process (their output
+    to build/chip_smoke_aed_cli/out.txt), the launch counts set to 0 before
+    and read after: train_nn --objective aed --aed-chunk 8 --bpe-merges
+    --mwer-steps 1, then decode --aed --bpe, eval --aed --bpe, stream --aed,
+    transcribe --aed and serve --aed --engine, each held to the pipeline
+    functions on the checkpoint's model on the same features."""
+    import contextlib
+    import io
+    import shutil
+
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import aed as A
+    from mogasr_torch.cli import decode as cli_decode
+    from mogasr_torch.cli import eval as cli_eval
+    from mogasr_torch.cli import serve as cli_serve
+    from mogasr_torch.cli import stream as cli_stream
+    from mogasr_torch.cli import train_nn as cli_train_nn
+    from mogasr_torch.cli import transcribe as cli_transcribe
+    from mogasr_torch.config import BatchConfig, FrontendConfig, TrainConfig
+    from mogasr_torch.data.bpe import load_bpe
+    from mogasr_torch.data.synthetic import make_corpus
+    from mogasr_torch.frontend.streaming import StreamingFrontend
+    from mogasr_torch.frontend.vad import VadConfig, segment_utterances
+    from mogasr_torch.serving.engine import aed_final_max_tokens
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    work = os.path.join(ROOT, "build", "chip_smoke_aed_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    run_dir = os.path.join(work, "train")
+    corpus = ["--synthetic", "8", "--synthetic-seed", "7"]
+    on = ["--device", str(dev)]
+    size = ["--nn-hidden", "128", "--nn-layers", "2"]
+    ck = os.path.join(run_dir, "nn_aed_conformer")
+    model_args = ["--nn-ckpt", ck, *size, "--bpe", os.path.join(run_dir, "bpe.json")]
+    runs = [
+        (cli_train_nn, corpus + ["--objective", "aed", "--arch", "conformer", "--hidden", "128", "--layers", "2",
+                                 "--steps", "4", "--aed-chunk", "8", "--bpe-merges", "30", "--mwer-steps", "1",
+                                 "--run-dir", run_dir]),
+        (cli_decode, corpus + model_args + ["--aed", "--aed-chunk", "8", "--out", os.path.join(work, "hyps.jsonl"),
+                                            "--run-dir", os.path.join(work, "decode")]),
+        (cli_eval, corpus + model_args + ["--aed", "--run-dir", os.path.join(work, "eval")]),
+        (cli_stream, ["--synthetic-demo", "--aed", "--aed-chunk", "8", *model_args, "--run-dir",
+                      os.path.join(work, "stream")]),
+        (cli_transcribe, ["--synthetic-demo", "--aed", "--aed-chunk", "8", *model_args, "--run-dir",
+                          os.path.join(work, "transcribe")]),
+        (cli_serve, ["--synthetic-demo-session", "--engine", "--feature-path", "host", "--aed", "--aed-chunk", "8",
+                     *model_args, "--run-dir", os.path.join(work, "serve")]),
+    ]
+    zero_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        for cli, argv in runs:
+            cli.main(argv + on)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(work, "out.txt"), "w") as f:
+        f.write(buf.getvalue())
+    if min(launches[k] for k in ("fb_forward", "fb_backward", "fb_combine")) == 0 or \
+            any(launches[k] for k in ("gmm_score", "viterbi", "lstm_scan")):
+        raise RuntimeError(f"the AED CLI twins did not go through K3 alone: {launches}")
+    bpe = load_bpe(os.path.join(run_dir, "bpe.json"))
+    fcfg = FrontendConfig()
+
+    def load(chunk):
+        m = A.build_aed_model(bpe.n_units, TrainConfig(nn_hidden=128, nn_layers=2), fcfg.feat_dim,
+                              chunk_frames=chunk)
+        m.load_state_dict({k: torch.as_tensor(v) for k, v in restore_checkpoint(ck)["params"].items()})
+        return m.to(dev).eval()
+
+    model, offline = load(8), load(0)
+    utts = make_corpus(8, seed=7)
+    batches = [pipe.live_rows(b) for b in pipe.featurize([(u.utt_id, u.wave, u.words) for u in utts], fcfg,
+                                                         BatchConfig(), dev)]
+    mismatch = []
+
+    def words_of(m, fb, **kw):
+        toks, n, _s = A.make_aed_decoder(m, **kw)(fb.feats, fb.n_frames)
+        toks, n = toks.cpu().numpy(), n.cpu().numpy()
+        return {uid: bpe.decode([int(t) for t in toks[b, : n[b]]]) for b, uid in enumerate(fb.utt_ids)}
+
+    want_dec, want_eval = {}, {}
+    for fb in batches:
+        want_dec.update(words_of(model, fb, beam=4, max_tokens=64, ctc_weight=0.3))
+        want_eval.update(words_of(offline, fb, beam=4, max_tokens=48))
+    with open(os.path.join(work, "hyps.jsonl")) as f:
+        if {r["utt_id"]: r["hyp"] for r in map(json.loads, f)} != want_dec:
+            mismatch.append("decode")
+    with open(os.path.join(work, "eval", "eval_hyps.jsonl")) as f:
+        if {r["utt_id"]: r["hyp"] for r in map(json.loads, f)} != want_eval:
+            mismatch.append("eval")
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    finals = [e for e in lines if "final" in e]
+
+    def streamed(wave, event, sfcfg):
+        fe = StreamingFrontend(sfcfg, device=dev)
+        return np.concatenate([fe.process(wave[i:i + event]) for i in range(0, len(wave), event)] + [fe.finalize()])
+
+    stream_fcfg = FrontendConfig(cmvn="sliding", cmvn_window=600)
+    f = streamed(make_corpus(1, words_per_utt=(4, 6), seed=7)[0].wave, 4000, stream_fcfg)
+    want = bpe.decode(A.aed_decode_batch(model, f[None], [f.shape[0]], beam=4, max_tokens=max(8, 2 + f.shape[0] // 4),
+                                         ctc_weight=0.3)[0])
+    if finals[0]["final"] != want:
+        mismatch.append("stream")
+    f = streamed(make_corpus(1, words_per_utt=(2, 3), seed=7)[0].wave, 4000, stream_fcfg)
+    Tb = -(-f.shape[0] // 256) * 256
+    padded = np.zeros((1, Tb, f.shape[1]), np.float32)
+    padded[0, : f.shape[0]] = f
+    want = bpe.decode(A.aed_decode_batch(model, padded, [f.shape[0]], beam=4, max_tokens=aed_final_max_tokens(Tb),
+                                         ctc_weight=0.3)[0])
+    if [e["final"] for e in finals[1:]] != [want]:
+        mismatch.append("serve")
+    gap = np.zeros(16000, np.float32)
+    t_utts = make_corpus(4, words_per_utt=(2, 3), seed=5)
+    wave = np.concatenate(sum(([u.wave, gap] for u in t_utts), [gap]))
+    bounds = segment_utterances(wave, fcfg, VadConfig(max_segment_s=30.0))
+    segs = {round(e["start_s"], 2): e["words"] for e in lines if "start_s" in e}
+    want = {}
+    for fb in pipe.featurize([(f"seg-{i:04d}", wave[a:b], []) for i, (a, b) in enumerate(bounds)], fcfg,
+                             BatchConfig(bucket_boundaries=(500, 1000, 2000, 3010)), dev):
+        for uid, seq in zip(fb.utt_ids, A.aed_decode_batch(model, fb.feats, fb.n_frames, beam=4, max_tokens=64,
+                                                          ctc_weight=0.3)):
+            want[round(bounds[int(uid.split("-")[1])][0] / fcfg.sample_rate, 2)] = bpe.decode(seq)
+    if segs != want:
+        mismatch.append("transcribe")
+    if mismatch:
+        raise RuntimeError(f"the AED CLI twins differ from the pipeline functions: {mismatch}")
+    phase(61, f"the AED CLI twins in this process, {seconds:.1f} s: train_nn --objective aed (conformer 128 x 2, "
+              f"--aed-chunk 8, 30 BPE merges, --mwer-steps 1), decode --aed --bpe, eval --aed --bpe, stream --aed, "
+              f"transcribe --aed ({len(bounds)} segments) and serve --aed --engine, each equal to the pipeline "
+              f"functions on the checkpoint's model; launches {launches}")
     return launches
 
 
@@ -5422,6 +6158,8 @@ def main() -> None:
     serve_cli = serve_cli_phase(dev)
     rnnt_res = rnnt_phases(dev, topo, fcfg, corpus, bcfg, train_fbs, ce_model)
     rnnt_cli = rnnt_cli_phase(dev)
+    aed_res = aed_phases(dev, topo, fcfg, corpus, bcfg, train_fbs)
+    aed_cli = aed_cli_phase(dev)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -5431,7 +6169,8 @@ def main() -> None:
              "confidence": lm_entry["confidence"], "cli": cli_launches, "streaming": stream["streaming"],
              "online": stream["online"], "stream_cli": stream["stream_cli"], **adapt_paths,
              "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli, **ctc_res["paths"], "ctc_cli": ctc_cli,
-             **serving["paths"], "serve_cli": serve_cli, **rnnt_res["paths"], "rnnt_cli": rnnt_cli}
+             **serving["paths"], "serve_cli": serve_cli, **rnnt_res["paths"], "rnnt_cli": rnnt_cli,
+             **aed_res["paths"], "aed_cli": aed_cli}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]
@@ -5543,6 +6282,12 @@ def main() -> None:
                       "device_prefix_beam": ctc_res["beam"]},
          "rnnt_aux_ctc": {"launches_per_step": rnnt_res["train"]["k3_launches_per_step"],
                           "training_ms_per_step": rnnt_res["train"]["ms_per_step"], **rnnt_res["aux_ctc"]},
+         # the AED slice: the aux CTC term of its training step and the joint rescoring of its beam
+         "aed_aux_ctc": {"launches_per_step": aed_res["train"]["k3_launches_per_step"],
+                         "training": aed_res["train"], "objective": aed_res["objective"], **aed_res["aux_ctc"]},
+         "aed_rescore": {**aed_res["rescore"], "held_out_decode": aed_res["decode"],
+                         "families_decode": aed_res["families"], "stream": aed_res["stream"],
+                         "engine": aed_res["engine"], "mwer": aed_res["mwer"]},
          "decode_batch": {"arm": k3d["arm"], "shape": [k3d["B"], k3d["T"], k3d["J"]], "ms": k3d["fb_forward_kernel"],
                           "plain_ms": k3d["plain_fwd_ms"], "max_abs_err": k3d["loglik_max_abs_err"],
                           "bound_ms": k3d["bounds"]["fwd"][0], "bound_by": k3d["bounds"]["fwd"][1],

@@ -23,11 +23,13 @@ Exports are lazy so that ``import mogasr_torch`` stays light:
     mogasr_torch.train_gmm(batches, lexicon, topo, gcfg, tcfg, gmm=..., mode=...)
     mogasr_torch.init_gmm(cfg, generator, data_mean, data_var, device=...)
     mogasr_torch.corpus_wer(refs, hyps), ctc_loss(...), rnnt_loss(...), train_bpe(texts, n_merges)
+    mogasr_torch.aed_decode_batch(model, feats, n_frames, ...), aed_stream_init(model, batch, n_feats),
+    mogasr_torch.make_aed_stream_step(model)
     mogasr_torch.pipeline                       (the module)
     mogasr_torch.{Batch,Decode,Frontend,Gmm,Mesh,Pipeline,Topology,Train}Config
 
-Every name the reference's ``mogasr/__init__.py`` exports resolves here but
-the AED ones (ROADMAP item 13); ``gmm_loglik_pallas``, its fused
+Every name the reference's ``mogasr/__init__.py`` exports resolves here;
+``gmm_loglik_pallas``, its fused
 scorer's name, is the K1 wrapper ``gmm_cuda.gmm_loglik_fused``.
 """
 
@@ -62,6 +64,9 @@ _EXPORTS = {
     "corpus_wer": "mogasr_torch.eval.wer",
     "ctc_loss": "mogasr_torch.am.ctc",
     "rnnt_loss": "mogasr_torch.am.rnnt",
+    "aed_decode_batch": "mogasr_torch.am.aed",
+    "aed_stream_init": "mogasr_torch.am.aed",
+    "make_aed_stream_step": "mogasr_torch.am.aed",
     "train_bpe": "mogasr_torch.data.bpe",
     "pipeline": "mogasr_torch.pipeline",
 }

@@ -206,7 +206,8 @@ def ctc_loss(
     about 1e30, as in the reference; on K3 its gradient is 0."""
     V = logits.shape[-1]
     bid = V - 1 if blank_id is None else int(blank_id)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    # float32; a float64 input (a float64 check of a gradient) stays float64
+    logp = torch.log_softmax(logits if logits.dtype == torch.float64 else logits.to(torch.float32), dim=-1)
     if use_kernels and logp.device.type == "cuda":
         return ctc_nll_fb(logp, n_frames, labels, n_labels, bid)
     return ctc_loss_plain(logp, n_frames, labels, n_labels, bid)

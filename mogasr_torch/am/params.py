@@ -17,6 +17,12 @@ k]); an FFN's Dense that flax numbers 0 is its second layer (``fc2``: the
 outer ``Dense(D)`` is built before the inner one), and ``rel_bias`` [heads,
 2 max_rel + 1] is taken as it is.
 
+The AED (``am.aed.AedModel``): its encoder is the ConformerAm's under
+``encoder``; flax numbers a decoder block's compact modules in construction
+order: ``LayerNorm_0..2`` (before the self-attention, the cross-attention
+and the FFN), ``Dense_0..3`` (q, k, v, the self-attention output),
+``CrossAttention_0/Dense_0..3`` (q, k, v, output) and ``_Ffn_0``.
+
 The neural LMs (``lm.neural``) and the RNN-T (``am.rnnt``): an ``Embed``'s
 table is taken as it is; flax numbers the TransformerLm's Dense layers in
 construction order, six a block (q, k, v, the attention output, then the
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mogasr_torch.am.aed import RelSelfAttention
+from mogasr_torch.am.aed import AedModel, RelSelfAttention
 from mogasr_torch.am.neural import BlstmAm, ConformerAm, LstmAm, LstmLayer, MlpAm, MoeAm, MoeBlock, TdnnAm
 from mogasr_torch.am.rnnt import RnntModel, RnntPrediction
 from mogasr_torch.lm.neural import NeuralLm, TransformerLm
@@ -82,6 +88,41 @@ def _conformer_block(prefix: str, p: Mapping[str, Any]) -> Dict[str, torch.Tenso
     sd.update(_dense(f"{prefix}.conv_out", p["conv_out"]))
     sd[f"{prefix}.dconv.weight"] = _t(p["dconv"]["kernel"]).permute(2, 1, 0).contiguous()
     sd[f"{prefix}.dconv.bias"] = _t(p["dconv"]["bias"])
+    return sd
+
+
+def _conformer_encoder(prefix: str, enc: Mapping[str, Any], blocks: int) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for conv in ("conv1", "conv2"):
+        sd[f"{prefix}.sub.{conv}.weight"] = _t(enc["sub"][conv]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"{prefix}.sub.{conv}.bias"] = _t(enc["sub"][conv]["bias"])
+    sd.update(_dense(f"{prefix}.sub.proj", enc["sub"]["proj"]))
+    for i in range(blocks):
+        sd.update(_conformer_block(f"{prefix}.blks.{i}", enc[f"blks_{i}"]))
+    return sd
+
+
+def _no_bias(prefix: str, leaf: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(leaf["kernel"]).T.contiguous()}
+
+
+def _aed(model: AedModel, p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    sd = _conformer_encoder("encoder", p["encoder"], model.enc_blocks)
+    sd["embed.weight"] = _t(p["embed"]["embedding"])
+    for i in range(model.dec_blocks):
+        d, pre = p[f"dec_{i}"], f"dec.{i}"
+        for j, name in enumerate(("q", "k", "v")):
+            sd.update(_no_bias(f"{pre}.{name}", d[f"Dense_{j}"]))
+            sd.update(_no_bias(f"{pre}.cross.{name}", d["CrossAttention_0"][f"Dense_{j}"]))
+        sd.update(_dense(f"{pre}.o", d["Dense_3"]))
+        sd.update(_dense(f"{pre}.cross.o", d["CrossAttention_0"]["Dense_3"]))
+        for j, name in enumerate(("ln_self", "ln_cross", "ln_ffn")):
+            sd.update(_norm(f"{pre}.{name}", d[f"LayerNorm_{j}"]))
+        sd.update(_dense(f"{pre}.ffn.fc1", d["_Ffn_0"]["Dense_1"]))
+        sd.update(_dense(f"{pre}.ffn.fc2", d["_Ffn_0"]["Dense_0"]))
+    sd.update(_norm("dec_norm", p["dec_norm"]))
+    sd.update(_dense("out", p["out"]))
+    sd.update(_dense("ctc_head", p["ctc_head"]))
     return sd
 
 
@@ -158,14 +199,10 @@ def from_flax(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, torch.Te
         sd.update(_norm("ln_out", p["ln_out"]))
         sd.update(_dense("head", p["head"]))
     elif isinstance(model, ConformerAm):
-        enc = p["enc"]
-        for conv in ("conv1", "conv2"):
-            sd[f"enc.sub.{conv}.weight"] = _t(enc["sub"][conv]["kernel"]).permute(3, 2, 0, 1).contiguous()
-            sd[f"enc.sub.{conv}.bias"] = _t(enc["sub"][conv]["bias"])
-        sd.update(_dense("enc.sub.proj", enc["sub"]["proj"]))
-        for i in range(model.layers):
-            sd.update(_conformer_block(f"enc.blks.{i}", enc[f"blks_{i}"]))
+        sd.update(_conformer_encoder("enc", p["enc"], model.layers))
         sd.update(_dense("head", p["head"]))
+    elif isinstance(model, AedModel):
+        sd.update(_aed(model, p))
     elif isinstance(model, RnntModel):
         sd.update(_rnnt(model, p))
     elif isinstance(model, NeuralLm):

@@ -75,12 +75,13 @@ def init_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
 
 def clip_by_global_norm_(params: List[nn.Parameter], max_norm: float = CLIP_NORM) -> torch.Tensor:
     """optax's ``clip_by_global_norm``: every gradient scaled by max_norm /
-    norm when the global norm is at or above max_norm; returns the norm."""
+    norm when the global norm is at or above max_norm; returns the norm.
+    The norms and the scaling are multi-tensor launches (a few in all, not
+    a few a parameter)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    for g in grads:
-        g.mul_(scale)
+    torch._foreach_mul_(grads, scale)
     return norm
 
 

@@ -1,14 +1,15 @@
 """Shared CLI plumbing for the port's entry points: corpus loading (the
 synthetic corpora, a JSONL manifest, a LibriSpeech-layout directory),
-waveform augmentation, run directories, the device, the GMM, the hybrid NN, the CTC model and the
-RNN-T of the decode CLIs, and the prefix beams' biasing and fusion. The twin of the reference's cli/common.py (and of
-``load_or_random_gmm`` in cli/score.py).
+waveform augmentation, run directories, the device, the GMM, the hybrid NN,
+the CTC model, the RNN-T and the AED of the decode CLIs, and the prefix
+beams' biasing and fusion. The twin of the reference's cli/common.py (and
+of ``load_or_random_gmm`` in cli/score.py).
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,14 +117,6 @@ def load_corpus(args) -> Tuple[List[Tuple[str, np.ndarray, List[str]]], Lexicon]
     return corpus, lex
 
 
-def refuse_unported(flags) -> None:
-    """Raise NotImplementedError for the first ``(flag, given, ROADMAP item)``
-    whose flag was given: its path is not ported yet."""
-    for flag, given, item in flags:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported to mogasr_torch yet (ROADMAP item {item})")
-
-
 HYBRID_ARCHS = ["mlp", "lstm", "blstm", "tdnn", "conformer", "moe"]
 
 
@@ -205,6 +198,43 @@ def load_rnnt_model(args, arch: str, n_units: int, feat_dim: int, device: torch.
     model = build_rnnt_model(n_units, TrainConfig(nn_hidden=args.nn_hidden, nn_layers=args.nn_layers), feat_dim,
                              encoder_arch=arch, pred_arch=args.rnnt_pred, aux_ctc=not args.rnnt_plain,
                              simple_heads=args.rnnt_pruned)
+    ck = restore_checkpoint(args.nn_ckpt)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in ck["params"].items()})
+    return model.to(device).eval()
+
+
+def add_aed_args(p: argparse.ArgumentParser, chunk: Optional[int] = 0, ctc_weight: bool = True,
+                 max_tokens: Optional[int] = 64) -> None:
+    """The AED beam's width and, as the reference's CLI has them, its joint
+    CTC weight, token budget, and the chunked encoder's configuration (must
+    match training; ``chunk`` the default of --aed-chunk, None: no such
+    options)."""
+    p.add_argument("--aed-beam", type=int, default=4, help="beam width of the AED decoder")
+    if ctc_weight:
+        p.add_argument("--aed-ctc-weight", type=float, default=0.3,
+                       help="joint decoding: rescore the final AED beams with the encoder's CTC head at this weight "
+                            "(0: attention only)")
+    if max_tokens is not None:
+        p.add_argument("--aed-max-tokens", type=int, default=max_tokens, help="token budget of the AED beam search")
+    if chunk is not None:
+        p.add_argument("--aed-chunk", type=int, default=chunk, metavar="C",
+                       help="the checkpoint's chunked streaming encoder (train_nn --aed-chunk C): subsampled frames a "
+                            "chunk; must match training")
+        p.add_argument("--aed-left-chunks", type=int, default=1, help="left-context chunks (must match training)")
+
+
+def load_aed_model(args, n_units: int, feat_dim: int, device: torch.device) -> torch.nn.Module:
+    """The AED over n_units in ``--nn-ckpt`` (its latest step, ``{"params":
+    state_dict}`` as ``cli.train_nn --objective aed`` writes it) at
+    ``--nn-hidden/--nn-layers`` and ``--aed-chunk/--aed-left-chunks`` where
+    the CLI has them, in eval mode on ``device``; a checkpoint of another
+    configuration raises."""
+    from mogasr_torch.am.aed import build_aed_model
+    from mogasr_torch.config import TrainConfig
+    from mogasr_torch.utils.checkpoint import restore_checkpoint
+
+    model = build_aed_model(n_units, TrainConfig(nn_hidden=args.nn_hidden, nn_layers=args.nn_layers), feat_dim,
+                            chunk_frames=getattr(args, "aed_chunk", 0), left_chunks=getattr(args, "aed_left_chunks", 1))
     ck = restore_checkpoint(args.nn_ckpt)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in ck["params"].items()})
     return model.to(device).eval()

@@ -42,8 +42,14 @@ lists with the neural word LM (``lm.neural.rescore_nbest_nnlm``, weight
 lattice pass), of the CTC prefix beam with ``--ctc --bpe``, and of the RNN-T
 beam with ``--rnnt --bpe --rnnt-beam N`` (its N-best, at most N deep).
 
-Not ported yet, and raising NotImplementedError naming ROADMAP item 13:
-``--aed``. ``--add-pitch`` appends the pitch triple (``frontend/pitch.py``)
+``--aed --nn-ckpt <run-dir>/nn_aed_<arch>`` (``cli.train_nn --objective
+aed``; ``--nn-hidden/--nn-layers`` and ``--aed-chunk/--aed-left-chunks`` as
+trained; ``--am`` is not read): the attention encoder-decoder's beam search
+(``am.aed.make_aed_decoder``, width ``--aed-beam``, ``--aed-max-tokens``
+tokens), its final beams rescored with the CTC head on K3 at
+``--aed-ctc-weight``; phones in phone mode, BPE words with ``--bpe`` in word
+mode, with ``--fusion-lm`` (a unit bigram over the BPE units) gathered
+inside the beam. ``--add-pitch`` appends the pitch triple (``frontend/pitch.py``)
 to the features.
 """
 
@@ -55,8 +61,8 @@ import os
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_corpus_args, add_ctc_beam_args, add_nn_args, add_rnnt_args, add_run_args, device_of, load_corpus,
-    load_nn_scorer, load_or_random_gmm, make_logger, refuse_unported,
+    add_aed_args, add_corpus_args, add_ctc_beam_args, add_nn_args, add_rnnt_args, add_run_args, device_of,
+    load_corpus, load_nn_scorer, load_or_random_gmm, make_logger,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
@@ -85,15 +91,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "phones+blank, CTC-topology decode graph (word mode) or greedy best-path phone decode "
                         "(phone mode)")
     p.add_argument("--bpe", metavar="FILE",
-                   help="with --ctc/--rnnt: the checkpoint was trained on BPE subword units (train_nn --bpe-merges; "
+                   help="with --ctc/--rnnt/--aed: the checkpoint was trained on BPE subword units (train_nn "
+                        "--bpe-merges; "
                         "FILE is its bpe.json): lexicon-free word decoding")
     p.add_argument("--rnnt", action="store_true",
                    help="the NN checkpoint is an RNN-transducer (train_nn --objective rnnt): device greedy (or "
                         "--rnnt-beam) decoding over phones (--mode phone) or BPE words (--bpe); --am lstm/blstm "
                         "picks the encoder")
     add_rnnt_args(p)
-    # the AED family's primary flag, accepted as the reference's is; it raises
-    p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
+    p.add_argument("--aed", action="store_true",
+                   help="the NN checkpoint is an attention encoder-decoder (train_nn --objective aed): beam search "
+                        "over the Conformer and decoder (--mode phone, or word with --bpe; --nn-hidden/--nn-layers "
+                        "must match training; --am is not read)")
+    add_aed_args(p)
     p.add_argument("--ivector-ckpt", metavar="DIR",
                    help="i-vector extractor (cli.train_nn --ivector-dim): append per-utterance i-vectors to the "
                         "hybrid model's features")
@@ -142,12 +152,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
     if args.am != "gmm" and not args.nn_ckpt:
         raise SystemExit("--nn-ckpt is required with --am mlp/lstm")
     if args.am != "gmm" and args.bundle:
         raise SystemExit("--bundle carries a GMM system: incompatible with a hybrid --am")
-    if args.ivector_ckpt and (args.am == "gmm" or args.rnnt):
+    if args.ivector_ckpt and (args.am == "gmm" or args.aed or args.rnnt):
         raise SystemExit("--ivector-ckpt augments hybrid/CTC neural features: use --am mlp/lstm/blstm/tdnn")
     device = device_of(args.device)
     bundle = None
@@ -188,10 +197,22 @@ def main(argv=None) -> None:
         raise SystemExit("--rnnt --bpe decodes words (--mode word); without --bpe phones (--mode phone)")
     if args.rnnt and (args.bias or args.nnlm_rescore) and args.rnnt_beam <= 0:
         raise SystemExit("--rnnt --bias/--nnlm-rescore work inside the beam search: add --rnnt-beam N")
+    if args.aed and (args.ctc or args.rnnt or args.multi_pron or needs_lattice or args.bigram_lm or args.grammar
+                     or args.trigram_rescore):
+        raise SystemExit("--aed is direct beam-search decoding: incompatible with "
+                         "--ctc/--rnnt/--multi-pron/--bigram-lm/--grammar/lattice passes")
     if args.ctc and args.bpe and (args.mode == "phone" or args.consensus != "off" or args.nbest > 0
                                   or args.bigram_lm or args.trigram_rescore or args.lattice_out):
         raise SystemExit("--ctc --bpe decodes words via the prefix beam: incompatible with --mode phone, "
                          "--consensus, --nbest, --bigram-lm, --trigram-rescore, --lattice-out")
+    if args.aed and args.bpe and args.mode != "word":
+        raise SystemExit("--aed --bpe decodes words: use --mode word")
+    if args.aed and not args.bpe and args.mode != "phone":
+        raise SystemExit("--aed without --bpe decodes phones: use --mode phone")
+    if args.aed and args.fusion_lm and not args.bpe:
+        raise SystemExit("--aed --fusion-lm needs --bpe (the unit LM is over the BPE inventory)")
+    if args.aed and not args.nn_ckpt:
+        raise SystemExit("--nn-ckpt is required with --am mlp/lstm")
 
     run_dir = os.path.abspath(args.run_dir)
     with trace(os.path.join(run_dir, "profile") if args.profile else None):
@@ -208,7 +229,16 @@ def main(argv=None) -> None:
             batches = append_ivectors(batches, extractor)
             ivec_rank = extractor.rank
         bpe = None
-        if args.rnnt:
+        if args.aed:
+            from mogasr_torch.cli.common import load_aed_model
+
+            if args.bpe:
+                from mogasr_torch.data.bpe import load_bpe
+
+                bpe = load_bpe(args.bpe)
+            aed_model = load_aed_model(args, bpe.n_units if bpe is not None else lex.n_phones, fcfg.feat_dim, device)
+            scorer = None
+        elif args.rnnt:
             from mogasr_torch.cli.common import load_rnnt_model
 
             if args.bpe:
@@ -236,8 +266,8 @@ def main(argv=None) -> None:
             scorer = load_nn_scorer(args, topo.n_pdfs, fcfg.feat_dim + ivec_rank, device)
 
         pron_logp = None
-        if args.rnnt:
-            graph = None  # frame-synchronous transducer decoding needs no graph
+        if args.aed or args.rnnt:
+            graph = None  # label-synchronous attention and frame-synchronous transducer decoding need no graph
         elif args.ctc:
             from mogasr_torch.am.ctc import ctc_decode_graph
 
@@ -293,15 +323,18 @@ def main(argv=None) -> None:
             from mogasr_torch.lm.neural import load_nnlm
 
             nnlm = load_nnlm(args.nnlm_rescore, device)  # (model, vocab)
-        rnnt_units = _rnnt_decoder(args, rnnt_model, bpe, lex, nnlm) if args.rnnt else None
+        if args.aed:
+            e2e_units = _aed_decoder(args, aed_model, bpe, lex)
+        elif args.rnnt:
+            e2e_units = _rnnt_decoder(args, rnnt_model, bpe, lex, nnlm)
 
         refs, hyps, ids, nbest_lists = [], [], [], []
         wrote_lattices = False
         audio_sec = sum(len(w) for _, w, _ in corpus) / fcfg.sample_rate
         with Timer() as t:
             for fb in map(live_rows, batches):
-                if args.rnnt:
-                    out = rnnt_units(fb)
+                if args.aed or args.rnnt:
+                    out = e2e_units(fb)
                     for b in range(fb.size):
                         ids.append(fb.utt_ids[b])
                         refs.append([w.lower() for w in fb.words[b]])
@@ -428,6 +461,29 @@ def _ctc_bpe_words(args, bpe, logp, n_frames, nnlm):
     if nnlm is not None:
         return _nnlm_best(args, nnlm, ranked, bpe)
     return [bpe.decode(r[0][1]) for r in ranked]
+
+
+def _aed_decoder(args, model, bpe, lex):
+    """``--aed``: fb -> each row's words (BPE) or phones from the beam
+    search, its finals rescored with the CTC head (K3), with ``--fusion-lm``
+    the unit bigram inside the beam."""
+    from mogasr_torch.am.aed import aed_fusion_matrix, make_aed_decoder
+
+    fusion = None
+    if args.fusion_lm:
+        from mogasr_torch.lm.unit_ngram import load_unit_lm
+
+        fusion = aed_fusion_matrix(model, load_unit_lm(args.fusion_lm), args.fusion_weight)
+    dec = make_aed_decoder(model, beam=args.aed_beam, max_tokens=args.aed_max_tokens, ctc_weight=args.aed_ctc_weight,
+                           fusion=fusion)
+
+    def decode(fb):
+        toks, n_toks, _ = dec(fb.feats, fb.n_frames)
+        toks, n_toks = toks.cpu().numpy(), n_toks.cpu().numpy()
+        seqs = [[int(t) for t in toks[b, : n_toks[b]]] for b in range(fb.size)]
+        return [bpe.decode(s) for s in seqs] if bpe is not None else [[lex.phones[u] for u in s] for s in seqs]
+
+    return decode
 
 
 def _rnnt_decoder(args, model, bpe, lex, nnlm):

@@ -52,8 +52,11 @@ subsampled rate), one [B, T] int copy to the host, the collapse and
 (``cli.train_nn --objective rnnt --bpe-merges``; ``--nn-arch lstm|blstm``,
 ``--rnnt-pred/--rnnt-plain/--rnnt-pruned`` as trained): the encoder on K4,
 the device greedy (the label loop), or with ``--rnnt-beam N`` the device
-beam. Not ported yet, and raising NotImplementedError naming ROADMAP item
-13: ``--aed``. The options that only that path reads are left out.
+beam. ``--aed --bpe FILE --nn-ckpt DIR`` sweeps a BPE-AED (``cli.train_nn
+--objective aed --bpe-merges``; ``--nn-hidden/--nn-layers`` as trained) with
+the attention beam search (``am.aed.make_aed_decoder``, width
+``--aed-beam``, ``--aed-max-tokens`` tokens, no CTC rescoring, as the
+reference sweeps it).
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ import os
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
     add_corpus_args, add_nn_args, add_run_args, device_of, load_corpus, load_nn_scorer, load_or_random_gmm,
-    add_rnnt_args, make_logger, refuse_unported,
+    add_aed_args, add_rnnt_args, make_logger,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.eval.wer import corpus_wer
@@ -111,9 +114,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="evaluate a BPE-RNNT checkpoint (train_nn --objective rnnt --bpe-merges): the device greedy, "
                         "or the device beam with --rnnt-beam; requires --bpe and --nn-ckpt")
     add_rnnt_args(p)
-    # the AED path's primary flag, accepted as the reference's is; it raises
-    p.add_argument("--aed", action="store_true", help="BPE-AED checkpoint (not ported yet: raises)")
-    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc/--rnnt)")
+    p.add_argument("--aed", action="store_true",
+                   help="evaluate a BPE-AED checkpoint (train_nn --objective aed --bpe-merges): the batched beam "
+                        "search; requires --bpe and --nn-ckpt")
+    add_aed_args(p, chunk=None, ctc_weight=False, max_tokens=48)
+    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc/--rnnt/--aed)")
     p.add_argument("--nn-arch", default="lstm", choices=["mlp", "lstm", "blstm", "tdnn", "conformer"],
                    help="with --ctc: the CTC model's architecture; with --rnnt: the encoder (lstm/blstm)")
     add_nn_args(p)
@@ -181,7 +186,6 @@ def main(argv=None) -> None:
             raise SystemExit("--bundle carries a GMM system: incompatible with a hybrid --am")
         if lexicon_free:
             raise SystemExit("--ctc/--rnnt/--aed are lexicon-free sweeps: use them without --am")
-    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
     if len(lexicon_free) > 1:
         raise SystemExit(f"pick one of {'/'.join(lexicon_free)}")
     if lexicon_free and not (args.bpe and args.nn_ckpt):
@@ -239,6 +243,21 @@ def main(argv=None) -> None:
             else:
                 seqs = rnnt_greedy_decode_device(rnnt_model, fb.feats, fb.n_frames)
             return [bpe.decode(seq) for seq in seqs]
+
+        gmm = params = hybrid = None
+    elif args.aed:
+        from mogasr_torch.am.aed import make_aed_decoder
+        from mogasr_torch.cli.common import load_aed_model
+        from mogasr_torch.data.bpe import load_bpe
+
+        bpe = load_bpe(args.bpe)
+        aed_dec = make_aed_decoder(load_aed_model(args, bpe.n_units, fcfg.feat_dim, device), beam=args.aed_beam,
+                                   max_tokens=args.aed_max_tokens)
+
+        def neural(fb):
+            toks, n_toks, _ = aed_dec(fb.feats, fb.n_frames)
+            toks, n_toks = toks.cpu().numpy(), n_toks.cpu().numpy()
+            return [bpe.decode([int(t) for t in toks[b, : n_toks[b]]]) for b in range(fb.size)]
 
         gmm = params = hybrid = None
     elif args.am == "gmm":

@@ -1,6 +1,5 @@
 """Streaming recognition server on the card: many concurrent sessions over a
-line-delimited JSON protocol. The twin of the reference's cli/serve.py on
-its GMM, CTC and RNN-T paths.
+line-delimited JSON protocol. The twin of the reference's cli/serve.py.
 
     python -m mogasr_torch.cli.serve --synthetic-demo-session    # one session, a self-test
     cat events.jsonl | python -m mogasr_torch.cli.serve [--engine] [--device cpu]
@@ -36,9 +35,16 @@ serves phones, or words with ``--bpe``: per session an
 read the port's checkpoint format; without ``--gmm-ckpt`` a random GMM is
 drawn as the reference draws it. Runs on ``--device`` (default cuda).
 
-Not ported yet, and raising NotImplementedError naming ROADMAP item 13: the
-chunked streaming AED, ``--aed``. The options that only that path reads are
-left out.
+``--aed --nn-ckpt <run-dir>/nn_aed_<arch>`` (``cli.train_nn --objective aed
+--aed-chunk C``; ``--aed-chunk/--aed-left-chunks`` and ``--nn-hidden/
+--nn-layers`` as trained) serves the chunked streaming AED: per session the
+chunked encoder over every complete chunk of 4 C feature frames and
+CTC-greedy partials, then the exact attention beam over the session's whole
+history (padded to a multiple of 256 frames, the token budget
+``serving.engine.aed_final_max_tokens`` of the padded length, rescored with
+the CTC head on K3 at ``--aed-ctc-weight``); with ``--engine`` the
+``BatchedAedEngine`` (``--aed-stream-precision bfloat16`` for its chunk
+step). Phones, or words with ``--bpe``.
 """
 
 from __future__ import annotations
@@ -52,8 +58,8 @@ import numpy as np
 import torch
 
 from mogasr_torch.cli.common import (
-    add_ctc_beam_args, add_rnnt_args, add_run_args, ctc_ext_score, device_of, load_or_random_gmm, make_logger,
-    refuse_unported,
+    add_aed_args, add_ctc_beam_args, add_rnnt_args, add_run_args, ctc_ext_score, device_of, load_or_random_gmm,
+    make_logger,
 )
 from mogasr_torch.config import DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.hmm.lexicon import load_lexicon, synthetic_lexicon
@@ -248,7 +254,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "by the connection that started them (a dropped client's are reaped)")
     p.add_argument("--port-file", metavar="FILE", help="with --tcp: write the bound port to FILE once listening")
     p.add_argument("--engine", action="store_true",
-                   help="the batched session engine (GMM, or --ctc): one chain of launches a tick advances every "
+                   help="the batched session engine (GMM, --ctc, --rnnt or --aed): one chain of launches a tick "
+                        "advances every "
                         "live session (serving/engine.py)")
     p.add_argument("--engine-capacity", type=int, default=16, help="engine slots (= most concurrent sessions)")
     p.add_argument("--feature-path", choices=["device", "host"], default="device",
@@ -266,9 +273,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ctc", action="store_true",
                    help="serve a BPE-CTC LstmAm instead of the GMM: stateful LSTM chunks, then streaming greedy or "
                         "prefix-beam decoding to words (needs --nn-ckpt and --bpe)")
-    p.add_argument("--nn-ckpt", help="CTC/RNN-T checkpoint dir (with --ctc/--rnnt; the port's format, cli.train_nn "
-                                     "--objective ctc/rnnt --arch lstm)")
-    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc, or --rnnt for words)")
+    p.add_argument("--nn-ckpt", help="CTC/RNN-T/AED checkpoint dir (with --ctc/--rnnt/--aed; the port's format, "
+                                     "cli.train_nn --objective ctc/rnnt --arch lstm, or aed)")
+    p.add_argument("--bpe", metavar="FILE", help="bpe.json (with --ctc, or --rnnt/--aed for words)")
     p.add_argument("--nn-hidden", type=int, default=512)
     p.add_argument("--nn-layers", type=int, default=3)
     add_ctc_beam_args(p)
@@ -279,8 +286,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-symbols", type=int, default=400,
                    help="with --rnnt (per-session mode): the hypothesis buffer's cap a session; the engine harvests "
                         "every tick and has no cap")
-    # the streaming AED's primary flag, accepted as the reference's is; it raises
-    p.add_argument("--aed", action="store_true", help="serve a chunked streaming AED (not ported yet: raises)")
+    p.add_argument("--aed", action="store_true",
+                   help="serve a chunked streaming AED (train_nn --objective aed --aed-chunk): CTC-greedy partials a "
+                        "chunk, the exact attention beam as the final (needs --nn-ckpt; phones, or words with --bpe)")
+    add_aed_args(p, chunk=8, max_tokens=None)
+    p.add_argument("--aed-stream-precision", choices=["float32", "bfloat16"], default="float32",
+                   help="the AED engine's chunk-step precision (finals stay float32)")
     p.add_argument("--endpoint", action="store_true",
                    help="server-side endpointing (frontend/endpoint.py): a causal detector a session ends it, with "
                         "an 'endpoint' event and the final carrying the rule")
@@ -293,9 +304,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
-    if args.ctc and args.rnnt:
-        raise SystemExit("--ctc/--rnnt are different serving models")
+    if sum((args.aed, args.ctc, args.rnnt)) > 1:
+        raise SystemExit("--aed/--ctc/--rnnt are different serving models")
     if args.tcp is not None and args.engine:
         # the engine runs its own tick loop over stdin batches
         raise SystemExit("--tcp serves the per-session mode only (--engine has its own stdin tick loop)")
@@ -307,7 +317,9 @@ def main(argv=None) -> None:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
     logger = make_logger(args)
-    if args.ctc:
+    if args.aed:
+        session = _aed_sessions(args, fcfg, lex, logger, device)
+    elif args.ctc:
         session = _ctc_sessions(args, fcfg, logger, device)
     elif args.rnnt:
         session = _rnnt_sessions(args, fcfg, lex, logger, device)
@@ -315,6 +327,73 @@ def main(argv=None) -> None:
         session = _gmm_sessions(args, fcfg, lex, topo, dcfg, logger, device)
     if session is not None:
         _serve_sessions(args, fcfg, logger, *session)
+
+
+def _aed_sessions(args, fcfg, lex, logger, device):
+    """--aed: the engine runs here and None comes back; else the
+    per-session (make_session, feed, partial_words, final_words)."""
+    from mogasr_torch.am import aed as A
+    from mogasr_torch.am.ctc import CtcStreamDecoder
+    from mogasr_torch.cli.common import load_aed_model
+    from mogasr_torch.serving.engine import AED_FINAL_BUCKET, aed_final_max_tokens
+
+    if not args.nn_ckpt:
+        raise SystemExit("--aed requires --nn-ckpt")
+    bpe = None
+    if args.bpe:
+        from mogasr_torch.data.bpe import load_bpe
+
+        bpe = load_bpe(args.bpe)
+    n_units = bpe.n_units if bpe is not None else lex.n_phones
+    model = load_aed_model(args, n_units, fcfg.feat_dim, device)
+
+    def to_text(units):
+        return bpe.decode(units) if bpe is not None else [lex.phones[u] for u in units]
+
+    if args.engine:
+        from mogasr_torch.serving.engine import BatchedAedEngine
+
+        eng = BatchedAedEngine(model, fcfg, capacity=args.engine_capacity, beam=args.aed_beam,
+                               ctc_weight=args.aed_ctc_weight, feature_path=args.feature_path,
+                               stream_precision=args.aed_stream_precision, device=device)
+        _run_engine_loop(args, eng, fcfg, logger, to_text=to_text)
+        return None
+
+    from mogasr_torch.frontend.streaming import StreamingFrontend
+
+    step = A.make_aed_stream_step(model)
+    raw_per = 4 * args.aed_chunk
+
+    def make_session():
+        s = _Session(StreamingFrontend(fcfg, device=device), CtcStreamDecoder(blank_id=n_units, mode="greedy"))
+        s.enc_state = A.aed_stream_init(model, 1, fcfg.feat_dim)
+        s.buf = np.zeros((0, fcfg.feat_dim), np.float32)
+        s.all_feats = []
+        return s
+
+    def feed(s, feats):
+        s.all_feats.append(feats)
+        s.buf = np.concatenate([s.buf, feats], axis=0)
+        while s.buf.shape[0] >= raw_per:
+            _e, ctc_logits, s.enc_state = step(torch.as_tensor(s.buf[None, :raw_per], device=device), s.enc_state)
+            s.decoder.step(torch.log_softmax(ctc_logits[0], dim=-1))
+            s.buf = s.buf[raw_per:]
+
+    def final_words(s):
+        # the exact attention final over the whole utterance, padded and
+        # budgeted as the engine's finals
+        fa = np.concatenate(s.all_feats, axis=0) if s.all_feats else s.buf
+        T = fa.shape[0]
+        if T == 0:
+            return []
+        Tb = -(-T // AED_FINAL_BUCKET) * AED_FINAL_BUCKET
+        padded = np.zeros((1, Tb, fa.shape[1]), np.float32)
+        padded[0, :T] = fa
+        seqs = A.aed_decode_batch(model, padded, np.asarray([T]), beam=args.aed_beam,
+                                  max_tokens=aed_final_max_tokens(Tb), ctc_weight=args.aed_ctc_weight)
+        return to_text(seqs[0])
+
+    return make_session, feed, lambda s: to_text(s.decoder.partial()), final_words
 
 
 def _ctc_sessions(args, fcfg, logger, device):

@@ -1,5 +1,5 @@
 """Online (streaming) recognition on the card, audio chunks in and hypotheses
-out: the twin of the reference's cli/stream.py on its GMM path.
+out: the twin of the reference's cli/stream.py.
 
     python -m mogasr_torch.cli.stream (--synthetic-demo | --audio FILE) [--gmm-ckpt DIR] \\
         [--chunk-ms 250] [--cmvn-window 600] [--endpoint [--endpoint-trailing-sil S]] [--device cpu]
@@ -29,9 +29,14 @@ host prefix beam (width ``--bias-beam``) with ``--bias`` and ``--fusion-lm``.
 chunk-resumable device greedy, its hypothesis buffer ``--max-symbols`` long
 (0: twice the audio's frames); phone partials, or words with ``--bpe``.
 
-Not ported yet, and raising NotImplementedError naming ROADMAP item 13: the
-streaming AED, ``--aed``. The options that only that path reads are left
-out.
+``--aed --nn-ckpt <run-dir>/nn_aed_<arch>`` (``cli.train_nn --objective aed
+--aed-chunk C``; ``--aed-chunk/--aed-left-chunks`` and ``--nn-hidden/
+--nn-layers`` as trained): the chunked streaming Conformer (``am.aed.
+make_aed_stream_step``) over every complete chunk of 4 C feature frames,
+CTC-greedy partials from its CTC head, and the final from the exact
+chunk-masked attention beam over the whole utterance (width
+``--aed-beam``, rescored with the CTC head on K3 at ``--aed-ctc-weight``);
+phones, or words with ``--bpe``.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import torch
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_ctc_beam_args, add_rnnt_args, add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported,
+    add_aed_args, add_ctc_beam_args, add_rnnt_args, add_run_args, device_of, load_or_random_gmm, make_logger,
 )
 from mogasr_torch.config import DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.decoder import viterbi as vit
@@ -84,11 +89,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_rnnt_args(p, beam=False)
     p.add_argument("--max-symbols", type=int, default=0,
                    help="with --rnnt: hypothesis-buffer cap (0: twice the audio's frames)")
-    # the streaming AED's primary flag, accepted as the reference's is; it raises
-    p.add_argument("--aed", action="store_true", help="streaming AED (not ported yet: raises)")
-    p.add_argument("--nn-ckpt", help="CTC/RNN-T checkpoint dir (with --ctc/--rnnt)")
+    p.add_argument("--aed", action="store_true",
+                   help="chunked streaming AED (train_nn --objective aed --aed-chunk C checkpoint via --nn-ckpt): "
+                        "CTC-head greedy partials a chunk, the exact attention beam at the end")
+    add_aed_args(p, chunk=8, max_tokens=None)
+    p.add_argument("--nn-ckpt", help="CTC/RNN-T/AED checkpoint dir (with --ctc/--rnnt/--aed)")
     p.add_argument("--bpe", metavar="FILE",
-                   help="with --ctc/--rnnt: the checkpoint uses BPE subword units (FILE is its bpe.json): "
+                   help="with --ctc/--rnnt/--aed: the checkpoint uses BPE subword units (FILE is its bpe.json): "
                         "open-vocabulary streaming words")
     add_ctc_beam_args(p)
     p.add_argument("--nn-hidden", type=int, default=512)
@@ -98,7 +105,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
+    if args.aed and (args.ctc or args.rnnt):
+        raise SystemExit("--aed is its own streaming family: drop --ctc/--rnnt")
     device = device_of(args.device)
     fcfg = FrontendConfig(cmvn="sliding", cmvn_window=args.cmvn_window)
     if args.synthetic_demo:
@@ -120,6 +128,9 @@ def main(argv=None) -> None:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
     logger = make_logger(args)
+    if args.aed:
+        _stream_aed(args, wave, fcfg, lex, logger, device)
+        return
     if args.rnnt:
         _stream_rnnt(args, wave, fcfg, lex, logger, device)
         return
@@ -193,6 +204,67 @@ def main(argv=None) -> None:
         "rtf": t.seconds / max(audio_s, 1e-9), "final_words": final,
         **({"endpoint": ep.rule} if ep is not None and ep.endpointed else {}),
     })
+
+
+def _stream_aed(args, wave, fcfg, lex, logger, device: torch.device) -> None:
+    """--aed: every complete chunk of 4 --aed-chunk feature frames through
+    the chunked encoder, CTC-greedy partials from its CTC head, then the
+    attention beam over the whole utterance (the chunk-masked offline
+    encoder equals the streamed one, so the final refines the partials with
+    the same model)."""
+    from mogasr_torch.am import aed as A
+    from mogasr_torch.am.ctc import CtcStreamDecoder
+    from mogasr_torch.cli.common import load_aed_model
+
+    if not args.nn_ckpt:
+        raise SystemExit("--aed requires --nn-ckpt (train_nn --objective aed --aed-chunk C)")
+    bpe = None
+    if args.bpe:
+        from mogasr_torch.data.bpe import load_bpe
+
+        bpe = load_bpe(args.bpe)
+    n_units = bpe.n_units if bpe is not None else lex.n_phones
+    model = load_aed_model(args, n_units, fcfg.feat_dim, device)
+    step = A.make_aed_stream_step(model)
+    state = A.aed_stream_init(model, 1, fcfg.feat_dim)
+    ctc_dec = CtcStreamDecoder(blank_id=n_units, mode="greedy")
+    raw_per = 4 * args.aed_chunk
+    sf = StreamingFrontend(fcfg, device=device)
+    chunk = int(fcfg.sample_rate * args.chunk_ms / 1000.0)
+    buf = np.zeros((0, fcfg.feat_dim), np.float32)
+    all_feats: list = []
+
+    def consume(feats):
+        nonlocal buf, state
+        all_feats.append(feats)
+        buf = np.concatenate([buf, feats], axis=0)
+        while buf.shape[0] >= raw_per:
+            _enc, ctc_logits, state = step(torch.as_tensor(buf[None, :raw_per], device=device), state)
+            ctc_dec.step(torch.log_softmax(ctc_logits[0], dim=-1))
+            buf = buf[raw_per:]
+
+    def to_text(units):
+        return bpe.decode(units) if bpe is not None else [lex.phones[u] for u in units]
+
+    with Timer() as t:
+        for i in range(0, len(wave), chunk):
+            consumed = min(i + chunk, len(wave))
+            feats = sf.process(wave[i : i + chunk])
+            if feats.size:
+                consume(feats)
+            print(json.dumps({"t_audio_s": round(consumed / fcfg.sample_rate, 2),
+                              "partial": to_text(ctc_dec.partial())}), flush=True)
+        feats = sf.finalize()
+        if feats.size:
+            consume(feats)
+        fa = np.concatenate(all_feats, axis=0) if all_feats else buf
+        seqs = A.aed_decode_batch(model, fa[None], np.asarray([fa.shape[0]]), beam=args.aed_beam,
+                                  max_tokens=max(8, 2 + fa.shape[0] // 4), ctc_weight=args.aed_ctc_weight)
+    audio_s = len(wave) / fcfg.sample_rate
+    final = to_text(seqs[0])
+    print(json.dumps({"final": final, "rtf": round(t.seconds / audio_s, 4)}))
+    logger.log({"stage": "stream_aed", "audio_s": round(audio_s, 2), "wall_sec": t.seconds,
+                "rtf": t.seconds / max(audio_s, 1e-9), "final_units": final})
 
 
 def _ctc_chunk_scorer(args, V: int, feat_dim: int, device: torch.device):

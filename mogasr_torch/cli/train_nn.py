@@ -1,6 +1,5 @@
 """Neural acoustic-model training on the card: the twin of the reference's
-cli/train_nn.py on its ``--objective ce``, ``mpc``, ``ctc`` and ``rnnt``
-paths.
+cli/train_nn.py.
 
     python -m mogasr_torch.cli.train_nn --synthetic-v2 200 --arch lstm --hidden 512 --layers 3 --steps 500 \\
         --run-dir runs/nn [--spec-augment] [--ivector-dim R] [--seq-mmi-steps N] [--seq-smbr-steps N] \\
@@ -53,8 +52,16 @@ K4 has no backward, as the reference's Pallas kernel trains nothing) and
 decode on K4. Records go to <run-dir>/metrics.jsonl. Runs on ``--device``
 (default cuda).
 
-Not ported yet, and raising NotImplementedError naming ROADMAP item 13:
-``--objective aed`` and its options (``--aed-chunk``, ``--aed-left-chunks``).
+``--objective aed``: the attention encoder-decoder (``am.aed``: a
+Conformer encoder of ``--layers`` blocks at d_model ``--hidden``, a
+Transformer decoder, the auxiliary CTC loss on K3) over the transcripts'
+phones or ``--bpe-merges`` BPE units (``pipeline.train_aed`` /
+``train_aed_bpe``; ``--spec-augment``), ``--aed-chunk C --aed-left-chunks
+L`` for the streaming-capable chunked encoder, ``--mwer-steps N`` then N
+steps of on-policy MWER (``pipeline.finetune_aed_mwer``, the beam's 4-best).
+``--arch`` only names the checkpoint, <run-dir>/nn_aed_<arch>, ``{"params":
+state_dict}``; decode it with ``decode``/``eval``/``transcribe --aed`` and
+a chunked one with ``stream``/``serve --aed``.
 """
 
 from __future__ import annotations
@@ -67,7 +74,6 @@ import torch
 
 from mogasr_torch.cli.common import (
     add_augment_args, add_corpus_args, add_run_args, apply_augmentation, device_of, load_corpus, make_logger,
-    refuse_unported,
 )
 from mogasr_torch.config import BatchConfig, FrontendConfig, GmmConfig, TopologyConfig, TrainConfig
 from mogasr_torch.hmm.topology import build_topology
@@ -98,10 +104,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="ce: frame CE on GMM forced alignments; ctc: alignment-free CTC on transcript phone (or "
                         "--bpe-merges) targets; mpc: unsupervised masked-predictive-coding pretraining of the "
                         "--arch encoder (no transcripts read); rnnt: RNN-transducer (--arch lstm/blstm encoder, "
-                        "stateless prediction net, auxiliary CTC); aed: not ported yet (raises)")
+                        "stateless prediction net, auxiliary CTC); aed: attention encoder-decoder (Conformer + "
+                        "Transformer decoder, joint CTC)")
     p.add_argument("--bpe-merges", type=int, default=0, metavar="N",
-                   help="with --objective ctc/rnnt: train on BPE subword units (N merges learned from the transcripts) "
-                        "instead of phones; writes bpe.json into the run dir")
+                   help="with --objective ctc/rnnt/aed: train on BPE subword units (N merges learned from the "
+                        "transcripts) instead of phones; writes bpe.json into the run dir")
     p.add_argument("--init-from", metavar="CKPT_DIR",
                    help="with --objective ctc: warm-start the encoder from an MPC checkpoint (train_nn --objective "
                         "mpc with the same --arch/--hidden/--layers); the CTC head keeps its fresh weights")
@@ -114,15 +121,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--distill-teacher-layers", type=int, default=3)
     p.add_argument("--distill-alpha", type=float, default=0.5, help="soft-target weight: alpha*KL + (1-alpha)*CTC")
     p.add_argument("--distill-temp", type=float, default=2.0, help="distillation softmax temperature")
-    # the AED path's options, accepted as the reference's are; they raise
-    p.add_argument("--aed-chunk", type=int, default=0, metavar="C", help="streaming AED encoder (not ported yet)")
-    p.add_argument("--aed-left-chunks", type=int, default=1, help="streaming AED context (not ported yet)")
+    p.add_argument("--aed-chunk", type=int, default=0, metavar="C",
+                   help="with --objective aed: train the streaming-capable chunked encoder (C subsampled frames a "
+                        "chunk, causal convolutions; stream with stream/serve --aed)")
+    p.add_argument("--aed-left-chunks", type=int, default=1,
+                   help="with --aed-chunk: left-context chunks each chunk attends to")
     p.add_argument("--rnnt-pruned-band", type=int, default=0, metavar="S",
                    help="with --objective rnnt: the pruned transducer loss (am.rnnt_pruned), the joint evaluated "
                         "on a band of S label positions a frame; the checkpoint gains the simple heads (decode "
                         "with --rnnt-pruned)")
     p.add_argument("--mwer-steps", type=int, default=0, metavar="N",
-                   help="with --objective rnnt: N steps of on-policy MWER fine-tuning after training")
+                   help="with --objective aed/rnnt: N steps of on-policy MWER fine-tuning after training")
     p.add_argument("--ivector-dim", type=int, default=0, metavar="R",
                    help="CE path: train an i-vector extractor (UBM + total variability) on the training features "
                         "and append per-utterance i-vectors to every frame (decode with --ivector-ckpt "
@@ -151,11 +160,6 @@ def main(argv=None) -> None:
     if args.arch == "moe" and args.objective != "ce":
         raise SystemExit("--arch moe supports --objective ce (the hybrid CE path collects the MoE load-balance "
                          "aux loss; the other objectives would drop it)")
-    refuse_unported((
-        ("--objective aed", args.objective == "aed", "13: am/aed.py"),
-        ("--aed-chunk", args.aed_chunk > 0, "13: am/aed.py"),
-        ("--aed-left-chunks", args.aed_left_chunks != 1, "13: am/aed.py"),
-    ))
     if args.init_from and args.objective != "ctc":
         raise SystemExit("--init-from (MPC warm start) supports --objective ctc")
     if args.distill_from and args.objective != "ctc":
@@ -179,6 +183,8 @@ def main(argv=None) -> None:
             _train_ctc(args, batches, lex, fcfg, logger, run_dir, device)
         elif args.objective == "rnnt":
             _train_rnnt(args, batches, lex, logger, run_dir)
+        elif args.objective == "aed":
+            _train_aed(args, batches, lex, logger, run_dir)
         else:
             _train_ce(args, batches, lex, topo, fcfg, logger, run_dir, device)
 
@@ -276,6 +282,36 @@ def _train_rnnt(args, batches, lex, logger, run_dir: str) -> None:
     ckpt = os.path.join(run_dir, f"nn_rnnt_{args.arch}")
     save_checkpoint(ckpt, {"params": model.state_dict()}, step=args.steps)
     print(f"saved RNNT {args.arch} AM to {ckpt}")
+
+
+def _train_aed(args, batches, lex, logger, run_dir: str) -> None:
+    from mogasr_torch.am.ctc import ctc_labels_from_words
+    from mogasr_torch.pipeline import finetune_aed_mwer, train_aed, train_aed_bpe
+
+    tcfg = TrainConfig(nn_arch=args.arch, nn_hidden=args.hidden, nn_layers=args.layers, lr=args.lr,
+                       num_nn_steps=args.steps)
+    opts = dict(chunk_frames=args.aed_chunk, left_chunks=args.aed_left_chunks, spec_augment=args.spec_augment)
+    with Timer() as t:
+        if args.bpe_merges > 0:
+            from mogasr_torch.data.bpe import save_bpe, train_bpe
+
+            bpe = train_bpe([fb.words[b] for fb in batches for b in range(fb.size)], n_merges=args.bpe_merges)
+            save_bpe(bpe, os.path.join(run_dir, "bpe.json"))
+            encode_fn = bpe.encode
+            model, _sd = train_aed_bpe(batches, bpe, tcfg, logger=logger, **opts)
+        else:
+            def encode_fn(words):
+                return ctc_labels_from_words(lex, words, include_sil=False)
+
+            model, _sd = train_aed(batches, lex, tcfg, logger=logger, **opts)
+    if args.mwer_steps > 0:
+        _sd, mwer_hist = finetune_aed_mwer(model, batches, encode_fn, tcfg, steps=args.mwer_steps, logger=logger)
+        logger.log({"stage": "mwer_done", "steps": args.mwer_steps, "expected_risk_first": mwer_hist[0],
+                    "expected_risk_last": mwer_hist[-1]})
+    logger.log({"stage": "train_aed_done", "steps": args.steps, "wall_sec": t.seconds})
+    ckpt = os.path.join(run_dir, f"nn_aed_{args.arch}")
+    save_checkpoint(ckpt, {"params": model.state_dict()}, step=args.steps)
+    print(f"saved AED {args.arch} AM to {ckpt}")
 
 
 def _train_ce(args, batches, lex, topo, fcfg, logger, run_dir: str, device: torch.device) -> None:

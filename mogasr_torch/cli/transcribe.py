@@ -35,9 +35,12 @@ best-path posterior (``am.ctc.ctc_greedy_decode_with_frames``). ``--rnnt
 --nn-ckpt DIR`` (``cli.train_nn --objective rnnt``; ``--nn-arch lstm|blstm``,
 ``--rnnt-pred/--rnnt-plain/--rnnt-pruned`` as trained): each segment's
 phones, or words with ``--bpe``, from the device greedy (the encoder on K4),
-without confidences or times, as the reference. Not ported yet, and raising
-NotImplementedError naming ROADMAP item 13: ``--aed``. The options that only
-that path reads are left out.
+without confidences or times, as the reference. ``--aed --nn-ckpt DIR``
+(``cli.train_nn --objective aed``; ``--nn-hidden/--nn-layers`` and
+``--aed-chunk/--aed-left-chunks`` as trained): each segment's phones, or
+words with ``--bpe``, from the attention beam (``am.aed.aed_decode_batch``,
+width ``--aed-beam``, ``--aed-max-tokens`` tokens, rescored with the CTC
+head on K3 at ``--aed-ctc-weight``), with segment times only.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import numpy as np
 
 from mogasr_torch.am.gmm_cuda import kernel_params
 from mogasr_torch.cli.common import (
-    add_rnnt_args, add_run_args, device_of, load_or_random_gmm, make_logger, refuse_unported,
+    add_aed_args, add_rnnt_args, add_run_args, device_of, load_or_random_gmm, make_logger,
 )
 from mogasr_torch.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
 from mogasr_torch.frontend.vad import VadConfig, segment_utterances
@@ -91,12 +94,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="use an RNN-transducer (train_nn --objective rnnt checkpoint via --nn-ckpt): device greedy "
                         "phones, or words with --bpe")
     add_rnnt_args(p, beam=False)
-    # the AED path's primary flag, accepted as the reference's is; it raises
-    p.add_argument("--aed", action="store_true", help="attention encoder-decoder (not ported yet: raises)")
+    p.add_argument("--aed", action="store_true",
+                   help="use an attention encoder-decoder (train_nn --objective aed checkpoint via --nn-ckpt): beam "
+                        "search a VAD segment; phones (or words with --bpe) with segment times, no per-word times "
+                        "or confidences")
+    add_aed_args(p)
     p.add_argument("--bpe", metavar="FILE",
-                   help="with --ctc/--rnnt: lexicon-free open-vocabulary transcription (a --bpe-merges "
-                        "checkpoint); with --ctc word times from the greedy best path")
-    p.add_argument("--nn-ckpt", help="CTC/RNN-T checkpoint dir (with --ctc/--rnnt)")
+                   help="with --aed/--rnnt: BPE words; with --ctc: lexicon-free open-vocabulary transcription (a "
+                        "--bpe-merges checkpoint), word times from the greedy best path")
+    p.add_argument("--nn-ckpt", help="CTC/RNN-T/AED checkpoint dir (with --ctc/--rnnt/--aed)")
     p.add_argument("--nn-arch", default="mlp", choices=["mlp", "lstm", "blstm", "tdnn", "conformer"])
     p.add_argument("--nn-hidden", type=int, default=512)
     p.add_argument("--nn-layers", type=int, default=3)
@@ -107,9 +113,10 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if sum((args.aed, args.ctc, args.rnnt)) > 1:
         raise SystemExit("--aed/--ctc/--rnnt are different acoustic models")
-    refuse_unported((("--aed", args.aed, "13: am/aed.py"),))
     if args.rnnt and (args.nbest or args.ctm):
         raise SystemExit("--rnnt has no word lattice/alignment: incompatible with --nbest/--ctm")
+    if args.aed and (args.nbest or args.ctm):
+        raise SystemExit("--aed has no word lattice/alignment: incompatible with --nbest/--ctm")
     if args.ctc and args.bpe and args.nbest:
         raise SystemExit("--ctc --bpe is lexicon-free greedy decoding (no lattice): incompatible with --nbest")
     device = device_of(args.device)
@@ -132,8 +139,18 @@ def main(argv=None) -> None:
     if args.num_states == 0:
         args.num_states = topo.n_pdfs
     dcfg = DecodeConfig(acoustic_scale=args.acoustic_scale, word_insertion_penalty=args.insertion_penalty)
-    bpe = ctc_model = rnnt_model = None
-    if args.rnnt:
+    bpe = ctc_model = rnnt_model = aed_model = None
+    if args.aed:
+        if not args.nn_ckpt:
+            raise SystemExit("--aed requires --nn-ckpt")
+        from mogasr_torch.cli.common import load_aed_model
+
+        if args.bpe:
+            from mogasr_torch.data.bpe import load_bpe
+
+            bpe = load_bpe(args.bpe)
+        aed_model = load_aed_model(args, bpe.n_units if bpe is not None else lex.n_phones, fcfg.feat_dim, device)
+    elif args.rnnt:
         if not args.nn_ckpt:
             raise SystemExit("--rnnt requires --nn-ckpt")
         from mogasr_torch.cli.common import load_rnnt_model
@@ -167,7 +184,7 @@ def main(argv=None) -> None:
         corpus = [(f"seg-{i:04d}", wave[a:b], []) for i, (a, b) in enumerate(segments)]
         results = []
         if corpus:
-            if bpe is not None or args.rnnt:
+            if bpe is not None or args.rnnt or args.aed:
                 graph = None
             elif args.ctc:
                 from mogasr_torch.am.ctc import ctc_decode_graph
@@ -187,10 +204,16 @@ def main(argv=None) -> None:
                 nbest_lm = uniform_bigram(sorted(set(graph.labels)))
             shift_s = fcfg.frame_shift_ms / 1000.0
             for fb in featurize(corpus, fcfg, bcfg, device):
-                if args.rnnt:
-                    from mogasr_torch.am.rnnt import rnnt_greedy_decode_device
+                if args.aed or args.rnnt:
+                    if args.aed:
+                        from mogasr_torch.am.aed import aed_decode_batch
 
-                    seqs = rnnt_greedy_decode_device(rnnt_model, fb.feats, fb.n_frames)
+                        seqs = aed_decode_batch(aed_model, fb.feats, fb.n_frames, beam=args.aed_beam,
+                                                max_tokens=args.aed_max_tokens, ctc_weight=args.aed_ctc_weight)
+                    else:
+                        from mogasr_torch.am.rnnt import rnnt_greedy_decode_device
+
+                        seqs = rnnt_greedy_decode_device(rnnt_model, fb.feats, fb.n_frames)
                     for b in range(fb.size):
                         a, e = segments[int(fb.utt_ids[b].split("-")[1])]
                         results.append({"start_s": round(a / fcfg.sample_rate, 2),

@@ -8,7 +8,11 @@ hybrid NN-HMM path scores with a neural frame classifier instead
 (``make_nn_scorer``: prior-scaled log-posteriors) and decodes the same way;
 the CTC path (``train_ctc``, ``train_ctc_bpe``, ``train_ctc_units``,
 ``distill_ctc_units``, ``make_ctc_scorer``; ``am.ctc``) trains on K3 and
-decodes the CTC word loop on K2's skip arm. Beyond the 1-best loop decode: ``decode_batch_lattices`` (the bigram LM
+decodes the CTC word loop on K2's skip arm; the RNN-T (``train_rnnt*``,
+``finetune_rnnt_mwer``; ``am.rnnt``) and the attention encoder-decoder
+(``train_aed``, ``train_aed_bpe``, ``train_aed_units``,
+``finetune_aed_mwer``; ``am.aed``) train with their auxiliary CTC loss on
+K3. Beyond the 1-best loop decode: ``decode_batch_lattices`` (the bigram LM
 decode of ``decoder.lm_viterbi`` with its one-pass word lattices, for the
 host's rescoring, N-best and confusion networks), and
 ``decode_batch_with_confidence`` / ``decode_batch_nbest`` (Viterbi and
@@ -701,6 +705,136 @@ def finetune_rnnt_mwer(
             i += 1
             if logger is not None and i % 10 == 0:
                 logger.log({"stage": "rnnt_mwer", "step": i, "expected_risk": history[-1]})
+            if i >= total:
+                break
+    model.eval()
+    return model.state_dict(), history
+
+
+def train_aed(batches: Sequence[FeatBatch], lexicon: Lexicon, tcfg: TrainConfig, include_sil: bool = False,
+              logger=None, **kwargs):
+    """The attention encoder-decoder (``am.aed``) on (features, phone
+    sequence) pairs -> (model, state_dict); decode with
+    ``am.aed.aed_decode_batch``."""
+    from mogasr_torch.am.ctc import ctc_labels_from_words
+
+    return train_aed_units(batches, lambda words: ctc_labels_from_words(lexicon, words, include_sil),
+                           lexicon.n_phones, tcfg, logger=logger, **kwargs)
+
+
+def train_aed_bpe(batches: Sequence[FeatBatch], bpe, tcfg: TrainConfig, logger=None, **kwargs):
+    """Lexicon-free AED on BPE units (words via ``bpe.decode``)."""
+    return train_aed_units(batches, bpe.encode, bpe.n_units, tcfg, logger=logger, **kwargs)
+
+
+def aed_model_for(n_units: int, tcfg: TrainConfig, feat_dim: int, device, chunk_frames: int = 0,
+                  left_chunks: int = 1):
+    """A fresh ``am.aed.build_aed_model``, its weights drawn from
+    ``tcfg.seed``, on ``device``."""
+    from mogasr_torch.am.aed import build_aed_model
+    from mogasr_torch.am.params import init_
+
+    model = build_aed_model(n_units, tcfg, feat_dim, chunk_frames=chunk_frames, left_chunks=left_chunks)
+    return init_(model, torch.Generator().manual_seed(tcfg.seed)).to(device)
+
+
+def train_aed_units(
+    batches: Sequence[FeatBatch],
+    encode_fn: Callable[[List[str]], List[int]],  # words -> unit ids
+    n_units: int,
+    tcfg: TrainConfig,
+    ctc_weight: float = 0.3,
+    smoothing: float = 0.1,
+    steps: Optional[int] = None,
+    chunk_frames: int = 0,
+    left_chunks: int = 1,
+    spec_augment: bool = False,
+    logger=None,
+):
+    """The AED over any unit inventory -> (model, state_dict): ``steps``
+    (default ``tcfg.num_nn_steps``) of ``am.aed.make_aed_train_step`` over
+    the batches in turn, the auxiliary CTC loss on K3 on the card.
+    ``chunk_frames > 0`` trains the streaming-capable chunked encoder."""
+    from mogasr_torch.am import aed as A
+
+    fb0 = batches[0]
+    model = aed_model_for(n_units, tcfg, int(fb0.feats.shape[-1]), fb0.feats.device, chunk_frames, left_chunks)
+    state = A.init_aed_train_state(model, tcfg)
+    step_fn = A.make_aed_train_step(model, tcfg, ctc_weight=ctc_weight, smoothing=smoothing,
+                                    spec_augment=spec_augment)
+    labeled = _pack_ctc_targets(batches, encode_fn)
+    total = steps if steps is not None else tcfg.num_nn_steps
+    i = 0
+    while i < total:
+        for fb, labels, n_labels in labeled:
+            state, m = step_fn(state, fb.feats, fb.n_frames, labels, n_labels)
+            i += 1
+            if logger is not None and i % 50 == 0:
+                logger.log({"stage": "train_aed", "step": i, "loss": float(m["loss"])})
+            if i >= total:
+                break
+    model.eval()
+    return model, model.state_dict()
+
+
+def finetune_aed_mwer(
+    model: torch.nn.Module,
+    batches: Sequence[FeatBatch],
+    encode_fn: Callable[[List[str]], List[int]],
+    tcfg: TrainConfig,
+    n_hyps: int = 4,
+    ce_weight: float = 0.1,
+    steps: Optional[int] = None,
+    logger=None,
+):
+    """On-policy MWER fine-tuning of a trained AED, in place: each step the
+    beam's n_hyps-best (``am.aed.make_aed_decoder(return_all=True)``, a
+    token budget of the longest reference + 2) against the current weights,
+    host edit-distance risks (a repeated hypothesis counted once), one
+    ``make_aed_mwer_step``. Returns (state_dict, history of the expected
+    risk a step)."""
+    from mogasr_torch.am import aed as A
+    from mogasr_torch.eval.wer import edit_counts
+
+    seqs_all = [[encode_fn(fb.words[b]) for b in range(fb.size)] for fb in batches]
+    l_max = max((len(s) for seqs in seqs_all for s in seqs), default=1)
+    u_max = l_max + 2
+    labeled = [(fb, seqs, labels, n_labels)
+               for (fb, labels, n_labels), seqs in zip(_pack_ctc_targets(batches, encode_fn), seqs_all)]
+    dec = A.make_aed_decoder(model, beam=n_hyps, max_tokens=u_max, return_all=True)
+    state = A.init_aed_train_state(model, tcfg)
+    step_fn = A.make_aed_mwer_step(model, tcfg, ce_weight=ce_weight)
+    total = steps if steps is not None else tcfg.num_nn_steps
+    history: List[float] = []
+    i = 0
+    while i < total:
+        for fb, seqs, labels, n_labels in labeled:
+            model.eval()
+            toks, n_toks, _sc = dec(fb.feats, fb.n_frames)
+            toks, n_toks = toks.cpu().numpy(), n_toks.cpu().numpy()
+            rows, N = toks.shape[0], toks.shape[1]
+            hyps = np.full((rows, N, u_max), -1, np.int64)
+            n_h = np.zeros((rows, N), np.int64)
+            h_mask = np.zeros((rows, N), bool)
+            risks = np.zeros((rows, N), np.float32)
+            for b in range(fb.size):
+                seen = set()
+                for n in range(N):
+                    h = tuple(int(t) for t in toks[b, n, : n_toks[b, n]])
+                    if h in seen:
+                        continue
+                    seen.add(h)
+                    hyps[b, n, : len(h)] = h
+                    n_h[b, n] = len(h)
+                    h_mask[b, n] = True
+                    risks[b, n] = edit_counts(seqs[b], list(h)).errors
+            dev = fb.feats.device
+            state, m = step_fn(state, fb.feats, fb.n_frames, *(torch.as_tensor(a, device=dev)
+                                                               for a in (hyps, n_h, h_mask, risks)), labels, n_labels)
+            history.append(m["expected_risk"])
+            i += 1
+            if logger is not None and i % 10 == 0:
+                logger.log({"stage": "mwer", "step": i, "expected_risk": history[-1]})
             if i >= total:
                 break
     model.eval()

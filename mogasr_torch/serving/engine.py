@@ -39,8 +39,12 @@ Three families share the slot scaffolding (``_BaseSlotEngine``):
   prediction state together; each tick's emitted symbols are harvested to
   per-slot host lists and the device buffer cleared.
 
-The reference's ``BatchedAedEngine`` and ``aed_final_max_tokens`` are not
-ported yet: they wait for the AED family (ROADMAP items 13 and 14b).
+- :class:`BatchedAedEngine`: the chunked streaming AED, one batched
+  ``encode_stream_step`` a tick over every slot's encoder caches (atomic
+  chunks of 4 chunk_frames frames; idle rows keep their caches by a masked
+  merge), CTC-greedy partials from per-slot host decoders, and finals by
+  the exact chunk-masked attention beam (joint CTC rescoring on K3) over
+  each session's whole feature history.
 
 A session's features, partials and final result are those of a dedicated
 per-session pipeline (``StreamingFrontend`` + ``decoder.online.
@@ -51,6 +55,7 @@ handled by per-slot valid-frame counts and per-slot host state.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -762,11 +767,14 @@ class BatchedCtcEngine(_BaseSlotEngine):
 # The RNN-T family: stateful LSTM encoder + the chunk-resumable device greedy
 # ---------------------------------------------------------------------------
 
-def _reset_rows(state, state0, mask: torch.Tensor):
-    """Freed slots' rows of a nest of [B, ...] tensors back to pristine."""
-    if isinstance(state, (tuple, list)):
-        return type(state)(_reset_rows(s, s0, mask) for s, s0 in zip(state, state0))
-    return torch.where(mask.reshape((-1,) + (1,) * (state.dim() - 1)), state0, state)
+def _merge_rows(mask: torch.Tensor, new, old):
+    """A nest (dict, tuple, list) of [B, ...] tensors: rows where mask [B]
+    is True from ``new``, the others from ``old``."""
+    if isinstance(new, dict):
+        return {k: _merge_rows(mask, new[k], old[k]) for k in new}
+    if isinstance(new, (tuple, list)):
+        return type(new)(_merge_rows(mask, n, o) for n, o in zip(new, old))
+    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
 def _clear_hyp(state):
@@ -834,8 +842,8 @@ class BatchedRnntEngine(_BaseSlotEngine):
 
     def _apply_resets(self, mask: np.ndarray) -> None:
         m = to_device(mask, self.device, torch.bool)
-        self.enc_carries = _reset_rows(self.enc_carries, self._enc_carries0, m)
-        self.dec_state = _reset_rows(self.dec_state, self._dec_state0, m)
+        self.enc_carries = _merge_rows(m, self._enc_carries0, self.enc_carries)
+        self.dec_state = _merge_rows(m, self._dec_state0, self.dec_state)
 
     def _dispatch_decode(self, feats: torch.Tensor, n_valid: np.ndarray):
         nv = to_device(n_valid, self.device)
@@ -884,3 +892,235 @@ class BatchedRnntEngine(_BaseSlotEngine):
         self._units[b] = []
         self._release(sid)
         return units, audio_s
+
+
+# ---------------------------------------------------------------------------
+# The AED family: the chunked streaming encoder + an exact attention final
+# ---------------------------------------------------------------------------
+
+AED_FINAL_BUCKET = 256  # the finals' padding: a multiple of this many frames
+
+
+def aed_final_max_tokens(t_frames: int) -> int:
+    """The finals' token budget from the (bucketed) frame count; the engine
+    and the per-session server share it, so their finals are equal."""
+    return max(8, 2 + t_frames // 4)
+
+
+def _cast_floats(state, dtype: torch.dtype):
+    """A nest of tensors with its floating tensors cast to ``dtype``."""
+    if isinstance(state, dict):
+        return {k: _cast_floats(v, dtype) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(_cast_floats(v, dtype) for v in state)
+    return state.to(dtype) if state.is_floating_point() else state
+
+
+class BatchedAedEngine(_BaseSlotEngine):
+    """Slot-batched streaming recognizer, chunked AED family (``serve --aed
+    --engine``).
+
+    The streaming encoder consumes atomic chunks of 4 chunk_frames feature
+    frames, so a tick advances each slot by one chunk or not at all: one
+    batched ``encode_stream_step`` carries every slot's per-block caches in
+    shared [B, ...] rows, and a masked merge keeps the caches of the slots
+    that had no chunk. CTC-greedy partials come from the chunk's CTC head
+    through per-slot host ``am.ctc.CtcStreamDecoder``s; ``finalize`` runs
+    the exact chunk-masked attention beam over the session's whole feature
+    history (the same encoder, so one checkpoint serves both).
+
+    Finals pad each history to a multiple of ``final_bucket`` frames (the
+    encoder masks by n_frames, so padding changes nothing) and take the
+    token budget from the bucketed length (``aed_final_max_tokens``), as the
+    per-session server does, so engine finals equal per-session finals; the
+    beam stops once every hypothesis has ended (``early_exit``).
+    ``finalize_many`` decodes the sessions of one bucket in one call, N
+    rounded up to a power of two with one-frame dummy rows.
+
+    model: ``am.aed.AedModel`` with chunk_frames > 0, trained, on the
+           engine's device
+    defer_absorb: keep each tick's log posteriors (and on the device feature
+                  path the consumed feature rows) on the card and read them
+                  back at the next partial() or finalize(), one wait for the
+                  backlog (at most 64 ticks); False reads them every tick
+    stream_precision: "bfloat16" runs the chunk step on a bf16 copy of the
+                  model, the master caches kept in float32 (cast in and out
+                  a step); finals stay float32, so only partials can move
+    """
+
+    def __init__(
+        self,
+        model,
+        fcfg: FrontendConfig,
+        capacity: int = 8,
+        beam: int = 4,
+        ctc_weight: float = 0.3,
+        final_bucket: int = AED_FINAL_BUCKET,
+        cmvn_mean: Optional[np.ndarray] = None,
+        cmvn_istd: Optional[np.ndarray] = None,
+        defer_absorb: bool = True,
+        feature_path: str = "host",
+        stream_precision: str = "float32",
+        device=torch.device("cuda"),
+    ):
+        from mogasr_torch.am.aed import aed_stream_init
+
+        raw_per = 4 * model.chunk_frames
+        if raw_per <= 0:
+            raise ValueError("streaming AED needs chunk_frames > 0")
+        super().__init__(fcfg, capacity, raw_per, cmvn_mean, cmvn_istd, feature_path=feature_path, device=device)
+        if stream_precision not in ("float32", "bfloat16"):
+            raise ValueError(f"stream_precision: {stream_precision}")
+        self.stream_precision = stream_precision
+        self.model = model
+        self.beam = int(beam)
+        self.ctc_weight = float(ctc_weight)
+        self.final_bucket = int(final_bucket)
+        self.defer_absorb = bool(defer_absorb)
+        self._pending: List[tuple] = []
+        B = self.capacity
+        self.enc_state = aed_stream_init(model, B, fcfg.feat_dim, self.device)
+        self._state0 = self.enc_state  # the pristine caches for slot resets (steps make new tensors)
+        self._m16 = copy.deepcopy(model).to(torch.bfloat16) if stream_precision == "bfloat16" else None
+        self._decoders: List[Optional[object]] = [None] * B
+        self._feats_hist: List[List[np.ndarray]] = [[] for _ in range(B)]
+        self._final_decoders: Dict[int, Callable] = {}
+
+    @torch.no_grad()
+    def _step(self, state, feats: torch.Tensor, live: torch.Tensor):
+        if self._m16 is not None:
+            _enc, ctc_logits, new = self._m16.encode_stream_step(feats.to(torch.bfloat16),
+                                                                 _cast_floats(state, torch.bfloat16))
+            new = _cast_floats(new, torch.float32)
+        else:
+            _enc, ctc_logits, new = self.model.encode_stream_step(feats, state)
+        return torch.log_softmax(ctc_logits.to(torch.float32), dim=-1), _merge_rows(live, new, state)
+
+    # -- hooks --
+
+    def _take(self, available: int) -> int:
+        return self.tick_frames if available >= self.tick_frames else 0
+
+    def _init_slot(self, b: int) -> None:
+        from mogasr_torch.am.ctc import CtcStreamDecoder
+
+        self._decoders[b] = CtcStreamDecoder(blank_id=self.model.n_units, mode="greedy")
+        self._feats_hist[b] = []
+
+    def _apply_resets(self, mask: np.ndarray) -> None:
+        self.enc_state = _merge_rows(to_device(mask, self.device, torch.bool), self._state0, self.enc_state)
+
+    def _dispatch_decode(self, feats: torch.Tensor, n_valid: np.ndarray):
+        logp, self.enc_state = self._step(self.enc_state, feats, to_device(n_valid > 0, self.device, torch.bool))
+        return logp, feats
+
+    def _absorb_decode(self, handle, n_valid: np.ndarray) -> None:
+        logp, feats = handle
+        if self.feature_path == "host":
+            # the consumed rows are still at the head of each slot's host queue
+            for b, s in enumerate(self.slots):
+                n = int(n_valid[b])
+                if n:
+                    self._feats_hist[b].append(s.feat_q[:n].copy())
+            feats = None
+        self._pending.append((logp, feats, n_valid.copy()))
+        # bound the backlog on the card: [B, chunk, V] buffers must not pile up
+        if not self.defer_absorb or len(self._pending) >= 64:
+            self._flush_pending()
+
+    def _flush_pending(self) -> None:
+        """Read back every queued tick's log posteriors (and on the device
+        feature path its consumed feature rows, for the finals' history) and
+        replay the per-slot decoders. Slots are reassigned only through
+        finalize, which flushes first, so pending rows belong to the
+        sessions installed now."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        for logp, feats, n_valid in pending:
+            logp_np = logp.cpu().numpy()
+            feats_np = feats.cpu().numpy() if feats is not None else None
+            for b in range(self.capacity):
+                n = int(n_valid[b])
+                if n:
+                    self._decoders[b].step(logp_np[b])
+                    if feats_np is not None:
+                        self._feats_hist[b].append(feats_np[b, :n].copy())
+
+    # -- results --
+
+    def drained(self, sid) -> bool:
+        """The sub-chunk tail of the features is the final's, not the
+        streaming stage's."""
+        b = self._sid_to_slot[sid]
+        return self.slots[b].flushed and self._feat_avail(b) < self.tick_frames
+
+    def _leftover_rows(self, b: int, s: _Slot) -> List[np.ndarray]:
+        """The queued rows that no chunk consumed, for the final."""
+        if self.feature_path == "device":
+            n = int(self._q_len[b])
+            return [self._qbuf[b, :n].cpu().numpy()] if n else []
+        return [s.feat_q] if len(s.feat_q) else []
+
+    def partial(self, sid) -> List[int]:
+        """Best-so-far CTC-greedy unit ids (replays the backlog)."""
+        self._flush_pending()
+        return list(self._decoders[self._sid_to_slot[sid]].partial())
+
+    def _final_decoder(self, t_bucket: int):
+        from mogasr_torch.am.aed import make_aed_decoder
+
+        dec = self._final_decoders.get(t_bucket)
+        if dec is None:
+            dec = make_aed_decoder(self.model, beam=self.beam, max_tokens=aed_final_max_tokens(t_bucket),
+                                   ctc_weight=self.ctc_weight)
+            self._final_decoders[t_bucket] = dec
+        return dec
+
+    def _history(self, sid) -> Tuple[int, np.ndarray, float]:
+        b = self._sid_to_slot[sid]
+        s = self.slots[b]
+        if not self.drained(sid):
+            raise ValueError("finalize() before drained()")
+        parts = self._feats_hist[b] + self._leftover_rows(b, s)
+        fa = np.concatenate(parts, axis=0) if parts else np.zeros((0, self.fcfg.feat_dim), np.float32)
+        return b, fa, s.samples / self.fcfg.sample_rate
+
+    def _retire(self, sid, b: int) -> None:
+        self._decoders[b] = None
+        self._feats_hist[b] = []
+        self._release(sid)
+
+    def finalize(self, sid) -> Tuple[List[int], float]:
+        return self.finalize_many([sid])[sid]
+
+    def finalize_many(self, sids) -> Dict[object, Tuple[List[int], float]]:
+        """Finalize many drained sessions with one beam call per bucket of
+        padded length (``finalize`` is this with one session): N rounded up
+        to a power of two with one-frame dummy rows. Beam rows are
+        independent, so the hypotheses equal per-session finals."""
+        self._flush_pending()
+        out: Dict[object, Tuple[List[int], float]] = {}
+        groups: Dict[int, list] = {}
+        for sid in [sid for sid in sids if sid in self._sid_to_slot]:
+            b, fa, audio_s = self._history(sid)
+            if fa.shape[0] == 0:
+                out[sid] = ([], audio_s)
+                self._retire(sid, b)
+                continue
+            Tb = -(-fa.shape[0] // self.final_bucket) * self.final_bucket
+            groups.setdefault(Tb, []).append((sid, b, fa, audio_s))
+        for Tb, items in groups.items():
+            nb = 1 << (len(items) - 1).bit_length()
+            padded = np.zeros((nb, Tb, self.fcfg.feat_dim), np.float32)
+            nf = np.ones((nb,), np.int64)  # dummy rows: one zero frame
+            for i, (_sid, _b, fa, _a) in enumerate(items):
+                padded[i, : fa.shape[0]] = fa
+                nf[i] = fa.shape[0]
+            toks, n_toks, _ = self._final_decoder(Tb)(to_device(padded, self.device, torch.float32),
+                                                      to_device(nf, self.device))
+            toks, n_toks = toks.cpu().numpy(), n_toks.cpu().numpy()
+            for i, (sid, b, _fa, audio_s) in enumerate(items):
+                out[sid] = ([int(t) for t in toks[i, : n_toks[i]]], audio_s)
+                self._retire(sid, b)
+        return out

@@ -309,12 +309,14 @@ def test_train_nn_distill_matches_the_pipeline(tmp_path):
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-# the RNN-T paths run since the RNN-T port (tests/test_torch_cli_rnnt.py):
-# without a checkpoint they stop as the reference's stop
+# the RNN-T paths run since the RNN-T port (tests/test_torch_cli_rnnt.py), the
+# AED's since the AED port (tests/test_torch_cli_aed.py): they stop where the
+# reference's stop
 @pytest.mark.parametrize("cli,argv,exc,match", [
     (cli_decode, CORPUS + ["--rnnt", "--am", "lstm"], SystemExit, "--nn-ckpt is required"),
     (cli_stream, ["--synthetic-demo", "--rnnt", "--ctc"], SystemExit, "--rnnt requires --nn-ckpt"),
-    (cli_train_nn, CORPUS + ["--objective", "aed", "--bpe-merges", "4"], NotImplementedError, "ROADMAP item 13"),
+    (cli_train_nn, CORPUS + ["--objective", "aed", "--bpe-merges", "4", "--init-from", "x"], SystemExit,
+     "--init-from .MPC warm start. supports --objective ctc"),
 ], ids=["decode-rnnt", "stream-rnnt", "train_nn-aed"])
 def test_unported_families_still_raise(tmp_path, cli, argv, exc, match):
     with pytest.raises(exc, match=match):

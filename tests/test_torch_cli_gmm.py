@@ -255,14 +255,15 @@ def test_eval_cli_resumes(tmp_path):
     assert os.path.isfile(cut / "profile" / "trace.json")
 
 
-# eval --ctc --bpe runs since the CTC port (tests/test_torch_cli_ctc.py) and
-# eval --rnnt since the RNN-T port (tests/test_torch_cli_rnnt.py): without
-# --bpe and --nn-ckpt it stops as the reference stops; --aed still raises
+# eval --ctc --bpe runs since the CTC port (tests/test_torch_cli_ctc.py),
+# eval --rnnt since the RNN-T port (tests/test_torch_cli_rnnt.py) and eval
+# --aed since the AED port (tests/test_torch_cli_aed.py): without --bpe and
+# --nn-ckpt each stops as the reference stops
 REFUSED = [
     (cli_eval, ["--rnnt", "--bpe", "bpe.json"], SystemExit, "requires --bpe and --nn-ckpt"),
     (cli_eval, ["--rnnt"], SystemExit, "requires --bpe and --nn-ckpt"),
-    (cli_eval, ["--aed"], NotImplementedError, "ROADMAP item 13"),
-    (cli_eval, ["--aed", "--bpe", "bpe.json"], NotImplementedError, "ROADMAP item 13"),
+    (cli_eval, ["--aed"], SystemExit, "--aed requires --bpe and --nn-ckpt"),
+    (cli_eval, ["--aed", "--bpe", "bpe.json"], SystemExit, "--aed requires --bpe and --nn-ckpt"),
 ]
 
 
@@ -308,12 +309,20 @@ def test_cli_item10_flags_run(tmp_path, cli, flags):
 
 
 # --nn-arch is read by eval --ctc since the CTC port, --rnnt-beam and
-# --rnnt-pred by eval --rnnt since the RNN-T port
+# --rnnt-pred by eval --rnnt since the RNN-T port, and --aed-max-tokens and
+# --aed-beam by eval --aed since the AED port: the beam gets their values
 @pytest.mark.parametrize("flags", [["--aed-max-tokens", "8"], ["--aed-max-tokens", "64"], ["--aed-beam", "2"]])
-def test_eval_companion_flags_of_unported_paths_are_rejected(tmp_path, flags, capsys):
-    with pytest.raises(SystemExit):
-        cli_eval.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_eval_companion_flags_of_unported_paths_are_rejected(tmp_path, flags, monkeypatch):
+    from test_torch_cli_aed import Probed, aed_probe
+
+    seen = aed_probe(monkeypatch)
+    with pytest.raises(Probed):
+        cli_eval.main(["--synthetic", "1", "--aed", "--bpe", "b.json", "--nn-ckpt", "x"] + flags
+                      + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
+    key = flags[0][2:].replace("aed-", "").replace("-", "_")
+    assert seen[key] == int(flags[1]) and seen["n_units"] == 6
+    # eval rescores nothing with the CTC head, as the reference's eval
+    assert "ctc_weight" not in seen
 
 
 @pytest.mark.parametrize("cli", [cli_features, cli_score, cli_align, cli_eval])

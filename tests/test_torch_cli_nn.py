@@ -9,8 +9,9 @@ pipeline tests): the CE checkpoint of the CLI's first saved step equals the
 pipeline functions' model after as many steps (the same labels, priors,
 i-vectors, initial weights and SpecAugment draws), the decode twins write
 the hypotheses of ``make_nn_scorer`` + ``decode_batch`` on the same corpus.
-The refused AED objective and options name ROADMAP item 13; the option checks
-the reference makes stop as its CLIs stop."""
+The AED objective and its options reach the AED training entry points (a
+probe stands in for them; tests/test_torch_cli_aed.py trains); the option
+checks the reference makes stop as its CLIs stop."""
 
 import json
 import os
@@ -165,17 +166,30 @@ def test_train_nn_mpc_cli(tmp_path):
 # CTC port (tests/test_torch_cli_ctc.py; their option checks in STOPS);
 # --objective rnnt, --rnnt-pruned-band and --mwer-steps since the RNN-T port
 # (tests/test_torch_cli_rnnt.py), --init-from stopping there as the
-# reference stops
-REFUSED = [(["--objective", "aed"], NotImplementedError, "ROADMAP item 13"),
-           (["--objective", "aed", "--bpe-merges", "20"], NotImplementedError, "ROADMAP item 13"),
+# reference stops; --objective aed, --aed-chunk and --aed-left-chunks since
+# the AED port (tests/test_torch_cli_aed.py): the probe's "seen" are what
+# the AED training entry point got (--aed-chunk/--aed-left-chunks alone are
+# given with --objective aed, which reads them), --distill-from stops there
+PROBED = None  # the exception class of tests/test_torch_cli_aed.py's probe
+REFUSED = [(["--objective", "aed"], PROBED, dict(entry="train_aed", chunk_frames=0, left_chunks=1)),
+           (["--objective", "aed", "--bpe-merges", "20"], PROBED, dict(entry="train_aed_bpe", chunk_frames=0)),
            (["--objective", "rnnt", "--init-from", "ck"], SystemExit, "--init-from .MPC warm start. supports --objective ctc"),
-           (["--objective", "aed", "--distill-from", "ck"], NotImplementedError, "ROADMAP item 13"),
-           (["--aed-chunk", "4"], NotImplementedError, "ROADMAP item 13"),
-           (["--aed-left-chunks", "2"], NotImplementedError, "ROADMAP item 13")]
+           (["--objective", "aed", "--distill-from", "ck"], SystemExit, "--distill-from supports --objective ctc"),
+           (["--aed-chunk", "4"], PROBED, dict(entry="train_aed", chunk_frames=4, left_chunks=1)),
+           (["--aed-left-chunks", "2"], PROBED, dict(entry="train_aed", chunk_frames=0, left_chunks=2))]
 
 
 @pytest.mark.parametrize("flags,exc,match", REFUSED, ids=["".join(f) for f, _e, _m in REFUSED])
-def test_train_nn_unported_flags_raise(tmp_path, flags, exc, match):
+def test_train_nn_unported_flags_raise(tmp_path, flags, exc, match, monkeypatch):
+    if exc is PROBED:
+        from test_torch_cli_aed import Probed, aed_probe
+
+        seen = aed_probe(monkeypatch)
+        argv = flags if "--objective" in flags else ["--objective", "aed"] + flags
+        with pytest.raises(Probed):
+            cli_train_nn.main(CORPUS + argv + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
+        assert {k: seen[k] for k in match} == match
+        return
     with pytest.raises(exc, match=match):
         cli_train_nn.main(CORPUS + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 

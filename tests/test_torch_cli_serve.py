@@ -5,9 +5,9 @@ errors and a shutdown, ``--engine`` against the per-session mode,
 ``--partial-every``, ``--endpoint``, and ``--ctc --bpe`` with and without
 ``--engine`` from one CTC model saved in both checkpoint formats. Every event
 line is equal. One ``--tcp`` server on localhost with two clients checks
-per-connection session ownership; ``--aed`` raises naming ROADMAP item 13
-(``--rnnt`` without a checkpoint stops), its companion options are refused, and the twin does not
-fall back to the CPU."""
+per-connection session ownership; ``--rnnt`` and ``--aed`` without a
+checkpoint stop as the reference's stop, the AED's companion options reach
+its engine, and the twin does not fall back to the CPU."""
 
 import importlib
 import io
@@ -232,22 +232,32 @@ def test_tcp_two_clients_own_their_sessions(tmp_path):
         b.close()
 
 
-# serve --rnnt runs since the RNN-T port (tests/test_torch_cli_rnnt.py): without
-# a checkpoint it stops as the reference stops
-@pytest.mark.parametrize("argv,match", [(["--rnnt"], "ROADMAP item 13"), (["--aed"], "ROADMAP item 13")])
+# serve --rnnt runs since the RNN-T port (tests/test_torch_cli_rnnt.py), serve
+# --aed since the AED port (tests/test_torch_cli_aed.py): without a checkpoint
+# each stops as the reference stops
+@pytest.mark.parametrize("argv,match", [(["--rnnt"], "--rnnt requires --nn-ckpt"),
+                                        (["--aed"], "--aed requires --nn-ckpt")])
 def test_unported_families_raise(tmp_path, argv, match):
-    exc, match = (SystemExit, "--rnnt requires --nn-ckpt") if argv == ["--rnnt"] else (NotImplementedError, match)
-    with pytest.raises(exc, match=match):
+    with pytest.raises(SystemExit, match=match):
         cli_serve.main(argv + ["--synthetic-demo-session", "--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 
-# --rnnt-pred and --max-symbols are read by serve --rnnt since the RNN-T port
+# --rnnt-pred and --max-symbols are read by serve --rnnt since the RNN-T port;
+# the AED's options by serve --aed --engine since the AED port: the model
+# loader and the engine get their values
 @pytest.mark.parametrize("argv", [["--aed-chunk", "8"], ["--aed-beam", "2"], ["--aed-ctc-weight", "0.3"],
                                   ["--aed-stream-precision", "bfloat16"]])
-def test_unported_companion_options_are_refused(tmp_path, argv):
-    with pytest.raises(SystemExit) as e:
-        cli_serve.main(argv + ["--synthetic-demo-session", "--device", "cpu", "--run-dir", str(tmp_path / "run")])
-    assert e.value.code == 2
+def test_unported_companion_options_are_refused(tmp_path, argv, monkeypatch):
+    from test_torch_cli_aed import Probed, aed_probe
+
+    seen = aed_probe(monkeypatch)
+    with pytest.raises(Probed):
+        cli_serve.main(["--aed", "--engine", "--nn-ckpt", "x"] + argv
+                       + ["--synthetic-demo-session", "--device", "cpu", "--run-dir", str(tmp_path / "run")])
+    key = argv[0][2:].replace("-", "_")
+    key = {"aed_beam": "beam", "aed_ctc_weight": "ctc_weight", "aed_stream_precision": "stream_precision"}.get(key, key)
+    assert str(seen[key]) == argv[1]
+    assert seen["capacity"] == 16 and seen["feature_path"] == "device"
 
 
 def test_tcp_with_engine_refused(tmp_path):

@@ -160,10 +160,12 @@ def test_features_add_pitch_matches_reference(small, tmp_path, monkeypatch, caps
 # --ctc and its --bpe, --bias and --fusion-lm run since the CTC port
 # (tests/test_torch_cli_ctc.py), --rnnt since the RNN-T port
 # (tests/test_torch_cli_rnnt.py: without a checkpoint or an LSTM encoder it
-# stops, or it fails to find the checkpoint it names); --aed still raises
+# stops, or it fails to find the checkpoint it names), --aed since the AED
+# port (tests/test_torch_cli_aed.py: without a checkpoint it stops as the
+# reference stops)
 NO_CKPT = (SystemExit, "--rnnt requires --nn-ckpt")
 MISSING = (FileNotFoundError, "no checkpoint under")
-ITEM13 = (NotImplementedError, "ROADMAP item 13")
+ITEM13 = (SystemExit, "--aed requires --nn-ckpt")
 STREAM_REFUSED = [
     (cli_stream, ["--synthetic-demo", "--rnnt", "--nn-ckpt", "nn"], MISSING),
     (cli_stream, ["--synthetic-demo", "--rnnt"], NO_CKPT),
@@ -186,13 +188,22 @@ def test_stream_cli_flags_not_ported_raise(tmp_path, cli, flags, raised):
         cli.main(flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 
-# --rnnt-pred is read by stream and transcribe --rnnt since the RNN-T port
+# --rnnt-pred is read by stream and transcribe --rnnt since the RNN-T port; the
+# AED's options by stream and transcribe --aed since the AED port: the model
+# loader and the final beam get their values
 @pytest.mark.parametrize("cli,flags", [(cli_stream, ["--aed-ctc-weight", "0.3"]), (cli_stream, ["--aed-chunk", "8"]),
                                        (cli_transcribe, ["--aed-chunk", "8"]), (cli_transcribe, ["--aed-beam", "2"])])
-def test_stream_cli_companion_flags_are_rejected(tmp_path, cli, flags, capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["--synthetic-demo"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_stream_cli_companion_flags_are_rejected(tmp_path, cli, flags, monkeypatch):
+    from mogasr_torch.hmm.lexicon import synthetic_lexicon
+    from test_torch_cli_aed import Probed, aed_probe
+
+    seen = aed_probe(monkeypatch)
+    with pytest.raises(Probed):
+        cli.main(["--synthetic-demo", "--aed", "--nn-ckpt", "x"] + flags
+                 + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
+    key = {"--aed-ctc-weight": "ctc_weight", "--aed-chunk": "aed_chunk", "--aed-beam": "beam"}[flags[0]]
+    assert str(seen[key]) == flags[1]
+    assert seen["n_units"] == synthetic_lexicon().n_phones
 
 
 @pytest.mark.parametrize("cli", [cli_stream, cli_transcribe])

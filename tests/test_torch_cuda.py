@@ -1392,3 +1392,47 @@ def test_device_prefix_beam_on_the_card_matches_the_cpu(dev):
     want = ctc.ctc_prefix_beam_decode_device(logp, nf, beam_size=5, u_cap=30, fusion=fusion)
     assert [[h for _s, h in r] for r in got] == [[h for _s, h in r] for r in want]
     np.testing.assert_allclose([s for r in got for s, _h in r], [s for r in want for s, _h in r], rtol=1e-5)
+
+
+def test_aed_joint_rescoring_on_k3_matches_plain(dev):
+    """The AED beam's joint CTC rescoring on the card. Its K3 term over
+    ragged hypothesis rows (one of 520 tokens: 1041 states, so K3's block
+    arm for the call; one of no tokens; two that cannot fit their frames,
+    one of them of no frames, keep ~1e30) against the plain recursion; then
+    the whole beam with CTC weight 0.3 on the card (the chain arm) against
+    ``use_kernels=False`` on the card: the same tokens and lengths, scores
+    within 1e-5 relative, one K3 launch."""
+    from mogasr_torch.am import aed as A
+    from mogasr_torch.am import ctc
+
+    rng = np.random.default_rng(18)
+    n_lab = [520, 40, 12, 0, 3]
+    labels = np.full((5, 520), -1, np.int64)
+    for b, n in enumerate(n_lab):
+        seq = rng.integers(0, 6, n)
+        seq[1:][seq[1:] == seq[:-1]] = (seq[1:][seq[1:] == seq[:-1]] + 1) % 6   # no repeats: n frames fit n labels
+        labels[b, :n] = seq
+    logits = torch.as_tensor(rng.standard_normal((5, 600, 7)).astype(np.float32), device=dev)
+    n_out = torch.as_tensor([600, 300, 9, 600, 0], device=dev)
+    lab, nl = torch.as_tensor(labels, device=dev), torch.as_tensor(n_lab, device=dev)
+    got = ctc.ctc_loss(logits, n_out, lab, nl)
+    arms = fb_cuda.LAST_ARMS.cpu().numpy()
+    want = ctc.ctc_loss(logits, n_out, lab, nl, use_kernels=False)
+    fit, short = [0, 1, 3], [2, 4]
+    # the arm goes by the graphs' padded width: every row of this call takes the block arm
+    assert (arms == fb_cuda.ARM_BLOCK).all()
+    torch.testing.assert_close(got[fit], want[fit], rtol=1e-5, atol=0)
+    assert float(got[short].min()) > 1e29 and float(want[short].min()) > 1e29
+
+    model = init_(A.AedModel(5, 9, d_model=32, enc_blocks=1, dec_blocks=1, heads=2, conv_kernel=7),
+                  torch.Generator().manual_seed(3)).to(dev).eval()
+    feats = torch.as_tensor(rng.standard_normal((3, 40, 9)).astype(np.float32), device=dev)
+    n_frames = torch.as_tensor([40, 25, 3], device=dev)
+    before = fb_cuda.FWD_LAUNCHES
+    k3 = A.make_aed_decoder(model, beam=3, max_tokens=10, ctc_weight=0.3, return_all=True)(feats, n_frames)
+    torch.cuda.synchronize()
+    assert fb_cuda.FWD_LAUNCHES == before + 1 and (fb_cuda.LAST_ARMS.cpu() == fb_cuda.ARM_CHAIN).all()
+    plain = A.make_aed_decoder(model, beam=3, max_tokens=10, ctc_weight=0.3, return_all=True,
+                               use_kernels=False)(feats, n_frames)
+    assert torch.equal(k3[0], plain[0]) and torch.equal(k3[1], plain[1])
+    torch.testing.assert_close(k3[2], plain[2], rtol=1e-5, atol=0)

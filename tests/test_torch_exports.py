@@ -1,7 +1,6 @@
 """The port's top-level exports: every name the reference's
 mogasr/__init__.py exports (its config imports and the names its lazy
-``__getattr__`` serves) resolves on ``mogasr_torch`` but the AED ones,
-which wait for ROADMAP item 13; ``init_gmm`` draws from a
+``__getattr__`` serves) resolves on ``mogasr_torch``; ``init_gmm`` draws from a
 torch.Generator around the data statistics, as the reference draws from a
 JAX key (equal in distribution, not in values)."""
 
@@ -16,7 +15,7 @@ import mogasr_torch
 from mogasr_torch.config import GmmConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WAITING = {"aed_decode_batch", "aed_stream_init", "make_aed_stream_step"}
+WAITING: set = set()  # names still to be ported: none
 
 
 def _reference_exports():
@@ -36,7 +35,8 @@ def _reference_exports():
 
 def test_every_reference_export_resolves():
     names = _reference_exports()
-    assert {"TrainConfig", "init_gmm", "pipeline", "corpus_wer", "ctc_loss", "train_bpe", "rnnt_loss"} <= names
+    assert {"TrainConfig", "init_gmm", "pipeline", "corpus_wer", "ctc_loss", "train_bpe", "rnnt_loss",
+            "aed_decode_batch", "aed_stream_init", "make_aed_stream_step"} <= names
     assert WAITING <= names
     for name in sorted(names - WAITING):
         assert getattr(mogasr_torch, name) is not None, name

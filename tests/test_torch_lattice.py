@@ -288,12 +288,21 @@ def test_search_cli_matches_reference(tmp_path, monkeypatch):
 
 # --ctc, --bias and --fusion-lm run since the CTC port
 # (tests/test_torch_cli_ctc.py), --rnnt and --nnlm-rescore since the RNN-T
-# port (tests/test_torch_cli_rnnt.py); with --aed, still refused, they raise
+# port (tests/test_torch_cli_rnnt.py), --aed since the AED port
+# (tests/test_torch_cli_aed.py); with --aed they stop where the reference's
+# decode stops (its checks in its order: --ctc needs a neural --am, a lattice
+# pass is no beam search, --aed without --bpe decodes phones, and the
+# checkpoint comes last)
+AED_STOPS = {"--ctc": "--ctc/--rnnt require a neural --am", "b.json": "--nn-ckpt is required",
+             "--aed": "--aed without --bpe decodes phones", "lm": "--aed is direct beam-search decoding",
+             "p.txt": "--aed without --bpe decodes phones", "u.npz": "--aed without --bpe decodes phones"}
+
+
 @pytest.mark.parametrize("flags", [["--aed", "--ctc"], ["--aed", "--bpe", "b.json"], ["--aed"],
                                    ["--aed", "--nnlm-rescore", "lm"], ["--aed", "--bias", "p.txt"],
                                    ["--aed", "--fusion-lm", "u.npz"]])
 def test_decode_cli_flags_not_ported_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    with pytest.raises(SystemExit, match=AED_STOPS[flags[-1]]):
         cli_decode.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
 
 
@@ -306,12 +315,23 @@ def test_decode_cli_add_pitch(tmp_path):
         assert len(f.readlines()) == 1
 
 
-# --rnnt-beam is read by decode --rnnt since the RNN-T port
+# --rnnt-beam is read by decode --rnnt since the RNN-T port, --aed-beam and
+# --aed-max-tokens by decode --aed since the AED port
 @pytest.mark.parametrize("cli,flags", [(cli_decode, ["--aed-beam", "4"]), (cli_decode, ["--aed-max-tokens", "8"]),
                                        (cli_search, ["--terms", "cat", "--rnnt-beam", "4"])])
-def test_cli_companion_flags_of_unported_paths_are_rejected(tmp_path, cli, flags, capsys):
-    """The unported paths' companion options are not accepted and then
-    ignored: argparse refuses them."""
+def test_cli_companion_flags_of_unported_paths_are_rejected(tmp_path, cli, flags, capsys, monkeypatch):
+    """A path's companion options are never accepted and then ignored:
+    search has no RNN-T path, so argparse refuses --rnnt-beam; decode --aed
+    hands --aed-beam and --aed-max-tokens to its beam."""
+    if cli is cli_decode:
+        from test_torch_cli_aed import Probed, aed_probe
+
+        seen = aed_probe(monkeypatch)
+        with pytest.raises(Probed):
+            cli.main(["--synthetic", "1", "--aed", "--mode", "phone", "--nn-ckpt", "x"] + flags
+                     + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
+        assert seen[flags[0][6:].replace("-", "_")] == int(flags[1])
+        return
     with pytest.raises(SystemExit):
         cli.main(["--synthetic", "1"] + flags + ["--device", "cpu", "--run-dir", str(tmp_path / "run")])
     assert "unrecognized arguments" in capsys.readouterr().err

@@ -1,5 +1,6 @@
 """The port stands alone: every mogasr_torch module and chip_smoke.py import in
-a fresh interpreter where jax, flax and the JAX package mogasr are blocked."""
+a fresh interpreter where jax, flax and the JAX package mogasr are blocked,
+and the package's lazy exports (the AED's among them) resolve there."""
 
 import os
 import pkgutil
@@ -54,6 +55,11 @@ def test_port_imports_without_jax():
         "sys.modules['mogasr'] = None",
         "import importlib",
         f"for name in {modules!r}: importlib.import_module(name)",
+        "import mogasr_torch",
+        "for name in ('aed_decode_batch', 'aed_stream_init', 'make_aed_stream_step', 'rnnt_loss', 'ctc_loss'):",
+        "    assert callable(getattr(mogasr_torch, name)), name",
+        "from mogasr_torch.serving.engine import BatchedAedEngine, aed_final_max_tokens",
+        "from mogasr_torch.pipeline import train_aed, train_aed_bpe, train_aed_units, finetune_aed_mwer",
         "import chip_smoke",
         "assert not any(m in ('jax', 'mogasr') or m.startswith(('jax.', 'flax', 'mogasr.')) "
         "for m, v in sys.modules.items() if v is not None)",
