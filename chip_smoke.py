@@ -178,10 +178,11 @@ printed. Without a CUDA device it fails at once.
    process with its launches counted;
 27. two-pass adaptation of phase 5's 768 utterances grouped by their speaker
    (20): ``pipeline.decode_with_{fmllr,mllr,vtln}`` over the bundle's CD
-   loop and align graphs, each through K1/K2 (launches counted) and again
-   with ``use_kernels=False`` on the card: pass-2 WER limit, transcripts
-   agreeing, equal warps with each speaker's margin, transforms within
-   ADAPT_W_ATOL where the pass-1 alignments agree; seconds of each pass and
+   loop and align graphs, each through K1/K2 (launches counted; the pass-2
+   WER limit), then on the first held-out batch's utterances of
+   ADAPT_PLAIN_SPEAKERS speakers again and with ``use_kernels=False`` on
+   the card: transcripts agreeing, equal warps with each speaker's margin,
+   transforms within ADAPT_W_ATOL where the pass-1 alignments agree; seconds of each pass and
    peak memory; then 5 speakers corrupted (A = 0.8 I, b) and decoded SI and
    with two-pass fMLLR (tests/test_fmllr.py's check);
 28. on phase 8's training corpus: ``train_sat`` (2 iterations from phase 8's
@@ -275,6 +276,16 @@ printed. Without a CUDA device it fails at once.
 46. the serve twin in this process over one stdin event file: the GMM
    per-session mode against --engine, --ctc --bpe (phase 42's model)
    per-session against --engine, and a --tcp round trip.
+
+Phases 47-61 are described at their functions. Phases 62-66
+(``dist_phases``) run the multi-device steps of ``mogasr_torch.dist`` in
+one launch of two gloo ranks that share the card, then one rank over NCCL
+in this process:
+the data-parallel E-step, align, decode, CE and CTC steps at the bundle's
+and phases 31 and 37's widths against one process; the same steps at world
+size 1 over NCCL, bitwise; the tensor-parallel GMM score; EP, SP and PP and
+the dry run of ``graft_entry`` at the reference's dry-run shapes; and
+``graft_entry.entry()``.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object of the
 kernels (launch counts of the decode and training paths; error against the
@@ -513,6 +524,7 @@ PITCH_UTTS, PITCH_ATOL, STREAM_CLI_EVAL_UTTS = 8, 1e-5, 32
 # prints that SI WER beside the one at CORRUPT_B, where pass 1 is still
 # partly right (b = 1.0 N(0, 1) puts the SI WER above 1).
 ADAPT_W_ATOL = 1e-3
+ADAPT_PLAIN_SPEAKERS = 5  # speakers of phase 27's plain-path comparison (in the first held-out batch)
 CORRUPT_SPEAKERS, CORRUPT_B, TEST_B, CORRUPT_MIN_SI_WER, CORRUPT_RATIO = 5, 0.7, 0.5, 0.15, 0.6
 # SAT from phase 8's model; LDA+MLLT booted from phase 16's monophone model
 # at its recipe's settings (8 components, 10 EM iterations); its held-out
@@ -647,7 +659,7 @@ RNNT_STEPS, RNNT_SCHEDULE, RNNT_LR, RNNT_PER_MAX = 36, 60, 3e-3, 0.9
 RNNT_CHECK, RNNT_LOSS_RTOL, RNNT_GRAD_RATIO = 8, 1e-4, 4.0
 RNNT_GREEDY_ROWS, RNNT_BEAM, RNNT_U_CAP, RNNT_BEAM_UTTS = 32, 4, 120, 1
 RNNT_BEAM_RTOL = 2e-4  # the reference's device-beam tolerance, tests/test_rnnt_device_beam.py:58
-RNNT_PRUNED_STEPS, RNNT_BAND, RNNT_MWER_STEPS, RNNT_MWER_ROWS = 4, 4, 4, 12
+RNNT_PRUNED_STEPS, RNNT_BAND, RNNT_MWER_STEPS, RNNT_MWER_ROWS = 3, 4, 3, 12
 RNNT_SERVE_UNITS, RNNT_SERVE_GATE, RNNT_TIE_GAP, RNNT_PROFILE_TICKS = 300, 64, 1e-5, 4
 NNLM_STEPS, NNLM_LR = 40, 5e-3
 # The AED slice (phases 55-61) at the widths of the repo's two AED
@@ -2713,54 +2725,78 @@ def adaptation_phases(dev, gmm, fcfg, dcfg, graph, tied, topo, held_out, bcfg, t
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, launch_counts(), peak_gib()
 
-    # ---- phase 27: two-pass adaptation on the headline bundle
+    # ---- phase 27: two-pass adaptation on the headline bundle. The kernel
+    # path decodes every held-out utterance (the WER gate); the plain path,
+    # the slow one, is held to the kernel path on the first held-out batch's
+    # utterances of ADAPT_PLAIN_SPEAKERS speakers, both paths estimating their
+    # transforms from those alone (a pass's host solves go by speakers)
+    plain_spk = set(sorted(utts_of)[:ADAPT_PLAIN_SPEAKERS])
+    fb0 = fbs[0]
+    rows = [b for b, u in enumerate(fb0.utt_ids) if speaker[u] in plain_spk]
+    idx = torch.as_tensor(rows, device=fb0.feats.device)
+    sub_fbs = [pipe.FeatBatch([fb0.utt_ids[b] for b in rows], fb0.feats[idx], fb0.n_frames[idx],
+                              [fb0.words[b] for b in rows])]
+    sub_ids = sub_fbs[0].utt_ids
+    sub_corpus = [c for c in corpus if c[0] in set(sub_ids)]
     two_pass = {
-        "fmllr": lambda uk, rep: pipe.decode_with_fmllr(fbs, gmm, lex, topo, dcfg, speaker.__getitem__, graph=graph,
-                                                        align_fn=align_fn, use_kernels=uk, report=rep),
-        "mllr": lambda uk, rep: pipe.decode_with_mllr(fbs, gmm, lex, topo, dcfg, speaker.__getitem__, graph=graph,
-                                                      align_fn=align_fn, use_kernels=uk, report=rep),
-        "vtln": lambda uk, rep: pipe.decode_with_vtln(corpus, gmm, lex, topo, fcfg, bcfg, dcfg,
-                                                      speaker_of=speaker.__getitem__, graph=graph, align_fn=align_fn,
-                                                      use_kernels=uk, report=rep),
+        "fmllr": lambda uk, rep, b, _c: pipe.decode_with_fmllr(b, gmm, lex, topo, dcfg, speaker.__getitem__,
+                                                               graph=graph, align_fn=align_fn, use_kernels=uk,
+                                                               report=rep),
+        "mllr": lambda uk, rep, b, _c: pipe.decode_with_mllr(b, gmm, lex, topo, dcfg, speaker.__getitem__,
+                                                             graph=graph, align_fn=align_fn, use_kernels=uk,
+                                                             report=rep),
+        "vtln": lambda uk, rep, _b, c: pipe.decode_with_vtln(c, gmm, lex, topo, fcfg, bcfg, dcfg,
+                                                             speaker_of=speaker.__getitem__, graph=graph,
+                                                             align_fn=align_fn, use_kernels=uk, report=rep),
     }
     lines = []
     for name, fn in two_pass.items():
         runs = {}
-        for uk in (True, False):
+        for key, uk, b, c in (("all", True, fbs, corpus), ("kernel", True, sub_fbs, sub_corpus),
+                              ("plain", False, sub_fbs, sub_corpus)):
             rep = {}
-            (hyps, per_spk), secs, counts, peak = measured(name, lambda: fn(uk, rep))
-            runs[uk] = dict(hyps=hyps, per_spk=per_spk, rep=rep, s=secs, launches=counts, peak=peak)
-        k, p = runs[True], runs[False]
-        require_k1_k2_only(f"two-pass {name} (kernel path)", k["launches"])
+            (hyps, per_spk), secs, counts, peak = measured(name, lambda: fn(uk, rep, b, c))
+            runs[key] = dict(hyps=hyps, per_spk=per_spk, rep=rep, s=secs, launches=counts, peak=peak)
+        full, k, p = runs["all"], runs["kernel"], runs["plain"]
+        for key in ("all", "kernel"):
+            require_k1_k2_only(f"two-pass {name} (kernel path)", runs[key]["launches"])
         if any(p["launches"].values()):
             raise RuntimeError(f"two-pass {name} with use_kernels=False launched {p['launches']}")
-        paths[f"adapt_{name}"] = k["launches"]
-        wer_k, wer_p = wer_of(k["hyps"]), wer_of(p["hyps"])
-        same = sum(k["hyps"][u] == p["hyps"][u] for u in refs) / len(refs)
-        if len(k["hyps"]) != len(refs) or wer_k > MAX_WER or same < MIN_AGREEMENT:
-            raise RuntimeError(f"two-pass {name}: {len(k['hyps'])} utterances, WER {wer_k:.4f} (limit {MAX_WER}), "
-                               f"transcripts agree with the plain path on {same:.4f}")
+        paths[f"adapt_{name}"] = full["launches"]
+        wer_k, wer_p = wer_of(full["hyps"]), wer_of(p["hyps"], sub_ids)
+        same = sum(k["hyps"][u] == p["hyps"][u] for u in sub_ids) / len(sub_ids)
+        if len(full["hyps"]) != len(refs) or len(p["hyps"]) != len(sub_ids) or wer_k > MAX_WER or \
+                same < MIN_AGREEMENT:
+            raise RuntimeError(f"two-pass {name}: {len(full['hyps'])} utterances, WER {wer_k:.4f} (limit {MAX_WER}), "
+                               f"transcripts agree with the plain path on {same:.4f} of {len(sub_ids)}")
         if name == "vtln":
             if k["per_spk"] != p["per_spk"]:
                 raise RuntimeError(f"VTLN warps differ: kernel {k['per_spk']} plain {p['per_spk']}")
-            margins = {spk: sorted(ll.values())[-1] - sorted(ll.values())[-2] for spk, ll in k["rep"]["loglik"].items()}
-            detail = (f"warps {dict(sorted(k['per_spk'].items()))} equal on both paths; each speaker's margin "
-                      f"best - second-best aligned loglik (nats over its frames): "
+            margins = {spk: sorted(ll.values())[-1] - sorted(ll.values())[-2]
+                       for spk, ll in full["rep"]["loglik"].items()}
+            detail = (f"warps {dict(sorted(full['per_spk'].items()))}; on those {len(sub_ids)} utterances "
+                      f"warps {dict(sorted(k['per_spk'].items()))} equal on both paths; each speaker's margin "
+                      f"best - second-best aligned loglik (nats over its frames, all utterances): "
                       + ", ".join(f"{spk} {m:.1f}" for spk, m in sorted(margins.items())))
         else:
             same_spk = [spk for spk in k["per_spk"] if all(
-                np.array_equal(k["rep"]["labels1"][u], p["rep"]["labels1"][u]) for u in utts_of[spk])]
+                np.array_equal(k["rep"]["labels1"][u], p["rep"]["labels1"][u]) for u in utts_of[spk]
+                if u in k["rep"]["labels1"])]
             dw = max((float(np.abs(k["per_spk"][spk] - p["per_spk"][spk]).max()) for spk in same_spk), default=0.0)
             if not same_spk or dw > ADAPT_W_ATOL:
                 raise RuntimeError(f"two-pass {name}: {len(same_spk)} speakers with identical pass-1 labels, "
                                    f"max |dW| {dw:.3g} (limit {ADAPT_W_ATOL})")
-            detail = (f"{len(k['per_spk'])} speakers' transforms, {len(same_spk)} with identical pass-1 labels on "
-                      f"both paths: max |dW| {dw:.3g} (limit {ADAPT_W_ATOL})")
+            detail = (f"{len(full['per_spk'])} speakers' transforms; on those {len(sub_ids)} utterances "
+                      f"{len(k['per_spk'])}, {len(same_spk)} with identical pass-1 labels on both paths: max |dW| "
+                      f"{dw:.3g} (limit {ADAPT_W_ATOL})")
         sec = lambda r: ", ".join(f"{kk} {v:.2f}" for kk, v in r["rep"]["seconds"].items())  # noqa: E731
-        lines.append(f"{name}: pass-2 WER {wer_k:.4f} (plain path {wer_p:.4f}; limit {MAX_WER}; phase 5 "
-                     f"{BUNDLE_WER}, phase 6's float32 sum path {plain_wer:.4f}), transcripts agree on {same:.4f}; "
-                     f"{detail}; kernel path {k['s']:.2f} s (s {sec(k)}), launches {k['launches']}, peak "
-                     f"{k['peak']:.2f} GiB; plain path {p['s']:.2f} s (s {sec(p)}), peak {p['peak']:.2f} GiB")
+        lines.append(f"{name}: pass-2 WER {wer_k:.4f} (limit {MAX_WER}; phase 5 {BUNDLE_WER}, phase 6's float32 "
+                     f"sum path {plain_wer:.4f}); kernel path {full['s']:.2f} s (s {sec(full)}), launches "
+                     f"{full['launches']}, peak {full['peak']:.2f} GiB; on {len(sub_ids)} utterances of "
+                     f"{ADAPT_PLAIN_SPEAKERS} speakers in the first batch the plain path's WER {wer_p:.4f} (kernel "
+                     f"{wer_of(k['hyps'], sub_ids):.4f}), "
+                     f"transcripts agree on {same:.4f}; {detail}; kernel path {k['s']:.2f} s, plain path "
+                     f"{p['s']:.2f} s (s {sec(p)}), peak {p['peak']:.2f} GiB")
     # the reference's adaptation check on CORRUPT_SPEAKERS speakers
     D = fcfg.feat_dim
     bad = sorted(utts_of)[:CORRUPT_SPEAKERS]
@@ -4086,8 +4122,8 @@ def serving_phases(dev, gmm, fcfg, dcfg, graph, held_out, ctc_model, sfu_exps_pe
                     prof = device_profile(lambda: [drv.step() for _ in range(SERVE_PROFILE_TICKS)], top=1000)[:3]
                 except RuntimeError:   # a window without device activity: reported as not measured
                     prof = None
-            else:
-                drv.step()
+                break  # the windows are all this run is for
+            drv.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return drv, wall, counts(), prof
@@ -5747,6 +5783,428 @@ def aed_cli_phase(dev: torch.device) -> dict:
     return launches
 
 
+DIST_BATCHES = 4         # phase 8's training batches in the data-parallel E-step and align step
+DIST_NCCL_BATCHES = 2    # of them at world size 1 over NCCL
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 600.0
+DIST_STATS_ATOL = 2e-5   # tests/test_dist.py's, scaled to each statistic's magnitude as its :53-78 does
+DIST_LOSS_RTOL, DIST_PARAM_ATOL = 1e-5, 2e-5
+DIST_TRAIN_STEPS = 3     # the first at learning rate 0; the third's loss is taken after an update at lr(1)
+DIST_GRAD_TOL = dict(rtol=1e-4, atol=2e-6)  # tests/test_torch_dist.py's, on 10 x AdamW's first moment
+
+
+def nccl_in_process(fn, dev: torch.device, timeout_s: float, args):
+    """``fn(0, mesh, *args)`` as numpy, in this process under a process group
+    of one rank over NCCL: the card's collectives without a spawned process,
+    which would pay again for its start and its first calls."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from mogasr_torch.config import MeshConfig
+    from mogasr_torch.dist.launch import to_numpy
+    from mogasr_torch.dist.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory(prefix="mogasr_nccl_") as tmp:
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+                                 timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            return to_numpy(fn(0, make_mesh(MeshConfig(), dev), *args))
+        finally:
+            tdist.destroy_process_group()
+
+
+def dist_phases(dev: torch.device, gmm, topo, tied, fcfg, dcfg, graph, corpus, bcfg, train_fbs) -> dict:
+    """Phases 62-66: the multi-device steps (mogasr_torch.dist) on the card.
+    One launch of DIST_RANKS gloo ranks (NCCL refuses two ranks on one card;
+    every rank computes on cuda:0) runs every section, then this process,
+    as one rank over NCCL, runs the data-parallel steps again. Phase 62: the data-parallel
+    soft E-step and Viterbi align step on the headline bundle over
+    DIST_BATCHES of phase 8's training batches, the decode step over the 768
+    held-out utterances, 3 CE steps of LstmAm 1168 x 512 x 2 and 3 CTC steps
+    of LstmAm 28 x 512 x 2 (phases 31 and 37's widths), each held to one
+    process on the card; phase 63: the same steps at world size 1 over NCCL
+    (DIST_NCCL_BATCHES batches, one decode batch), bitwise the local steps;
+    phase 64: the tensor-parallel GMM score at the bundle's width, the states
+    split over the 2 ranks, against one K1 call over all of them; phase 65:
+    EP, SP and PP at the reference's dry-run shapes against one process, and
+    the dry run's summary line; phase 66: ``graft_entry.entry()`` on the
+    card against the plain chain. Returns the "dp" path's launches."""
+    import copy
+
+    from mogasr_torch import graft_entry
+    from mogasr_torch import pipeline as pipe
+    from mogasr_torch.am import ctc, gmm_cuda
+    from mogasr_torch.am.gmm import gmm_loglik
+    from mogasr_torch.am.neural import build_model
+    from mogasr_torch.am.params import init_
+    from mogasr_torch.am.train_nn import init_train_state, lr_schedule, make_train_step
+    from mogasr_torch.config import DecodeConfig, TrainConfig
+    from mogasr_torch.decoder import viterbi as vit
+    from mogasr_torch.decoder import viterbi_cuda
+    from mogasr_torch.dist import cases, comm, launch
+    from mogasr_torch.dist import pipeline_parallel as PP
+    from mogasr_torch.frontend.torch_frontend import _deltas_batched, _masked_cmvn, make_frontend
+    from mogasr_torch.dist.mesh import pad_to_multiple
+    from mogasr_torch.eval.wer import corpus_wer
+    from mogasr_torch.hmm import triphone as tri
+
+    lex = topo.lexicon
+    # the ranks get the GMM as contiguous arrays; the bundle's component-major
+    # tensors sum their natural parameters in another order (scores 6e-5 apart),
+    # so one process takes the same layout
+    gmm = type(gmm)(*(a.contiguous() for a in gmm))
+    S, K, D = gmm.means.shape
+    gmm_np = tuple(a.cpu().numpy() for a in gmm)
+    params = gmm_cuda.kernel_params(gmm, "float32")
+
+    def align_fn(pids):
+        return tri.align_graph_cd(tied, pids)
+
+    def np_of(fb, graphs):
+        return fb.feats.cpu().numpy(), fb.n_frames.cpu().numpy(), graphs
+
+    def sync_wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    # ---- the inputs (numpy, whole batches) and one process's results on the card
+    train = train_fbs[:DIST_BATCHES]
+    train_np = [np_of(fb, pipe.build_align_graphs(fb.words, lex, topo, align_fn=align_fn)) for fb in train]
+    held = pipe.featurize(corpus, fcfg, bcfg, dev)
+    held_np = []
+    for fb in held:
+        feats, nf = fb.feats.cpu().numpy(), fb.n_frames.cpu().numpy()
+        feats, _ = pad_to_multiple(feats, DIST_RANKS)
+        nf, _ = pad_to_multiple(nf, DIST_RANKS)
+        held_np.append((feats, nf, pipe.decode_graphs(graph, len(nf), dev)[0]))
+    ce_fb = next(fb for fb in train_fbs if fb.feats.shape[1] <= NN_TRAIN_T)
+    _, ce_labels, _ = pipe.align_batch(ce_fb, gmm, lex, topo, align_fn=align_fn, params=params)
+    ctc_labels, ctc_nl = ctc.pack_label_batch([ctc.ctc_labels_from_words(lex, w) for w in ce_fb.words])
+    ce_cfg = TrainConfig(nn_arch="lstm", nn_hidden=NN_HIDDEN, nn_layers=NN_LAYERS, lr=NN_LR, num_nn_steps=NN_STEPS)
+    ctc_cfg = TrainConfig(nn_arch="lstm", nn_hidden=NN_HIDDEN, nn_layers=NN_LAYERS, lr=CTC_LR,
+                          num_nn_steps=CTC_SCHEDULE)
+    ce_model = init_(build_model("lstm", S, ce_cfg, D), torch.Generator().manual_seed(62))
+    ctc_model = init_(build_model("lstm", lex.n_phones + 1, ctc_cfg, D), torch.Generator().manual_seed(63))
+    ce_in = (ce_fb.feats.cpu().numpy(), ce_fb.n_frames.cpu().numpy(), ce_labels.cpu().numpy())
+    ctc_in = (ce_in[0], ce_in[1], ctc_labels, ctc_nl)
+
+    one = {}  # one process on the card: the same steps, no process group
+    wall = {}
+    # the GMM steps build K1's parameters from the GMM at each call, as the ranks' sharded steps do
+    def soft_local(fb):
+        return pipe.batch_stats(fb, gmm, lex, topo, "baum-welch", align_fn, S)[0]
+
+    def align_local(feats, nf, graphs):
+        ll = gmm_cuda.gmm_loglik_batched(torch.as_tensor(feats, device=dev), gmm, compute_dtype="float32", mode="sum")
+        return viterbi_cuda.viterbi(ll, vit.graphs_to_torch(graphs, dev), torch.as_tensor(nf, device=dev))
+
+    def per_batch(fn, items):
+        timed_outs = [sync_wall(lambda: fn(x)) for x in items]
+        return [t for t, _o in timed_outs], [o for _t, o in timed_outs]
+
+    wall["soft"], one["soft"] = per_batch(soft_local, train)
+    wall["align"], one["align"] = per_batch(lambda x: align_local(*x), train_np)
+    wall["decode"], one["decode"] = per_batch(lambda x: align_local(*x), held_np)
+
+    def local_train(model, cfg, step_fn, inputs):
+        m = copy.deepcopy(model).to(dev)
+        state = init_train_state(m, cfg)
+        x = tuple(torch.as_tensor(a, device=dev) for a in inputs)
+        out = {"metrics": [], "step_seconds": []}
+        for i in range(DIST_TRAIN_STEPS):
+            t, (state, met) = sync_wall(lambda: step_fn(state, *x))
+            out["step_seconds"].append(t)
+            out["metrics"].append(met)
+            if i < 2:
+                out[("first", "second")[i]] = {
+                    "params": {k: v.detach().clone() for k, v in m.state_dict().items()},
+                    "moments": {name: {k: state.opt.state[p][k].detach().clone() for k in ("exp_avg", "exp_avg_sq")}
+                                for name, p in m.named_parameters() if p in state.opt.state}}
+        out["params"] = {k: v.detach().clone() for k, v in m.state_dict().items()}
+        return out
+
+    one["ce"] = local_train(ce_model, ce_cfg, make_train_step(ce_cfg), ce_in)
+    one["ctc"] = local_train(ctc_model, ctc_cfg, ctc.make_ctc_train_step(ctc_cfg), ctc_in)
+
+    def dp_cases(n_train, n_held):
+        c = {}
+        for i, x in enumerate(train_np[:n_train]):
+            c[f"soft_{i}"] = dict(kind="gmm", step="soft", gmm=gmm_np, inputs=x)
+            c[f"align_{i}"] = dict(kind="gmm", step="align", gmm=gmm_np, inputs=x)
+        for i, x in enumerate(held_np[:n_held]):
+            c[f"decode_{i}"] = dict(kind="gmm", step="decode", gmm=gmm_np, inputs=x, acoustic_scale=dcfg.acoustic_scale)
+        c["ce"] = dict(kind="train", factory="make_sharded_train_step", model=ce_model, cfg=ce_cfg, inputs=ce_in,
+                       steps=DIST_TRAIN_STEPS)
+        c["ctc"] = dict(kind="train", factory="make_sharded_ctc_train_step", model=ctc_model, cfg=ctc_cfg,
+                        inputs=ctc_in, steps=DIST_TRAIN_STEPS)
+        return c
+
+    # the TP score: one training batch, the states split over the ranks (a 1 x DIST_RANKS mesh)
+    tp_feats = train_np[0][0]
+    k1_all = gmm_cuda.gmm_loglik_batched(torch.as_tensor(tp_feats, device=dev), gmm, compute_dtype="float32",
+                                         mode="sum", params=params).cpu().numpy()
+    # EP, SP and PP at the reference's dry-run shapes (one expert, time shard, stage a rank)
+    rng = np.random.default_rng(65)
+    moe_cfg = TrainConfig(nn_arch="moe", nn_hidden=8, nn_layers=2, nn_context=1, nn_experts=DIST_RANKS,
+                          num_nn_steps=4)
+    moe = init_(build_model("moe", 8, moe_cfg, 5), torch.Generator().manual_seed(12))
+    x_ep = rng.standard_normal((DIST_RANKS, 6, 5)).astype(np.float32)
+    nf_ep = np.full(DIST_RANKS, 6, np.int32)
+    base_sp = rng.standard_normal((2, 8 * DIST_RANKS, 5)).astype(np.float32)
+    nf_sp = np.asarray([8 * DIST_RANKS, 8 * DIST_RANKS - 5], np.int32)
+    pp_params = {k: v.numpy() for k, v in PP.init_pp_params(torch.Generator().manual_seed(11), DIST_RANKS, 8,
+                                                            8).items()}
+    x_pp = rng.standard_normal((3, 4, 8)).astype(np.float32)
+    par = dict(tp=dict(n_data=1, n_model=DIST_RANKS, score=[(gmm_np, tp_feats, "sum")]),
+               ep=dict(am_forward=(moe, x_ep, nf_ep, 6)),
+               sp=dict(tails=[(base_sp, nf_sp, True)]),
+               pp=dict(forwards=[(pp_params, x_pp)]))
+
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(cases.sections, DIST_RANKS, device="cuda", timeout_s=DIST_TIMEOUT_S,
+                             args=(dp_cases(DIST_BATCHES, len(held_np)), par, DIST_RANKS))
+    gloo_s = time.perf_counter() - t0
+    if launch.default_backend("cuda", DIST_RANKS) != "gloo" or launch.default_backend("cuda", 1) != "nccl":
+        raise RuntimeError("the launcher chose another backend than gloo for 2 ranks and NCCL for 1 on one card")
+    t0 = time.perf_counter()
+    nccl = [nccl_in_process(cases.sections, dev, DIST_TIMEOUT_S, (dp_cases(DIST_NCCL_BATCHES, 1),))]
+    nccl_s = time.perf_counter() - t0
+
+    # ---- phase 62: data parallel, DIST_RANKS ranks over gloo
+    dp = [r["dp"] for r in ranks]
+
+    def check_stats(got_list, want_list, what):
+        err = {}
+        for field in ("occ", "sx", "sxx", "n_frames"):
+            want = sum(getattr(s, field).double() for s in want_list).cpu().numpy()
+            got = sum(getattr(g, field).astype(np.float64) for g in got_list)
+            tol = DIST_STATS_ATOL * max(float(np.abs(want).max()), 1.0)
+            err[field] = float(np.abs(got - want).max())
+            if err[field] > tol:
+                raise RuntimeError(f"{what}: {field} max |err| {err[field]:.3g} > {tol:.3g}")
+        want_ll = float(sum(float(s.loglik) for s in want_list))
+        got_ll = float(sum(float(g.loglik) for g in got_list))
+        if abs(got_ll - want_ll) > 1e-5 * abs(want_ll):
+            raise RuntimeError(f"{what}: loglik {got_ll} vs one process {want_ll}")
+        return err
+
+    n_soft = DIST_BATCHES
+    for r in dp[1:]:
+        if not launch.ranks_equal([[d[f"soft_{i}"]["stats"] for i in range(n_soft)] for d in (dp[0], r)]):
+            raise RuntimeError("the data-parallel soft E-step's statistics differ between ranks")
+    soft_err = check_stats([dp[0][f"soft_{i}"]["stats"] for i in range(n_soft)], one["soft"], "DP soft E-step")
+
+    def check_paths(prefix, n, want, what):
+        for i in range(n):
+            path = np.concatenate([d[f"{prefix}_{i}"]["result"].path for d in dp])
+            if not np.array_equal(path, want[i].path.cpu().numpy()):
+                raise RuntimeError(f"{what} batch {i}: paths differ from one process")
+
+    check_paths("align", n_soft, one["align"], "DP align")
+    check_paths("decode", len(held_np), one["decode"], "DP decode")
+    frames = sum(int(x[1].sum()) for x in held_np)
+    if sum(dp[0][f"decode_{i}"]["totals"]["frames"] for i in range(len(held_np))) != frames:
+        raise RuntimeError("DP decode: the summed frames differ from the batches'")
+    hyps = []
+    for i, (feats, nf, graphs_np) in enumerate(held_np):
+        res = vit.ViterbiResult(*(torch.as_tensor(np.concatenate([getattr(d[f"decode_{i}"]["result"], f)
+                                                                   for d in dp])) for f in ("path", "entered", "score")))
+        toks = vit.path_to_tokens(res, graph.labels, graphs_np["chain_id"])[: held[i].size]
+        hyps += [[t for t in seq if t not in pipe.DROP_TOKENS] for seq in toks]
+    refs = [w for fb in held for w in fb.words[: fb.size]]
+    want_hyps = []
+    for i, fb in enumerate(held):
+        toks = vit.path_to_tokens(one["decode"][i], graph.labels, held_np[i][2]["chain_id"])[: fb.size]
+        want_hyps += [[t for t in seq if t not in pipe.DROP_TOKENS] for seq in toks]
+    dp_wer, one_wer = corpus_wer(refs, hyps)[0], corpus_wer(refs, want_hyps)[0]
+    if dp_wer != one_wer or len(hyps) != len(corpus):
+        raise RuntimeError(f"DP decode WER {dp_wer} vs one process {one_wer} ({len(hyps)} utterances)")
+
+    def check_train(name, cfg):
+        """Every step's loss within DIST_LOSS_RTOL of one process's (the
+        first two at the weights of the start, since lr(0) = 0; the third
+        after the update at lr(1)). The global gradient: 10 x AdamW's first
+        moment after the first step, and after the second its bias-corrected
+        moments m / (1 - b1^2) and sqrt(v / (1 - b2^2)) (both steps see the
+        same weights, so both are the gradient and its size), at
+        DIST_GRAD_TOL. The parameters after the second step, the update at
+        lr(1): Adam moves each entry by about lr(1) sign(g), so every entry
+        whose gradient the gradient gate resolves (|g| past its atol and
+        rtol) is held to DIST_PARAM_ATOL; an entry with |g| within the
+        gradient's tolerance of 0 may take the other sign, is held to
+        2 lr(1) + DIST_PARAM_ATOL and counted."""
+        got, want = dp[0][name], one[name]
+        if not launch.ranks_equal([d[name]["last"] for d in dp]):
+            raise RuntimeError(f"DP {name}: parameters or AdamW moments differ between ranks")
+        for s in range(DIST_TRAIN_STEPS):
+            a, b = got["metrics"][s]["loss"], float(want["metrics"][s]["loss"])
+            if abs(a - b) > DIST_LOSS_RTOL * abs(b):
+                raise RuntimeError(f"DP {name} step {s}: loss {a} vs one process {b}")
+        (b1, b2), lr1 = (0.9, 0.999), lr_schedule(cfg)(1)
+        grad_err, params_err, past, unresolved, n = {"first": 0.0, "m": 0.0, "rms": 0.0}, 0.0, 0, 0, 0
+        for k, w in want["second"]["moments"].items():
+            g_first = 10 * got["first"]["moments"][k]["exp_avg"]
+            g_m = got["second"]["moments"][k]["exp_avg"] / (1 - b1 ** 2)
+            g_rms = np.sqrt(got["second"]["moments"][k]["exp_avg_sq"] / (1 - b2 ** 2))
+            w_m = w["exp_avg"].cpu().numpy() / (1 - b1 ** 2)
+            for what, gv, wv in (("first", g_first, 10 * want["first"]["moments"][k]["exp_avg"].cpu().numpy()),
+                                 ("m", g_m, w_m),
+                                 ("rms", g_rms, np.sqrt(w["exp_avg_sq"].cpu().numpy() / (1 - b2 ** 2)))):
+                grad_err[what] = max(grad_err[what], float(np.abs(gv - wv).max()))
+                if not np.allclose(gv, wv, **DIST_GRAD_TOL):
+                    raise RuntimeError(f"DP {name}: the gradient ({what}) of {k} off the one process's by "
+                                       f"{np.abs(gv - wv).max():.3g}")
+            d = np.abs(got["second"]["params"][k] - want["second"]["params"][k].cpu().numpy())
+            resolved = np.abs(w_m) * (1 - DIST_GRAD_TOL["rtol"]) > DIST_GRAD_TOL["atol"]
+            params_err = max(params_err, float(d.max()))
+            if (d[resolved] > DIST_PARAM_ATOL).any():
+                raise RuntimeError(f"DP {name}: {k} after the update at lr(1): {int((d[resolved] > DIST_PARAM_ATOL).sum())}"
+                                   f" entries with a resolved gradient past {DIST_PARAM_ATOL:g} (max "
+                                   f"{d[resolved].max():.3g})")
+            if (d > 2 * lr1 + DIST_PARAM_ATOL).any():
+                raise RuntimeError(f"DP {name}: {k} after the update at lr(1) off by {d.max():.3g}")
+            past += int((d > DIST_PARAM_ATOL).sum())
+            unresolved += int((~resolved).sum())
+            n += d.size
+        return {"grad": grad_err, "params": params_err, "past_atol": past, "unresolved": unresolved, "n": n}
+
+    ce_err, ctc_err = check_train("ce", ce_cfg), check_train("ctc", ctc_cfg)
+    dp_launches = {}
+    for d in dp:
+        for case in d.values():
+            for k, v in case["launches"].items():
+                dp_launches[k] = dp_launches.get(k, 0) + v
+    if min(dp_launches[k] for k in ("gmm_score", "viterbi", "fb_forward", "fb_backward", "fb_combine")) == 0:
+        raise RuntimeError(f"the data-parallel path did not launch K1, K2 and K3 on the ranks: {dp_launches}")
+    if sum(d[n]["launches"]["lstm_scan"] for d in dp for n in ("ce", "ctc")):
+        raise RuntimeError("the data-parallel training steps launched K4 (they run the plain recurrence)")
+    staged = sorted(comm.GLOO_STAGED)
+
+    def warm_s(kind):
+        """(the slowest rank's, one process's) seconds: the GMM steps' batches
+        after the first, a training case's second step (a rank's first calls
+        pay for its fresh process)."""
+        if kind in ("ce", "ctc"):
+            return max(d[kind]["step_seconds"][1] for d in dp), one[kind]["step_seconds"][1]
+        n = len(wall[kind])
+        return sum(max(d[f"{kind}_{i}"]["seconds"] for d in dp) for i in range(1, n)), sum(wall[kind][1:])
+
+    phase(62, f"data parallel on {DIST_RANKS} ranks over gloo, every rank on cuda:0 (launch {gloo_s:.1f} s, all "
+          f"sections; all-reduce and broadcast of CUDA tensors native, {', '.join(staged)} staged through pinned "
+          f"host memory; one card: not an interconnect): soft E-step over {n_soft} training batches of {TRAIN_BATCH} "
+          f"(K1 float32/sum, K3's chain arm) statistics within {DIST_STATS_ATOL:g} x magnitude of one process (max "
+          f"|err| " + ", ".join(f"{k} {v:.3g}" for k, v in soft_err.items()) + "), ranks bitwise alike; align "
+          f"(K1, K2's chain arm) paths bitwise; decode of the {len(corpus)} held-out utterances in {len(held_np)} "
+          f"batches (K1 float32/sum, K2's word loop) paths bitwise, {frames} frames summed, WER {dp_wer:.4f} = one "
+          f"process's; {DIST_TRAIN_STEPS} CE steps of LstmAm {S} x {NN_HIDDEN} x {NN_LAYERS - 1} on "
+          f"B={len(ce_in[1])} T={ce_in[0].shape[1]} and {DIST_TRAIN_STEPS} CTC steps of LstmAm {lex.n_phones + 1} x "
+          f"{NN_HIDDEN} x {NN_LAYERS - 1} (K3 on the ranks): every step's loss within rtol {DIST_LOSS_RTOL:g} of one "
+          f"process's (the last after the update at lr(1)), the gradients (rtol {DIST_GRAD_TOL['rtol']:g}, atol "
+          f"{DIST_GRAD_TOL['atol']:g}; 10 x AdamW's first moment after the first step, the bias-corrected moments "
+          f"m and sqrt(v) after the second) max |err| CE " + ", ".join(f"{k} {v:.3g}" for k, v in ce_err["grad"].items())
+          + ", CTC " + ", ".join(f"{k} {v:.3g}" for k, v in ctc_err["grad"].items()) + f"; the parameters after the "
+          f"update at lr(1): entries with a resolved gradient within {DIST_PARAM_ATOL:g}, max |err| CE "
+          f"{ce_err['params']:.3g} ({ce_err['past_atol']} of {ce_err['n']} past {DIST_PARAM_ATOL:g}, "
+          f"{ce_err['unresolved']} with |g| within the gradient's tolerance of 0), CTC {ctc_err['params']:.3g} "
+          f"({ctc_err['past_atol']} of {ctc_err['n']} past, {ctc_err['unresolved']} unresolved); "
+          f"AdamW's states bitwise alike on both ranks, K4 never launched in training; launches on the ranks "
+          f"{dp_launches}; seconds, {DIST_RANKS} ranks (the slowest) vs one process, warm (the GMM steps' batches "
+          f"after the first, the training steps' second step): "
+          + ", ".join("{} {:.3f} vs {:.3f}".format(k, *warm_s(k)) for k in ("soft", "align", "decode", "ce", "ctc"))
+          + f"; the first CE step on a rank {max(d['ce']['step_seconds'][0] for d in dp):.2f} s")
+
+    # ---- phase 63: world size 1 over NCCL, bitwise the local steps
+    solo = nccl[0]["dp"]
+    for i in range(DIST_NCCL_BATCHES):
+        got, want = solo[f"soft_{i}"]["stats"], one["soft"][i]
+        for field in ("occ", "sx", "sxx", "loglik", "n_frames"):
+            if not np.array_equal(np.asarray(getattr(got, field)), getattr(want, field).cpu().numpy()):
+                raise RuntimeError(f"NCCL world size 1: soft E-step {field} of batch {i} not bitwise the local step")
+        if not np.array_equal(solo[f"align_{i}"]["result"].path, one["align"][i].path.cpu().numpy()):
+            raise RuntimeError(f"NCCL world size 1: align batch {i} not bitwise")
+    if not np.array_equal(solo["decode_0"]["result"].score, one["decode"][0].score.cpu().numpy()):
+        raise RuntimeError("NCCL world size 1: decode scores not bitwise")
+    for name in ("ce", "ctc"):
+        for s in range(DIST_TRAIN_STEPS):
+            if solo[name]["metrics"][s]["loss"] != float(one[name]["metrics"][s]["loss"]):
+                raise RuntimeError(f"NCCL world size 1: {name} step {s} loss not bitwise the local step")
+        if any(not np.array_equal(solo[name]["last"]["params"][k], v.cpu().numpy())
+               for k, v in one[name]["params"].items()):
+            raise RuntimeError(f"NCCL world size 1: {name} parameters not bitwise the local step")
+    phase(63, f"world size 1 over NCCL, in this process ({nccl_s:.1f} s): the soft E-step and align on {DIST_NCCL_BATCHES} "
+          f"training batches, the decode of one held-out batch, {DIST_TRAIN_STEPS} CE and {DIST_TRAIN_STEPS} CTC steps "
+          f"bitwise equal to one process's "
+          f"local steps")
+
+    # ---- phase 64: the TP GMM score, states split over the ranks
+    got = ranks[0]["par"]["tp"]["score"][0]
+    tp_err = float(np.abs(got - k1_all).max())
+    tp_bitwise = np.array_equal(got, k1_all)
+    if not tp_bitwise and tp_err > K1_ATOL:
+        raise RuntimeError(f"TP score: max |err| {tp_err} from one K1 call over all {S} states")
+    phase(64, f"tensor-parallel GMM score at the bundle's width ({S} states split {S // DIST_RANKS} + "
+          f"{S - S // DIST_RANKS} over {DIST_RANKS} ranks, K1 float32/sum on each, all-gathered): "
+          + ("bitwise equal to one K1 call over all states" if tp_bitwise else
+             f"max |err| {tp_err:.3g} from one K1 call over all states (K1's state tiles start at each block's "
+             f"first state)") + f" on B={tp_feats.shape[0]} T={tp_feats.shape[1]}")
+
+    # ---- phase 65: EP, SP and PP at the dry-run shapes, and the dry run itself
+    par_out = ranks[0]["par"]
+    with torch.no_grad():
+        dense = moe.to(dev)(torch.as_tensor(x_ep, device=dev), torch.as_tensor(nf_ep, device=dev)).cpu().numpy()
+        base_t, nf_t = torch.as_tensor(base_sp, device=dev), torch.as_tensor(nf_sp, device=dev)
+        feats_sp, prev = [base_t], base_t
+        for _ in range(2):
+            prev = _deltas_batched(prev, nf_t, 2)
+            feats_sp.append(prev)
+        mask = (torch.arange(base_t.shape[1], device=dev)[None, :] < nf_t[:, None]).float()
+        tail = _masked_cmvn(torch.cat(feats_sp, dim=-1), mask, True).cpu().numpy()
+        serial = PP.serial_forward({k: torch.as_tensor(v, device=dev) for k, v in pp_params.items()},
+                                   torch.as_tensor(x_pp, device=dev).reshape(-1, 8)).reshape(3, 4, -1).cpu().numpy()
+    errs = {"ep": float(np.abs(par_out["ep"]["am_forward"] - dense).max()),
+            "sp": float(np.abs(par_out["sp"]["tails"][0] - tail).max()),
+            "pp": float(np.abs(par_out["pp"]["forwards"][0] - serial).max())}
+    for k, tol in (("ep", 2e-5), ("sp", 1e-4), ("pp", 1e-5)):
+        if errs[k] > tol:
+            raise RuntimeError(f"{k.upper()} on the card: max |err| {errs[k]:.3g} from one process > {tol}")
+    summary = graft_entry.dryrun_summary(DIST_RANKS, ranks[0]["dryrun"])
+    print(summary, flush=True)
+    phase(65, f"EP (MoeAm, one expert a rank, all-to-all), SP (the delta/CMVN tail, time-sharded) and PP (GPipe, 3 "
+          f"microbatches) at the dry-run shapes on the card, max |err| from one process: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f"; the dry run's line printed above; its launches "
+          f"on rank 0 {ranks[0]['dryrun']['launches']}")
+
+    # ---- phase 66: entry() on the card
+    zero_launches()
+    fn, example = graft_entry.entry()
+    entry_s, (path, score) = sync_wall(lambda: fn(*example))
+    entry_launches = launch_counts()
+    require_k1_k2_only("entry()", entry_launches)
+    fcfg_e, lex_e, topo_e, batch_e = graft_entry._build_setup()
+    gmm_e = type(gmm)(*(torch.as_tensor(a, device=dev) for a in graft_entry.headline_gmm(D=fcfg_e.feat_dim)))
+    with torch.no_grad():
+        feats_e, nf_e = make_frontend(fcfg_e, batch_e.waves.shape[1], dev)(
+            torch.as_tensor(batch_e.waves, device=dev), torch.as_tensor(batch_e.num_samples, device=dev))
+        B_e, T_e, D_e = feats_e.shape
+        ll_e = gmm_loglik(feats_e.reshape(B_e * T_e, D_e), gmm_e).reshape(B_e, T_e, -1)
+        plain = vit.viterbi(ll_e, pipe.decode_graphs(pipe.word_decode_graph(lex_e, topo_e, DecodeConfig()), B_e,
+                                                     dev)[1], nf_e, acoustic_scale=DecodeConfig().acoustic_scale)
+    agree = float((path == plain.path).float().mean())
+    score_rel = float(((score - plain.score).abs() / plain.score.abs()).max())
+    if not bool(torch.isfinite(score).all()) or agree < MIN_AGREEMENT or score_rel > 1e-5:
+        raise RuntimeError(f"entry(): frames agreeing with the plain chain {agree:.4f}, score rel err {score_rel:.3g}")
+    phase(66, f"graft_entry.entry() on the card: B={B_e} T={T_e}, GMM 1000 x 256 x {D_e} with K1 float32/sum, K2 over "
+          f"the word loop, {1e3 * entry_s:.1f} ms; launches {entry_launches}; frames agreeing with the plain chain "
+          f"{agree:.4f}, score rel err {score_rel:.3g}")
+    keys = ("gmm_score", "viterbi", "fb_forward", "fb_backward", "fb_combine")
+    return {"dp": {k: dp_launches[k] for k in keys}, "entry": entry_launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card")
@@ -6160,6 +6618,7 @@ def main() -> None:
     rnnt_cli = rnnt_cli_phase(dev)
     aed_res = aed_phases(dev, topo, fcfg, corpus, bcfg, train_fbs)
     aed_cli = aed_cli_phase(dev)
+    dist_res = dist_phases(dev, gmm, topo, tied, fcfg, dcfg, graph, corpus, bcfg, train_fbs)
 
     if "jax" in sys.modules or "mogasr" in sys.modules:
         raise RuntimeError("jax or mogasr was imported; the port and this script must run without them")
@@ -6170,7 +6629,7 @@ def main() -> None:
              "online": stream["online"], "stream_cli": stream["stream_cli"], **adapt_paths,
              "adapt_cli": adapt_cli, **neural["paths"], "nn_cli": nn_cli, **ctc_res["paths"], "ctc_cli": ctc_cli,
              **serving["paths"], "serve_cli": serve_cli, **rnnt_res["paths"], "rnnt_cli": rnnt_cli,
-             **aed_res["paths"], "aed_cli": aed_cli}
+             **aed_res["paths"], "aed_cli": aed_cli, **dist_res}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()} for k in train_launches}
     for e in (k4_entry, *arm_entries):  # K4, K1w and K5 (none of their launches on the CLI path)
         e["launches_by_path"]["cli"] = cli_launches[e["name"]]

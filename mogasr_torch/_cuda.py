@@ -147,3 +147,16 @@ def refuse_grad(kernel: str, instead: str, *tensors: Optional[torch.Tensor]) -> 
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{kernel} has no backward: its result would carry no gradient to the inputs that "
                            f"require one; {instead}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """The wrappers' launch counters, by kernel: K1 ``gmm_score``, K1w
+    ``gmm_score_wide``, K5 ``gmm_score_int8``, K2 ``viterbi``, K3
+    ``fb_forward``/``fb_backward``/``fb_combine``, K4 ``lstm_scan``."""
+    from mogasr_torch.am import gmm_cuda, lstm_cuda
+    from mogasr_torch.decoder import fb_cuda, viterbi_cuda
+
+    return {"gmm_score": gmm_cuda.LAUNCHES, "gmm_score_wide": gmm_cuda.WIDE_LAUNCHES,
+            "gmm_score_int8": gmm_cuda.INT8_LAUNCHES, "viterbi": viterbi_cuda.LAUNCHES,
+            "fb_forward": fb_cuda.FWD_LAUNCHES, "fb_backward": fb_cuda.BWD_LAUNCHES,
+            "fb_combine": fb_cuda.COMBINE_LAUNCHES, "lstm_scan": lstm_cuda.LAUNCHES}

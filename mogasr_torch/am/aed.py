@@ -78,6 +78,7 @@ from mogasr_torch.am.neural import LN_EPS, spec_augment as _spec_augment, valid_
 from mogasr_torch.am.rnnt import _dev_of, _on, _topk_stable
 from mogasr_torch.am.train_nn import apply_update, init_train_state, step_generator
 from mogasr_torch.config import TrainConfig
+from mogasr_torch.dist.comm import batch_count
 
 NEG_INF = -1e30
 SUB_CHANNELS = 32     # ConvSubsample's channels; aed_stream_init's c1 cache is this wide
@@ -750,7 +751,7 @@ def aed_mwer_objective(model: AedModel, feats, n_frames, hyps, n_hyp_tokens, hyp
     rbar = masked_risk.sum(dim=1) / n_valid
     row_risk = (phat * masked_risk).sum(dim=1)
     row_ok = (nf > 0) & hyp_mask.any(dim=1)
-    denom = torch.clamp(row_ok.sum(), min=1)
+    denom = batch_count(row_ok.sum())
     mwer = torch.where(row_ok, row_risk - rbar, 0.0).sum() / denom
     exp_risk = torch.where(row_ok, row_risk, 0.0).sum() / denom
     metrics = {"mwer": mwer, "expected_risk": exp_risk}

@@ -44,6 +44,7 @@ from torch import nn
 from mogasr_torch.am.neural import RECURRENT, ConformerAm, spec_augment
 from mogasr_torch.am.train_nn import TrainState, apply_update, init_train_state, step_generator, train_logits
 from mogasr_torch.config import DecodeConfig, TrainConfig
+from mogasr_torch.dist.comm import batch_count
 from mogasr_torch.hmm import graph as gr
 from mogasr_torch.hmm.lexicon import Lexicon
 
@@ -224,7 +225,7 @@ def masked_mean_objective(nll: torch.Tensor, n_frames: torch.Tensor, n_labels: t
     frames and labels; the other rows (batch padding) contribute nothing."""
     nf, nl = n_frames.to(nll.device), n_labels.to(nll.device)
     valid = (nf > 0) & (nl > 0)
-    nv = torch.clamp(valid.sum(), min=1)
+    nv = batch_count(valid.sum())
     per_label = torch.where(valid, nll / torch.clamp(nl, min=1), 0.0)
     mean_nll = torch.where(valid, nll, 0.0).sum() / nv
     return per_label.sum() / nv, mean_nll

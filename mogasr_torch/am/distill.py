@@ -23,6 +23,7 @@ from mogasr_torch.am.ctc import ctc_loss, masked_mean_objective
 from mogasr_torch.am.neural import RECURRENT, spec_augment, valid_mask
 from mogasr_torch.am.train_nn import TrainState, apply_update, step_generator, train_logits
 from mogasr_torch.config import TrainConfig
+from mogasr_torch.dist.comm import batch_count
 
 
 def distill_kl(student_logits: torch.Tensor, teacher_logits: torch.Tensor, n_frames: torch.Tensor,
@@ -34,7 +35,7 @@ def distill_kl(student_logits: torch.Tensor, teacher_logits: torch.Tensor, n_fra
     logp_s = torch.log_softmax(student_logits / tau, dim=-1)
     kl = torch.sum(torch.exp(logp_t) * (logp_t - logp_s), dim=-1)  # [B, T]
     mask = valid_mask(n_frames, student_logits.shape[1], kl.device)
-    n_valid = torch.clamp(mask.sum(), min=1)
+    n_valid = batch_count(mask.sum())
     return torch.where(mask, kl, 0.0).sum() / n_valid * (tau * tau)
 
 

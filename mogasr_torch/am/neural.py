@@ -34,6 +34,7 @@ from torch import nn
 
 from mogasr_torch.am import fast_lstm, lstm_cuda
 from mogasr_torch.config import TrainConfig
+from mogasr_torch.dist.comm import batch_count
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -403,7 +404,7 @@ def frame_ce_loss(
     safe = torch.clamp(labels, min=0).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[:, :, None])[:, :, 0]
-    n = torch.clamp(valid.sum(), min=1)
+    n = batch_count(valid.sum())
     loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / n
     acc = (valid & (torch.argmax(logits, dim=-1) == safe)).sum() / n
     return loss, acc

@@ -38,6 +38,7 @@ from mogasr_torch.am.smbr import smbr_quantities
 from mogasr_torch.am.train_nn import TrainState, apply_update, init_train_state, train_logits
 from mogasr_torch.config import DecodeConfig, TrainConfig
 from mogasr_torch.decoder import fb_cuda
+from mogasr_torch.dist.comm import batch_count
 from mogasr_torch.decoder import forward_backward as fbd
 from mogasr_torch.decoder.viterbi import graphs_to_torch
 from mogasr_torch.hmm import graph as gr
@@ -118,7 +119,7 @@ def _per_frame_mean(values: torch.Tensor, n_frames: torch.Tensor) -> torch.Tenso
     nf = n_frames.to(values.device)
     valid = nf > 0
     per_frame = torch.where(valid, values / torch.clamp(nf, min=1), torch.zeros_like(values))
-    return per_frame.sum() / torch.clamp(valid.sum(), min=1)
+    return per_frame.sum() / batch_count(valid.sum())
 
 
 def nn_mmi_objective(

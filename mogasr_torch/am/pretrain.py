@@ -24,6 +24,7 @@ from mogasr_torch.am.neural import build_model
 from mogasr_torch.am.params import init_
 from mogasr_torch.am.train_nn import TrainState, apply_update, init_train_state, step_generator, train_logits
 from mogasr_torch.config import TrainConfig
+from mogasr_torch.dist.comm import batch_count
 
 
 def span_time_mask(
@@ -54,7 +55,7 @@ def mpc_objective(model: nn.Module, feats: torch.Tensor, n_frames: torch.Tensor,
     masked_in = torch.where(mask[..., None], torch.zeros_like(feats), feats)
     pred, _aux = train_logits(model, masked_in, n_frames)
     se = ((pred - feats) ** 2).sum(dim=-1)                  # [B, T]
-    n = torch.clamp(mask.sum(), min=1)
+    n = batch_count(mask.sum())
     return torch.where(mask, se, torch.zeros_like(se)).sum() / (n * feats.shape[-1]), n
 
 

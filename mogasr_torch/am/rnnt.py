@@ -60,6 +60,7 @@ from mogasr_torch.am.ctc import _lae, _np, ctc_loss, masked_mean_objective
 from mogasr_torch.am.neural import BlstmAm, LstmAm, LstmLayer, lstm_stream_apply, lstm_stream_init
 from mogasr_torch.am.train_nn import TrainState, apply_update, init_train_state
 from mogasr_torch.config import TrainConfig
+from mogasr_torch.dist.comm import batch_count
 
 NEG_INF = -1e30
 LABEL_LOOP_CHECK = 8  # label-loop rounds between reads of its condition
@@ -1060,7 +1061,7 @@ def rnnt_mwer_objective(model: RnntModel, feats, n_frames, hyps, n_hyp, hyp_mask
     rbar = masked_risk.sum(dim=1) / n_valid
     row_risk = (phat * masked_risk).sum(dim=1)
     row_ok = (nf > 0) & hyp_mask.any(dim=1)
-    denom = torch.clamp(row_ok.sum(), min=1)
+    denom = batch_count(row_ok.sum())
     mwer = torch.where(row_ok, row_risk - rbar, 0.0).sum() / denom
     exp_risk = torch.where(row_ok, row_risk, 0.0).sum() / denom
     metrics = {"mwer": mwer, "expected_risk": exp_risk}

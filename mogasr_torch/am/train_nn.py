@@ -20,10 +20,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from mogasr_torch.am.neural import RECURRENT, MoeAm, frame_ce_loss, spec_augment
@@ -73,22 +74,40 @@ def init_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
     return TrainState(model, make_optimizer(model, cfg), 0)
 
 
-def clip_by_global_norm_(params: List[nn.Parameter], max_norm: float = CLIP_NORM) -> torch.Tensor:
+def clip_by_global_norm_(params: List[nn.Parameter], max_norm: float = CLIP_NORM,
+                         split: Optional[Tuple[Iterable[nn.Parameter], Optional[dist.ProcessGroup]]] = None
+                         ) -> torch.Tensor:
     """optax's ``clip_by_global_norm``: every gradient scaled by max_norm /
     norm when the global norm is at or above max_norm; returns the norm.
     The norms and the scaling are multi-tensor launches (a few in all, not
-    a few a parameter)."""
+    a few a parameter). ``split`` = (parameters, process group): those
+    parameters are this rank's slices of tensors split over the group (a
+    tensor- or expert-parallel model), so their squared norm is summed over
+    the group before the root; the others are whole on every rank."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if split is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        ids = {id(p) for p in split[0]}
+        zero = torch.zeros((), device=grads[0].device)
+
+        def sq(gs):
+            return torch.stack(torch._foreach_norm(gs)).square().sum() if gs else zero
+
+        part = sq([p.grad for p in params if p.grad is not None and id(p) in ids])
+        dist.all_reduce(part, group=split[1])
+        norm = torch.sqrt(sq([p.grad for p in params if p.grad is not None and id(p) not in ids]) + part)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
 
 
-def apply_update(state: TrainState, cfg: TrainConfig) -> None:
-    """Clip the gradients, take one AdamW step at the schedule's learning
-    rate for ``state.step``, zero the gradients, count the step."""
-    clip_by_global_norm_([p for group in state.opt.param_groups for p in group["params"]])
+def apply_update(state: TrainState, cfg: TrainConfig,
+                 split: Optional[Tuple[Iterable[nn.Parameter], Optional[dist.ProcessGroup]]] = None) -> None:
+    """Clip the gradients (``split``: as :func:`clip_by_global_norm_`), take
+    one AdamW step at the schedule's learning rate for ``state.step``, zero
+    the gradients, count the step."""
+    clip_by_global_norm_([p for group in state.opt.param_groups for p in group["params"]], split=split)
     lr = lr_schedule(cfg)(state.step)
     for group in state.opt.param_groups:
         group["lr"] = lr

@@ -1,6 +1,8 @@
 """The port stands alone: every mogasr_torch module and chip_smoke.py import in
-a fresh interpreter where jax, flax and the JAX package mogasr are blocked,
-and the package's lazy exports (the AED's among them) resolve there."""
+a fresh interpreter where jax, flax and the JAX package mogasr are blocked
+(the multi-device steps of mogasr_torch.dist and the entry points' twin
+mogasr_torch.graft_entry among them), and the package's lazy exports (the
+AED's among them) resolve there."""
 
 import os
 import pkgutil
@@ -46,7 +48,11 @@ def test_port_imports_without_jax():
                  "mogasr_torch.lm.unit_ngram", "mogasr_torch.decoder.biasing", "mogasr_torch.cli.train_lm",
                  "mogasr_torch.serving", "mogasr_torch.serving.engine", "mogasr_torch.frontend.device_tail",
                  "mogasr_torch.cli.serve", "mogasr_torch.am.rnnt", "mogasr_torch.am.rnnt_pruned",
-                 "mogasr_torch.lm.neural"):
+                 "mogasr_torch.lm.neural", "mogasr_torch.dist", "mogasr_torch.dist.launch",
+                 "mogasr_torch.dist.mesh", "mogasr_torch.dist.comm", "mogasr_torch.dist.sharded",
+                 "mogasr_torch.dist.tensor_parallel", "mogasr_torch.dist.expert_parallel",
+                 "mogasr_torch.dist.sequence_parallel", "mogasr_torch.dist.pipeline_parallel",
+                 "mogasr_torch.dist.cases", "mogasr_torch.graft_entry"):
         assert name in modules
     code = "\n".join([
         "import sys",

@@ -60,11 +60,11 @@ def _clear_jax_caches():
     jax.clear_caches()
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
-    """One intra-op thread for the test: it issues many small ops, and with
-    the suite's workers sharing the cores torch's thread pool spends its time
-    waiting for them."""
+    """One intra-op thread for the module's tests: they issue many small ops,
+    and with the suite's workers sharing the cores torch's thread pool spends
+    its time waiting for them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
